@@ -1,0 +1,3 @@
+from . import flash_attention
+
+__all__ = ["flash_attention"]
