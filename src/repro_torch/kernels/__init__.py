@@ -1,3 +1,3 @@
-from . import flash_attention
+from . import flash_attention, ssd
 
-__all__ = ["flash_attention"]
+__all__ = ["flash_attention", "ssd"]

@@ -1,15 +1,17 @@
 """Decoder-only LM assembled from config-driven block patterns. Port of
 ``repro.models.lm`` for the dense attention kinds (``attn``,
-``attn_local``, ``attn_global``) with the token frontend.
+``attn_local``, ``attn_global``) and Mamba-2 blocks (``ssm``) with the
+token frontend.
 
 Parameters keep the JAX package's tree and layouts: ``slots/slot<i>``
 holds each pattern slot's block parameters stacked over repeats
 (``(R, ...)``), weights are ``(in, out)``, and decode caches are stacked
-``(R, B, T, K, D)``. The JAX ``lax.scan`` over repeats is a Python loop
-over layers here.
+over repeats (``(R, B, T, K, D)`` for attention, ``(R, B, H, P, N)`` SSD
+states and ``(R, B, K-1, C)`` conv tails for SSM blocks). The JAX
+``lax.scan`` over repeats is a Python loop over layers here.
 
-SSM blocks, MoE, the precomputed-embedding frontend and M-RoPE raise
-``NotImplementedError``; they come with later slices.
+``shared_attn`` blocks, MoE, the precomputed-embedding frontend and
+M-RoPE raise ``NotImplementedError``; they come with later slices.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import torch
 from .attention import attn_decode, attn_forward, init_attn_params
 from .common import rms_norm, soft_cap, truncated_normal
 from .mlp import init_mlp_params, mlp_forward
+from .ssm import init_ssm_params, ssm_decode, ssm_forward
 
 __all__ = [
     "init_params",
@@ -32,13 +35,13 @@ __all__ = [
     "decode_step",
 ]
 
-_DENSE_KINDS = ("attn", "attn_local", "attn_global")
+_KINDS = ("attn", "attn_local", "attn_global", "ssm")
 
 
 def check_supported(cfg) -> None:
     """Raise ``NotImplementedError`` for what this slice does not port."""
     for kind in cfg.pattern:
-        if kind not in _DENSE_KINDS:
+        if kind not in _KINDS:
             raise NotImplementedError(
                 f"{cfg.name}: block kind {kind!r} is not ported yet")
     if cfg.is_moe:
@@ -68,7 +71,12 @@ def _leaves(tree):
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
-def _init_block(cfg, generator, dtype, device) -> Dict[str, Any]:
+def _init_block(cfg, kind, generator, dtype, device) -> Dict[str, Any]:
+    if kind == "ssm":
+        return {
+            "ln": torch.zeros((cfg.d_model,), dtype=dtype, device=device),
+            "ssm": init_ssm_params(generator, cfg, dtype, device),
+        }
     p: Dict[str, Any] = {
         "ln1": torch.zeros((cfg.d_model,), dtype=dtype, device=device),
         "attn": init_attn_params(generator, cfg, dtype, device),
@@ -101,10 +109,10 @@ def init_params(cfg, generator, device=None, dtype=None) -> Dict[str, Any]:
                                   1.0, dtype, device),
     }
     slots: Dict[str, Any] = {}
-    for i, _kind in enumerate(cfg.pattern):
+    for i, kind in enumerate(cfg.pattern):
         stacked = None
         for r in range(cfg.repeats):
-            block = _init_block(cfg, generator, dtype, device)
+            block = _init_block(cfg, kind, generator, dtype, device)
             if stacked is None:
                 stacked = tree_map(
                     lambda x: x.new_empty((cfg.repeats,) + tuple(x.shape)),
@@ -141,6 +149,12 @@ def _ffn(cfg, bp, x):
 
 def _block_fwd(cfg, kind, bp, x, positions, build_cache):
     """Full-sequence application (prefill)."""
+    if kind == "ssm":
+        h = rms_norm(x, bp["ln"])
+        if build_cache:
+            y, cache = ssm_forward(cfg, bp["ssm"], h, build_cache=True)
+            return x + y, cache
+        return x + ssm_forward(cfg, bp["ssm"], h), None
     h = rms_norm(x, bp["ln1"])
     y, cache = attn_forward(cfg, bp["attn"], h, positions, kind,
                             build_cache=build_cache)
@@ -149,6 +163,10 @@ def _block_fwd(cfg, kind, bp, x, positions, build_cache):
 
 
 def _block_decode(cfg, kind, bp, x, pos, cache):
+    if kind == "ssm":
+        h = rms_norm(x, bp["ln"])
+        y, cache = ssm_decode(cfg, bp["ssm"], h, cache)
+        return x + y, cache
     h = rms_norm(x, bp["ln1"])
     y, cache = attn_decode(cfg, bp["attn"], h, pos, cache, kind)
     return _ffn(cfg, bp, x + y), cache
@@ -181,9 +199,14 @@ def _stack_decode(cfg, params, x, pos, caches):
         for i, kind in enumerate(cfg.pattern):
             key = f"slot{i}"
             bp = tree_map(lambda a: a[r], params["slots"][key])
-            # views of row r: the hot-ring writes land in the stacked cache
+            # views of row r: attention's hot-ring writes land in the
+            # stacked cache; an SSM block returns a new state and new conv
+            # tails, which are written back into row r here
             cache_r = {name: c[r] for name, c in caches[key].items()}
-            x, _ = _block_decode(cfg, kind, bp, x, pos, cache_r)
+            x, new_r = _block_decode(cfg, kind, bp, x, pos, cache_r)
+            for name, val in new_r.items():
+                if val is not cache_r[name]:
+                    cache_r[name].copy_(val)
     return x, caches
 
 
@@ -234,7 +257,8 @@ def _pad_seq(x: torch.Tensor, pad: int, value) -> torch.Tensor:
 
 def grow_caches(cfg, caches, new_len: int):
     """Extend prefill caches to ``new_len`` slots for decoding (windowed
-    layers cap at their window). New prefix slots are empty
+    layers cap at their window; SSM carries, whose size does not grow with
+    the sequence, pass through). New prefix slots are empty
     (``kv_pos = -1``); the hot ring passes through untouched.
 
     Decode writes only the hot ring, at ``pos % decode_hot_len``, and
@@ -248,6 +272,9 @@ def grow_caches(cfg, caches, new_len: int):
         if key not in caches:
             continue
         c = caches[key]
+        if kind == "ssm":  # constant-size carry: nothing to grow
+            out[key] = c
+            continue
         t_new = new_len
         if kind == "attn_local" or (kind == "attn" and cfg.window is not None):
             t_new = min(new_len, cfg.window)
@@ -266,9 +293,9 @@ def grow_caches(cfg, caches, new_len: int):
 
 def decode_step(cfg, params, token, pos, caches):
     """One-token serve step. token: (B, 1) int; pos: (B,) tokens so far.
-    Returns (logits (B, V) fp32, caches, pos + 1). The hot rings of
-    ``caches`` are updated in place (repro.launch.serve donates the cache);
-    the returned caches are the same tensors."""
+    Returns (logits (B, V) fp32, caches, pos + 1). ``caches`` is updated
+    in place (repro.launch.serve donates the cache): attention's hot rings,
+    SSM states and conv tails; the returned caches are the same tensors."""
     x = _embed(cfg, params, token)
     x, caches = _stack_decode(cfg, params, x, pos, caches)
     h = rms_norm(x, params["final_norm"])

@@ -1,0 +1,186 @@
+"""Mamba-2 mixer block (SSD core + projections, causal conv, gated norm).
+Port of ``repro.models.ssm``.
+
+Separate projections for z (gate), x, B, C and dt, a short causal
+depthwise conv over x/B/C, the SSD recurrence, a gated RMSNorm and the
+output projection. Decode carries (conv tails, SSD state) per layer.
+
+Both branches of :func:`ssm_forward` go through
+:func:`repro_torch.kernels.ssd.ops.ssd`: the hand-written CUDA kernel for
+tensors on the card, its plain version for tensors on the CPU. Prefill
+(``build_cache=True``) asks the same call for the final state, where the
+JAX package calls ``ssd_reference`` directly because its Pallas kernel
+has no final-state output; the function computed is the same.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels.ssd import ops as ssd_ops
+from ..kernels.ssd.ref import ssd_decode_step
+from .common import rms_norm, truncated_normal
+
+__all__ = ["init_ssm_params", "ssm_forward", "init_ssm_cache", "ssm_decode"]
+
+
+def init_ssm_params(generator: torch.Generator, cfg, dtype=torch.float32,
+                    device=None) -> Dict[str, torch.Tensor]:
+    """Random block parameters in the JAX package's tree. Each weight is
+    its own draw (the JAX package draws ``wdt`` and ``wo`` from one key)."""
+    m = cfg.d_model
+    d_in = cfg.ssm_d_inner
+    h = cfg.ssm_heads
+    gn = cfg.ssm_groups * cfg.ssm_state
+    dc = cfg.ssm_conv
+
+    def tn(shape):
+        return truncated_normal(generator, shape, 1.0, dtype, device)
+
+    def full(shape, value):
+        return torch.full(shape, value, dtype=dtype, device=device)
+
+    return {
+        "wz": tn((m, d_in)),
+        "wx": tn((m, d_in)),
+        "wb": tn((m, gn)),
+        "wc": tn((m, gn)),
+        "wdt": tn((m, h)),
+        "dt_bias": full((h,), 0.0),
+        "a_log": full((h,), 0.0),            # A = -exp(a_log) = -1
+        "d_skip": full((h,), 1.0),
+        "conv_x": tn((dc, d_in)),
+        "conv_b": tn((dc, gn)),
+        "conv_c": tn((dc, gn)),
+        "norm": full((d_in,), 0.0),
+        "wo": tn((d_in, m)),
+    }
+
+
+def _silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu`` as XLA evaluates it, x * (1 / (1 + exp(-x))) with
+    every op rounded to x's dtype, so bf16 rounds where the JAX package
+    does (``F.silu`` rounds once, which moves about a third of bf16
+    outputs by one ulp)."""
+    return x * (1 / (1 + torch.exp(-x)))
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor,
+                 tail: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Depthwise causal conv. x: (B, L, C); w: (K, C); tail: (B, K-1, C)
+    carries context across calls (decode). Summed in x's dtype in the
+    JAX package's order (i = 0..K-1), so bf16 rounds where JAX does."""
+    k = w.shape[0]
+    if tail is None:
+        xp = F.pad(x, (0, 0, k - 1, 0))
+    else:
+        xp = torch.cat([tail.to(x.dtype), x], dim=1)
+    # windows: out[:, t] = sum_i w[i] * xp[:, t + i]
+    out = torch.zeros_like(x)
+    for i in range(k):
+        out = out + xp[:, i: i + x.shape[1], :] * w[i].to(x.dtype)
+    return _silu(out)
+
+
+def _project(cfg, p, h):
+    cdt = h.dtype
+    z = h @ p["wz"].to(cdt)
+    x = h @ p["wx"].to(cdt)
+    b = h @ p["wb"].to(cdt)
+    c = h @ p["wc"].to(cdt)
+    dt = F.softplus((h @ p["wdt"].to(cdt)).float() + p["dt_bias"].float())
+    return z, x, b, c, dt
+
+
+def _decay_rates(p) -> torch.Tensor:
+    return -torch.exp(p["a_log"].float())
+
+
+def ssm_forward(cfg, p: Dict[str, torch.Tensor], h: torch.Tensor,
+                build_cache: bool = False):
+    """Full-sequence forward. h: (B, L, M) (post-norm input).
+
+    With ``build_cache`` also returns the decode carry (final SSD state +
+    conv tails), for the prefill→decode handoff of SSM layers.
+    """
+    bsz, l, _ = h.shape
+    d_in = cfg.ssm_d_inner
+    nh, hp = cfg.ssm_heads, cfg.ssm_head_dim
+    g, n = cfg.ssm_groups, cfg.ssm_state
+    k = cfg.ssm_conv
+    z, x_raw, b_raw, c_raw, dt = _project(cfg, p, h)
+    x = _causal_conv(x_raw, p["conv_x"])
+    b = _causal_conv(b_raw, p["conv_b"])
+    c = _causal_conv(c_raw, p["conv_c"])
+    out = ssd_ops.ssd(
+        x.reshape(bsz, l, nh, hp), dt, _decay_rates(p),
+        b.reshape(bsz, l, g, n), c.reshape(bsz, l, g, n),
+        chunk=cfg.ssm_chunk, d_skip=p["d_skip"].float(),
+        return_final_state=build_cache,
+    )
+    y, state = out if build_cache else (out, None)
+    y = y.reshape(bsz, l, d_in)
+    y = rms_norm(y * _silu(z), p["norm"])
+    out = y @ p["wo"].to(y.dtype)
+    if not build_cache:
+        return out
+    cdt = getattr(torch, cfg.compute_dtype)
+    cache = {
+        "state": state,
+        "conv_x": x_raw[:, -(k - 1):].to(cdt),
+        "conv_b": b_raw[:, -(k - 1):].to(cdt),
+        "conv_c": c_raw[:, -(k - 1):].to(cdt),
+    }
+    return out, cache
+
+
+def init_ssm_cache(cfg, batch: int, dtype=torch.bfloat16,
+                   device=None) -> Dict[str, torch.Tensor]:
+    d_in = cfg.ssm_d_inner
+    gn = cfg.ssm_groups * cfg.ssm_state
+    k = cfg.ssm_conv
+    return {
+        "state": torch.zeros(
+            (batch, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state),
+            dtype=torch.float32, device=device),
+        "conv_x": torch.zeros((batch, k - 1, d_in), dtype=dtype,
+                              device=device),
+        "conv_b": torch.zeros((batch, k - 1, gn), dtype=dtype, device=device),
+        "conv_c": torch.zeros((batch, k - 1, gn), dtype=dtype, device=device),
+    }
+
+
+def ssm_decode(
+    cfg, p: Dict[str, torch.Tensor], h: torch.Tensor,
+    cache: Dict[str, torch.Tensor],
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One-token decode. h: (B, 1, M). Returns (out, new cache); the new
+    state and conv tails are new tensors and ``cache`` is not modified
+    (the caller writes them back where it keeps the cache)."""
+    bsz = h.shape[0]
+    nh, hp = cfg.ssm_heads, cfg.ssm_head_dim
+    g, n = cfg.ssm_groups, cfg.ssm_state
+    z, x, b, c, dt = _project(cfg, p, h)
+    new_cache = dict(cache)
+    outs = {}
+    for name, val in (("conv_x", x), ("conv_b", b), ("conv_c", c)):
+        tail = cache[name]
+        outs[name] = _causal_conv(val, p[name], tail=tail)
+        new_cache[name] = torch.cat([tail[:, 1:], val.to(tail.dtype)], dim=1)
+    x, b, c = outs["conv_x"], outs["conv_b"], outs["conv_c"]
+    y, state = ssd_decode_step(
+        x[:, 0].reshape(bsz, nh, hp),
+        dt[:, 0],
+        _decay_rates(p),
+        b[:, 0].reshape(bsz, g, n),
+        c[:, 0].reshape(bsz, g, n),
+        cache["state"],
+        d_skip=p["d_skip"].float(),
+    )
+    new_cache["state"] = state
+    y = y.reshape(bsz, 1, cfg.ssm_d_inner)
+    y = rms_norm(y * _silu(z), p["norm"])
+    return y @ p["wo"].to(y.dtype), new_cache

@@ -1,6 +1,9 @@
 """Slice parity: the port's serving path (prefill → grow_caches → greedy
-decode) against the JAX package's on smoke_config("llama3.2-3b"), with
-the JAX-initialised weights carried over by ``params_from_jax``.
+decode) against the JAX package's on smoke_config("llama3.2-3b") and
+smoke_config("mamba2-130m"), with the JAX-initialised weights carried
+over by ``params_from_jax``. The mamba prompt (16 tokens) is shorter than
+its ssm_chunk (32), so the SSD's ragged path runs; six decode steps, so a
+decode that dropped the SSM state it returns would show.
 
 fp32 (compute dtype and weights): logits within 1e-3 and identical greedy
 tokens. The tolerance is looser than _tol's 2e-4 because reduction-order
@@ -18,18 +21,20 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.models import lm as jlm  # noqa: E402
 from repro_torch.configs import get_config, smoke_config  # noqa: E402
 from repro_torch.models import lm as tlm  # noqa: E402
+from repro_torch.models.convert import params_from_jax  # noqa: E402
 from torch_parity import configs, params, to_np, to_torch  # noqa: E402
 
 B, S, STEPS = 2, 16, 6
 
 
-def _run_both(dtype, own_greedy):
-    jcfg, tcfg = configs(compute_dtype=dtype)
+def _run_both(dtype, own_greedy, arch="llama3.2-3b"):
+    jcfg, tcfg = configs(arch, compute_dtype=dtype)
     jp, tp = params(jcfg, tcfg, dtype=dtype)
     prompts = np.random.default_rng(0).integers(
         0, jcfg.vocab_size, (B, S)).astype(np.int32)
@@ -102,7 +107,7 @@ def test_full_config_shapes_match_jax_without_memory():
 
 
 @pytest.mark.parametrize("change", [
-    dict(pattern=("ssm",)),
+    dict(pattern=("attn", "shared_attn")),
     dict(num_experts=4, num_experts_per_token=2, moe_d_ff=64),
     dict(frontend="embed"),
     dict(mrope_sections=(2, 3, 3)),
@@ -111,3 +116,83 @@ def test_unported_features_raise(change):
     cfg = dataclasses.replace(smoke_config("llama3.2-3b"), **change)
     with pytest.raises(NotImplementedError):
         tlm.init_params(cfg, torch.Generator().manual_seed(0))
+
+
+def test_mamba_serving_path_fp32_matches_jax():
+    jl, tl, jt, tt, jc, tc = _run_both("float32", own_greedy=True,
+                                       arch="mamba2-130m")
+    assert tl.shape == jl.shape == (STEPS + 1, B, 512)
+    np.testing.assert_allclose(tl, jl, rtol=1e-3, atol=1e-3)
+    np.testing.assert_array_equal(tt, jt)
+    # the stacked caches agree too: the SSD states and conv tails that
+    # every decode step writes back
+    assert set(tc["slot0"]) == {"state", "conv_x", "conv_b", "conv_c"}
+    for name in tc["slot0"]:
+        assert tuple(tc["slot0"][name].shape) == jc["slot0"][name].shape
+        np.testing.assert_allclose(to_np(tc["slot0"][name]),
+                                   to_np(jc["slot0"][name]),
+                                   rtol=1e-3, atol=1e-3, err_msg=name)
+
+
+def test_mamba_serving_path_bf16_matches_jax():
+    jl, tl, _, _, _, _ = _run_both("bfloat16", own_greedy=False,
+                                   arch="mamba2-130m")
+    assert np.isfinite(tl).all()
+    np.testing.assert_allclose(tl, jl, rtol=0.15, atol=0.15)
+
+
+def test_mamba_decode_updates_the_stacked_cache_in_place():
+    """decode_step returns the same cache tensors, with the new SSD state
+    and conv tails written into them."""
+    _, tcfg = configs("mamba2-130m", compute_dtype="float32")
+    tp = tlm.init_params(tcfg, torch.Generator().manual_seed(0))
+    prompts = torch.randint(0, tcfg.vocab_size, (B, S),
+                            generator=torch.Generator().manual_seed(1))
+    logits, caches, pos = tlm.prefill(tcfg, tp, prompts)
+    caches = tlm.grow_caches(tcfg, caches, S + 1)
+    before = {k: v.clone() for k, v in caches["slot0"].items()}
+    tok = logits.argmax(-1)[:, None]
+    _, after, _ = tlm.decode_step(tcfg, tp, tok, pos, caches)
+    assert after is caches
+    for name, val in after["slot0"].items():
+        assert val is caches["slot0"][name]
+        assert not torch.equal(val, before[name]), name
+
+
+def test_mamba_param_tree_and_count_match_jax():
+    """params_from_jax takes the mamba tree (slots/slot0/{ln, ssm/...});
+    the port's own draw has the same tree and count."""
+    jcfg, tcfg = configs("mamba2-130m")
+    jp, tp = params(jcfg, tcfg)
+    assert tlm.param_count(tp) == jlm.param_count(jp)
+    shapes = tlm.param_shapes(tcfg)
+    assert set(shapes["slots"]["slot0"]) == {"ln", "ssm"}
+    assert set(shapes["slots"]["slot0"]["ssm"]) == {
+        "wz", "wx", "wb", "wc", "wdt", "dt_bias", "a_log", "d_skip",
+        "conv_x", "conv_b", "conv_c", "norm", "wo"}
+    drawn = tlm.init_params(tcfg, torch.Generator().manual_seed(0))
+    assert tlm.tree_map(lambda x: tuple(x.shape), drawn) == shapes
+    broken = dict(jax.tree.map(np.asarray, jp))
+    broken["slots"] = {"slot0": dict(broken["slots"]["slot0"], ln=None)}
+    broken["slots"]["slot0"]["ssm"] = {
+        k: v for k, v in broken["slots"]["slot0"]["ssm"].items()
+        if k != "wo"}
+    with pytest.raises(ValueError):
+        params_from_jax(tcfg, broken)
+
+
+def test_mamba_full_config_shapes_match_jax_without_memory():
+    """Full-width mamba2-130m: the port's tree of shapes (meta device) is
+    JAX's (eval_shape), leaf for leaf, and so is its parameter count."""
+    import functools
+
+    from repro.configs import get_config as jax_get_config
+
+    want = jax.eval_shape(functools.partial(
+        jlm.init_params, jax_get_config("mamba2-130m")),
+        jax.random.PRNGKey(0))
+    want = jax.tree.map(lambda x: tuple(x.shape), want)
+    got = tlm.param_shapes(get_config("mamba2-130m"))
+    assert got == want
+    assert got["slots"]["slot0"]["ssm"]["wx"] == (24, 768, 1536)
+    assert got["slots"]["slot0"]["ssm"]["conv_b"] == (24, 4, 128)

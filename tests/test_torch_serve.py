@@ -1,7 +1,7 @@
 """The port's serving entry point (repro_torch.launch.serve) on the CPU: the
 torch twin of tests/test_system.py::test_serve_generates_and_reports, on
-the llama3.2-3b smoke config. A CUDA request without a card must fail,
-not run on the CPU."""
+the llama3.2-3b and mamba2-130m smoke configs. A CUDA request without a
+card must fail, not run on the CPU."""
 
 import json
 
@@ -60,3 +60,28 @@ def test_main_cli_on_cpu(monkeypatch, capsys):
     serve_mod.main()
     last = capsys.readouterr().out.strip().splitlines()[-1]
     assert last.startswith("generated 4 tokens in ")
+
+
+def test_mamba_serve_generates_and_reports_on_cpu():
+    """The mamba2-130m smoke config through the same entry point: SSM
+    caches pass through grow_cache, and the decode loop advances them."""
+    cfg = smoke_config("mamba2-130m")
+    tokens, talp = serve_mod.serve(cfg, requests=2, prompt_len=40, gen_len=6,
+                                   verbose=False, device="cpu")
+    assert tokens.shape == (2, 6)
+    assert np.all(tokens >= 0) and np.all(tokens < cfg.vocab_size)
+    assert set(talp.regions) == {"Global", "init", "prefill", "grow_cache",
+                                 "decode"}
+    for name in ("Global", "decode"):
+        talp.regions[name].host.validate(tol=1e-6)
+        talp.regions[name].device.validate(tol=1e-6)
+    assert talp.regions["prefill"].device_states[0]["kernel"] > 0
+
+
+def test_main_cli_mamba_on_cpu(monkeypatch, capsys):
+    monkeypatch.setattr("sys.argv", [
+        "serve", "--arch", "mamba2-130m", "--smoke", "--device", "cpu",
+        "--requests", "2", "--prompt-len", "8", "--gen-len", "3"])
+    serve_mod.main()
+    last = capsys.readouterr().out.strip().splitlines()[-1]
+    assert last.startswith("generated 6 tokens in ")
