@@ -6,22 +6,29 @@
    CUDA versions, and builds the CUDA kernels from the sources in this
    checkout (one ``nvcc`` per source, all started together), timing the
    build and printing each kernel's ``ptxas -v`` registers and spills.
+   Counts the HGMMA (wgmma), UTMALDG (TMA load) and HMMA (mma.sync)
+   instructions in each library's SASS (``cuobjdump -sass``) and fails
+   unless the flash library has HGMMA and UTMALDG and no HMMA and the SSD
+   library has HMMA.
 2. Kernel phases: each hand-written kernel against its plain PyTorch
    version on the card, with the tolerance of tests/test_kernels.py::_tol
    printed per row:
    * the flash-attention forward over the shapes of the JAX package's
-     kernel sweep, ragged shapes, and the serving prefill shape of
-     llama3.2-3b (B 8, S 1024, H 24, K 8, D 128, bf16); at that shape it
-     times the kernel, the plain version and one PyTorch library call
-     (``scaled_dot_product_attention``, a yardstick only);
+     kernel sweep, ragged shapes, the edges of the bf16 kernel's tiling,
+     and the serving prefill shape of llama3.2-3b (B 8, S 1024, H 24, K 8,
+     D 128, bf16); at that shape it times the plain version, then the
+     kernel and one PyTorch library call (``scaled_dot_product_attention``,
+     a yardstick only) in turns: library, kernel, kernel, library;
    * the SSD chunked scan over the JAX package's SSD sweep, ragged L,
-     initial state in and final state out, and the serving prefill shape
-     of mamba2-130m (B 8, L 4096, H 24, P 64, G 1, N 128, chunk 256,
-     bf16), against the plain version evaluated in float64 on the same
-     inputs (the plain version's own fp32 evaluation is printed beside it);
-     at the prefill shape it times the kernel and the plain version (no
-     single PyTorch call computes the scan).
-   All timings are CUDA events, median of 25.
+     initial state in and final state out, the edges of the bf16 kernels'
+     chunk-parallel form, and the serving prefill shape of mamba2-130m
+     (B 8, L 4096, H 24, P 64, G 1, N 128, chunk 256, bf16), against the
+     plain version evaluated in float64 on the same inputs (the plain
+     version's own fp32 evaluation is printed beside it); at the prefill
+     shape it times the plain version and the kernel in turns: plain,
+     kernel, kernel, plain (no single PyTorch call computes the scan).
+   Timings are CUDA events around runs of back-to-back calls (ms per
+   call), medians; kernel and yardstick are timed in turns.
 3. Path checks: two narrow layers of each model's block on the card
    against the same layers on the CPU (plain versions), prefill then 4
    decode steps, the same bf16 weights.
@@ -89,6 +96,15 @@ SWEEP = [
     (2, 100, 300, 8, 2, 32, None, None, torch.bfloat16),
     (1, 100, 300, 4, 2, 128, 50, None, torch.float32),
 ]
+# The edges of the bf16 kernel's tiling (128 query rows, 128-key tiles, TMA
+# boxes): S and T off the tile grid with S < T, window and soft-cap at D
+# 128, D 32 (64-byte swizzle) with GQA 4, and S below one query tile.
+SWEEP += [
+    (1, 200, 328, 8, 2, 64, None, None, torch.bfloat16),
+    (2, 384, 384, 4, 1, 128, 100, 50.0, torch.bfloat16),
+    (2, 256, 256, 8, 2, 32, None, None, torch.bfloat16),
+    (1, 64, 64, 4, 2, 128, None, None, torch.bfloat16),
+]
 PREFILL = (8, 1024, 1024, 24, 8, 128, None, None, torch.bfloat16)
 
 # (B, L, H, P, G, N, chunk, dtype, with_state): the rows of
@@ -107,6 +123,13 @@ SSD_SWEEP = [
     (2, 100, 4, 16, 2, 32, 64, torch.float32, True),
     (2, 512, 8, 64, 1, 128, 256, torch.float32, True),
 ]
+# The edges of the bf16 kernels' chunk-parallel form: L shorter than one
+# chunk, many chunks (the state recurrence over 64), and two groups.
+SSD_SWEEP += [
+    (1, 100, 4, 64, 1, 128, 256, torch.bfloat16, True),
+    (1, 4096, 4, 64, 1, 128, 64, torch.bfloat16, True),
+    (2, 512, 8, 64, 2, 128, 256, torch.bfloat16, True),
+]
 SSD_PREFILL = (8, 4096, 24, 64, 1, 128, 256, torch.bfloat16, False)
 
 
@@ -118,8 +141,10 @@ def nvidia_smi() -> str:
     ).stdout.strip()
 
 
-def time_ms(fn, reps: int = 25, warmup: int = 3) -> float:
-    """Median over ``reps`` runs of one call, timed with CUDA events."""
+def time_samples(fn, reps: int = 25, warmup: int = 3, inner: int = 10) -> list:
+    """``reps`` samples (ms per call), each a run of ``inner`` calls back to
+    back between two CUDA events: the card's time per call, not the host's
+    launch latency, which a single call between two events would add."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -128,11 +153,23 @@ def time_ms(fn, reps: int = 25, warmup: int = 3) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(inner):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+        times.append(start.elapsed_time(end) / inner)
+    return times
+
+
+def time_turns(first, second, reps: int = 25, inner: int = 10):
+    """Medians (ms per call) of ``first`` and ``second`` timed in turns:
+    first, second, second, first, ``reps`` samples each turn, so that a
+    drift of the card's clock falls on both alike."""
+    a = time_samples(first, reps, inner=inner)
+    b = (time_samples(second, reps, inner=inner)
+         + time_samples(second, reps, inner=inner))
+    a += time_samples(first, reps, inner=inner)
+    return statistics.median(a), statistics.median(b)
 
 
 def attention_work(b, s, t, h, k, d, window, dtype):
@@ -150,14 +187,14 @@ def attention_work(b, s, t, h, k, d, window, dtype):
     return flops, nbytes
 
 
+KERNEL_NAMES = ("flash_fwd_wgmma", "flash_fwd_f32", "ssd_chunk_state",
+                "ssd_state_pass", "ssd_chunk_output", "ssd_fwd_f32")
+
+
 def _kernel_label(mangled: str) -> str:
     """A readable name for a mangled kernel instantiation."""
-    base = re.search(r"ssd_fwd_kernel|flash_fwd_bf16|flash_fwd_f32", mangled)
+    base = re.search("|".join(KERNEL_NAMES), mangled)
     args = re.findall(r"Li(\d+)E", mangled)
-    if "__nv_bfloat16" in mangled:
-        args.insert(0, "bf16")
-    elif re.search(r"kernelIfLi", mangled):
-        args.insert(0, "f32")
     return f"{base.group(0) if base else mangled}<{','.join(args)}>"
 
 
@@ -175,9 +212,26 @@ def ptxas_summary(log: Path):
             fn = None
 
 
-def build_kernels() -> None:
+SASS_OPS = ("HGMMA", "UTMALDG", "HMMA")
+
+
+def sass_counts(lib: Path) -> dict:
+    """How many ``wgmma`` (HGMMA), TMA load (UTMALDG) and ``mma.sync``
+    (HMMA) instructions the library's SASS holds (``cuobjdump -sass``)."""
+    from repro_torch.kernels import cuda_build
+
+    tool = Path(cuda_build.nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    ops = re.findall(r"\b(" + "|".join(SASS_OPS) + r")\b", sass)
+    return {op: ops.count(op) for op in SASS_OPS}
+
+
+def build_kernels() -> dict:
     """Compile every kernel source of the port at once, one ``nvcc`` per
-    source, and load the libraries."""
+    source, load the libraries, and check from their SASS that the flash
+    kernel runs wgmma and TMA and no mma.sync, and the SSD kernels run
+    mma.sync. Returns each kernel record's SASS counts."""
     from repro_torch.kernels import cuda_build
     from repro_torch.kernels.flash_attention import kernel as flash
     from repro_torch.kernels.ssd import kernel as ssd
@@ -199,6 +253,14 @@ def build_kernels() -> None:
             print(f"[ptxas] {line}")
     flash.library()
     ssd.library()
+    counts = {name: sass_counts(lib) for name, (lib, _) in
+              zip(("flash_attention_fwd", "ssd_fwd"), built)}
+    for name, c in counts.items():
+        print(f"[sass] {name}: " + ", ".join(f"{op} {n}" for op, n in c.items()))
+    f, s = counts["flash_attention_fwd"], counts["ssd_fwd"]
+    assert f["HGMMA"] > 0 and f["UTMALDG"] > 0 and f["HMMA"] == 0, f
+    assert s["HMMA"] > 0, s
+    return counts
 
 
 def kernel_phase(device: torch.device) -> dict:
@@ -230,19 +292,22 @@ def kernel_phase(device: torch.device) -> dict:
 
     b, s, t, h, k, d, window, softcap, dtype = PREFILL
     q, kk, vv = inputs(99, b, s, t, h, k, d, dtype)
-    kernel_ms = time_ms(lambda: kernel.flash_attention(q, kk, vv))
-    plain_ms = time_ms(lambda: ref.attention_reference(q, kk, vv), reps=20)
+    plain_ms = statistics.median(time_samples(
+        lambda: ref.attention_reference(q, kk, vv), reps=10, inner=2))
     # The library yardstick takes (B, H, S, D); the layout change is made
-    # once, outside the timing.
+    # once, outside the timing. Library and kernel are timed in turns.
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, kk, vv))
-    library_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True))
+    library_ms, kernel_ms = time_turns(
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True),
+        lambda: kernel.flash_attention(q, kk, vv))
     flops, nbytes = attention_work(b, s, t, h, k, d, window, dtype)
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     print(f"[kernel] prefill shape: kernel {kernel_ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound "
-          f"{max(t_ops, t_bytes):.4f} ms ({flops / 1e9:.2f} GFLOP, "
+          f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms (in turns: sdpa, "
+          f"kernel, kernel, sdpa), kernel/sdpa {kernel_ms / library_ms:.3f}, "
+          f"bound {max(t_ops, t_bytes):.4f} ms ({flops / 1e9:.2f} GFLOP, "
           f"{nbytes / 1e6:.1f} MB)")
     return {
         "name": "flash_attention_fwd",
@@ -336,19 +401,22 @@ def ssd_kernel_phase(device: torch.device) -> dict:
 
     b, l, h, p, g, n, chunk, dtype, with_state = SSD_PREFILL
     x, dt, a, bm, cm, d, _ = inputs(99, b, l, h, p, g, n, dtype, False)
-    kernel_ms = time_ms(lambda: kernel.ssd_scan(
-        x, dt, a, bm, cm, chunk=chunk, d_skip=d, return_final_state=True))
-    plain_ms = time_ms(lambda: ref.ssd_reference(
-        x, dt, a, bm, cm, chunk=chunk, d_skip=d, return_final_state=True),
-        reps=10)
+    # plain and kernel in turns: plain, kernel, kernel, plain
+    plain_ms, kernel_ms = time_turns(
+        lambda: ref.ssd_reference(x, dt, a, bm, cm, chunk=chunk, d_skip=d,
+                                  return_final_state=True),
+        lambda: kernel.ssd_scan(x, dt, a, bm, cm, chunk=chunk, d_skip=d,
+                                return_final_state=True), reps=10)
     flops, nbytes = ssd_work(b, l, h, p, g, n, chunk, dtype, with_state)
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
-    print(f"[ssd] prefill shape: kernel {kernel_ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, no library call, bound "
-          f"{max(t_ops, t_bytes):.4f} ms ({flops / 1e9:.2f} GFLOP is "
-          f"{t_ops:.4f} ms at the bf16 rate, {nbytes / 1e6:.1f} MB is "
-          f"{t_bytes:.4f} ms), {b * h} blocks")
+    nc = -(-l // chunk)
+    print(f"[ssd] prefill shape: kernel {kernel_ms:.4f} ms (3 launches), "
+          f"plain {plain_ms:.4f} ms (in turns: plain, kernel, kernel, "
+          f"plain), no library call, bound {max(t_ops, t_bytes):.4f} ms "
+          f"({flops / 1e9:.2f} GFLOP is {t_ops:.4f} ms at the bf16 rate, "
+          f"{nbytes / 1e6:.1f} MB is {t_bytes:.4f} ms), {b * nc * h} blocks "
+          f"in the chunk passes")
     return {
         "name": "ssd_fwd",
         "route": "cuda",
@@ -580,7 +648,10 @@ def profile_phase(device: torch.device, arch: str, batch: int,
                   f" of 5, no profiler), device kernel time "
                   f"{busy * 1e3:.3f} ms in {n_launch} kernels, busy share "
                   f"{busy / wall:.4f}")
-            for e in sorted(kernels, key=dev_time, reverse=True)[:6]:
+            ranked = sorted(kernels, key=dev_time, reverse=True)
+            # the six heaviest, then every other kernel of this repository
+            for e in ranked[:6] + [e for e in ranked[6:]
+                                   if re.search("|".join(KERNEL_NAMES), e.key)]:
                 print(f"[profile]   {dev_time(e) * 1e-3:9.3f} ms "
                       f"x{e.count:<5d} {e.key[:90]}")
     del params, caches
@@ -601,9 +672,11 @@ def main() -> int:
     print(f"[card] {nvidia_smi()}")
     print(f"[versions] python {sys.version.split()[0]}, torch "
           f"{torch.__version__}, cuda {torch.version.cuda}")
-    build_kernels()
+    sass = build_kernels()
     records = {rec["name"]: rec
                for rec in (kernel_phase(device), ssd_kernel_phase(device))}
+    for name, counts in sass.items():
+        records[name]["sass"] = counts
     path_check(device)
     mamba_path_check(device)
     for arch, requests, prompt_len, gen_len, kernel_name in SERVE:

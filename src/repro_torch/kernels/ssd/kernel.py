@@ -3,7 +3,10 @@ its ``ctypes`` binding.
 
 Replaces the Pallas TPU kernel ``src/repro/kernels/ssd/kernel.py::
 _ssd_kernel``; the source's header says what bounds it on the H100 and
-what its design does about that. Beyond the TPU kernel it takes an
+what its design does about that. For bf16 inputs one call launches three
+kernels on the current stream (chunk states, the state recurrence over
+the chunks, outputs) through an fp32 scratch of (B, chunks, H, P, N)
+that the wrapper allocates; for fp32 inputs it launches one. Beyond the TPU kernel it takes an
 initial state, returns the final state and takes any L (a ragged last
 chunk is masked), as :func:`..ref.ssd_reference` does. The library is
 built with ``nvcc`` at the first launch, never at import, so this module
@@ -11,7 +14,8 @@ imports on machines without CUDA.
 
 :func:`ssd_scan` takes CUDA tensors only and raises for anything the
 kernel does not take; it never falls back to the plain version. Its
-``launches`` attribute counts kernel launches.
+``launches`` attribute counts calls (one per model layer), not the
+kernels a call launches.
 """
 
 from __future__ import annotations
@@ -39,7 +43,7 @@ def library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = cuda_build.load(SOURCE)
-        lib.ssd_fwd.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
+        lib.ssd_fwd.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 8
                                 + [ctypes.c_void_p])
         lib.ssd_fwd.restype = ctypes.c_int
         lib.ssd_error_string.argtypes = [ctypes.c_int]
@@ -117,17 +121,28 @@ def ssd_scan(
     lib = library()
     bsz, l, h, p = x.shape
     g, n = b_mat.shape[2], b_mat.shape[3]
+    bf16 = x.dtype == torch.bfloat16
+    if bf16:
+        # the bf16 kernels load x, B, C and the initial state 16 bytes at a
+        # time; a tensor that is not 16-byte aligned is copied once
+        x, b_mat, c_mat, initial_state = (
+            t if t is None or t.data_ptr() % 16 == 0 else t.clone()
+            for t in (x, b_mat, c_mat, initial_state))
     y = torch.empty_like(x)
     final = (torch.empty((bsz, h, p, n), dtype=torch.float32,
                          device=x.device) if return_final_state else None)
+    nc = -(-l // chunk)
+    states = (torch.empty((bsz, nc, h, p, n), dtype=torch.float32,
+                          device=x.device) if bf16 else None)
+    decay = (torch.empty((bsz, nc, h), dtype=torch.float32, device=x.device)
+             if bf16 else None)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.ssd_fwd(
             ptr(x), ptr(dt), ptr(a), ptr(b_mat), ptr(c_mat), ptr(d_skip),
-            ptr(initial_state), ptr(y), ptr(final),
-            bsz, l, h, p, g, n, chunk, int(x.dtype == torch.bfloat16),
-            stream,
+            ptr(initial_state), ptr(y), ptr(final), ptr(states), ptr(decay),
+            bsz, l, h, p, g, n, chunk, int(bf16), stream,
         )
     if rc != 0:
         msg = lib.ssd_error_string(rc).decode()

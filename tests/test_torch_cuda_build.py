@@ -1,0 +1,72 @@
+"""``repro_torch.kernels.cuda_build`` tags a kernel library by its source,
+every header the source includes from the port's ``csrc`` directories,
+and the flags. These tests need no ``nvcc``: they edit files in a
+temporary directory and watch the tag."""
+
+import pytest
+
+pytest.importorskip("torch")
+
+from repro_torch.kernels import cuda_build  # noqa: E402
+from repro_torch.kernels.flash_attention import kernel as flash  # noqa: E402
+from repro_torch.kernels.ssd import kernel as ssd  # noqa: E402
+
+
+@pytest.fixture
+def tree(tmp_path):
+    """k.cu includes "local.cuh" (beside it), which includes "shared.cuh"
+    (in the shared include directory); other.cuh is included by nothing."""
+    src_dir, inc_dir = tmp_path / "csrc", tmp_path / "include"
+    src_dir.mkdir()
+    inc_dir.mkdir()
+    (src_dir / "k.cu").write_text(
+        '#include <cuda_runtime.h>\n#include "local.cuh"\n'
+        "__global__ void k() {}\n")
+    (src_dir / "local.cuh").write_text('#pragma once\n  #  include "shared.cuh"\n')
+    (inc_dir / "shared.cuh").write_text("#pragma once\n// helpers\n")
+    (inc_dir / "other.cuh").write_text("#pragma once\n")
+    return src_dir / "k.cu", inc_dir
+
+
+def _tag(source, inc_dir):
+    return cuda_build.tag(source, include_dirs=[inc_dir])
+
+
+def test_includes_follow_quoted_headers_only(tree):
+    source, inc_dir = tree
+    names = [p.name for p in cuda_build.includes(source, [inc_dir])]
+    assert names == ["local.cuh", "shared.cuh"]
+
+
+@pytest.mark.parametrize("edited", ["k.cu", "local.cuh", "shared.cuh"])
+def test_editing_the_source_or_an_included_header_changes_the_tag(tree, edited):
+    source, inc_dir = tree
+    before = _tag(source, inc_dir)
+    path = (inc_dir if edited == "shared.cuh" else source.parent) / edited
+    path.write_text(path.read_text() + "// edited\n")
+    assert _tag(source, inc_dir) != before
+
+
+def test_editing_an_unrelated_file_keeps_the_tag(tree):
+    source, inc_dir = tree
+    before = _tag(source, inc_dir)
+    (inc_dir / "other.cuh").write_text("#pragma once\n// edited\n")
+    (source.parent / "notes.txt").write_text("unrelated\n")
+    assert _tag(source, inc_dir) == before
+
+
+def test_the_flags_enter_the_tag(tree):
+    source, inc_dir = tree
+    assert (cuda_build.tag(source, [inc_dir], flags=("-O3",))
+            != cuda_build.tag(source, [inc_dir], flags=("-O2",)))
+
+
+@pytest.mark.parametrize("kernel", [flash, ssd], ids=["flash", "ssd"])
+def test_port_kernels_include_the_shared_header(kernel):
+    """Both kernel sources include hopper.cuh from the shared directory,
+    which nvcc is told about and whose content is in the library's tag."""
+    shared = cuda_build.INCLUDE_DIR / "hopper.cuh"
+    assert shared.is_file()
+    assert shared.resolve() in cuda_build.includes(kernel.SOURCE)
+    flags = cuda_build.NVCC_FLAGS
+    assert flags[flags.index("-I") + 1] == str(cuda_build.INCLUDE_DIR)

@@ -39,6 +39,15 @@ RAGGED = [
     (2, 100, 300, 8, 2, 32, None, None, torch.bfloat16),
     (1, 100, 300, 4, 2, 128, 50, None, torch.float32),
 ]
+# The edges of the bf16 kernel's tiling (128 query rows, 128-key tiles, TMA
+# boxes): S and T off the tile grid with S < T, window and soft-cap at D
+# 128, D 32 (64-byte swizzle) with GQA 4, S below one query tile.
+EDGES = [
+    (1, 200, 328, 8, 2, 64, None, None, torch.bfloat16),
+    (2, 384, 384, 4, 1, 128, 100, 50.0, torch.bfloat16),
+    (2, 256, 256, 8, 2, 32, None, None, torch.bfloat16),
+    (1, 64, 64, 4, 2, 128, None, None, torch.bfloat16),
+]
 
 # tests/test_kernels.py::SSD_SWEEP with torch dtypes;
 # tests/test_torch_ssd.py holds the two equal.
@@ -57,6 +66,13 @@ SSD_RAGGED = [
     (1, 1000, 4, 64, 1, 128, 256, torch.bfloat16),
     (2, 100, 4, 16, 2, 32, 64, torch.float32),
 ]
+# The edges of the bf16 kernels' chunk-parallel form: L shorter than one
+# chunk, many chunks (the state recurrence over 64), two groups.
+SSD_EDGES = [
+    (1, 100, 4, 64, 1, 128, 256, torch.bfloat16),
+    (1, 4096, 4, 64, 1, 128, 64, torch.bfloat16),
+    (2, 512, 8, 64, 2, 128, 256, torch.bfloat16),
+]
 
 
 def _tol(dtype):
@@ -73,9 +89,10 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("row", SWEEP + RAGGED,
+@pytest.mark.parametrize("row", SWEEP + RAGGED + EDGES,
                          ids=[f"attn{i}" for i in range(len(SWEEP))]
-                         + [f"ragged{i}" for i in range(len(RAGGED))])
+                         + [f"ragged{i}" for i in range(len(RAGGED))]
+                         + [f"edge{i}" for i in range(len(EDGES))])
 def test_cuda_kernel_vs_plain(cuda, row):
     b, s, t, h, k, d, window, softcap, dtype = row
     gen = torch.Generator(device=cuda).manual_seed(42)
@@ -125,9 +142,10 @@ def _ssd_inputs(device, b, l, h, p, g, n, dtype, seed=7):
     return x, dt, a, bm, cm, d, s0
 
 
-@pytest.mark.parametrize("row", SSD_SWEEP + SSD_RAGGED,
+@pytest.mark.parametrize("row", SSD_SWEEP + SSD_RAGGED + SSD_EDGES,
                          ids=[f"ssd{i}" for i in range(len(SSD_SWEEP))]
-                         + [f"ragged{i}" for i in range(len(SSD_RAGGED))])
+                         + [f"ragged{i}" for i in range(len(SSD_RAGGED))]
+                         + [f"edge{i}" for i in range(len(SSD_EDGES))])
 def test_cuda_ssd_kernel_vs_plain(cuda, row):
     """y within _tol of its dtype, initial state in and final state out
     within fp32 _tol, of the plain version evaluated in float64 on the
