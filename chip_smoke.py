@@ -4,21 +4,29 @@
 
 1. Prints the card (``nvidia-smi`` name and power limit), the torch and
    CUDA versions, and builds the CUDA kernels from the sources in this
-   checkout (one ``nvcc`` per source, all started together), timing the
-   build and printing each kernel's ``ptxas -v`` registers and spills.
-   Counts the HGMMA (wgmma), UTMALDG (TMA load) and HMMA (mma.sync)
-   instructions in each library's SASS (``cuobjdump -sass``) and fails
-   unless the flash library has HGMMA and UTMALDG and no HMMA and the SSD
-   library has HMMA.
+   checkout (one ``nvcc`` per source, all started together: the flash
+   forward, the flash backward, the SSD scan), timing the build and
+   printing each kernel's ``ptxas -v`` registers and spills. Counts the
+   HGMMA (wgmma), UTMALDG (TMA load) and HMMA (mma.sync) instructions in
+   each library's SASS (``cuobjdump -sass``) and fails unless the flash
+   forward has HGMMA and UTMALDG and no HMMA and the flash backward and
+   the SSD library have HMMA.
 2. Kernel phases: each hand-written kernel against its plain PyTorch
    version on the card, with the tolerance of tests/test_kernels.py::_tol
    printed per row:
    * the flash-attention forward over the shapes of the JAX package's
      kernel sweep, ragged shapes, the edges of the bf16 kernel's tiling,
      and the serving prefill shape of llama3.2-3b (B 8, S 1024, H 24, K 8,
-     D 128, bf16); at that shape it times the plain version, then the
-     kernel and one PyTorch library call (``scaled_dot_product_attention``,
-     a yardstick only) in turns: library, kernel, kernel, library;
+     D 128, bf16), its output and its row log-sum-exp; at that shape it
+     times the plain version, then the kernel and one PyTorch library call
+     (``scaled_dot_product_attention``, a yardstick only) in turns:
+     library, kernel, kernel, library;
+   * the flash-attention backward over the same rows and the training
+     shape of llama3.2-3b (B 2, S 2048, H 24, K 8, D 128, bf16): dq, dk, dv
+     against the plain backward and against autograd through the plain
+     forward, both in fp32, and a second run bit-identical; at the training
+     and the serving prefill shapes it times the plain version, then the
+     kernels and the backward of ``scaled_dot_product_attention`` in turns;
    * the SSD chunked scan over the JAX package's SSD sweep, ragged L,
      initial state in and final state out, the edges of the bf16 kernels'
      chunk-parallel form, and the serving prefill shape of mamba2-130m
@@ -31,7 +39,9 @@
    call), medians; kernel and yardstick are timed in turns.
 3. Path checks: two narrow layers of each model's block on the card
    against the same layers on the CPU (plain versions), prefill then 4
-   decode steps, the same bf16 weights.
+   decode steps, the same bf16 weights; and one training step of the
+   llama3.2-3b smoke config (head_dim 32) in fp32 and in bf16 compute on
+   the card against the CPU from the same state.
 4. Serve phases: ``repro_torch.launch.serve.serve`` under the TALP monitor
    at full width, random weights from a seed: llama3.2-3b with 8 requests
    of 1024 prompt tokens and 64 generated tokens, then mamba2-130m (all
@@ -44,7 +54,15 @@
    serve phase's shapes, timed without the profiler and traced with
    ``torch.profiler``: the card's busy share of each step and its
    heaviest kernels.
-6. Prints one JSON line with every kernel's numbers, then, as the last
+6. Train phase: ``repro_torch.launch.train.train`` under the TALP monitor,
+   llama3.2-3b at full width and depth (3.61 B parameters, fp32 masters
+   and AdamW moments on the card), 6 steps of 2 x 2048 tokens. The launch
+   counters are set to 0 just before and read just after: 56 forward
+   launches per step (28 layers, twice with remat) and 28 backward calls.
+   Prints each step's loss (all finite), step time, tokens/s, MFU, peak
+   memory and TALP's train_loop numbers, then traces one more step with
+   ``torch.profiler``.
+7. Prints one JSON line with every kernel's numbers, then, as the last
    line, ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -55,6 +73,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -187,14 +206,18 @@ def attention_work(b, s, t, h, k, d, window, dtype):
     return flops, nbytes
 
 
-KERNEL_NAMES = ("flash_fwd_wgmma", "flash_fwd_f32", "ssd_chunk_state",
-                "ssd_state_pass", "ssd_chunk_output", "ssd_fwd_f32")
+KERNEL_NAMES = ("flash_fwd_wgmma", "flash_fwd_f32", "flash_bwd_preprocess",
+                "flash_bwd_dkdv_f32", "flash_bwd_dq_f32", "flash_bwd_dkdv",
+                "flash_bwd_dq", "ssd_chunk_state", "ssd_state_pass",
+                "ssd_chunk_output", "ssd_fwd_f32")
 
 
 def _kernel_label(mangled: str) -> str:
     """A readable name for a mangled kernel instantiation."""
     base = re.search("|".join(KERNEL_NAMES), mangled)
     args = re.findall(r"Li(\d+)E", mangled)
+    if "nv_bfloat16" in mangled:
+        args.insert(0, "bf16")
     return f"{base.group(0) if base else mangled}<{','.join(args)}>"
 
 
@@ -230,8 +253,9 @@ def sass_counts(lib: Path) -> dict:
 def build_kernels() -> dict:
     """Compile every kernel source of the port at once, one ``nvcc`` per
     source, load the libraries, and check from their SASS that the flash
-    kernel runs wgmma and TMA and no mma.sync, and the SSD kernels run
-    mma.sync. Returns each kernel record's SASS counts."""
+    forward runs wgmma and TMA and no mma.sync, and the flash backward and
+    the SSD kernels run mma.sync. Returns each kernel record's SASS
+    counts."""
     from repro_torch.kernels import cuda_build
     from repro_torch.kernels.flash_attention import kernel as flash
     from repro_torch.kernels.ssd import kernel as ssd
@@ -242,7 +266,7 @@ def build_kernels() -> dict:
         return lib, time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    sources = (flash.SOURCE, ssd.SOURCE)
+    sources = (flash.SOURCE, flash.BWD_SOURCE, ssd.SOURCE)
     with ThreadPoolExecutor(len(sources)) as pool:
         built = list(pool.map(timed, sources))
     print(f"[build] {len(sources)} sources in {time.perf_counter() - t0:.1f}"
@@ -252,13 +276,17 @@ def build_kernels() -> dict:
         for line in ptxas_summary(lib.with_suffix(".log")):
             print(f"[ptxas] {line}")
     flash.library()
+    flash.backward_library()
     ssd.library()
     counts = {name: sass_counts(lib) for name, (lib, _) in
-              zip(("flash_attention_fwd", "ssd_fwd"), built)}
+              zip(("flash_attention_fwd", "flash_attention_bwd", "ssd_fwd"),
+                  built)}
     for name, c in counts.items():
         print(f"[sass] {name}: " + ", ".join(f"{op} {n}" for op, n in c.items()))
-    f, s = counts["flash_attention_fwd"], counts["ssd_fwd"]
+    f, b, s = (counts[name] for name in ("flash_attention_fwd",
+                                         "flash_attention_bwd", "ssd_fwd"))
     assert f["HGMMA"] > 0 and f["UTMALDG"] > 0 and f["HMMA"] == 0, f
+    assert b["HMMA"] > 0, b
     assert s["HMMA"] > 0, s
     return counts
 
@@ -278,15 +306,24 @@ def kernel_phase(device: torch.device) -> dict:
         q, kk, vv = inputs(i, b, s, t, h, k, d, dtype)
         out = kernel.flash_attention(q, kk, vv, causal=True, window=window,
                                      softcap=softcap)
-        want = ref.attention_reference(q, kk, vv, causal=True, window=window,
-                                       softcap=softcap)
+        out2, lse = kernel.flash_attention(q, kk, vv, causal=True,
+                                           window=window, softcap=softcap,
+                                           return_lse=True)
+        want, lse_want = ref.attention_reference_lse(
+            q, kk, vv, causal=True, window=window, softcap=softcap)
         torch.cuda.synchronize()
         err = (out.float() - want.float()).abs().max().item()
+        lse_err = (lse - lse_want).abs().max().item()
         print(f"[kernel] B{b} S{s} T{t} H{h} K{k} D{d} window={window} "
               f"softcap={softcap} {str(dtype)[6:]}: max_abs_err={err:.3e} "
-              f"tol={TOL[dtype]}")
+              f"tol={TOL[dtype]}; lse max_abs_err={lse_err:.3e} "
+              f"tol={TOL[torch.float32]}")
         torch.testing.assert_close(out.float(), want.float(),
                                    rtol=TOL[dtype], atol=TOL[dtype])
+        # asking for the LSE leaves the output as it was
+        assert torch.equal(out, out2)
+        torch.testing.assert_close(lse, lse_want, rtol=TOL[torch.float32],
+                                   atol=TOL[torch.float32])
         if row is PREFILL:
             prefill_err = err
 
@@ -326,6 +363,176 @@ def kernel_phase(device: torch.device) -> dict:
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "library_ms": library_ms,
         "shape": "B8 S1024 T1024 H24 K8 D128 bf16 causal",
+        "note": "writes the row log-sum-exp, fp32 (B, H, S), when asked "
+                "(training); serving passes a null pointer, as timed here",
+    }
+
+
+# The training shape of llama3.2-3b (global batch 2 x 2048 tokens), where
+# the backward runs on the main path.
+TRAIN_ATTN = (2, 2048, 2048, 24, 8, 128, None, None, torch.bfloat16)
+
+
+def attention_backward_work(b, s, t, h, k, d, window, dtype):
+    """(operations, bytes) the causal backward needs on these shapes: five
+    products of 2·D operations per visible (query, key) pair (S and dP
+    recomputed, dV, dQ, dK); q, k, v, o, dO and the fp32 LSE read once,
+    dq, dk, dv written once."""
+    flops, _ = attention_work(b, s, t, h, k, d, window, dtype)
+    esize = torch.finfo(dtype).bits // 8
+    nbytes = (esize * (4 * b * s * h * d + 4 * b * t * k * d)
+              + 4 * b * h * s)
+    return flops * 10 / 4, nbytes
+
+
+def _sdpa_backend(fn) -> str:
+    """Names of the CUDA kernels one call of ``fn`` runs (profiler)."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = {e.key for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA}
+    return "; ".join(sorted(n[:80] for n in names))
+
+
+def backward_phase(device: torch.device) -> dict:
+    """The flash backward on every row of SWEEP and at the training shape:
+    the forward's output (at TOL[dtype], as in kernel_phase) and LSE (at
+    TOL[fp32]) against the plain version's; dq/dk/dv of the kernels
+    against ref.attention_backward_reference on the kernels' own inputs
+    and against autograd through ref.attention_reference, both evaluated
+    in fp32. fp32 rows elementwise at TOL[fp32]; bf16 rows at
+    TOL[bf16] on each gradient divided by the reference gradient's
+    max-abs. A second backward run must be bit-identical. Times (kernel vs
+    the backward of scaled_dot_product_attention, in turns) at the
+    training shape and at the serving prefill shape."""
+    from repro_torch.kernels.flash_attention import kernel, ref
+
+    def inputs(i, b, s, t, h, k, d, dtype):
+        gen = torch.Generator(device=device).manual_seed(3000 + i)
+        mk = lambda *shape: torch.randn(  # noqa: E731
+            shape, generator=gen, device=device).to(dtype)
+        return mk(b, s, h, d), mk(b, t, k, d), mk(b, t, k, d), mk(b, s, h, d)
+
+    def rel_err(got, want, dtype):
+        got, want = got.float(), want.float()
+        if dtype == torch.bfloat16:
+            m = want.abs().max().clamp_min(1e-30)
+            got, want = got / m, want / m
+        torch.testing.assert_close(got, want, rtol=TOL[dtype], atol=TOL[dtype])
+        return (got - want).abs().max().item()
+
+    train_err = train_o_err = None
+    for i, row in enumerate(SWEEP + [TRAIN_ATTN]):
+        b, s, t, h, k, d, window, softcap, dtype = row
+        cfg = dict(causal=True, window=window, softcap=softcap)
+        q, kk, vv, do = inputs(i, b, s, t, h, k, d, dtype)
+        o, lse = kernel.flash_attention(q, kk, vv, return_lse=True, **cfg)
+        o_want, lse_want = ref.attention_reference_lse(q, kk, vv, **cfg)
+        got = kernel.flash_attention_backward(q, kk, vv, o, lse, do, **cfg)
+        again = kernel.flash_attention_backward(q, kk, vv, o, lse, do, **cfg)
+        up = [x.float() for x in (q, kk, vv, o, do)]
+        plain = ref.attention_backward_reference(*up[:4], lse, up[4], **cfg)
+        leaves = [x.requires_grad_() for x in up[:3]]
+        ref.attention_reference(*leaves, **cfg).backward(up[4])
+        torch.cuda.synchronize()
+        o_err = (o.float() - o_want.float()).abs().max().item()
+        lse_err = (lse - lse_want).abs().max().item()
+        torch.testing.assert_close(o.float(), o_want.float(), rtol=TOL[dtype],
+                                   atol=TOL[dtype])
+        torch.testing.assert_close(lse, lse_want, rtol=TOL[torch.float32],
+                                   atol=TOL[torch.float32])
+        errs = [rel_err(g, w, dtype) for g, w in zip(got, plain)]
+        errs_ag = [rel_err(g, x.grad, dtype) for g, x in zip(got, leaves)]
+        same = all(torch.equal(x, y) for x, y in zip(got, again))
+        assert same, "two backward runs differ"
+        kind = "max_abs_err / max|ref|" if dtype == torch.bfloat16 else \
+            "max_abs_err"
+        print(f"[backward] B{b} S{s} T{t} H{h} K{k} D{d} window={window} "
+              f"softcap={softcap} {str(dtype)[6:]}: dq/dk/dv {kind} vs plain "
+              f"{errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e}, vs autograd "
+              f"{errs_ag[0]:.3e}/{errs_ag[1]:.3e}/{errs_ag[2]:.3e} "
+              f"(tol {TOL[dtype]}); forward o max_abs_err {o_err:.3e} (tol "
+              f"{TOL[dtype]}), lse {lse_err:.3e} (tol {TOL[torch.float32]}); "
+              f"rerun bit-identical")
+        if row is TRAIN_ATTN:
+            train_err, train_o_err = max(errs + errs_ag), o_err
+        del q, kk, vv, do, o, o_want, lse, got, again, plain, up, leaves
+
+    timings = {}
+    for label, row in (("train", TRAIN_ATTN), ("prefill", PREFILL)):
+        b, s, t, h, k, d, window, softcap, dtype = row
+        q, kk, vv, do = inputs(99, b, s, t, h, k, d, dtype)
+        o, lse = kernel.flash_attention(q, kk, vv, return_lse=True)
+        plain_ms = statistics.median(time_samples(
+            lambda: ref.attention_backward_reference(q, kk, vv, o, lse, do),
+            reps=5, warmup=1, inner=1))
+        # the library yardstick: SDPA's backward on its own graph, (B, H,
+        # S, D) layout made once outside the timing
+        qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                      for x in (q, kk, vv))
+        dot = do.transpose(1, 2).contiguous()
+        gqa_note = "enable_gqa"
+        out = torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True)
+        sdpa_bwd = lambda: torch.autograd.grad(  # noqa: E731
+            out, (qt, kt, vt), dot, retain_graph=True)
+        backend = _sdpa_backend(sdpa_bwd)
+        if not re.search("flash|cudnn|fmha", backend, re.I):
+            # enable_gqa left the fused kernels: K/V expanded to H heads
+            kt, vt = (x.detach().repeat_interleave(h // k, dim=1)
+                      .requires_grad_() for x in (kt, vt))
+            out = torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True)
+            backend = _sdpa_backend(sdpa_bwd)
+            gqa_note = "K/V expanded to H heads (enable_gqa ran no fused kernel)"
+        library_ms, kernel_ms = time_turns(
+            sdpa_bwd,
+            lambda: kernel.flash_attention_backward(q, kk, vv, o, lse, do))
+        flops, nbytes = attention_backward_work(b, s, t, h, k, d, window,
+                                                dtype)
+        t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+        t_bytes = nbytes / PEAK_BYTES * 1e3
+        bound = max(t_ops, t_bytes)
+        print(f"[backward] {label} shape B{b} S{s} H{h} K{k} D{d}: kernel "
+              f"{kernel_ms:.4f} ms (3 launches), plain {plain_ms:.4f} ms, sdpa"
+              f" backward {library_ms:.4f} ms ({gqa_note}; in turns: sdpa, "
+              f"kernel, kernel, sdpa), kernel/sdpa "
+              f"{kernel_ms / library_ms:.3f}, bound {bound:.4f} ms "
+              f"({flops / 1e9:.2f} GFLOP is {t_ops:.4f} ms, {nbytes / 1e6:.1f}"
+              f" MB is {t_bytes:.4f} ms), kernel/bound {kernel_ms / bound:.2f}")
+        print(f"[backward] sdpa backward kernels: {backend}")
+        timings[label] = dict(ms=kernel_ms, plain_ms=plain_ms,
+                              library_ms=library_ms, bound_ms=bound,
+                              bound_by="operations" if t_ops >= t_bytes
+                              else "bytes", library_note=gqa_note)
+        del q, kk, vv, do, o, lse, qt, kt, vt, dot, out
+
+    tr = timings["train"]
+    return {
+        "name": "flash_attention_bwd",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_bwd.cu",
+        "replaces": "none in JAX: the backward of "
+                    "src/repro/kernels/flash_attention/kernel.py:31 "
+                    "(_flash_kernel), which JAX differentiates through XLA",
+        "replaces_fn": None,
+        "launches": None,
+        "launches_on_path": None,
+        "max_abs_err": train_err,
+        "tol": TOL[torch.bfloat16],
+        "forward_o_max_abs_err": train_o_err,
+        "ms": tr["ms"],
+        "kernel_ms": tr["ms"],
+        "plain_ms": tr["plain_ms"],
+        "bound_ms": tr["bound_ms"],
+        "bound_by": tr["bound_by"],
+        "library_ms": tr["library_ms"],
+        "library": "scaled_dot_product_attention backward, "
+                   + tr["library_note"],
+        "shape": "B2 S2048 T2048 H24 K8 D128 bf16 causal (three launches)",
+        "prefill_shape_ms": timings["prefill"],
     }
 
 
@@ -515,13 +722,141 @@ def mamba_path_check(device: torch.device) -> None:
     torch.testing.assert_close(outs[1], outs[0], rtol=0.15, atol=0.15)
 
 
+def train_path_check(device: torch.device) -> None:
+    """One ``make_train_step`` step of smoke_config("llama3.2-3b") with
+    head_dim 32 (the smoke config's 16 is no head dim the kernels take), on
+    the card (the kernels) and on the CPU (the plain versions) from the
+    same fp32 state and batch, in fp32 and in bf16 compute. Loss and grad
+    norm within rtol = atol = TOL[compute dtype]. The gradient, leaf by
+    leaf, read from the first moment after the step ((1 - b1)·clip·g):
+    fp32 elementwise at TOL[fp32] and at a relative norm of TOL[fp32]; bf16
+    no further from the fp32 gradient, in relative norm, than twice the
+    plain version's bf16 gradient is, plus TOL[bf16] (the plain version's
+    own bf16 gradient of this step lies 1e-2 to 2e-2 from the fp32 one, as
+    printed, so two bf16 implementations may differ by more than TOL[bf16]
+    without a fault; a missing gradient is off by 1). The parameters after the step within rtol TOL[fp32] and atol
+    2·lr + TOL[fp32]: Adam's first step moves each element by about
+    lr·sign(g), so an element whose gradient lies within rounding of 0 can
+    land 2·lr apart."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokenPipeline
+    from repro_torch.launch.steps import init_train_state, make_train_step
+    from repro_torch.models import lm
+    from repro_torch.optim.adamw import AdamWConfig
+
+    opt = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=2)
+    counters = launch_counters()
+    ftol = TOL[torch.float32]
+    grads32 = None      # the CPU's fp32 gradient, the bf16 round's yardstick
+    for cdt in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(smoke_config("llama3.2-3b"), head_dim=32,
+                                  compute_dtype=cdt)
+        cpu_state = init_train_state(cfg, torch.Generator().manual_seed(7),
+                                     device="cpu")
+        gpu_state = lm.tree_map(
+            lambda x: x.to(device, copy=True) if x.dim() else x.clone(),
+            cpu_state)
+        batch = SyntheticTokenPipeline(DataConfig(4, 64, cfg.vocab_size,
+                                                  seed=1)).batch_at(0)
+        out = []
+        for state, dev in ((cpu_state, torch.device("cpu")),
+                           (gpu_state, device)):
+            before = {n: w.launches for n, w in counters.items()}
+            new, metrics = make_train_step(cfg, opt)(
+                state, {k: torch.from_numpy(v).to(dev)
+                        for k, v in batch.items()})
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            launches = {n: w.launches - before[n] for n, w in counters.items()}
+            want = ({"flash_attention_fwd": 2 * cfg.num_layers,
+                     "flash_attention_bwd": cfg.num_layers, "ssd_fwd": 0}
+                    if dev.type == "cuda" else dict.fromkeys(counters, 0))
+            assert launches == want, (dev, launches, want)
+            gn = float(metrics["grad_norm"])
+            out.append((lm.tree_map(lambda x: x.cpu(), new["params"]),
+                        first_step_grads(new["opt"]["mu"], gn, opt),
+                        float(metrics["loss"]), gn))
+        (p_cpu, g_cpu, loss_cpu, gn_cpu), (p_gpu, g_gpu, loss_gpu, gn_gpu) = out
+        tol = TOL[getattr(torch, cdt)]
+        pairs = list(zip(_leaves(p_gpu), _leaves(p_cpu)))
+        p_err = max((a - b).abs().max().item() for a, b in pairs)
+        if cdt == "float32":
+            grads32 = g_cpu
+            g_errs = {n: (rel_norm(g_gpu[n], g_cpu[n]),
+                          (g_gpu[n] - g_cpu[n]).abs().max().item())
+                      for n in g_cpu}
+            worst = max(g_errs, key=lambda n: g_errs[n][0])
+            g_note = (f"gradient leaf by leaf: worst relative norm "
+                      f"{g_errs[worst][0]:.3e} ({worst}), worst max_abs_err "
+                      f"{max(e[1] for e in g_errs.values()):.3e} (tol {ftol})")
+        else:
+            g_errs = {n: (rel_norm(g_gpu[n], grads32[n]),
+                          rel_norm(g_cpu[n], grads32[n])) for n in g_cpu}
+            worst = max(g_errs, key=lambda n: g_errs[n][0]
+                        / (2 * g_errs[n][1] + tol))
+            card, cpu = zip(*g_errs.values())
+            g_note = (f"gradient leaf by leaf, relative norm from the fp32 "
+                      f"gradient: card {min(card):.3e}-{max(card):.3e}, cpu "
+                      f"{min(cpu):.3e}-{max(cpu):.3e} over the leaves; at "
+                      f"the tightest leaf ({worst}) card "
+                      f"{g_errs[worst][0]:.3e}, bound 2·cpu + {tol} = "
+                      f"{2 * g_errs[worst][1] + tol:.3e}")
+        print(f"[train-path] smoke llama3.2-3b (D 32) {cdt}: loss card "
+              f"{loss_gpu:.6f} cpu {loss_cpu:.6f}, grad norm card "
+              f"{gn_gpu:.6f} cpu {gn_cpu:.6f} (rtol=atol={tol}); {g_note}; "
+              f"params after the step max_abs_err={p_err:.3e} (atol 2·lr + "
+              f"{ftol})")
+        assert math.isfinite(loss_gpu) and math.isfinite(gn_gpu)
+        torch.testing.assert_close(torch.tensor([loss_gpu, gn_gpu]),
+                                   torch.tensor([loss_cpu, gn_cpu]),
+                                   rtol=tol, atol=tol)
+        for n in g_cpu:
+            if cdt == "float32":
+                torch.testing.assert_close(g_gpu[n], g_cpu[n], rtol=ftol,
+                                           atol=ftol, msg=n)
+                assert g_errs[n][0] <= ftol, (n, g_errs[n])
+            else:
+                assert g_errs[n][0] <= 2 * g_errs[n][1] + tol, (n, g_errs[n])
+        for a, b in pairs:
+            torch.testing.assert_close(a, b, rtol=ftol,
+                                       atol=2 * opt.lr + ftol)
+
+
+def first_step_grads(mu, grad_norm: float, opt) -> dict:
+    """The gradient of the first AdamW step, leaf by leaf, on the CPU,
+    keyed by the leaf's path: the first moment is then (1 - b1)·clip·g,
+    with clip = min(1, grad_clip / grad_norm)."""
+    clip = min(1.0, opt.grad_clip / max(grad_norm, 1e-9))
+    return {name: m.cpu() / ((1 - opt.b1) * clip)
+            for name, m in _named_leaves(mu)}
+
+
+def rel_norm(got: torch.Tensor, want: torch.Tensor) -> float:
+    return ((got - want).norm() / want.norm().clamp_min(1e-30)).item()
+
+
+def _named_leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _named_leaves(v, f"{prefix}/{k}")
+    else:
+        yield prefix, tree
+
+
+def _leaves(tree):
+    for _, leaf in _named_leaves(tree):
+        yield leaf
+
+
 def launch_counters() -> dict:
     """Each kernel's wrapper, by the name of its JSON record; a wrapper's
-    ``launches`` grows by one where it launches its kernel."""
+    ``launches`` grows by one where it launches its kernel (the backward:
+    one per call of its three launches)."""
     from repro_torch.kernels.flash_attention import kernel as flash
     from repro_torch.kernels.ssd import kernel as ssd
 
     return {"flash_attention_fwd": flash.flash_attention,
+            "flash_attention_bwd": flash.flash_attention_backward,
             "ssd_fwd": ssd.ssd_scan}
 
 
@@ -584,8 +919,148 @@ def serve_phase(device: torch.device, arch: str, requests: int,
               f"s, offload {hs['offload']:.6f} s) | Device PE "
               f"{r.device.parallel_efficiency:.4f} (kernel "
               f"{ds['kernel']:.6f} s, idle {ds['idle']:.6f} s)")
-    records[kernel_name]["launches"] = launches[kernel_name]
-    records[kernel_name]["launches_on_path"] = launches[kernel_name]
+    add_path_launches(records, f"serve {arch} (one prefill)", launches)
+
+
+def add_path_launches(records: dict, path: str, launches: dict) -> None:
+    """Record each kernel's launches in one main-path run; a record's
+    ``launches`` is the sum over the paths that launched it."""
+    for name, n in launches.items():
+        if n:
+            rec = records[name]
+            rec["launches_on_path"] = {**(rec["launches_on_path"] or {}),
+                                       path: n}
+            rec["launches"] = sum(rec["launches_on_path"].values())
+
+
+# (arch, steps, global batch, sequence length, AdamW lr, warmup steps): the
+# training phase at full width and full depth
+TRAIN = ("llama3.2-3b", 6, 2, 2048, 3e-4, 2)
+
+
+def train_phase(device: torch.device, arch: str, steps: int, batch: int,
+                seq: int, lr: float, warmup: int, records: dict) -> None:
+    """Full-width training of ``arch`` through the port's entry point
+    (``repro_torch.launch.train.train``), random fp32 weights from a seed:
+    per-step loss (all finite), step time, tokens/s and MFU (median of
+    steps 2-5), peak memory, the launches of both flash kernels (counts set
+    to 0 just before, read just after: 2 forwards per layer and step, the
+    second from remat's recompute, and 1 backward), and TALP's train_loop
+    hierarchies. Then one more step traced with ``torch.profiler``: device
+    time by kernel and the busy share."""
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokenPipeline
+    from repro_torch.launch.steps import make_train_step, model_flops
+    from repro_torch.launch.train import train
+    from repro_torch.models import lm
+    from repro_torch.optim.adamw import AdamWConfig, adamw_update
+
+    cfg = get_config(arch)
+    opt = AdamWConfig(lr=lr, warmup_steps=warmup, total_steps=steps)
+    counters = launch_counters()
+    for wrapper in counters.values():
+        wrapper.launches = 0
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    state, history, result = train(cfg, steps=steps, global_batch=batch,
+                                   seq_len=seq, opt_cfg=opt, seed=0,
+                                   verbose=False, device=device)
+    wall = time.perf_counter() - t0
+    launches = {name: w.launches for name, w in counters.items()}
+    peak = torch.cuda.max_memory_allocated(device)
+    want = {"flash_attention_fwd": 2 * cfg.num_layers * steps,
+            "flash_attention_bwd": cfg.num_layers * steps, "ssd_fwd": 0}
+    assert launches == want, (
+        f"{arch} training: launches {launches} in {steps} steps, want {want}"
+        " (per step and layer: the forward twice, remat, and one backward)")
+    losses = [h["loss"] for h in history]
+    assert len(history) == steps and all(map(math.isfinite, losses)), losses
+    for h in history:
+        print(f"[train] step {h['step']}: loss {h['loss']:.6f}, grad norm "
+              f"{h['grad_norm']:.6f}, {h['time_s'] * 1e3:.3f} ms")
+    step_s = statistics.median([h["time_s"] for h in history[1:5]])
+    tokens = batch * seq
+    flops = model_flops(cfg, ShapeConfig("train", seq, batch, "train"))
+    print(f"[train] {arch} full width, {cfg.num_layers} layers, "
+          f"{lm.param_count(state['params']) / 1e9:.3f} B params, global "
+          f"batch {batch} x {seq}: step {step_s * 1e3:.3f} ms (median of "
+          f"steps 2-5), {tokens / step_s:.1f} tokens/s, MFU "
+          f"{flops / (step_s * PEAK_FLOPS[torch.bfloat16]):.4f} "
+          f"({flops / 1e12:.2f} TFLOP model flops per step at 989 TFLOP/s),"
+          f" peak memory {peak / 2**30:.3f} GiB "
+          f"({peak / 1e9:.3f} GB), wall {wall:.2f} s; launches {launches} "
+          f"({launches['flash_attention_fwd'] // steps} forward and "
+          f"{launches['flash_attention_bwd'] // steps} backward per step)")
+    loop = result.regions["train_loop"]
+    loop.host.validate(tol=1e-6)
+    loop.device.validate(tol=1e-6)
+    hs, ds = loop.host_states[0], loop.device_states[0]
+    assert hs["useful"] > 0 and hs["offload"] > 0 and ds["kernel"] > 0
+    print(f"[talp] {arch} train_loop: Host PE "
+          f"{loop.host.parallel_efficiency:.4f} (useful {hs['useful']:.6f} s,"
+          f" offload {hs['offload']:.6f} s), Offload Eff. "
+          f"{loop.host.device_offload_efficiency:.4f} | Device PE "
+          f"{loop.device.parallel_efficiency:.4f} (kernel {ds['kernel']:.6f} "
+          f"s, idle {ds['idle']:.6f} s)")
+    add_path_launches(records, f"train {arch} ({steps} steps)", launches)
+
+    step_fn = make_train_step(cfg, opt)
+    data = SyntheticTokenPipeline(DataConfig(batch, seq, cfg.vocab_size))
+    b = {k: torch.from_numpy(v).to(device)
+         for k, v in data.batch_at(steps).items()}
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        state, _ = step_fn(state, b)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_time = lambda e: getattr(  # noqa: E731
+        e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
+    busy = sum(dev_time(e) for e in kernels) * 1e-6
+    if busy <= 0:
+        print("[profile] train step: torch.profiler shows no device time "
+              "here, so the busy share is not measured")
+    else:
+        print(f"[profile] {arch} train step: device kernel time "
+              f"{busy * 1e3:.3f} ms in {sum(e.count for e in kernels)} "
+              f"kernels, busy share {busy / step_s:.4f} of the median step")
+        ranked = sorted(kernels, key=dev_time, reverse=True)
+        for e in ranked[:10] + [e for e in ranked[10:] if re.search(
+                "|".join(KERNEL_NAMES), e.key)]:
+            print(f"[profile]   {dev_time(e) * 1e-3:9.3f} ms x{e.count:<5d} "
+                  f"{e.key[:90]}")
+        groups: dict = {}
+        for e in kernels:
+            group = next((g for g, pat in KERNEL_GROUPS
+                          if re.search(pat, e.key)), "other")
+            groups[group] = groups.get(group, 0.0) + dev_time(e) * 1e-3
+        print("[profile] train step device time by group: " + ", ".join(
+            f"{g} {ms:.3f} ms" for g, ms in sorted(
+                groups.items(), key=lambda kv: -kv[1])))
+    # the AdamW update alone (CUDA events around it; bf16 copies of the
+    # parameters stand in for the gradients)
+    grads = lm.tree_map(lambda x: x.to(torch.bfloat16), state["params"])
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    times = []
+    for _ in range(3):
+        start.record()
+        adamw_update(opt, state["params"], grads, state["opt"])
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    print(f"[train] AdamW update alone: {statistics.median(times):.3f} ms "
+          f"(median of 3, CUDA events) of the {step_s * 1e3:.3f} ms step")
+    del state, b, grads
+
+
+# Kernel-name patterns by group, for the train step's device time.
+KERNEL_GROUPS = (
+    ("flash (this repo)", "flash_"),
+    ("matmul (cuBLAS)", "nvjet|gemm|gemv|cutlass|sm90_xmma"),
+    ("elementwise and copies", "elementwise|copy|Memcpy|Memset|fill"),
+    ("reductions", "reduce|softmax|norm"),
+)
 
 
 def profile_phase(device: torch.device, arch: str, batch: int,
@@ -674,16 +1149,22 @@ def main() -> int:
           f"{torch.__version__}, cuda {torch.version.cuda}")
     sass = build_kernels()
     records = {rec["name"]: rec
-               for rec in (kernel_phase(device), ssd_kernel_phase(device))}
+               for rec in (kernel_phase(device), backward_phase(device),
+                           ssd_kernel_phase(device))}
     for name, counts in sass.items():
         records[name]["sass"] = counts
     path_check(device)
     mamba_path_check(device)
+    train_path_check(device)
     for arch, requests, prompt_len, gen_len, kernel_name in SERVE:
         serve_phase(device, arch, requests, prompt_len, gen_len, kernel_name,
                     records)
         profile_phase(device, arch, requests, prompt_len, gen_len)
         torch.cuda.empty_cache()
+    train_phase(device, *TRAIN, records)
+    torch.cuda.empty_cache()
+    missing = [name for name, rec in records.items() if not rec["launches"]]
+    assert not missing, f"kernels no main path launched: {missing}"
     print(json.dumps({"kernels": list(records.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

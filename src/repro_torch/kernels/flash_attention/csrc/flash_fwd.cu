@@ -5,7 +5,11 @@
 // blockwise online softmax, an aligned-end causal mask (query r sees keys
 // <= r + (T - S)), an optional sliding window and an optional logit soft-cap
 // softcap * tanh(s / softcap). Running max, sum and accumulator are fp32; the
-// output is acc / max(l, 1e-30) in the input type.
+// output is acc / max(l, 1e-30) in the input type. Given an lse pointer,
+// it also writes each row's log-sum-exp of the scaled, soft-capped, masked
+// scores, fp32 (B, H, S), in natural-log units (the base flash_bwd.cu
+// reads): m + log(l) on the fp32 path, (m + log2(l)) ln 2 on the bf16 path,
+// whose softmax runs in base 2. Serving passes a null pointer.
 //
 // Layouts: q and o are (B, S, H, D), k and v are (B, T, K, D), all
 // contiguous. Query head h reads kv head h / (H / K).
@@ -56,6 +60,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "flash_mask.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -66,12 +71,14 @@ using namespace hopper;
 // -inf, so exp(masked - m) is 0 and no NaN arises from -inf - -inf.
 constexpr float kMaxInit = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 struct Params {
   const void* q;
   const void* k;
   const void* v;
   void* o;
+  float* lse;      // (B, H, S) or null
   int S, T, H, K, B;
   int causal;
   int window;      // <= 0: no window
@@ -79,25 +86,10 @@ struct Params {
   float scale;
 };
 
-__device__ __forceinline__ bool visible(const Params& p, int r, int t) {
-  if (t >= p.T) return false;
-  if (!p.causal) return true;
-  const int last = r + (p.T - p.S);
-  if (t > last) return false;
-  return p.window <= 0 || t > last - p.window;
-}
+using flash_mask::key_range;
 
-// Key range [t0, t1) that queries [q0, q1) can see, t0 rounded down to a tile.
-__device__ __forceinline__ void key_range(const Params& p, int q0, int q1,
-                                          int tile, int& t0, int& t1) {
-  t0 = 0;
-  t1 = p.T;
-  if (p.causal) {
-    const int shift = p.T - p.S;
-    t1 = min(p.T, q1 + shift);
-    if (p.window > 0) t0 = max(0, q0 + shift - p.window + 1);
-  }
-  t0 = (t0 / tile) * tile;
+__device__ __forceinline__ bool visible(const Params& p, int r, int t) {
+  return flash_mask::visible<false>(p, r, t);
 }
 
 __device__ __forceinline__ float cap(const Params& p, float s) {
@@ -426,6 +418,12 @@ __global__ void __launch_bounds__(kWgThreads, 1)
           *reinterpret_cast<uint32_t*>(ob + (size_t)row_hi * q_stride + j * 8 + c2) =
               pack_bf16x2(o[4 * j + 2] * inv[1], o[4 * j + 3] * inv[1]);
       }
+      // after the item's last wgmma, and under no branch that encloses one
+      if (p.lse != nullptr && c2 == 0) {
+        float* lb = p.lse + ((size_t)t.b * p.H + t.h) * p.S;
+        if (row_lo < p.S) lb[row_lo] = (m[0] + log2f(fmaxf(l[0], 1e-30f))) * kLn2;
+        if (row_hi < p.S) lb[row_hi] = (m[1] + log2f(fmaxf(l[1], 1e-30f))) * kLn2;
+      }
     }
   }
 }
@@ -508,6 +506,8 @@ __global__ void __launch_bounds__(128) flash_fwd_f32(Params p) {
     const float denom = fmaxf(l[rr], 1e-30f);
 #pragma unroll
     for (int i = 0; i < NV; ++i) ob[(size_t)r * q_stride + lane + 32 * i] = acc[rr][i] / denom;
+    if (p.lse != nullptr && lane == 0)
+      p.lse[((size_t)b * p.H + h) * p.S + r] = m[rr] + logf(denom);
   }
 }
 
@@ -541,12 +541,14 @@ extern "C" {
 
 // Launches on `stream` and returns a CUDA error code (0 on success).
 // is_bf16: 1 for bf16 inputs, 0 for fp32. window <= 0 and softcap <= 0 mean
-// "none". The caller checks shapes, types, contiguity and 16-byte alignment.
+// "none". lse: fp32 (B, H, S) or null. The caller checks shapes, types,
+// contiguity and 16-byte alignment.
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                        int B, int S, int T, int H, int K, int D, int is_bf16,
-                        int causal, int window, float softcap, float scale,
-                        void* stream) {
-  Params p{q, k, v, o, S, T, H, K, B, causal, window, softcap, scale};
+                        void* lse, int B, int S, int T, int H, int K, int D,
+                        int is_bf16, int causal, int window, float softcap,
+                        float scale, void* stream) {
+  Params p{q, k, v, o, static_cast<float*>(lse), S, T, H, K, B, causal, window,
+           softcap, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
     switch (D) {

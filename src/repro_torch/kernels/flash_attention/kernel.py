@@ -1,15 +1,22 @@
-"""Hand-written CUDA flash-attention forward (``csrc/flash_fwd.cu``) and
-its ``ctypes`` binding.
+"""Hand-written CUDA flash attention, forward (``csrc/flash_fwd.cu``) and
+backward (``csrc/flash_bwd.cu``), their ``ctypes`` bindings and the
+``torch.autograd.Function`` that joins them.
 
-Replaces the Pallas TPU kernel
+The forward replaces the Pallas TPU kernel
 ``src/repro/kernels/flash_attention/kernel.py::_flash_kernel``; the
-source's header says what bounds it on the H100 and what its design does
-about that. The library is built with ``nvcc`` at the first launch, never
-at import, so this module imports on machines without CUDA.
+backward has no TPU counterpart (the JAX package differentiates its
+attention through XLA). Each source's header says what bounds it on the
+H100 and what its design does about that. The libraries are built with
+``nvcc`` at their first launch, never at import, so this module imports on
+machines without CUDA.
 
-:func:`flash_attention` takes CUDA tensors only and raises for anything
-the kernel does not take; it never falls back to the plain version. Its
-``launches`` attribute counts kernel launches.
+:func:`flash_attention` and :func:`flash_attention_backward` take CUDA
+tensors only and raise for anything the kernels do not take; they never
+fall back to the plain version. :func:`flash_attention` returns a tensor
+with no autograd graph, so it refuses inputs that require grad under grad
+mode: :class:`FlashAttention` (through ``ops.attention``) is the
+differentiable path. Each function's ``launches`` attribute counts its
+calls; one backward call launches three kernels.
 """
 
 from __future__ import annotations
@@ -22,27 +29,46 @@ import torch
 
 from .. import cuda_build
 
-__all__ = ["HEAD_DIMS", "SOURCE", "check_inputs", "flash_attention", "library"]
+__all__ = ["BWD_SOURCE", "FlashAttention", "HEAD_DIMS", "SOURCE",
+           "backward_library", "check_inputs", "flash_attention",
+           "flash_attention_backward", "library"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_fwd.cu"
+BWD_SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_bwd.cu"
 HEAD_DIMS = (32, 64, 128)
 _MAX_GRID_YZ = 65535
 _lib: Optional[ctypes.CDLL] = None
+_bwd_lib: Optional[ctypes.CDLL] = None
 
 
 def library() -> ctypes.CDLL:
-    """Build (at first use) and load the kernel library."""
+    """Build (at first use) and load the forward's library."""
     global _lib
     if _lib is None:
         lib = cuda_build.load(SOURCE)
         lib.flash_attention_fwd.argtypes = (
-            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
+            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
             + [ctypes.c_float] * 2 + [ctypes.c_void_p])
         lib.flash_attention_fwd.restype = ctypes.c_int
         lib.flash_attention_error_string.argtypes = [ctypes.c_int]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+def backward_library() -> ctypes.CDLL:
+    """Build (at first use) and load the backward's library."""
+    global _bwd_lib
+    if _bwd_lib is None:
+        lib = cuda_build.load(BWD_SOURCE)
+        lib.flash_attention_bwd.argtypes = (
+            [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
+            + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+        lib.flash_attention_bwd.restype = ctypes.c_int
+        lib.flash_attention_bwd_error_string.argtypes = [ctypes.c_int]
+        lib.flash_attention_bwd_error_string.restype = ctypes.c_char_p
+        _bwd_lib = lib
+    return _bwd_lib
 
 
 def check_inputs(q, k, v, causal: bool, window: Optional[int],
@@ -85,6 +111,14 @@ def check_inputs(q, k, v, causal: bool, window: Optional[int],
         raise ValueError("flash_attention wants 16-byte aligned tensors")
 
 
+def _refuse_grad(*tensors) -> None:
+    if torch.is_grad_enabled() and any(x.requires_grad for x in tensors):
+        raise RuntimeError(
+            "kernel.flash_attention returns a tensor with no autograd graph "
+            "and would cut the gradient to q, k and v; call "
+            "ops.attention (FlashAttention) for inputs that require grad")
+
+
 def flash_attention(
     q: torch.Tensor,            # (B, S, H, D)
     k: torch.Tensor,            # (B, T, K, D)
@@ -92,18 +126,25 @@ def flash_attention(
     causal: bool = True,
     window: Optional[int] = None,
     softcap: Optional[float] = None,
-) -> torch.Tensor:
-    """Launch the kernel on the current stream; returns (B, S, H, D) in
-    q's dtype. Does not synchronise."""
+    return_lse: bool = False,
+):
+    """Launch the forward on the current stream; returns o (B, S, H, D) in
+    q's dtype, and with ``return_lse`` also each row's log-sum-exp of the
+    scaled, soft-capped, masked scores, fp32 (B, H, S). Does not
+    synchronise. Refuses inputs that require grad under grad mode."""
+    _refuse_grad(q, k, v)
     check_inputs(q, k, v, causal, window, softcap)
     lib = library()
     b, s, h, d = q.shape
     t, nk = k.shape[1], k.shape[2]
     o = torch.empty_like(q)
+    lse = (torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr() if lse is not None else None,
             b, s, t, h, nk, d, int(q.dtype == torch.bfloat16), int(causal),
             window or 0, float(softcap or 0.0), d ** -0.5, stream,
         )
@@ -111,7 +152,86 @@ def flash_attention(
         msg = lib.flash_attention_error_string(rc).decode()
         raise RuntimeError(f"flash_attention_fwd launch failed: {msg} ({rc})")
     flash_attention.launches += 1
-    return o
+    return (o, lse) if return_lse else o
 
 
 flash_attention.launches = 0
+
+
+def flash_attention_backward(
+    q: torch.Tensor,            # (B, S, H, D)
+    k: torch.Tensor,            # (B, T, K, D)
+    v: torch.Tensor,            # (B, T, K, D)
+    o: torch.Tensor,            # (B, S, H, D), the forward's output
+    lse: torch.Tensor,          # (B, H, S) fp32, the forward's log-sum-exp
+    do: torch.Tensor,           # (B, S, H, D), the gradient of o
+    causal: bool = True,
+    window: Optional[int] = None,
+    softcap: Optional[float] = None,
+):
+    """Launch the three backward kernels on the current stream; returns
+    (dq, dk, dv) in q's dtype. Does not synchronise."""
+    check_inputs(q, k, v, causal, window, softcap)
+    do = do.contiguous()
+    b, s, h, d = q.shape
+    t, nk = k.shape[1], k.shape[2]
+    for name, x in (("o", o), ("do", do)):
+        if x.shape != q.shape or x.dtype != q.dtype or x.device != q.device:
+            raise ValueError(f"{name} {tuple(x.shape)} {x.dtype} on {x.device}:"
+                             f" want q's {tuple(q.shape)} {q.dtype} on "
+                             f"{q.device}")
+    if (lse.shape != (b, h, s) or lse.dtype != torch.float32
+            or lse.device != q.device):
+        raise ValueError(f"lse {tuple(lse.shape)} {lse.dtype}: want "
+                         f"({b}, {h}, {s}) float32 on {q.device}")
+    if not (o.is_contiguous() and lse.is_contiguous()):
+        raise ValueError("flash_attention_backward wants contiguous o, lse")
+    if any(x.data_ptr() % 16 for x in (o, do, lse)):
+        raise ValueError("flash_attention_backward wants 16-byte aligned "
+                         "tensors")
+    lib = backward_library()
+    dq = torch.empty_like(q)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(),
+            b, s, t, h, nk, d, int(q.dtype == torch.bfloat16), int(causal),
+            window or 0, float(softcap or 0.0), d ** -0.5, stream,
+        )
+    if rc != 0:
+        msg = lib.flash_attention_bwd_error_string(rc).decode()
+        raise RuntimeError(f"flash_attention_bwd launch failed: {msg} ({rc})")
+    flash_attention_backward.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_backward.launches = 0
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention whose forward is the CUDA forward and whose backward is
+    the CUDA backward. The forward writes the log-sum-exp the backward
+    needs only when some input requires grad."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap):
+        ctx.config = (causal, window, softcap)
+        if not any(ctx.needs_input_grad[:3]):
+            return flash_attention(q, k, v, causal, window, softcap)
+        o, lse = flash_attention(q, k, v, causal, window, softcap,
+                                 return_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        return o
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(q, k, v, o, lse, do,
+                                              *ctx.config)
+        return dq, dk, dv, None, None, None

@@ -1,9 +1,10 @@
 """Dispatching wrapper for attention.
 
-A CUDA tensor goes to the hand-written kernel (:mod:`.kernel`), which
-launches or raises; a CPU tensor goes to the plain version
-(:mod:`.ref`). There is no fallback from the first to the second. Port
-of ``repro.kernels.flash_attention.ops.attention``."""
+A CUDA tensor goes to :class:`.kernel.FlashAttention`, whose forward and
+backward are the hand-written kernels, which launch or raise; a CPU
+tensor goes to the plain version (:mod:`.ref`), differentiated by
+autograd. There is no fallback from the first to the second. Port of
+``repro.kernels.flash_attention.ops.attention``."""
 
 from __future__ import annotations
 
@@ -28,5 +29,4 @@ def attention(
     if q.device.type == "cpu":
         return _ref.attention_reference(q, k, v, causal=causal, window=window,
                                         softcap=softcap)
-    return _kernel.flash_attention(q, k, v, causal=causal, window=window,
-                                   softcap=softcap)
+    return _kernel.FlashAttention.apply(q, k, v, causal, window, softcap)

@@ -1,15 +1,73 @@
-"""Step-function factories for serving. Port of the serve half of
-``repro.launch.steps`` (``make_prefill_step``, ``make_serve_step``);
-the training step comes with the training slice."""
+"""Step-function factories: training and serving. Port of
+``repro.launch.steps`` (``init_train_state``, ``make_train_step``,
+``make_prefill_step``, ``make_serve_step``, ``model_flops``)."""
 
 from __future__ import annotations
 
-from ..configs.base import ModelConfig
+from typing import Any, Dict
+
+import torch
+
+from ..configs.base import ModelConfig, ShapeConfig
 from ..models import lm
+from ..optim.adamw import AdamWConfig, adamw_update, init_opt_state
 
-__all__ = ["make_prefill_step", "make_serve_step"]
+__all__ = [
+    "init_train_state",
+    "make_train_step",
+    "make_prefill_step",
+    "make_serve_step",
+    "model_flops",
+]
 
 
+# ---------------------------------------------------------------------------
+# train
+# ---------------------------------------------------------------------------
+def init_train_state(cfg: ModelConfig, generator, device=None) -> Dict[str, Any]:
+    """fp32 master parameters (``cfg.param_dtype``) drawn on ``device``,
+    zero AdamW moments and a step count (an int32 scalar on the CPU)."""
+    params = lm.init_params(cfg, generator, device=device)
+    return {
+        "params": params,
+        "opt": init_opt_state(params),
+        "step": torch.zeros((), dtype=torch.int32),
+    }
+
+
+def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig = AdamWConfig()):
+    cdt = getattr(torch, cfg.compute_dtype)
+
+    def cast_params(p):
+        # One cast of the fp32 masters per step, outside the layer loop, as
+        # in the JAX step. The cast tensors are the leaves autograd
+        # differentiates: the gradient of the cast is the cast of theirs,
+        # which the optimizer takes leaf by leaf, so no fp32 copy of the
+        # whole gradient is ever held.
+        return lm.tree_map(lambda x: x.detach().to(cdt).requires_grad_(), p)
+
+    def train_step(state, batch):
+        leaves = cast_params(state["params"])
+        loss, metrics = lm.train_loss(cfg, leaves, batch)
+        loss.backward()
+        grads = lm.tree_map(lambda x: x.grad, leaves)
+        del leaves, loss
+        new_params, new_opt, opt_metrics = adamw_update(
+            opt_cfg, state["params"], grads, state["opt"]
+        )
+        new_state = {
+            "params": new_params,
+            "opt": new_opt,
+            "step": state["step"] + 1,
+        }
+        return new_state, {**metrics, **opt_metrics}
+
+    return train_step
+
+
+# ---------------------------------------------------------------------------
+# serve
+# ---------------------------------------------------------------------------
 def make_prefill_step(cfg: ModelConfig):
     def prefill_step(params, inputs):
         return lm.prefill(cfg, params, inputs)
@@ -22,3 +80,18 @@ def make_serve_step(cfg: ModelConfig):
         return lm.decode_step(cfg, params, token, pos, caches)
 
     return serve_step
+
+
+# ---------------------------------------------------------------------------
+# model FLOPs accounting
+# ---------------------------------------------------------------------------
+def model_flops(cfg: ModelConfig, shape: ShapeConfig) -> float:
+    """6·N·tokens for training (fwd+bwd), 2·N·tokens for inference
+    forward passes (decode: one token per sequence). N = active params
+    contributing matmul FLOPs (embedding-gather excluded)."""
+    n = cfg.n_flops_params()
+    if shape.kind == "train":
+        return 6.0 * n * shape.global_batch * shape.seq_len
+    if shape.kind == "prefill":
+        return 2.0 * n * shape.global_batch * shape.seq_len
+    return 2.0 * n * shape.global_batch  # decode: 1 new token

@@ -1,19 +1,20 @@
 """Shared neural building blocks: initializer, RMSNorm, rotary
-embeddings, logit soft-capping. Port of ``repro.models.common``.
+embeddings, logit soft-capping, chunked cross-entropy. Port of
+``repro.models.common``.
 
 Parameters are plain tensors in nested dicts with the JAX package's
 layouts (weights ``(in, out)``, used as ``x @ w``), stored in
 ``param_dtype`` and cast to the compute dtype at use.
-``apply_mrope`` and ``chunked_softmax_xent`` come with the slices that
-need them (Qwen2-VL, training).
+``apply_mrope`` comes with the slice that needs it (Qwen2-VL).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 __all__ = [
     "truncated_normal",
@@ -21,6 +22,7 @@ __all__ = [
     "soft_cap",
     "rope_frequencies",
     "apply_rope",
+    "chunked_softmax_xent",
 ]
 
 
@@ -81,3 +83,44 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     freqs = rope_frequencies(x.shape[-1], theta, device=x.device)
     angles = positions[..., None, None].float() * freqs      # (B,S,1,D/2)
     return _rotate(x, angles)
+
+
+def _xent_chunk(h, unembed, y, final_softcap):
+    logits = (h @ unembed.to(h.dtype)).float()
+    logits = soft_cap(logits, final_softcap)
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = torch.gather(logits, 1, y.clamp_min(0).long()[:, None])[:, 0]
+    mask = (y >= 0).float()
+    return torch.sum((lse - picked) * mask), torch.sum(mask)
+
+
+def chunked_softmax_xent(
+    hidden: torch.Tensor,
+    unembed: torch.Tensor,
+    labels: torch.Tensor,
+    chunk: int = 16384,
+    final_softcap: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Cross-entropy over a large vocabulary without materializing the
+    full (tokens, vocab) logits tensor.
+
+    hidden: (T, M); unembed: (M, V); labels: (T,) int (-1 = masked).
+    Loops over token chunks; per-chunk logits are fp32. Returns (sum_loss,
+    token_count), both fp32. The JAX version pads the tokens to a multiple
+    of ``chunk`` with masked rows; here the last chunk is shorter instead,
+    which gives the same sum and gradient without building the padded
+    rows. Under grad mode each chunk runs under activation checkpointing,
+    so one chunk's logits are alive at a time.
+    """
+    loss = hidden.new_zeros((), dtype=torch.float32)
+    count = hidden.new_zeros((), dtype=torch.float32)
+    for c0 in range(0, hidden.shape[0], chunk):
+        args = (hidden[c0:c0 + chunk], unembed, labels[c0:c0 + chunk],
+                final_softcap)
+        if torch.is_grad_enabled():
+            part, n = checkpoint(_xent_chunk, *args, use_reentrant=False)
+        else:
+            part, n = _xent_chunk(*args)
+        loss = loss + part
+        count = count + n
+    return loss, count

@@ -1,4 +1,4 @@
-"""Carry JAX-initialised parameters over to the port.
+"""Carry JAX-initialised parameters and train states over to the port.
 
 :func:`params_from_jax` takes the NumPy leaves of
 ``repro.models.lm.init_params`` — the nested dict with the stacked
@@ -6,7 +6,9 @@
 parameter tree with the same names, shapes and layouts. The caller does
 the ``np.asarray`` on the JAX side; nothing here imports JAX. Tests use
 it to give both packages the same weights instead of matching two random
-generators.
+generators. :func:`train_state_from_jax` does the same for a whole
+``repro.launch.steps.init_train_state`` tree (params, AdamW moments, step
+counts).
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ import torch
 
 from . import lm
 
-__all__ = ["params_from_jax"]
+__all__ = ["params_from_jax", "train_state_from_jax"]
 
 _DTYPES = {
     "float32": torch.float32,
@@ -49,3 +51,21 @@ def params_from_jax(cfg, tree: Dict[str, Any]) -> Dict[str, Any]:
             _DTYPES[arr.dtype.name])
 
     return conv(tree, lm.param_shapes(cfg), "")
+
+
+def train_state_from_jax(cfg, tree: Dict[str, Any]) -> Dict[str, Any]:
+    """Convert a JAX train state as NumPy (``{"params", "opt": {"mu",
+    "nu", "count"}, "step"}``) to the port's: CPU tensors, the counts as
+    int32 scalars (the port keeps them on the CPU)."""
+
+    def count(x):
+        return torch.tensor(int(np.asarray(x)), dtype=torch.int32)
+
+    opt = tree["opt"]
+    return {
+        "params": params_from_jax(cfg, tree["params"]),
+        "opt": {"mu": params_from_jax(cfg, opt["mu"]),
+                "nu": params_from_jax(cfg, opt["nu"]),
+                "count": count(opt["count"])},
+        "step": count(tree["step"]),
+    }

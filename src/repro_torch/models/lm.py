@@ -8,7 +8,10 @@ holds each pattern slot's block parameters stacked over repeats
 (``(R, ...)``), weights are ``(in, out)``, and decode caches are stacked
 over repeats (``(R, B, T, K, D)`` for attention, ``(R, B, H, P, N)`` SSD
 states and ``(R, B, K-1, C)`` conv tails for SSM blocks). The JAX
-``lax.scan`` over repeats is a Python loop over layers here.
+``lax.scan`` over repeats is a Python loop over layers here; with
+``cfg.remat == "full"`` each repeat runs under activation checkpointing
+when gradients are taken, as the JAX scan body runs under
+``jax.checkpoint``.
 
 ``shared_attn`` blocks, MoE, the precomputed-embedding frontend and
 M-RoPE raise ``NotImplementedError``; they come with later slices.
@@ -16,12 +19,13 @@ M-RoPE raise ``NotImplementedError``; they come with later slices.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, List, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .attention import attn_decode, attn_forward, init_attn_params
-from .common import rms_norm, soft_cap, truncated_normal
+from .common import chunked_softmax_xent, rms_norm, soft_cap, truncated_normal
 from .mlp import init_mlp_params, mlp_forward
 from .ssm import init_ssm_params, ssm_decode, ssm_forward
 
@@ -33,13 +37,19 @@ __all__ = [
     "prefill",
     "grow_caches",
     "decode_step",
+    "train_loss",
 ]
 
 _KINDS = ("attn", "attn_local", "attn_global", "ssm")
 
 
-def check_supported(cfg) -> None:
-    """Raise ``NotImplementedError`` for what this slice does not port."""
+def check_supported(cfg, training: bool = False) -> None:
+    """Raise ``NotImplementedError`` for what the port does not have yet;
+    with ``training``, also for what it cannot differentiate."""
+    if training and "ssm" in cfg.pattern:
+        raise NotImplementedError(
+            f"{cfg.name}: training needs the SSD backward kernel, which is "
+            "not written yet (ssm blocks train only in the JAX package)")
     for kind in cfg.pattern:
         if kind not in _KINDS:
             raise NotImplementedError(
@@ -175,21 +185,53 @@ def _block_decode(cfg, kind, bp, x, pos, cache):
 # ---------------------------------------------------------------------------
 # stack (loop over repeats)
 # ---------------------------------------------------------------------------
+def _unbind(tree, repeats: int) -> List[Dict[str, Any]]:
+    """The ``repeats`` per-layer views of a stacked ``(R, ...)`` subtree,
+    one ``unbind`` per leaf. Under autograd its backward stacks the R layer
+    gradients once; indexing ``a[r]`` per layer would instead build a zero
+    tensor the size of the whole stack for every layer."""
+    if isinstance(tree, dict):
+        parts = {k: _unbind(v, repeats) for k, v in tree.items()}
+        return [{k: parts[k][r] for k in tree} for r in range(repeats)]
+    return list(tree.unbind(0))
+
+
+def _repeat(cfg, layer, x, positions, build_cache):
+    """One repeat of the block pattern (the JAX scan body)."""
+    caches = {}
+    for i, kind in enumerate(cfg.pattern):
+        key = f"slot{i}"
+        x, cache = _block_fwd(cfg, kind, layer[key], x, positions, build_cache)
+        if build_cache:
+            caches[key] = cache
+    return x, caches
+
+
+def _remat_repeat(cfg, x, layer, positions):
+    return _repeat(cfg, layer, x, positions, False)[0]
+
+
 def _stack_fwd(cfg, params, x, positions, build_cache=False):
+    rows = {key: _unbind(slot, cfg.repeats)
+            for key, slot in params["slots"].items()}
+    remat = (cfg.remat == "full" and torch.is_grad_enabled()
+             and not build_cache)
     cache_rows: Dict[str, list] = {}
     for r in range(cfg.repeats):
-        for i, kind in enumerate(cfg.pattern):
-            key = f"slot{i}"
-            bp = tree_map(lambda a: a[r], params["slots"][key])
-            x, cache = _block_fwd(cfg, kind, bp, x, positions, build_cache)
-            if build_cache:
-                cache_rows.setdefault(key, []).append(cache)
+        layer = {key: rows[key][r] for key in rows}
+        if remat:
+            x = checkpoint(_remat_repeat, cfg, x, layer, positions,
+                           use_reentrant=False)
+            continue
+        x, caches = _repeat(cfg, layer, x, positions, build_cache)
+        for key, cache in caches.items():
+            cache_rows.setdefault(key, []).append(cache)
     caches = None
     if build_cache:
         caches = {
-            key: {name: torch.stack([row[name] for row in rows])
-                  for name in rows[0]}
-            for key, rows in cache_rows.items()
+            key: {name: torch.stack([row[name] for row in per_layer])
+                  for name in per_layer[0]}
+            for key, per_layer in cache_rows.items()
         }
     return x, caches
 
@@ -232,6 +274,27 @@ def _positions(cfg, batch: int, seq: int, device=None):
 def _logits(cfg, params, h):
     out = (h @ params["unembed"].to(h.dtype)).float()
     return soft_cap(out, cfg.final_logit_softcap)
+
+
+def train_loss(cfg, params, batch) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """batch: {"inputs": (B, S) int tokens, "labels": (B, S) int, -1 =
+    masked}. Returns (mean loss over unmasked labels, {"loss": the same,
+    detached, "tokens": their count}), both fp32."""
+    check_supported(cfg, training=True)
+    inputs, labels = batch["inputs"], batch["labels"]
+    b, s = labels.shape
+    x = _embed(cfg, params, inputs)
+    x, _ = _stack_fwd(cfg, params, x, _positions(cfg, b, s, labels.device))
+    h = rms_norm(x, params["final_norm"])
+    loss_sum, count = chunked_softmax_xent(
+        h.reshape(-1, cfg.d_model),
+        params["unembed"],
+        labels.reshape(-1),
+        chunk=cfg.loss_chunk,
+        final_softcap=cfg.final_logit_softcap,
+    )
+    loss = loss_sum / torch.clamp_min(count, 1.0)
+    return loss, {"loss": loss.detach(), "tokens": count}
 
 
 def prefill(cfg, params, inputs) -> Tuple[torch.Tensor, Any, torch.Tensor]:

@@ -1,0 +1,112 @@
+"""AdamW with a warmup-cosine schedule and global-norm clipping. Port of
+``repro.optim.adamw``.
+
+The optimizer state is a tree shaped like the parameters (``mu``,
+``nu``) plus a step ``count``. The update is the JAX version's arithmetic
+written out as tensor ops, in place on the parameters and moments (the
+JAX version builds new arrays; the values are the same). It is not
+``torch.optim.AdamW``, whose schedule and clipping differ.
+
+``grad_dtype="bfloat16"`` casts the gradients to bf16 before the norm and
+the update, as the JAX version does before its data-parallel reduction.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+__all__ = ["AdamWConfig", "init_opt_state", "adamw_update"]
+
+
+@dataclass(frozen=True)
+class AdamWConfig:
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    warmup_steps: int = 100
+    total_steps: int = 10000
+    min_lr_ratio: float = 0.1
+    grad_dtype: Optional[str] = None        # e.g. "bfloat16" (compression)
+
+
+def _map(fn, *trees):
+    if isinstance(trees[0], dict):
+        return {k: _map(fn, *(t[k] for t in trees)) for k in trees[0]}
+    return fn(*trees)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def init_opt_state(params) -> Dict[str, Any]:
+    """Zero moments shaped like ``params`` and a step count of 0 (an int32
+    scalar on the CPU: the schedule is computed on the host)."""
+    return {
+        "mu": _map(torch.zeros_like, params),
+        "nu": _map(torch.zeros_like, params),
+        "count": torch.zeros((), dtype=torch.int32),
+    }
+
+
+def _schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
+    """Learning rate at ``step`` (fp32 arithmetic, as the JAX version)."""
+    step = step.to(torch.float32)
+    warm = torch.clamp_max((step + 1) / max(1, cfg.warmup_steps), 1.0)
+    decay_steps = max(1, cfg.total_steps - cfg.warmup_steps)
+    frac = torch.clamp((step - cfg.warmup_steps) / decay_steps, 0.0, 1.0)
+    cos = 0.5 * (1 + torch.cos(math.pi * frac))
+    return cfg.lr * warm * (cfg.min_lr_ratio + (1 - cfg.min_lr_ratio) * cos)
+
+
+def _global_norm(grads) -> torch.Tensor:
+    total = None
+    for g in _leaves(grads):
+        sq = torch.sum(torch.square(g.to(torch.float32)))
+        total = sq if total is None else total + sq
+    return torch.sqrt(total)
+
+
+@torch.no_grad()
+def adamw_update(
+    cfg: AdamWConfig, params, grads, opt_state
+) -> Tuple[Any, Dict[str, Any], Dict[str, torch.Tensor]]:
+    """One AdamW step. Updates ``params`` and the moments of ``opt_state``
+    in place and returns (params, new opt state, {"grad_norm", "lr"}).
+    ``grads`` may be in another dtype than ``params`` (the bf16 gradients
+    of a bf16 forward); each is widened to fp32 leaf by leaf."""
+    if cfg.grad_dtype is not None:
+        grads = _map(lambda g: g.to(getattr(torch, cfg.grad_dtype)), grads)
+    gnorm = _global_norm(grads)
+    scale = torch.clamp_max(cfg.grad_clip / torch.clamp_min(gnorm, 1e-9), 1.0)
+    count = opt_state["count"] + 1
+    lr = _schedule(cfg, opt_state["count"])
+    b1c = 1.0 - torch.tensor(cfg.b1, dtype=torch.float32) ** count.float()
+    b2c = 1.0 - torch.tensor(cfg.b2, dtype=torch.float32) ** count.float()
+    lr_f, b1c_f, b2c_f = float(lr), float(b1c), float(b2c)
+
+    def upd(p, g, mu, nu):
+        # two fp32 temporaries of the leaf's size: g (then the denominator)
+        # and the step
+        g = g.to(torch.float32) * scale
+        mu.mul_(cfg.b1).add_(g, alpha=1 - cfg.b1)
+        nu.mul_(cfg.b2).add_(g.square_(), alpha=1 - cfg.b2)
+        denom = torch.div(nu, b2c_f, out=g).sqrt_().add_(cfg.eps)
+        step = torch.div(mu, b1c_f).div_(denom)
+        step.add_(p, alpha=cfg.weight_decay)
+        p.sub_(step, alpha=lr_f)
+
+    _map(upd, params, grads, opt_state["mu"], opt_state["nu"])
+    new_state = {"mu": opt_state["mu"], "nu": opt_state["nu"], "count": count}
+    return params, new_state, {"grad_norm": gnorm, "lr": lr}
