@@ -8,9 +8,11 @@
    forward, the flash backward, the SSD scan), timing the build and
    printing each kernel's ``ptxas -v`` registers and spills. Counts the
    HGMMA (wgmma), UTMALDG (TMA load) and HMMA (mma.sync) instructions in
-   each library's SASS (``cuobjdump -sass``) and fails unless the flash
-   forward has HGMMA and UTMALDG and no HMMA and the flash backward and
-   the SSD library have HMMA.
+   each library's SASS (``cuobjdump -sass``) and fails unless both flash
+   libraries have HGMMA and UTMALDG and no HMMA and the SSD library has
+   HMMA; fails if any ``ptxas`` log says it serialises wgmma (warning
+   C7520, a wgmma under a branch; C7512, too few registers) or a bf16
+   kernel of the flash backward spills.
 2. Kernel phases: each hand-written kernel against its plain PyTorch
    version on the card, with the tolerance of tests/test_kernels.py::_tol
    printed per row:
@@ -124,6 +126,18 @@ SWEEP += [
     (2, 256, 256, 8, 2, 32, None, None, torch.bfloat16),
     (1, 64, 64, 4, 2, 128, None, None, torch.bfloat16),
 ]
+# The edges of the bf16 backward's tiling (128-key and 128-row blocks, 64-row
+# query steps): GQA 3 across a ragged 128-key block, T - S off the 64-row
+# grid, a window inside one 128-key block with a soft-cap, one query row
+# against a ragged key tile at D 32, and S < T with a window narrower than
+# T - S, so that one 128-key block is seen by no query row.
+SWEEP += [
+    (1, 320, 320, 6, 2, 128, None, None, torch.bfloat16),
+    (1, 150, 270, 4, 2, 64, None, None, torch.bfloat16),
+    (1, 300, 300, 4, 2, 128, 96, 30.0, torch.bfloat16),
+    (1, 1, 130, 4, 4, 32, None, None, torch.bfloat16),
+    (1, 100, 400, 4, 2, 64, 64, None, torch.bfloat16),
+]
 PREFILL = (8, 1024, 1024, 24, 8, 128, None, None, torch.bfloat16)
 
 # (B, L, H, P, G, N, chunk, dtype, with_state): the rows of
@@ -207,8 +221,8 @@ def attention_work(b, s, t, h, k, d, window, dtype):
 
 
 KERNEL_NAMES = ("flash_fwd_wgmma", "flash_fwd_f32", "flash_bwd_preprocess",
-                "flash_bwd_dkdv_f32", "flash_bwd_dq_f32", "flash_bwd_dkdv",
-                "flash_bwd_dq", "ssd_chunk_state", "ssd_state_pass",
+                "flash_bwd_dkdv_f32", "flash_bwd_dq_f32", "flash_bwd_dkdv_wgmma",
+                "flash_bwd_dq_wgmma", "ssd_chunk_state", "ssd_state_pass",
                 "ssd_chunk_output", "ssd_fwd_f32")
 
 
@@ -223,6 +237,13 @@ def _kernel_label(mangled: str) -> str:
 
 def ptxas_summary(log: Path):
     """One line per kernel of a ``ptxas -v`` log: registers and spills."""
+    for label, used, spill in ptxas_kernels(log):
+        yield f"{label}: {used}; {spill}"
+
+
+def ptxas_kernels(log: Path):
+    """(kernel label, the "Used ... registers" text, the spill line) per
+    kernel of a ``ptxas -v`` log."""
     fn, spill = None, ""
     for line in log.read_text().splitlines():
         if "Compiling entry function" in line:
@@ -230,9 +251,14 @@ def ptxas_summary(log: Path):
         elif "spill stores" in line:
             spill = line.strip()
         elif "Used" in line and "registers" in line and fn:
-            yield f"{_kernel_label(fn)}: {line.split(':', 1)[1].strip()}; " \
-                  f"{spill}"
+            yield _kernel_label(fn), line.split(':', 1)[1].strip(), spill
             fn = None
+
+
+def spilled(spill_line: str) -> bool:
+    """Whether a ptxas "N bytes spill stores, M bytes spill loads" line
+    reports any spill."""
+    return any(int(n) for n in re.findall(r"(\d+) bytes spill", spill_line))
 
 
 SASS_OPS = ("HGMMA", "UTMALDG", "HMMA")
@@ -253,9 +279,10 @@ def sass_counts(lib: Path) -> dict:
 def build_kernels() -> dict:
     """Compile every kernel source of the port at once, one ``nvcc`` per
     source, load the libraries, and check from their SASS that the flash
-    forward runs wgmma and TMA and no mma.sync, and the flash backward and
-    the SSD kernels run mma.sync. Returns each kernel record's SASS
-    counts."""
+    forward and the flash backward run wgmma and TMA and no mma.sync and
+    the SSD kernels run mma.sync; that no ``ptxas`` log warns of
+    serialised wgmma (C7520 or C7512); and that the backward's bf16
+    kernels do not spill. Returns each kernel record's SASS counts."""
     from repro_torch.kernels import cuda_build
     from repro_torch.kernels.flash_attention import kernel as flash
     from repro_torch.kernels.ssd import kernel as ssd
@@ -273,8 +300,18 @@ def build_kernels() -> dict:
           f" s ({cuda_build.BUILD_DIR})")
     for source, (lib, secs) in zip(sources, built):
         print(f"[build] {source.name}: {secs:.1f} s")
-        for line in ptxas_summary(lib.with_suffix(".log")):
+        log = lib.with_suffix(".log")
+        for line in ptxas_summary(log):
             print(f"[ptxas] {line}")
+        text = log.read_text()
+        assert "C7520" not in text and "instructions are serialized" not in text, (
+            f"{source.name}: ptxas serialises wgmma:\n"
+            + "\n".join(line for line in text.splitlines() if "serializ" in line))
+    bwd_log = built[1][0].with_suffix(".log")
+    spills = [(label, spill) for label, _, spill in ptxas_kernels(bwd_log)
+              if label.startswith(("flash_bwd_dkdv_wgmma", "flash_bwd_dq_wgmma"))]
+    assert len(spills) == 6, spills      # two passes at D 32, 64 and 128
+    assert not any(spilled(s) for _, s in spills), spills
     flash.library()
     flash.backward_library()
     ssd.library()
@@ -286,7 +323,7 @@ def build_kernels() -> dict:
     f, b, s = (counts[name] for name in ("flash_attention_fwd",
                                          "flash_attention_bwd", "ssd_fwd"))
     assert f["HGMMA"] > 0 and f["UTMALDG"] > 0 and f["HMMA"] == 0, f
-    assert b["HMMA"] > 0, b
+    assert b["HGMMA"] > 0 and b["UTMALDG"] > 0 and b["HMMA"] == 0, b
     assert s["HMMA"] > 0, s
     return counts
 
@@ -531,7 +568,8 @@ def backward_phase(device: torch.device) -> dict:
         "library_ms": tr["library_ms"],
         "library": "scaled_dot_product_attention backward, "
                    + tr["library_note"],
-        "shape": "B2 S2048 T2048 H24 K8 D128 bf16 causal (three launches)",
+        "shape": "B2 S2048 T2048 H24 K8 D128 bf16 causal (three launches: "
+                 "Delta, dK/dV and dQ, both on wgmma fed by TMA)",
         "prefill_shape_ms": timings["prefill"],
     }
 

@@ -20,28 +20,53 @@
 //   dV = P^T dO,  dP = dO V^T,  dS = P o (dP - Delta) o (1 - tanh^2(x / softcap)),
 //   dQ = scale dS K,  dK = scale dS^T Q.
 // Three launches on the caller's stream, all deterministic (no atomics):
-//   1. flash_bwd_preprocess: Delta (B, H, S) fp32, one warp per row;
-//   2. flash_bwd_dkdv: one block per (b, kv head, 64-key tile); it walks
-//      the query heads of its GQA group and, for each, the 32-row query
-//      tiles that see the key tile (the causal frontier and the window
-//      bound the range, as in the forward). dK and dV of its 64 keys sum
-//      over the group in registers and are written once;
-//   3. flash_bwd_dq: one block per (b, h, 64-query tile), walking the live
-//      64-key tiles; dQ sums in registers and is written once.
+// Delta (flash_bwd_preprocess, one warp per row), then dK/dV, then dQ.
 // Masked pairs get P = 0 by selection, never by multiplying with a mask:
 // exp above the diagonal can overflow, and 0 * inf is NaN.
 //
 // What bounds it on the H100. At the training shape of llama3.2-3b (B 2,
-// S = T 2048, H 24, K 8, D 128, bf16, causal) the backward does five
-// S x T x D products over the visible pairs, about 129 GFLOP (130 us at
-// 989 TFLOP/s), against about 270 MB of inputs and outputs (80 us at
-// 3.35 TB/s): it is bound by tensor-core operations. This first design is
-// simple and right rather than fast: every product is mma.sync m16n8k16
-// bf16 with fp32 accumulation (not wgmma, which alone reaches the full
-// rate), operands from padded shared memory by ldmatrix(.trans), tiles
-// double-buffered by cp.async, four warps per block, each owning 16 keys
-// (dkdv) or 16 query rows (dq). S and dP are recomputed in both passes.
-// The fp32 path runs on the CUDA cores (never TF32).
+// S = T 2048, H 24, K 8, D 128, bf16, causal) the backward's five
+// S x T x D products over the visible pairs are about 129 GFLOP (130 us at
+// 989 TFLOP/s), against about 135 MB of inputs and outputs (40 us at
+// 3.35 TB/s): it is bound by tensor-core operations, and only wgmma reaches
+// their full rate on this card. The bf16 design follows the forward's
+// (flash_fwd_wgmma): one producer warp issues TMA loads only, through 4-D
+// tensor maps that zero-fill a ragged S or T, into 64-column panels with
+// a 128-byte swizzle (64-byte at D 32); full/empty mbarrier rings; two
+// consumer warpgroups get the producer's registers by setmaxnreg (240 a
+// consumer thread in dK/dV, 232 in dQ); masks run only on tiles that
+// cross an edge; no wgmma is issued under a branch (ptxas would serialise
+// every wgmma of the kernel, warning C7520). The two passes:
+//   * flash_bwd_dkdv_wgmma: a block per (b, kv head, 128 keys), heaviest
+//     first (the early key tiles see the most causal rows); each consumer
+//     warpgroup owns 64 keys. K and V are loaded once; the producer streams
+//     (Q, dO) tiles of 64 query rows, with those rows' LSE log2(e) and
+//     Delta, for each query head of the GQA group and each live query
+//     tile, through a three-stage ring. Per tile, S^T = K Q^T and
+//     dP^T = V dO^T are wgmma m64n64k16 from shared memory; P^T is formed
+//     in registers while dP^T is on the tensor cores, dS^T while dV is;
+//     dV += P^T dO and dK += dS^T Q are wgmma m64nDk16 with P^T and dS^T
+//     as the bf16 register operand and dO, Q read MN-major (transposed)
+//     from shared memory. dK and dV sum over the group in registers and
+//     are written once;
+//   * flash_bwd_dq_wgmma: a block per (b, h, 128 query rows), heaviest
+//     (last) first, 64 rows per consumer warpgroup. Q and dO are loaded
+//     once; K and V tiles of 128 keys stream over the live range through a
+//     two-stage ring. S = Q K^T and dP = dO V^T are wgmma m64n128k16, P is
+//     formed while dP is on the tensor cores, and dQ += dS K is wgmma
+//     m64nDk16 with K read MN-major. dQ is written once.
+// What still separates it from the bound: S and dP are computed in both
+// passes (seven products where five are counted; one pass would need a
+// deterministic sum of dQ across key tiles); within a warpgroup a tile's
+// products wait for its elementwise work, so only the other warpgroup's
+// products overlap it (issuing the next tile's S and dP before the last
+// product of this one needs more registers than a consumer has: ptxas
+// then serialises the wgmma, C7512, and both passes ran slower); the two
+// warpgroups are not scheduled in ping-pong; a block is not persistent,
+// so each pays its own prologue; outputs are stored from registers, not
+// by TMA.
+//
+// The fp32 path runs on the CUDA cores (never TF32), off the training path.
 
 #include <math.h>
 #include <stdint.h>
@@ -116,287 +141,484 @@ __global__ void __launch_bounds__(256) flash_bwd_preprocess(Params p) {
   }
 }
 
-// ---- bf16: mma.sync m16n8k16 -------------------------------------------------
+// ---- bf16: wgmma + TMA, warp-specialised ------------------------------------
 
-constexpr int kPad = 8;   // bf16 row padding: ldmatrix rows land in distinct banks
+constexpr int kWgThreads = 384;    // consumer warpgroups 0 and 1, producer 2
+// setmaxnreg moves registers from the producer's warpgroup to the two
+// consumer warpgroups (producer + 2 consumers = 64512 a block). Both passes
+// hold 192 fp32 accumulators a consumer thread at D 128; with 240 ptxas
+// spills one register of the dQ consumer at D 64, with 232 none, and the
+// dK/dV consumer spills at 232 (PERF.md).
+constexpr int kDkdvProducerRegs = 24;
+constexpr int kDkdvConsumerRegs = 240;
+constexpr int kDqProducerRegs = 40;
+constexpr int kDqConsumerRegs = 232;
+constexpr int kKeys = 128;         // dkdv: keys per block, 64 per warpgroup
+constexpr int kQTile = 64;         // dkdv: query rows per step
+constexpr int kDkdvStages = 3;     // dkdv: (Q, dO, LSE, Delta) ring depth
+constexpr int kRows = 128;         // dq: query rows per block, 64 per warpgroup
+constexpr int kKTile = 128;        // dq: keys per step
+constexpr int kDqStages = 2;       // dq: (K, V) ring depth
+static_assert(kKeys == kKTile, "both passes read K and V through one tensor map");
 
-// rows x D bf16 tile from global (row stride `stride` elements) into shared
-// memory with rows of D + kPad, by cp.async; rows >= valid are zero-filled.
+// A tile of `rows` rows of D bf16 is stored as D / PANEL panels of `rows`
+// rows of PANEL elements, one swizzle row each (128 bytes, or 64 at D 32).
 template <int D>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, size_t stride, int rows,
-                                          int valid) {
-  constexpr int CH = D / 8;   // 16-byte chunks per row
-  for (int i = threadIdx.x; i < rows * CH; i += blockDim.x) {
-    const int r = i / CH, c = (i % CH) * 8;
-    const bool in = r < valid;
-    cp_async_16(dst + r * (D + kPad) + c, in ? src + (size_t)r * stride + c : src, in ? 16 : 0);
-  }
-}
+struct Panels {
+  static constexpr int PANEL = D < 64 ? D : 64;
+  static constexpr int SWIZZLE = PANEL == 64 ? 1 : 2;   // wgmma code: 128 B, 64 B
+  static constexpr int ROW = PANEL * 2;                 // bytes
+};
 
-// acc (16 x 8 n-tiles of NT) += A (16 rows at `a` of the warp, all D columns)
-// times B^T, B being NT * 8 rows at `b`: both tiles row-major with rows of
-// D + kPad, so A is read by ldmatrix and B (n-rows, k contiguous) by
-// ldmatrix as the column-major operand.
-template <int D, int NT>
-__device__ __forceinline__ void mma_abt(float (&acc)[NT][4], const bf16* a, const bf16* b,
-                                        int lane) {
-  constexpr int LD = D + kPad;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t af[4];
-    ldmatrix_x4(af, a + (lane % 8 + ((lane / 8) % 2) * 8) * LD + kk * 16 + (lane / 16) * 8);
-#pragma unroll
-    for (int np = 0; np < NT / 2; ++np) {
-      uint32_t bfr[4];
-      ldmatrix_x4(bfr, b + (np * 16 + lane % 8 + (lane / 16) * 8) * LD + kk * 16 +
-                           ((lane / 8) % 2) * 8);
-      mma_16816(acc[2 * np], af, bfr[0], bfr[1]);
-      mma_16816(acc[2 * np + 1], af, bfr[2], bfr[3]);
-    }
-  }
-}
-
-// acc (16 x D) += A B, A (16 x 16 KT) given as accumulator fragments of n-tiles
-// (fp32, rounded to bf16 here), B (16 KT x D) row-major at `b` with rows of
-// D + kPad, read by ldmatrix.trans.
-template <int D, int KT>
-__device__ __forceinline__ void mma_ab(float (&acc)[D / 8][4], const float (&a)[2 * KT][4],
-                                       const bf16* b, int lane) {
-  constexpr int LD = D + kPad;
-#pragma unroll
-  for (int kt = 0; kt < KT; ++kt) {
-    const uint32_t af[4] = {pack_bf16x2(a[2 * kt][0], a[2 * kt][1]),
-                            pack_bf16x2(a[2 * kt][2], a[2 * kt][3]),
-                            pack_bf16x2(a[2 * kt + 1][0], a[2 * kt + 1][1]),
-                            pack_bf16x2(a[2 * kt + 1][2], a[2 * kt + 1][3])};
-#pragma unroll
-    for (int nd = 0; nd < D / 16; ++nd) {
-      uint32_t bfr[4];
-      ldmatrix_x4_trans(bfr, b + (kt * 16 + lane % 8 + ((lane / 8) % 2) * 8) * LD + nd * 16 +
-                                 (lane / 16) * 8);
-      mma_16816(acc[2 * nd], af, bfr[0], bfr[1]);
-      mma_16816(acc[2 * nd + 1], af, bfr[2], bfr[3]);
-    }
-  }
-}
-
-// Stores a warp's 16 x D fp32 accumulator (times `mul`) as bf16 rows
-// row_lo, row_lo + 8 of `out` (row stride `stride`), rows >= limit dropped.
+// wgmma descriptor of a K-major operand: rows row0.. of a tile of `rows`
+// rows at `tile`, columns 16 kk .. 16 kk + 15.
 template <int D>
-__device__ __forceinline__ void store_rows(bf16* out, size_t stride, const float (&acc)[D / 8][4],
-                                           int row_lo, int limit, float mul, int lane) {
-  const int c2 = (lane % 4) * 2;
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-    if (row_lo < limit)
-      *reinterpret_cast<uint32_t*>(out + (size_t)row_lo * stride + j * 8 + c2) =
-          pack_bf16x2(acc[j][0] * mul, acc[j][1] * mul);
-    if (row_lo + 8 < limit)
-      *reinterpret_cast<uint32_t*>(out + (size_t)(row_lo + 8) * stride + j * 8 + c2) =
-          pack_bf16x2(acc[j][2] * mul, acc[j][3] * mul);
-  }
+__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int rows, int row0, int kk) {
+  using L = Panels<D>;
+  return wgmma_desc(tile + (kk * 16 / L::PANEL) * rows * L::ROW + row0 * L::ROW +
+                        (kk * 16 % L::PANEL) * 2,
+                    16, 8 * L::ROW, L::SWIZZLE);
 }
 
-constexpr int kKeys = 64;      // dkdv: keys per block, 16 per warp
-constexpr int kQTile = 32;     // dkdv: query rows per step
-constexpr int kRows = 64;      // dq: query rows per block, 16 per warp
-constexpr int kKTile = 64;     // dq: keys per step
+// wgmma descriptor of an MN-major (transposed) operand: rows 16 kk ..
+// 16 kk + 15 of a tile of `rows` rows, all D columns; LBO steps across
+// panels (along D), SBO across groups of 8 rows.
+template <int D>
+__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int rows, int kk) {
+  using L = Panels<D>;
+  return wgmma_desc(tile + kk * 16 * L::ROW, rows * L::ROW, 8 * L::ROW, L::SWIZZLE);
+}
+
+// TMA: `rows` rows of one head from row0, all D columns, into `dst` as panels.
+template <int D>
+__device__ __forceinline__ void load_tile(unsigned char* dst, const CUtensorMap* map,
+                                          uint64_t* bar, int rows, int head, int row0, int b) {
+  using L = Panels<D>;
+#pragma unroll
+  for (int pn = 0; pn < D / L::PANEL; ++pn)
+    tma_load_4d(dst + pn * rows * L::ROW, map, bar, pn * L::PANEL, head, row0, b);
+}
+
+__device__ __forceinline__ unsigned char* align_1024(unsigned char* raw) {
+  return raw + ((1024u - (smem_addr(raw) & 1023u)) & 1023u);
+}
+
+// The softmax constants of a consumer: a base-2 logit is x * mult for the
+// raw product x (mult = scale log2(e)) or, with a soft-cap, th * cap_out
+// for th = tanh(x * cap_in) (cap_in = scale / softcap, cap_out = softcap
+// log2(e)), whose dcap is 1 - th^2.
+struct Logits {
+  bool softcap;
+  float mult, cap_in, cap_out;
+  __device__ explicit Logits(const Params& p)
+      : softcap(p.softcap > 0.f), mult(p.scale * kLog2e), cap_in(p.scale / p.softcap),
+        cap_out(p.softcap * kLog2e) {}
+  // P = 2^(logit - lse2) of one raw product x, and dcap.
+  __device__ __forceinline__ float prob(float x, float lse2, float& dcap) const {
+    if (softcap) {
+      const float th = tanhf(x * cap_in);
+      dcap = fmaf(-th, th, 1.f);
+      return ex2_approx(fmaf(th, cap_out, -lse2));
+    }
+    dcap = 1.f;
+    return ex2_approx(fmaf(x, mult, -lse2));
+  }
+};
+
+// Whether a warpgroup's tile (rows r0 .. r0 + nr - 1, keys t0 .. t0 + nt - 1)
+// crosses an edge: a ragged S or T, the causal diagonal or the window.
+__device__ __forceinline__ bool edge_tile(const Params& p, int r0, int nr, int t0, int nt) {
+  const int shift = p.T - p.S;
+  return t0 + nt > p.T || r0 + nr > p.S ||
+         (p.causal && (t0 + nt - 1 > r0 + shift ||
+                       (p.window > 0 && t0 <= r0 + nr - 1 + shift - p.window)));
+}
+
+// ---- 2. dK, dV ----------------------------------------------------------------
 
 template <int D>
 struct DkdvLayout {
-  static constexpr int LD = D + kPad;
-  static constexpr int KV = kKeys * LD;          // elements of the K (or V) tile
-  static constexpr int QT = kQTile * LD;         // elements of a Q (or dO) tile
-  static constexpr int BYTES = (2 * KV + 2 * 2 * QT) * 2 + 2 * 2 * kQTile * 4;
+  static constexpr int KV_BYTES = kKeys * D * 2;
+  static constexpr int QT_BYTES = kQTile * D * 2;
+  static constexpr int K_OFF = 0;
+  static constexpr int V_OFF = KV_BYTES;
+  static constexpr int Q_OFF = 2 * KV_BYTES;                         // [stage] Q tile
+  static constexpr int DO_OFF = Q_OFF + kDkdvStages * QT_BYTES;      // [stage] dO tile
+  static constexpr int LSE_OFF = DO_OFF + kDkdvStages * QT_BYTES;    // [stage][kQTile] lse log2(e)
+  static constexpr int DL_OFF = LSE_OFF + kDkdvStages * kQTile * 4;  // [stage][kQTile] Delta
+  static constexpr int BAR_OFF = DL_OFF + kDkdvStages * kQTile * 4;
+  static constexpr int BYTES = BAR_OFF + (1 + 2 * kDkdvStages) * 8;
+  static constexpr int LAUNCH_BYTES = BYTES + 1024;   // room to align the base
+  static_assert(LAUNCH_BYTES <= 232448, "over the 227 KB a block may use");
 };
 
-// 2. dK, dV of 64 keys of one (b, kv head), summed over the GQA group.
-template <int D>
-__global__ void __launch_bounds__(128) flash_bwd_dkdv(Params p) {
-  using Lay = DkdvLayout<D>;
-  constexpr int LD = Lay::LD;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* ks = reinterpret_cast<bf16*>(smem_raw);
-  bf16* vs = ks + Lay::KV;
-  bf16* qs = vs + Lay::KV;            // [stage][kQTile][LD]
-  bf16* gs = qs + 2 * Lay::QT;        // dO, the same
-  float* lse_s = reinterpret_cast<float*>(gs + 2 * Lay::QT);   // [stage][kQTile], times log2(e)
-  float* dl_s = lse_s + 2 * kQTile;                            // [stage][kQTile]
-
-  const int t0 = blockIdx.x * kKeys, kh = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int group = p.H / p.K;
-  const size_t q_stride = (size_t)p.H * D, kv_stride = (size_t)p.K * D;
-  const int t1 = min(p.T, t0 + kKeys);
-  int r_begin, r_end;
-  query_range(p, t0, t1, kQTile, r_begin, r_end);
-  const int n_q = r_end > r_begin ? (r_end - r_begin + kQTile - 1) / kQTile : 0;
-  const int n_items = n_q * group;
-
-  const size_t kv_off = ((size_t)b * p.T + t0) * kv_stride + (size_t)kh * D;
-  load_tile<D>(ks, static_cast<const bf16*>(p.k) + kv_off, kv_stride, kKeys, t1 - t0);
-  load_tile<D>(vs, static_cast<const bf16*>(p.v) + kv_off, kv_stride, kKeys, t1 - t0);
-
-  // item i: query head kh * group + i / n_q, query tile r_begin + (i % n_q) * kQTile
-  auto prefetch = [&](int i) {
-    const int st = i % 2, h = kh * group + i / n_q, r0 = r_begin + (i % n_q) * kQTile;
-    const size_t off = ((size_t)b * p.S + r0) * q_stride + (size_t)h * D;
-    const int valid = min(kQTile, p.S - r0);
-    load_tile<D>(qs + st * Lay::QT, static_cast<const bf16*>(p.q) + off, q_stride, kQTile, valid);
-    load_tile<D>(gs + st * Lay::QT, static_cast<const bf16*>(p.dout) + off, q_stride, kQTile,
-                 valid);
-    for (int r = threadIdx.x; r < kQTile; r += blockDim.x) {
-      const size_t row = ((size_t)b * p.H + h) * p.S + r0 + r;
-      const bool in = r0 + r < p.S;
-      lse_s[st * kQTile + r] = in ? p.lse[row] * kLog2e : 0.f;
-      dl_s[st * kQTile + r] = in ? p.delta[row] : 0.f;
-    }
-  };
-  if (n_items > 0) prefetch(0);
-  cp_async_commit();
-
-  float dk[D / 8][4], dv[D / 8][4];
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
-
-  const int key_lo = t0 + 16 * warp + lane / 4, c2 = (lane % 4) * 2;
-  const bf16* kw = ks + 16 * warp * LD;
-  const bf16* vw = vs + 16 * warp * LD;
-  for (int i = 0; i < n_items; ++i) {
-    if (i + 1 < n_items) prefetch(i + 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const int st = i % 2, r0 = r_begin + (i % n_q) * kQTile;
-    const bf16* qt = qs + st * Lay::QT;
-    const bf16* gt = gs + st * Lay::QT;
-
-    // S^T and dP^T for the warp's 16 keys x 32 queries
-    float s[kQTile / 8][4], dp[kQTile / 8][4];
-#pragma unroll
-    for (int n = 0; n < kQTile / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-    mma_abt<D, kQTile / 8>(s, kw, qt, lane);
-    mma_abt<D, kQTile / 8>(dp, vw, gt, lane);
-    // P^T (kept in dp's place) and dS^T (in s's place)
-#pragma unroll
-    for (int n = 0; n < kQTile / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = e < 2 ? key_lo : key_lo + 8, rl = n * 8 + c2 + (e & 1);
-        float dcap;
-        const float sc = score(p, s[n][e], dcap);
-        const float pe = visible(p, r0 + rl, key)
-                             ? ex2_approx(fmaf(sc, kLog2e, -lse_s[st * kQTile + rl]))
-                             : 0.f;
-        s[n][e] = pe * (dp[n][e] - dl_s[st * kQTile + rl]) * dcap;
-        dp[n][e] = pe;
-      }
-    mma_ab<D, kQTile / 16>(dv, dp, gt, lane);   // dV += P^T dO
-    mma_ab<D, kQTile / 16>(dk, s, qt, lane);    // dK += dS^T Q
-    __syncthreads();   // the stage is refilled by item i + 2's loads
+// One block's work: 128 keys of one (b, kv head). Blocks are numbered
+// heaviest first: key tile 0 of every (b, kv head), then tile 1, ...
+struct DkdvWork {
+  int t0, kh, b, r_begin, n_q, n_steps;
+  __device__ explicit DkdvWork(const Params& p) {
+    const int kb = blockIdx.x % (p.K * p.B);
+    t0 = blockIdx.x / (p.K * p.B) * kKeys;
+    kh = kb % p.K;
+    b = kb / p.K;
+    int r_end;
+    query_range(p, t0, min(p.T, t0 + kKeys), kQTile, r_begin, r_end);
+    n_q = r_end > r_begin ? (r_end - r_begin + kQTile - 1) / kQTile : 0;
+    n_steps = n_q * (p.H / p.K);   // step i: head kh * group + i / n_q, tile i % n_q
   }
-  cp_async_wait<0>();
+};
 
-  const size_t out_off = ((size_t)b * p.T) * kv_stride + (size_t)kh * D;
-  store_rows<D>(static_cast<bf16*>(p.dk) + out_off, kv_stride, dk, key_lo, p.T, p.scale, lane);
-  store_rows<D>(static_cast<bf16*>(p.dv) + out_off, kv_stride, dv, key_lo, p.T, 1.f, lane);
+template <int D>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tm_q,
+                         const __grid_constant__ CUtensorMap tm_do,
+                         const __grid_constant__ CUtensorMap tm_k,
+                         const __grid_constant__ CUtensorMap tm_v, Params p) {
+  using Lay = DkdvLayout<D>;
+  extern __shared__ __align__(1024) unsigned char smem_tiles[];
+  unsigned char* base = align_1024(smem_tiles);
+  float* lse_s = reinterpret_cast<float*>(base + Lay::LSE_OFF);
+  float* dl_s = reinterpret_cast<float*>(base + Lay::DL_OFF);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(base + Lay::BAR_OFF);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + kDkdvStages;
+  const DkdvWork w(p);
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < kDkdvStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);     // lane 0 of each consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128, warp = threadIdx.x % 128 / 32, lane = threadIdx.x % 32;
+  if (wg == 2) {
+    // ---- producer warp: its lanes copy LSE and Delta, lane 0 issues TMA ----
+    setmaxnreg_dec<kDkdvProducerRegs>();
+    if (warp == 0 && w.n_steps > 0) {
+      if (lane == 0) {
+        mbar_arrive_expect_tx(kv_full, 2 * Lay::KV_BYTES);
+        load_tile<D>(base + Lay::K_OFF, &tm_k, kv_full, kKeys, w.kh, w.t0, w.b);
+        load_tile<D>(base + Lay::V_OFF, &tm_v, kv_full, kKeys, w.kh, w.t0, w.b);
+      }
+      int h = w.kh * (p.H / p.K), qi = 0;
+#pragma unroll 1   // unrolled, the loop spills the producer's 24 registers
+      for (int i = 0; i < w.n_steps; ++i) {
+        const int stage = i % kDkdvStages, r0 = w.r_begin + qi * kQTile;
+        mbar_wait(&empty[stage], ((i / kDkdvStages) & 1) ^ 1);
+        for (int r = lane; r < kQTile; r += 32) {
+          const bool in = r0 + r < p.S;
+          const size_t row = ((size_t)w.b * p.H + h) * p.S + r0 + r;
+          lse_s[stage * kQTile + r] = in ? p.lse[row] * kLog2e : 0.f;
+          dl_s[stage * kQTile + r] = in ? p.delta[row] : 0.f;
+        }
+        __syncwarp();   // the lanes' stores before lane 0's arrive
+        if (lane == 0) {
+          mbar_arrive_expect_tx(&full[stage], 2 * Lay::QT_BYTES);
+          load_tile<D>(base + Lay::Q_OFF + stage * Lay::QT_BYTES, &tm_q, &full[stage], kQTile,
+                       h, r0, w.b);
+          load_tile<D>(base + Lay::DO_OFF + stage * Lay::QT_BYTES, &tm_do, &full[stage],
+                       kQTile, h, r0, w.b);
+        }
+        if (++qi == w.n_q) {
+          qi = 0;
+          ++h;
+        }
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup wg owns keys t0 + 64 wg .. + 63 ----
+    setmaxnreg_inc<kDkdvConsumerRegs>();
+    const Logits lg(p);
+    const int c2 = (lane % 4) * 2;
+    const int k0 = w.t0 + 64 * wg, key_lo = k0 + 16 * warp + lane / 4;
+    const uint32_t k_addr = smem_addr(base + Lay::K_OFF);
+    const uint32_t v_addr = smem_addr(base + Lay::V_OFF);
+
+    float dk[D / 2], dv[D / 2];
+#pragma unroll
+    for (int j = 0; j < D / 2; ++j) dk[j] = dv[j] = 0.f;
+
+    if (w.n_steps > 0) mbar_wait(kv_full, 0);
+    int qi = 0;
+    for (int i = 0; i < w.n_steps; ++i) {
+      const int stage = i % kDkdvStages, r0 = w.r_begin + qi * kQTile;
+      if (++qi == w.n_q) qi = 0;
+      const uint32_t q_addr = smem_addr(base + Lay::Q_OFF + stage * Lay::QT_BYTES);
+      const uint32_t do_addr = smem_addr(base + Lay::DO_OFF + stage * Lay::QT_BYTES);
+      const float* lse_t = lse_s + stage * kQTile;
+      const float* dl_t = dl_s + stage * kQTile;
+      mbar_wait(&full[stage], (i / kDkdvStages) & 1);
+
+      // S^T = K Q^T, then dP^T = V dO^T: 64 keys x 64 query rows each
+      float s[kQTile / 2], dp[kQTile / 2];
+      fence_regs(s);
+      fence_regs(dp);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        Wgmma<kQTile>::ss(s, desc_k<D>(k_addr, kKeys, 64 * wg, kk),
+                          desc_k<D>(q_addr, kQTile, 0, kk), kk > 0);
+      wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        Wgmma<kQTile>::ss(dp, desc_k<D>(v_addr, kKeys, 64 * wg, kk),
+                          desc_k<D>(do_addr, kQTile, 0, kk), kk > 0);
+      wgmma_commit();
+      wgmma_wait<1>();   // S^T is done; dP^T is still on the tensor cores
+      fence_regs(s);
+
+      // P^T (bf16, the A operand of dV) and P^T dcap in place of S^T.
+      // Element 4 jj + e: key key_lo (e < 2) or key_lo + 8, query row
+      // r0 + 8 jj + c2 + (e & 1); pair (j, j + 1) is A register
+      // [j / 8][(j % 8) / 2] of the m16n8k16 layout.
+      const bool edge = edge_tile(p, r0, kQTile, k0, 64);
+      uint32_t pa[kQTile / 16][4];
+#pragma unroll
+      for (int j = 0; j < kQTile / 2; j += 2) {
+        const int col = 8 * (j / 4) + c2, key = j % 4 ? key_lo + 8 : key_lo;
+        const float2 l2 = *reinterpret_cast<const float2*>(lse_t + col);
+        float d0, d1;
+        float p0 = lg.prob(s[j], l2.x, d0), p1 = lg.prob(s[j + 1], l2.y, d1);
+        if (edge) {
+          if (!visible(p, r0 + col, key)) p0 = 0.f;
+          if (!visible(p, r0 + col + 1, key)) p1 = 0.f;
+        }
+        pa[j / 8][(j % 8) / 2] = pack_bf16x2(p0, p1);
+        s[j] = p0 * d0;
+        s[j + 1] = p1 * d1;
+      }
+
+      // dV += P^T dO (dO transposed from shared memory)
+      fence_regs(dv);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kQTile / 16; ++kk)
+        Wgmma<D>::rs_trans_b(dv, pa[kk], desc_mn<D>(do_addr, kQTile, kk), 1);
+      wgmma_commit();
+      wgmma_wait<1>();   // dP^T is done; dV is still on the tensor cores
+      fence_regs(dp);
+
+      // dS^T = P^T dcap (dP^T - Delta), bf16
+      uint32_t da[kQTile / 16][4];
+#pragma unroll
+      for (int j = 0; j < kQTile / 2; j += 2) {
+        const float2 d2 = *reinterpret_cast<const float2*>(dl_t + 8 * (j / 4) + c2);
+        da[j / 8][(j % 8) / 2] = pack_bf16x2(s[j] * (dp[j] - d2.x), s[j + 1] * (dp[j + 1] - d2.y));
+      }
+
+      // dK += dS^T Q (Q transposed from shared memory)
+      fence_regs(dk);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kQTile / 16; ++kk)
+        Wgmma<D>::rs_trans_b(dk, da[kk], desc_mn<D>(q_addr, kQTile, kk), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dv);
+      fence_regs(dk);
+      fence_regs(pa);
+      fence_regs(da);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[stage]);
+    }
+
+    // after the last wgmma, and under no branch that encloses one
+    const size_t kv_stride = (size_t)p.K * D;
+    bf16* dkb = static_cast<bf16*>(p.dk) + ((size_t)w.b * p.T * p.K + w.kh) * D;
+    bf16* dvb = static_cast<bf16*>(p.dv) + ((size_t)w.b * p.T * p.K + w.kh) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+#pragma unroll
+      for (int hi = 0; hi < 2; ++hi) {
+        const int key = key_lo + 8 * hi;
+        if (key < p.T) {
+          const size_t at = (size_t)key * kv_stride + j * 8 + c2;
+          *reinterpret_cast<uint32_t*>(dkb + at) =
+              pack_bf16x2(dk[4 * j + 2 * hi] * p.scale, dk[4 * j + 2 * hi + 1] * p.scale);
+          *reinterpret_cast<uint32_t*>(dvb + at) =
+              pack_bf16x2(dv[4 * j + 2 * hi], dv[4 * j + 2 * hi + 1]);
+        }
+      }
+    }
+  }
 }
+
+// ---- 3. dQ --------------------------------------------------------------------
 
 template <int D>
 struct DqLayout {
-  static constexpr int LD = D + kPad;
-  static constexpr int QT = kRows * LD;    // the Q (or dO) tile
-  static constexpr int KT = kKTile * LD;   // a K (or V) tile
-  static constexpr int BYTES = (2 * QT + 2 * 2 * KT) * 2;
+  static constexpr int Q_BYTES = kRows * D * 2;
+  static constexpr int KV_BYTES = kKTile * D * 2;
+  static constexpr int Q_OFF = 0;
+  static constexpr int DO_OFF = Q_BYTES;
+  static constexpr int K_OFF = 2 * Q_BYTES;                      // [stage] K tile
+  static constexpr int V_OFF = K_OFF + kDqStages * KV_BYTES;     // [stage] V tile
+  static constexpr int BAR_OFF = V_OFF + kDqStages * KV_BYTES;
+  static constexpr int BYTES = BAR_OFF + (1 + 2 * kDqStages) * 8;
+  static constexpr int LAUNCH_BYTES = BYTES + 1024;   // room to align the base
+  static_assert(LAUNCH_BYTES <= 232448, "over the 227 KB a block may use");
 };
 
-// 3. dQ of 64 query rows of one (b, h).
+// One block's work: 128 query rows of one (b, h). Blocks are numbered
+// heaviest first: the last query tile of every (b, h), then the one
+// before, ...
+struct DqWork {
+  int q0, h, b, t_begin, n_tiles;
+  __device__ explicit DqWork(const Params& p) {
+    const int nq = (p.S + kRows - 1) / kRows, hb = blockIdx.x % (p.H * p.B);
+    q0 = (nq - 1 - blockIdx.x / (p.H * p.B)) * kRows;
+    h = hb % p.H;
+    b = hb / p.H;
+    int t_end;
+    key_range(p, q0, min(q0 + kRows, p.S), kKTile, t_begin, t_end);
+    n_tiles = t_end > t_begin ? (t_end - t_begin + kKTile - 1) / kKTile : 0;
+  }
+};
+
 template <int D>
-__global__ void __launch_bounds__(128) flash_bwd_dq(Params p) {
+__global__ void __launch_bounds__(kWgThreads, 1)
+    flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
+                       const __grid_constant__ CUtensorMap tm_do,
+                       const __grid_constant__ CUtensorMap tm_k,
+                       const __grid_constant__ CUtensorMap tm_v, Params p) {
   using Lay = DqLayout<D>;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* gs = qs + Lay::QT;
-  bf16* ks = gs + Lay::QT;          // [stage][kKTile][LD]
-  bf16* vs = ks + 2 * Lay::KT;      // the same
+  extern __shared__ __align__(1024) unsigned char smem_tiles[];
+  unsigned char* base = align_1024(smem_tiles);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(base + Lay::BAR_OFF);
+  uint64_t* kv_full = q_full + 1;
+  uint64_t* kv_empty = kv_full + kDqStages;
+  const DqWork w(p);
 
-  const int q0 = blockIdx.x * kRows, h = blockIdx.y, b = blockIdx.z;
-  const int kh = h / (p.H / p.K);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const size_t q_stride = (size_t)p.H * D, kv_stride = (size_t)p.K * D;
-  int t_begin, t_end;
-  key_range(p, q0, min(q0 + kRows, p.S), kKTile, t_begin, t_end);
-  const int n_tiles = t_end > t_begin ? (t_end - t_begin + kKTile - 1) / kKTile : 0;
-
-  const size_t q_off = ((size_t)b * p.S + q0) * q_stride + (size_t)h * D;
-  load_tile<D>(qs, static_cast<const bf16*>(p.q) + q_off, q_stride, kRows, p.S - q0);
-  load_tile<D>(gs, static_cast<const bf16*>(p.dout) + q_off, q_stride, kRows, p.S - q0);
-  auto prefetch = [&](int i) {
-    const int st = i % 2, t0 = t_begin + i * kKTile;
-    const size_t off = ((size_t)b * p.T + t0) * kv_stride + (size_t)kh * D;
-    load_tile<D>(ks + st * Lay::KT, static_cast<const bf16*>(p.k) + off, kv_stride, kKTile,
-                 p.T - t0);
-    load_tile<D>(vs + st * Lay::KT, static_cast<const bf16*>(p.v) + off, kv_stride, kKTile,
-                 p.T - t0);
-  };
-  if (n_tiles > 0) prefetch(0);
-  cp_async_commit();
-
-  const int row_lo = q0 + 16 * warp + lane / 4, c2 = (lane % 4) * 2;
-  float lse2[2], dl[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row_lo + 8 * r;
-    const size_t idx = ((size_t)b * p.H + h) * p.S + row;
-    lse2[r] = row < p.S ? p.lse[idx] * kLog2e : 0.f;
-    dl[r] = row < p.S ? p.delta[idx] : 0.f;
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kDqStages; ++s) {
+      mbar_init(&kv_full[s], 1);
+      mbar_init(&kv_empty[s], 8);   // lane 0 of each consumer warp
+    }
+    mbar_fence_init();
   }
-  float dq[D / 8][4];
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dq[j][e] = 0.f;
+  __syncthreads();
 
-  const bf16* qw = qs + 16 * warp * Lay::LD;
-  const bf16* gw = gs + 16 * warp * Lay::LD;
-  for (int i = 0; i < n_tiles; ++i) {
-    if (i + 1 < n_tiles) prefetch(i + 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const int st = i % 2, t0 = t_begin + i * kKTile;
-    const bf16* kt = ks + st * Lay::KT;
-    const bf16* vt = vs + st * Lay::KT;
-
-    float s[kKTile / 8][4], dp[kKTile / 8][4];
-#pragma unroll
-    for (int n = 0; n < kKTile / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-    mma_abt<D, kKTile / 8>(s, qw, kt, lane);    // S = Q K^T
-    mma_abt<D, kKTile / 8>(dp, gw, vt, lane);   // dP = dO V^T
-#pragma unroll
-    for (int n = 0; n < kKTile / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1, key = t0 + n * 8 + c2 + (e & 1);
-        float dcap;
-        const float sc = score(p, s[n][e], dcap);
-        const float pe = visible(p, row_lo + 8 * r, key) ? ex2_approx(fmaf(sc, kLog2e, -lse2[r]))
-                                                         : 0.f;
-        s[n][e] = pe * (dp[n][e] - dl[r]) * dcap;   // dS
+  const int wg = threadIdx.x / 128, warp = threadIdx.x % 128 / 32, lane = threadIdx.x % 32;
+  if (wg == 2) {
+    // ---- producer: one thread issues every load ----
+    setmaxnreg_dec<kDqProducerRegs>();
+    if (threadIdx.x == 256) {
+      const int kh = w.h / (p.H / p.K);
+      mbar_arrive_expect_tx(q_full, 2 * Lay::Q_BYTES);
+      load_tile<D>(base + Lay::Q_OFF, &tm_q, q_full, kRows, w.h, w.q0, w.b);
+      load_tile<D>(base + Lay::DO_OFF, &tm_do, q_full, kRows, w.h, w.q0, w.b);
+#pragma unroll 1   // unrolled, the loop spills the producer's registers
+      for (int i = 0; i < w.n_tiles; ++i) {
+        const int stage = i % kDqStages, t0 = w.t_begin + i * kKTile;
+        mbar_wait(&kv_empty[stage], ((i / kDqStages) & 1) ^ 1);
+        mbar_arrive_expect_tx(&kv_full[stage], 2 * Lay::KV_BYTES);
+        load_tile<D>(base + Lay::K_OFF + stage * Lay::KV_BYTES, &tm_k, &kv_full[stage], kKTile,
+                     kh, t0, w.b);
+        load_tile<D>(base + Lay::V_OFF + stage * Lay::KV_BYTES, &tm_v, &kv_full[stage], kKTile,
+                     kh, t0, w.b);
       }
-    mma_ab<D, kKTile / 16>(dq, s, kt, lane);   // dQ += dS K
-    __syncthreads();
-  }
-  cp_async_wait<0>();
+    }
+  } else {
+    // ---- consumers: warpgroup wg owns query rows q0 + 64 wg .. + 63 ----
+    setmaxnreg_inc<kDqConsumerRegs>();
+    const Logits lg(p);
+    const int c2 = (lane % 4) * 2;
+    const int r0 = w.q0 + 64 * wg, row_lo = r0 + 16 * warp + lane / 4;
+    const uint32_t q_addr = smem_addr(base + Lay::Q_OFF);
+    const uint32_t do_addr = smem_addr(base + Lay::DO_OFF);
+    float lse2[2], dl[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row_lo + 8 * r;
+      const size_t idx = ((size_t)w.b * p.H + w.h) * p.S + row;
+      lse2[r] = row < p.S ? p.lse[idx] * kLog2e : 0.f;
+      dl[r] = row < p.S ? p.delta[idx] : 0.f;
+    }
+    float dq[D / 2];
+#pragma unroll
+    for (int j = 0; j < D / 2; ++j) dq[j] = 0.f;
 
-  store_rows<D>(static_cast<bf16*>(p.dq) + ((size_t)b * p.S) * q_stride + (size_t)h * D, q_stride,
-                dq, row_lo, p.S, p.scale, lane);
+    mbar_wait(q_full, 0);
+    for (int i = 0; i < w.n_tiles; ++i) {
+      const int stage = i % kDqStages, t0 = w.t_begin + i * kKTile;
+      const uint32_t k_addr = smem_addr(base + Lay::K_OFF + stage * Lay::KV_BYTES);
+      const uint32_t v_addr = smem_addr(base + Lay::V_OFF + stage * Lay::KV_BYTES);
+      mbar_wait(&kv_full[stage], (i / kDqStages) & 1);
+
+      // S = Q K^T, then dP = dO V^T: 64 rows x 128 keys each
+      float s[kKTile / 2], dp[kKTile / 2];
+      fence_regs(s);
+      fence_regs(dp);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        Wgmma<kKTile>::ss(s, desc_k<D>(q_addr, kRows, 64 * wg, kk),
+                          desc_k<D>(k_addr, kKTile, 0, kk), kk > 0);
+      wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        Wgmma<kKTile>::ss(dp, desc_k<D>(do_addr, kRows, 64 * wg, kk),
+                          desc_k<D>(v_addr, kKTile, 0, kk), kk > 0);
+      wgmma_commit();
+      wgmma_wait<1>();   // S is done; dP is still on the tensor cores
+      fence_regs(s);
+
+      // P dcap in place of S. Element 4 jj + e: row row_lo (e < 2) or
+      // row_lo + 8, key t0 + 8 jj + c2 + (e & 1).
+      const bool edge = edge_tile(p, r0, 64, t0, kKTile);
+#pragma unroll
+      for (int j = 0; j < kKTile / 2; ++j) {
+        const int hi = (j / 2) & 1;
+        float dcap;
+        float pe = lg.prob(s[j], lse2[hi], dcap);
+        if (edge && !visible(p, row_lo + 8 * hi, t0 + 8 * (j / 4) + c2 + (j & 1))) pe = 0.f;
+        s[j] = pe * dcap;
+      }
+      wgmma_wait<0>();   // dP is done
+      fence_regs(dp);
+
+      // dS = P dcap (dP - Delta), bf16: pair (j, j + 1) is A register
+      // [j / 8][(j % 8) / 2] of the m16n8k16 layout
+      uint32_t da[kKTile / 16][4];
+#pragma unroll
+      for (int j = 0; j < kKTile / 2; j += 2) {
+        const float d = dl[(j / 2) & 1];
+        da[j / 8][(j % 8) / 2] = pack_bf16x2(s[j] * (dp[j] - d), s[j + 1] * (dp[j + 1] - d));
+      }
+
+      // dQ += dS K (K transposed from shared memory)
+      fence_regs(dq);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kKTile / 16; ++kk)
+        Wgmma<D>::rs_trans_b(dq, da[kk], desc_mn<D>(k_addr, kKTile, kk), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dq);
+      fence_regs(da);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&kv_empty[stage]);
+    }
+
+    // after the last wgmma, and under no branch that encloses one
+    const size_t q_stride = (size_t)p.H * D;
+    bf16* dqb = static_cast<bf16*>(p.dq) + ((size_t)w.b * p.S * p.H + w.h) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+#pragma unroll
+      for (int hi = 0; hi < 2; ++hi) {
+        const int row = row_lo + 8 * hi;
+        if (row < p.S)
+          *reinterpret_cast<uint32_t*>(dqb + (size_t)row * q_stride + j * 8 + c2) =
+              pack_bf16x2(dq[4 * j + 2 * hi] * p.scale, dq[4 * j + 2 * hi + 1] * p.scale);
+      }
+    }
+  }
 }
 
 // ---- fp32: CUDA cores ---------------------------------------------------------
@@ -568,12 +790,44 @@ __global__ void __launch_bounds__(128) flash_bwd_dq_f32(Params p) {
   }
 }
 
+
 template <typename Kernel>
 int launch(Kernel kernel, dim3 grid, int bytes, const Params& p, cudaStream_t st) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<grid, 128, bytes, st>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The bf16 passes: dK/dV, then dQ, on 4-D tensor maps over the inputs.
+template <int D>
+int launch_wgmma(const Params& p, cudaStream_t st) {
+  using L = Panels<D>;
+  const CUtensorMapSwizzle swizzle =
+      L::PANEL == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
+  CUtensorMap q_tile, do_tile, q_rows, do_rows, k_tile, v_tile;
+  int rc = encode_bf16_4d(&q_tile, p.q, D, p.H, p.S, p.B, L::PANEL, kQTile, swizzle);
+  if (rc == 0) rc = encode_bf16_4d(&do_tile, p.dout, D, p.H, p.S, p.B, L::PANEL, kQTile, swizzle);
+  if (rc == 0) rc = encode_bf16_4d(&q_rows, p.q, D, p.H, p.S, p.B, L::PANEL, kRows, swizzle);
+  if (rc == 0) rc = encode_bf16_4d(&do_rows, p.dout, D, p.H, p.S, p.B, L::PANEL, kRows, swizzle);
+  if (rc == 0) rc = encode_bf16_4d(&k_tile, p.k, D, p.K, p.T, p.B, L::PANEL, kKeys, swizzle);
+  if (rc == 0) rc = encode_bf16_4d(&v_tile, p.v, D, p.K, p.T, p.B, L::PANEL, kKeys, swizzle);
+  if (rc != 0) return rc;
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkdv_wgmma<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         DkdvLayout<D>::LAUNCH_BYTES);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(flash_bwd_dq_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               DqLayout<D>::LAUNCH_BYTES);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int n_keys = (p.T + kKeys - 1) / kKeys, n_rows = (p.S + kRows - 1) / kRows;
+  flash_bwd_dkdv_wgmma<D><<<n_keys * p.K * p.B, kWgThreads, DkdvLayout<D>::LAUNCH_BYTES, st>>>(
+      q_tile, do_tile, k_tile, v_tile, p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_bwd_dq_wgmma<D><<<n_rows * p.H * p.B, kWgThreads, DqLayout<D>::LAUNCH_BYTES, st>>>(
+      q_rows, do_rows, k_tile, v_tile, p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -586,14 +840,7 @@ int launch_all(const Params& p, int is_bf16, cudaStream_t st) {
     flash_bwd_preprocess<float, D><<<(rows + 7) / 8, 256, 0, st>>>(p);
   int rc = static_cast<int>(cudaGetLastError());
   if (rc != 0) return rc;
-  if (is_bf16) {
-    rc = launch(flash_bwd_dkdv<D>, dim3((p.T + kKeys - 1) / kKeys, p.K, p.B),
-                DkdvLayout<D>::BYTES, p, st);
-    if (rc == 0)
-      rc = launch(flash_bwd_dq<D>, dim3((p.S + kRows - 1) / kRows, p.H, p.B),
-                  DqLayout<D>::BYTES, p, st);
-    return rc;
-  }
+  if (is_bf16) return launch_wgmma<D>(p, st);
   rc = launch(flash_bwd_dkdv_f32<D>, dim3((p.T + kF32Keys - 1) / kF32Keys, p.K, p.B),
               (2 * kF32Keys + 2 * kF32Rows) * (D + 1) * 4, p, st);
   if (rc == 0)

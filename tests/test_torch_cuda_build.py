@@ -61,12 +61,13 @@ def test_the_flags_enter_the_tag(tree):
             != cuda_build.tag(source, [inc_dir], flags=("-O2",)))
 
 
-@pytest.mark.parametrize("kernel", [flash, ssd], ids=["flash", "ssd"])
-def test_port_kernels_include_the_shared_header(kernel):
-    """Both kernel sources include hopper.cuh from the shared directory,
+@pytest.mark.parametrize("source", [flash.SOURCE, flash.BWD_SOURCE, ssd.SOURCE],
+                         ids=["flash", "flash_bwd", "ssd"])
+def test_port_kernels_include_the_shared_header(source):
+    """Every kernel source includes hopper.cuh from the shared directory,
     which nvcc is told about and whose content is in the library's tag."""
     shared = cuda_build.INCLUDE_DIR / "hopper.cuh"
     assert shared.is_file()
-    assert shared.resolve() in cuda_build.includes(kernel.SOURCE)
+    assert shared.resolve() in cuda_build.includes(source)
     flags = cuda_build.NVCC_FLAGS
     assert flags[flags.index("-I") + 1] == str(cuda_build.INCLUDE_DIR)

@@ -41,12 +41,22 @@ RAGGED = [
 ]
 # The edges of the bf16 kernel's tiling (128 query rows, 128-key tiles, TMA
 # boxes): S and T off the tile grid with S < T, window and soft-cap at D
-# 128, D 32 (64-byte swizzle) with GQA 4, S below one query tile.
+# 128, D 32 (64-byte swizzle) with GQA 4, S below one query tile. Then the
+# edges of the bf16 backward's tiling (128-key and 128-row blocks, 64-row
+# query steps): GQA 3 across a ragged 128-key block, T - S off the 64-row
+# grid, a window inside one 128-key block with a soft-cap, one query row
+# against a ragged key tile at D 32, and S < T with a window narrower than
+# T - S, so that one 128-key block is seen by no query row.
 EDGES = [
     (1, 200, 328, 8, 2, 64, None, None, torch.bfloat16),
     (2, 384, 384, 4, 1, 128, 100, 50.0, torch.bfloat16),
     (2, 256, 256, 8, 2, 32, None, None, torch.bfloat16),
     (1, 64, 64, 4, 2, 128, None, None, torch.bfloat16),
+    (1, 320, 320, 6, 2, 128, None, None, torch.bfloat16),
+    (1, 150, 270, 4, 2, 64, None, None, torch.bfloat16),
+    (1, 300, 300, 4, 2, 128, 96, 30.0, torch.bfloat16),
+    (1, 1, 130, 4, 4, 32, None, None, torch.bfloat16),
+    (1, 100, 400, 4, 2, 64, 64, None, torch.bfloat16),
 ]
 
 # tests/test_kernels.py::SSD_SWEEP with torch dtypes;
