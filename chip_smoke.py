@@ -11,15 +11,23 @@
    each library's SASS (``cuobjdump -sass``) and fails unless both flash
    libraries have HGMMA and UTMALDG and no HMMA and the SSD library has
    HMMA; fails if any ``ptxas`` log says it serialises wgmma (warning
-   C7520, a wgmma under a branch; C7512, too few registers) or a bf16
-   kernel of the flash backward spills.
+   C7520, a wgmma under a branch; C7512, too few registers), if a forward
+   kernel (D 32, 64, 80, 128) or a bf16 kernel of the flash backward
+   spills.
+   Then TALP's device records, which come from CUPTI activity through
+   ``torch.profiler``: a sleep kernel's record against the CUDA events
+   around it (CLOCK_BOUND), and a host sleep between two sleep kernels of
+   one launch reported as device Idle.
 2. Kernel phases: each hand-written kernel against its plain PyTorch
    version on the card, with the tolerance of tests/test_kernels.py::_tol
    printed per row:
    * the flash-attention forward over the shapes of the JAX package's
      kernel sweep, ragged shapes, the edges of the bf16 kernel's tiling,
      and the serving prefill shape of llama3.2-3b (B 8, S 1024, H 24, K 8,
-     D 128, bf16), its output and its row log-sum-exp; at that shape it
+     D 128, bf16), its output and its row log-sum-exp; then head dim 80
+     (fp32 and bf16 MHA, GQA, ragged, window and soft-cap) and the serving
+     prefill shape of zamba2-2.7b (B 8, S 4096, H = K 32, D 80, bf16;
+     its plain version one request at a time). At both prefill shapes it
      times the plain version, then the kernel and one PyTorch library call
      (``scaled_dot_product_attention``, a yardstick only) in turns:
      library, kernel, kernel, library;
@@ -31,31 +39,40 @@
      kernels and the backward of ``scaled_dot_product_attention`` in turns;
    * the SSD chunked scan over the JAX package's SSD sweep, ragged L,
      initial state in and final state out, the edges of the bf16 kernels'
-     chunk-parallel form, and the serving prefill shape of mamba2-130m
-     (B 8, L 4096, H 24, P 64, G 1, N 128, chunk 256, bf16), against the
-     plain version evaluated in float64 on the same inputs (the plain
-     version's own fp32 evaluation is printed beside it); at the prefill
-     shape it times the plain version and the kernel in turns: plain,
-     kernel, kernel, plain (no single PyTorch call computes the scan).
+     chunk-parallel form, state size 64 on the bf16 path, and the serving
+     prefill shapes of mamba2-130m (B 8, L 4096, H 24, P 64, G 1, N 128,
+     chunk 256, bf16) and zamba2-2.7b (H 80, N 64), against the plain
+     version evaluated in float64 on the same inputs (the plain version's
+     own fp32 evaluation is printed beside it); at both prefill shapes it
+     times the plain version and the kernel in turns: plain, kernel,
+     kernel, plain (no single PyTorch call computes the scan).
    Timings are CUDA events around runs of back-to-back calls (ms per
    call), medians; kernel and yardstick are timed in turns.
 3. Path checks: two narrow layers of each model's block on the card
    against the same layers on the CPU (plain versions), prefill then 4
-   decode steps, the same bf16 weights; and one training step of the
-   llama3.2-3b smoke config (head_dim 32) in fp32 and in bf16 compute on
-   the card against the CPU from the same state.
+   decode steps, the same bf16 weights (zamba2: its smoke config with head
+   dim 80 and P 64, N 64, chunk 256, whose two shared-block repeats must
+   write different KV rows); and one training step of the llama3.2-3b
+   smoke config (head_dim 32) in fp32 and in bf16 compute on the card
+   against the CPU from the same state.
 4. Serve phases: ``repro_torch.launch.serve.serve`` under the TALP monitor
    at full width, random weights from a seed: llama3.2-3b with 8 requests
    of 1024 prompt tokens and 64 generated tokens, then mamba2-130m (all
-   24 layers) with 8 requests of 4096 prompt tokens and 64 generated
-   tokens. Every launch counter is set to 0 just before each run and read
-   just after: the prefill must go through its model's kernel once per
-   layer and through no other. Checks the tokens and the TALP
-   hierarchies.
-5. Profile phases: one prefill and one decode step of each model at its
-   serve phase's shapes, timed without the profiler and traced with
-   ``torch.profiler``: the card's busy share of each step and its
-   heaviest kernels.
+   24 layers) and zamba2-2.7b (all 54 layers) with 8 requests of 4096
+   prompt tokens and 64 generated tokens. Every launch counter is set to 0
+   just before each run and read just after: the prefill must launch each
+   kernel as often as SERVE says (llama: the flash forward 28 times;
+   mamba: the SSD scan 24 times; zamba2: 9 and 45) and no other. Checks
+   the tokens and the TALP hierarchies.
+5. Profile phases: prefills and decode steps of each model at its serve
+   phase's shapes, timed without the profiler and traced with
+   ``torch.profiler`` (CUDA activity only): the card's kernel time per
+   call of each step (the union of its kernels) and its heaviest kernels.
+   That kernel time over the serve phase's wall per call of the same step
+   is the profiler's busy share of it, which TALP's device PE of the
+   prefill and decode regions must match within PE_BOUND. The decode step
+   is timed again with TALP's CUPTI collection open, for the collection's
+   cost per step.
 6. Train phase: ``repro_torch.launch.train.train`` under the TALP monitor,
    llama3.2-3b at full width and depth (3.61 B parameters, fp32 masters
    and AdamW moments on the card), 6 steps of 2 x 2048 tokens. The launch
@@ -63,7 +80,9 @@
    launches per step (28 layers, twice with remat) and 28 backward calls.
    Prints each step's loss (all finite), step time, tokens/s, MFU, peak
    memory and TALP's train_loop numbers, then traces one more step with
-   ``torch.profiler``.
+   ``torch.profiler``: its kernel time over the train_loop's wall per step
+   is the busy share TALP's train_loop device PE must match within
+   PE_BOUND.
 7. Prints one JSON line with every kernel's numbers, then, as the last
    line, ``{"ok": true, "device": {...}}``.
 
@@ -139,6 +158,19 @@ SWEEP += [
     (1, 100, 400, 4, 2, 64, 64, None, torch.bfloat16),
 ]
 PREFILL = (8, 1024, 1024, 24, 8, 128, None, None, torch.bfloat16)
+# Head dim 80 (zamba2-2.7b's shared block, 2560 / 32 heads, MHA), forward
+# only (the backward refuses D 80): fp32 and bf16 MHA, GQA 2:1, S and T off
+# the tile grid with S < T, window and soft-cap; then zamba2's serving
+# prefill shape.
+SWEEP_D80 = [
+    (1, 256, 256, 4, 4, 80, None, None, torch.float32),
+    (2, 256, 256, 4, 4, 80, None, None, torch.bfloat16),
+    (1, 256, 256, 8, 4, 80, None, None, torch.bfloat16),
+    (1, 200, 328, 4, 2, 80, None, None, torch.bfloat16),
+    (1, 256, 256, 4, 2, 80, 64, 30.0, torch.float32),
+    (1, 384, 384, 4, 2, 80, 100, 50.0, torch.bfloat16),
+]
+ZAMBA_PREFILL = (8, 4096, 4096, 32, 32, 80, None, None, torch.bfloat16)
 
 # (B, L, H, P, G, N, chunk, dtype, with_state): the rows of
 # tests/test_kernels.py::SSD_SWEEP (no initial state, as the TPU kernel),
@@ -163,7 +195,25 @@ SSD_SWEEP += [
     (1, 4096, 4, 64, 1, 128, 64, torch.bfloat16, True),
     (2, 512, 8, 64, 2, 128, 256, torch.bfloat16, True),
 ]
+# State size 64 on the bf16 path (zamba2-2.7b: P 64, N 64, chunk 256): one
+# ragged chunk, many chunks, an initial state in every row, two groups.
+SSD_SWEEP += [
+    (1, 100, 4, 64, 1, 64, 256, torch.bfloat16, True),
+    (1, 4096, 4, 64, 1, 64, 64, torch.bfloat16, True),
+    (1, 1000, 8, 64, 1, 64, 256, torch.bfloat16, True),
+    (2, 512, 8, 64, 2, 64, 256, torch.bfloat16, True),
+]
 SSD_PREFILL = (8, 4096, 24, 64, 1, 128, 256, torch.bfloat16, False)
+ZAMBA_SSD_PREFILL = (8, 4096, 80, 64, 1, 64, 256, torch.bfloat16, False)
+
+# TALP's device PE against the profiler's busy share of the same step:
+# they must agree within this absolute bound on every serve path (prefill
+# and decode) and on training (PERF.md, written before the first run).
+PE_BOUND = 0.10
+# The activity records' clock mapping against the CUDA-event yardstick:
+# a sleep kernel's start and end within this many seconds of the events
+# around it.
+CLOCK_BOUND = 50e-6
 
 
 def nvidia_smi() -> str:
@@ -281,8 +331,9 @@ def build_kernels() -> dict:
     source, load the libraries, and check from their SASS that the flash
     forward and the flash backward run wgmma and TMA and no mma.sync and
     the SSD kernels run mma.sync; that no ``ptxas`` log warns of
-    serialised wgmma (C7520 or C7512); and that the backward's bf16
-    kernels do not spill. Returns each kernel record's SASS counts."""
+    serialised wgmma (C7520 or C7512); and that no forward kernel (D 32,
+    64, 80 and 128, bf16 and fp32) and no bf16 kernel of the backward
+    spills. Returns each kernel record's SASS counts."""
     from repro_torch.kernels import cuda_build
     from repro_torch.kernels.flash_attention import kernel as flash
     from repro_torch.kernels.ssd import kernel as ssd
@@ -307,6 +358,12 @@ def build_kernels() -> dict:
         assert "C7520" not in text and "instructions are serialized" not in text, (
             f"{source.name}: ptxas serialises wgmma:\n"
             + "\n".join(line for line in text.splitlines() if "serializ" in line))
+    fwd_log = built[0][0].with_suffix(".log")
+    fwd = [(label, spill) for label, _, spill in ptxas_kernels(fwd_log)]
+    assert sorted(label for label, _ in fwd) == sorted(
+        f"flash_fwd_{kind}<{d}>" for kind in ("wgmma", "f32")
+        for d in (32, 64, 80, 128)), fwd
+    assert not any(spilled(s) for _, s in fwd), fwd
     bwd_log = built[1][0].with_suffix(".log")
     spills = [(label, spill) for label, _, spill in ptxas_kernels(bwd_log)
               if label.startswith(("flash_bwd_dkdv_wgmma", "flash_bwd_dq_wgmma"))]
@@ -328,6 +385,55 @@ def build_kernels() -> dict:
     return counts
 
 
+def by_request(fn, *tensors, **kw):
+    """``fn`` on each request (batch row) of ``tensors`` in turn, the
+    outputs joined along the batch: the same function on the same inputs
+    where the whole batch's fp32 score matrix would not fit the card
+    (17 GB at zamba2-2.7b's prefill shape, about 52 GB at the plain
+    version's peak)."""
+    outs = [fn(*(x[i:i + 1] for x in tensors), **kw)
+            for i in range(tensors[0].shape[0])]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.cat(parts) for parts in zip(*outs))
+    return torch.cat(outs)
+
+
+def flash_timing(device, row, inputs, plain_by_request: bool) -> dict:
+    """Times at one shape: the plain version, then the kernel and the
+    library yardstick (``scaled_dot_product_attention``) in turns: library,
+    kernel, kernel, library; and the bound from this shape's work."""
+    from repro_torch.kernels.flash_attention import kernel, ref
+
+    b, s, t, h, k, d, window, softcap, dtype = row
+    q, kk, vv = inputs(99, b, s, t, h, k, d, dtype)
+    plain = ((lambda: by_request(ref.attention_reference, q, kk, vv))
+             if plain_by_request else
+             (lambda: ref.attention_reference(q, kk, vv)))
+    plain_ms = statistics.median(time_samples(plain, reps=5 if
+                                              plain_by_request else 10,
+                                              inner=2))
+    # The library yardstick takes (B, H, S, D); the layout change is made
+    # once, outside the timing. Library and kernel are timed in turns.
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, kk, vv))
+    library_ms, kernel_ms = time_turns(
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True),
+        lambda: kernel.flash_attention(q, kk, vv))
+    flops, nbytes = attention_work(b, s, t, h, k, d, window, dtype)
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    shape = f"B{b} S{s} T{t} H{h} K{k} D{d} {str(dtype)[6:]} causal"
+    print(f"[kernel] {shape}: kernel {kernel_ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms{' (one request at a time)' if plain_by_request else ''}"
+          f", sdpa {library_ms:.4f} ms (in turns: sdpa, kernel, kernel, sdpa),"
+          f" kernel/sdpa {kernel_ms / library_ms:.3f}, bound "
+          f"{max(t_ops, t_bytes):.4f} ms ({flops / 1e9:.2f} GFLOP is "
+          f"{t_ops:.4f} ms, {nbytes / 1e6:.1f} MB is {t_bytes:.4f} ms)")
+    return dict(shape=shape, ms=kernel_ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes")
+
+
 def kernel_phase(device: torch.device) -> dict:
     from repro_torch.kernels.flash_attention import kernel, ref
 
@@ -337,8 +443,9 @@ def kernel_phase(device: torch.device) -> dict:
             shape, generator=gen, device=device).to(dtype)
         return mk(b, s, h, d), mk(b, t, k, d), mk(b, t, k, d)
 
-    prefill_err = None
-    for i, row in enumerate(SWEEP + [PREFILL]):
+    errs = {}
+    rows = SWEEP + SWEEP_D80 + [PREFILL, ZAMBA_PREFILL]
+    for i, row in enumerate(rows):
         b, s, t, h, k, d, window, softcap, dtype = row
         q, kk, vv = inputs(i, b, s, t, h, k, d, dtype)
         out = kernel.flash_attention(q, kk, vv, causal=True, window=window,
@@ -346,8 +453,10 @@ def kernel_phase(device: torch.device) -> dict:
         out2, lse = kernel.flash_attention(q, kk, vv, causal=True,
                                            window=window, softcap=softcap,
                                            return_lse=True)
-        want, lse_want = ref.attention_reference_lse(
-            q, kk, vv, causal=True, window=window, softcap=softcap)
+        want, lse_want = by_request(
+            ref.attention_reference_lse, q, kk, vv, causal=True,
+            window=window, softcap=softcap)
+        lse_want = lse_want.contiguous()
         torch.cuda.synchronize()
         err = (out.float() - want.float()).abs().max().item()
         lse_err = (lse - lse_want).abs().max().item()
@@ -361,28 +470,12 @@ def kernel_phase(device: torch.device) -> dict:
         assert torch.equal(out, out2)
         torch.testing.assert_close(lse, lse_want, rtol=TOL[torch.float32],
                                    atol=TOL[torch.float32])
-        if row is PREFILL:
-            prefill_err = err
+        errs[row] = err
+        del q, kk, vv, out, out2, lse, want, lse_want
 
-    b, s, t, h, k, d, window, softcap, dtype = PREFILL
-    q, kk, vv = inputs(99, b, s, t, h, k, d, dtype)
-    plain_ms = statistics.median(time_samples(
-        lambda: ref.attention_reference(q, kk, vv), reps=10, inner=2))
-    # The library yardstick takes (B, H, S, D); the layout change is made
-    # once, outside the timing. Library and kernel are timed in turns.
-    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, kk, vv))
-    library_ms, kernel_ms = time_turns(
-        lambda: torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True),
-        lambda: kernel.flash_attention(q, kk, vv))
-    flops, nbytes = attention_work(b, s, t, h, k, d, window, dtype)
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-    t_bytes = nbytes / PEAK_BYTES * 1e3
-    print(f"[kernel] prefill shape: kernel {kernel_ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms (in turns: sdpa, "
-          f"kernel, kernel, sdpa), kernel/sdpa {kernel_ms / library_ms:.3f}, "
-          f"bound {max(t_ops, t_bytes):.4f} ms ({flops / 1e9:.2f} GFLOP, "
-          f"{nbytes / 1e6:.1f} MB)")
+    llama = flash_timing(device, PREFILL, inputs, plain_by_request=False)
+    zamba = flash_timing(device, ZAMBA_PREFILL, inputs,
+                         plain_by_request=True)
     return {
         "name": "flash_attention_fwd",
         "route": "cuda",
@@ -391,15 +484,18 @@ def kernel_phase(device: torch.device) -> dict:
         "replaces_fn": "_flash_kernel",
         "launches": None,
         "launches_on_path": None,
-        "max_abs_err": prefill_err,
-        "tol": TOL[dtype],
-        "ms": kernel_ms,
-        "kernel_ms": kernel_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": max(t_ops, t_bytes),
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "library_ms": library_ms,
-        "shape": "B8 S1024 T1024 H24 K8 D128 bf16 causal",
+        "max_abs_err": errs[PREFILL],
+        "tol": TOL[PREFILL[-1]],
+        "ms": llama["ms"],
+        "kernel_ms": llama["ms"],
+        "plain_ms": llama["plain_ms"],
+        "bound_ms": llama["bound_ms"],
+        "bound_by": llama["bound_by"],
+        "library_ms": llama["library_ms"],
+        "shape": llama["shape"],
+        "zamba2_prefill_shape": {**zamba,
+                                 "max_abs_err": errs[ZAMBA_PREFILL],
+                                 "plain": "one request at a time"},
         "note": "writes the row log-sum-exp, fp32 (B, H, S), when asked "
                 "(training); serving passes a null pointer, as timed here",
     }
@@ -610,8 +706,8 @@ def ssd_kernel_phase(device: torch.device) -> dict:
     def up(t):
         return None if t is None else t.double()
 
-    prefill_err = None
-    for i, row in enumerate(SSD_SWEEP + [SSD_PREFILL]):
+    errs = {}
+    for i, row in enumerate(SSD_SWEEP + [SSD_PREFILL, ZAMBA_SSD_PREFILL]):
         b, l, h, p, g, n, chunk, dtype, with_state = row
         x, dt, a, bm, cm, d, s0 = inputs(i, *row[:6], dtype, with_state)
         y, s_out = kernel.ssd_scan(x, dt, a, bm, cm, chunk=chunk, d_skip=d,
@@ -640,28 +736,36 @@ def ssd_kernel_phase(device: torch.device) -> dict:
         torch.testing.assert_close(s_out, s64.float(),
                                    rtol=TOL[torch.float32],
                                    atol=TOL[torch.float32])
-        if row is SSD_PREFILL:
-            prefill_err = max(err, s_err)
+        errs[row] = max(err, s_err)
         del x, bm, cm, y, y64, y32, s_out, s64, s32, want
 
-    b, l, h, p, g, n, chunk, dtype, with_state = SSD_PREFILL
-    x, dt, a, bm, cm, d, _ = inputs(99, b, l, h, p, g, n, dtype, False)
-    # plain and kernel in turns: plain, kernel, kernel, plain
-    plain_ms, kernel_ms = time_turns(
-        lambda: ref.ssd_reference(x, dt, a, bm, cm, chunk=chunk, d_skip=d,
-                                  return_final_state=True),
-        lambda: kernel.ssd_scan(x, dt, a, bm, cm, chunk=chunk, d_skip=d,
-                                return_final_state=True), reps=10)
-    flops, nbytes = ssd_work(b, l, h, p, g, n, chunk, dtype, with_state)
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-    t_bytes = nbytes / PEAK_BYTES * 1e3
-    nc = -(-l // chunk)
-    print(f"[ssd] prefill shape: kernel {kernel_ms:.4f} ms (3 launches), "
-          f"plain {plain_ms:.4f} ms (in turns: plain, kernel, kernel, "
-          f"plain), no library call, bound {max(t_ops, t_bytes):.4f} ms "
-          f"({flops / 1e9:.2f} GFLOP is {t_ops:.4f} ms at the bf16 rate, "
-          f"{nbytes / 1e6:.1f} MB is {t_bytes:.4f} ms), {b * nc * h} blocks "
-          f"in the chunk passes")
+    def timing(row):
+        b, l, h, p, g, n, chunk, dtype, with_state = row
+        x, dt, a, bm, cm, d, _ = inputs(99, b, l, h, p, g, n, dtype, False)
+        # plain and kernel in turns: plain, kernel, kernel, plain
+        plain_ms, kernel_ms = time_turns(
+            lambda: ref.ssd_reference(x, dt, a, bm, cm, chunk=chunk,
+                                      d_skip=d, return_final_state=True),
+            lambda: kernel.ssd_scan(x, dt, a, bm, cm, chunk=chunk, d_skip=d,
+                                    return_final_state=True), reps=10)
+        flops, nbytes = ssd_work(b, l, h, p, g, n, chunk, dtype, with_state)
+        t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+        t_bytes = nbytes / PEAK_BYTES * 1e3
+        nc = -(-l // chunk)
+        shape = (f"B{b} L{l} H{h} P{p} G{g} N{n} chunk{chunk} "
+                 f"{str(dtype)[6:]}, final state out")
+        print(f"[ssd] {shape}: kernel {kernel_ms:.4f} ms (3 launches), "
+              f"plain {plain_ms:.4f} ms (in turns: plain, kernel, kernel, "
+              f"plain), no library call, bound {max(t_ops, t_bytes):.4f} ms "
+              f"({flops / 1e9:.2f} GFLOP is {t_ops:.4f} ms at the bf16 rate, "
+              f"{nbytes / 1e6:.1f} MB is {t_bytes:.4f} ms), "
+              f"{b * nc * h} blocks in the chunk passes")
+        return dict(shape=shape, ms=kernel_ms, plain_ms=plain_ms,
+                    library_ms=None, bound_ms=max(t_ops, t_bytes),
+                    bound_by="operations" if t_ops >= t_bytes else "bytes",
+                    max_abs_err=errs[row])
+
+    mamba, zamba = timing(SSD_PREFILL), timing(ZAMBA_SSD_PREFILL)
     return {
         "name": "ssd_fwd",
         "route": "cuda",
@@ -670,15 +774,16 @@ def ssd_kernel_phase(device: torch.device) -> dict:
         "replaces_fn": "_ssd_kernel",
         "launches": None,
         "launches_on_path": None,
-        "max_abs_err": prefill_err,
-        "tol": TOL[dtype],
-        "ms": kernel_ms,
-        "kernel_ms": kernel_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": max(t_ops, t_bytes),
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "max_abs_err": mamba["max_abs_err"],
+        "tol": TOL[SSD_PREFILL[7]],
+        "ms": mamba["ms"],
+        "kernel_ms": mamba["ms"],
+        "plain_ms": mamba["plain_ms"],
+        "bound_ms": mamba["bound_ms"],
+        "bound_by": mamba["bound_by"],
         "library_ms": None,
-        "shape": "B8 L4096 H24 P64 G1 N128 chunk256 bf16, final state out",
+        "shape": mamba["shape"],
+        "zamba2_prefill_shape": zamba,
     }
 
 
@@ -758,6 +863,135 @@ def mamba_path_check(device: torch.device) -> None:
           f"300 + 4 decode steps: card vs CPU max_abs_err={err:.3e} "
           f"(rtol=atol=0.15)")
     torch.testing.assert_close(outs[1], outs[0], rtol=0.15, atol=0.15)
+
+
+def zamba_path_check(device: torch.device) -> None:
+    """The zamba2 model path on the card against the same path on the CPU
+    (plain versions), on a small input: smoke_config("zamba2-2.7b") (two
+    repeats of five SSM blocks and the shared attention block) with head
+    dim 80, so that the flash forward runs its D-80 branch (the smoke 16 is
+    no head dim the kernel takes), and P 64, N 64, chunk 256, so that the
+    SSD kernel runs zamba2's head shape; the same bf16 weights on both, a
+    300-token prompt (a ragged second chunk), then 4 decode steps. rtol =
+    atol = 0.15 on the fp32 logits, as the llama and mamba path checks.
+    The shared block's two repeats must write two different KV rows."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import lm
+
+    cfg = dataclasses.replace(smoke_config("zamba2-2.7b"), head_dim=80,
+                              ssm_head_dim=64, ssm_state=64, ssm_chunk=256)
+    counters = launch_counters()
+    gen = torch.Generator().manual_seed(8)
+    cpu_params = lm.init_params(cfg, gen, device="cpu", dtype=torch.bfloat16)
+    gpu_params = lm.tree_map(lambda x: x.to(device), cpu_params)
+    toks = torch.randint(0, cfg.vocab_size, (2, 304), generator=gen,
+                         dtype=torch.int32)
+    outs, kv = [], []
+    for params, dev in ((cpu_params, torch.device("cpu")),
+                        (gpu_params, device)):
+        before = {n: w.launches for n, w in counters.items()}
+        with torch.inference_mode():
+            logits, caches, pos = lm.prefill(cfg, params,
+                                             toks[:, :300].to(dev))
+            caches = lm.grow_caches(cfg, caches, 304)
+            seq = [logits]
+            for t in range(300, 304):
+                logits, caches, pos = lm.decode_step(
+                    cfg, params, toks[:, t:t + 1].to(dev), pos, caches)
+                seq.append(logits)
+        launches = {n: w.launches - before[n] for n, w in counters.items()}
+        want = ({"flash_attention_fwd": cfg.repeats, "ssd_fwd": 5 * cfg.repeats,
+                 "flash_attention_bwd": 0} if dev.type == "cuda"
+                else dict.fromkeys(counters, 0))
+        assert launches == want, (dev, launches, want)
+        outs.append(torch.stack(seq).float().cpu())
+        kv.append(caches["slot5"]["k"].float().cpu())
+    assert torch.isfinite(outs[1]).all(), "non-finite logits on the card"
+    assert not torch.equal(kv[1][0], kv[1][1]), "one KV row for two repeats"
+    err = (outs[0] - outs[1]).abs().max().item()
+    print(f"[path] zamba2 smoke (D 80, P 64, N 64, chunk 256, shared block "
+          f"at layers 6 and 12), prefill 300 + 4 decode steps: card vs CPU "
+          f"max_abs_err={err:.3e} (rtol=atol=0.15); the two repeats' KV rows "
+          f"differ; shared-block KV rows card vs CPU, relative norm "
+          f"{rel_norm(kv[1], kv[0]):.3e}")
+    torch.testing.assert_close(outs[1], outs[0], rtol=0.15, atol=0.15)
+
+
+def talp_backend_check(device: torch.device) -> None:
+    """TALP's device records on the card (CUPTI activity through
+    torch.profiler, repro_torch.core.backends.cuda_runtime). The clock: a
+    sleep kernel queued behind another (so that no launch separates it
+    from the event before it) starts and ends within CLOCK_BOUND of the
+    CUDA events around it, in five tries over 0.3 s; and a sleep kernel
+    launched on the idle card lies inside the host's window around its
+    launch and wait, within CLOCK_BOUND, in five more. The gaps: a sleep
+    kernel, a host sleep of 50 ms and a sleep kernel in one launch/wait
+    window leave at least 40 ms of device Idle (a record spanning the
+    launch counted them as Kernel)."""
+    from repro_torch.core import TalpMonitor
+    from repro_torch.core.backends import CudaRuntimeBackend
+
+    be = CudaRuntimeBackend(device)
+    t0 = time.perf_counter()
+    be.start()
+    opened = time.perf_counter() - t0
+
+    def bracketed():
+        torch.cuda._sleep(2_000_000)      # holds the queue while we enqueue
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        torch.cuda._sleep(1_000_000)
+        e1.record()
+        return e0, e1
+
+    events, windows = [], []
+    for _ in range(5):
+        events.append(be.wait(be.launch(bracketed)))
+        time.sleep(0.06)
+    for _ in range(5):
+        h0 = be.clock()
+        be.wait(be.launch(torch.cuda._sleep, 1_000_000))
+        windows.append((h0, be.clock()))
+        time.sleep(0.02)
+    [(_, kinds, starts, ends, _)] = be.flush_arrays()
+    be.stop()
+    assert len(kinds) == 15, kinds
+    order = sorted(range(len(starts)), key=lambda i: starts[i])
+    errs = [max(abs(starts[i] - be._event_time(e0)),
+                abs(ends[i] - be._event_time(e1)))
+            for (e0, e1), i in zip(events, order[1:10:2])]
+    margins = [(starts[i] - h0, h1 - ends[i])
+               for (h0, h1), i in zip(windows, order[10:])]
+    print(f"[talp-backend] first collection opened in {opened:.3f} s; sleep "
+          f"kernel vs the CUDA events around it: max |start or end "
+          f"difference| {max(errs) * 1e6:.1f} us over 5 tries (bound "
+          f"{CLOCK_BOUND * 1e6:.0f} us): "
+          + ", ".join(f"{e * 1e6:.1f}" for e in errs)
+          + "; on the idle card, start after the launch call and end before "
+          "the wait's return (us): "
+          + ", ".join(f"{a * 1e6:.1f}/{b * 1e6:.1f}" for a, b in margins))
+    assert max(errs) <= CLOCK_BOUND, errs
+    assert min(min(m) for m in margins) >= -CLOCK_BOUND, margins
+
+    be = CudaRuntimeBackend(device)
+    mon = TalpMonitor("gap", backend=be)
+
+    def step():
+        torch.cuda._sleep(1_000_000)
+        time.sleep(0.05)
+        torch.cuda._sleep(1_000_000)
+
+    with mon.region("step"):
+        h = be.launch(step, name="sleeps")
+        with mon.offload():
+            be.wait(h)
+    r = mon.finalize()["step"]
+    ds = r.device_states[0]
+    print(f"[talp-backend] sleep kernel, host sleep 50 ms, sleep kernel in "
+          f"one launch: region {r.elapsed * 1e3:.3f} ms, device kernel "
+          f"{ds['kernel'] * 1e3:.3f} ms, idle {ds['idle'] * 1e3:.3f} ms, "
+          f"device PE {r.device.parallel_efficiency:.4f}")
+    assert ds["idle"] >= 0.04 and 0 < ds["kernel"] < 0.01, ds
 
 
 def train_path_check(device: torch.device) -> None:
@@ -898,18 +1132,21 @@ def launch_counters() -> dict:
             "ssd_fwd": ssd.ssd_scan}
 
 
-# (arch, requests, prompt tokens, generated tokens, the kernel its prefill
-# launches once per layer)
+# (arch, requests, prompt tokens, generated tokens, the launches of each
+# kernel in one prefill; every other kernel launches none)
 SERVE = [
-    ("llama3.2-3b", 8, 1024, 64, "flash_attention_fwd"),
-    ("mamba2-130m", 8, 4096, 64, "ssd_fwd"),
+    ("llama3.2-3b", 8, 1024, 64, {"flash_attention_fwd": 28}),
+    ("mamba2-130m", 8, 4096, 64, {"ssd_fwd": 24}),
+    ("zamba2-2.7b", 8, 4096, 64, {"flash_attention_fwd": 9, "ssd_fwd": 45}),
 ]
 
 
 def serve_phase(device: torch.device, arch: str, requests: int,
-                prompt_len: int, gen_len: int, kernel_name: str,
-                records: dict) -> None:
-    """Full-width serving of ``arch`` through the port's entry point."""
+                prompt_len: int, gen_len: int, expected: dict,
+                records: dict) -> dict:
+    """Full-width serving of ``arch`` through the port's entry point.
+    Returns TALP's device PE of the prefill and decode regions, each with
+    the region's wall per call (the prefill; one decode step)."""
     from repro_torch.configs import get_config
     from repro_torch.core.report import render_tables
     from repro_torch.launch.serve import serve
@@ -929,11 +1166,9 @@ def serve_phase(device: torch.device, arch: str, requests: int,
     launches = {name: w.launches for name, w in counters.items()}
     assert tokens.shape == (requests, gen_len), tokens.shape
     assert (tokens >= 0).all() and (tokens < cfg.vocab_size).all()
-    want = {name: cfg.num_layers if name == kernel_name else 0
-            for name in counters}
+    want = {name: expected.get(name, 0) for name in counters}
     assert launches == want, (
-        f"{arch}: kernel launches {launches} in one prefill, want {want} "
-        "(its kernel once per layer)")
+        f"{arch}: kernel launches {launches} in one prefill, want {want}")
     glob, dec = result.regions["Global"], result.regions["decode"]
     glob.host.validate(tol=1e-6)
     dec.host.validate(tol=1e-6)
@@ -958,6 +1193,9 @@ def serve_phase(device: torch.device, arch: str, requests: int,
               f"{r.device.parallel_efficiency:.4f} (kernel "
               f"{ds['kernel']:.6f} s, idle {ds['idle']:.6f} s)")
     add_path_launches(records, f"serve {arch} (one prefill)", launches)
+    pre = result.regions["prefill"]
+    return {"prefill": (pre.device.parallel_efficiency, pre.elapsed),
+            "decode": (dec.device.parallel_efficiency, dec.elapsed / gen_len)}
 
 
 def add_path_launches(records: dict, path: str, launches: dict) -> None:
@@ -1046,11 +1284,7 @@ def train_phase(device: torch.device, arch: str, steps: int, batch: int,
     data = SyntheticTokenPipeline(DataConfig(batch, seq, cfg.vocab_size))
     b = {k: torch.from_numpy(v).to(device)
          for k, v in data.batch_at(steps).items()}
-    with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        state, _ = step_fn(state, b)
-        torch.cuda.synchronize()
+    prof, traced_wall, union, (state, _) = traced(lambda: step_fn(state, b))
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     dev_time = lambda e: getattr(  # noqa: E731
@@ -1059,10 +1293,15 @@ def train_phase(device: torch.device, arch: str, steps: int, batch: int,
     if busy <= 0:
         print("[profile] train step: torch.profiler shows no device time "
               "here, so the busy share is not measured")
+        compare_pe(f"{arch} train_loop", loop.device.parallel_efficiency,
+                   loop.elapsed / steps, None)
     else:
         print(f"[profile] {arch} train step: device kernel time "
               f"{busy * 1e3:.3f} ms in {sum(e.count for e in kernels)} "
-              f"kernels, busy share {busy / step_s:.4f} of the median step")
+              f"kernels ({busy / step_s:.4f} of the median step); traced "
+              f"step {traced_wall * 1e3:.3f} ms, kernels busy "
+              f"{union * 1e3:.3f} ms of it, busy share of the traced step "
+              f"{union / traced_wall:.4f}")
         ranked = sorted(kernels, key=dev_time, reverse=True)
         for e in ranked[:10] + [e for e in ranked[10:] if re.search(
                 "|".join(KERNEL_NAMES), e.key)]:
@@ -1076,6 +1315,9 @@ def train_phase(device: torch.device, arch: str, steps: int, batch: int,
         print("[profile] train step device time by group: " + ", ".join(
             f"{g} {ms:.3f} ms" for g, ms in sorted(
                 groups.items(), key=lambda kv: -kv[1])))
+        compare_pe(f"{arch} train_loop vs the traced step",
+                   loop.device.parallel_efficiency, loop.elapsed / steps,
+                   union)
     # the AdamW update alone (CUDA events around it; bf16 copies of the
     # parameters stand in for the gradients)
     grads = lm.tree_map(lambda x: x.to(torch.bfloat16), state["params"])
@@ -1102,15 +1344,22 @@ KERNEL_GROUPS = (
 
 
 def profile_phase(device: torch.device, arch: str, batch: int,
-                  prompt_len: int, gen_len: int) -> None:
-    """Where the serving time goes on the card: one prefill and one
-    decode step of full-width ``arch`` (its serve phase's shapes), each
-    timed on the host clock without the profiler, then traced once with
-    ``torch.profiler`` for the device time of every kernel. The TALP
-    device records of the serve phase span each step's first and last
-    CUDA event, so they count the card's gaps between kernels as busy;
-    the trace shows the share of the step the card really computes."""
+                  prompt_len: int, gen_len: int) -> dict:
+    """Where the serving time goes on the card: the prefill and the decode
+    step of full-width ``arch`` (its serve phase's shapes), each timed on
+    the host clock without the profiler (median of 5), then traced by
+    ``torch.profiler`` (CUDA activity only, see ``traced``; 3 prefills, 8
+    decode steps) for the device time of every kernel. Returns each
+    step's kernel time per call (the union of the traced calls' kernel
+    intervals over the number of calls), which main() divides by the serve
+    phase's wall per call of the same step for the profiler's busy share,
+    and holds TALP's device PE of that region against it: TALP reads the
+    kernel time through its markers and the engine's flattening, the
+    profile from a session of its own. The decode step is then timed again
+    with TALP's collection open: the difference is the collection's cost
+    per step."""
     from repro_torch.configs import get_config
+    from repro_torch.core.backends import CudaRuntimeBackend
     from repro_torch.models import lm
 
     cfg = get_config(arch)
@@ -1130,44 +1379,115 @@ def profile_phase(device: torch.device, arch: str, batch: int,
             "decode_step": lambda: lm.decode_step(cfg, params, tok, pos,
                                                   caches),
         }
-        for name, step in steps.items():
-            step()
-            torch.cuda.synchronize()
+        kernel_time = {}   # the kernel time (union) of one call, seconds
+
+        def median_wall(step):
             walls = []
             for _ in range(5):
                 t0 = time.perf_counter()
                 step()
                 torch.cuda.synchronize()
                 walls.append(time.perf_counter() - t0)
-            wall = statistics.median(walls)
-            with torch.profiler.profile(activities=[
-                    torch.profiler.ProfilerActivity.CPU,
-                    torch.profiler.ProfilerActivity.CUDA]) as prof:
-                step()
-                torch.cuda.synchronize()
+            return statistics.median(walls)
+
+        for name, step in steps.items():
+            step()
+            torch.cuda.synchronize()
+            wall = median_wall(step)
+            reps = 3 if name == "prefill" else 8
+            prof, traced_wall, union, _ = traced(step, reps)
             kernels = [e for e in prof.key_averages()
                        if e.device_type == torch.autograd.DeviceType.CUDA]
             dev_time = lambda e: getattr(  # noqa: E731
                 e, "self_device_time_total",
                 getattr(e, "self_cuda_time_total", 0.0))
-            busy = sum(dev_time(e) for e in kernels) * 1e-6
-            n_launch = sum(e.count for e in kernels)
+            # per call of the step
+            busy = sum(dev_time(e) for e in kernels) * 1e-6 / reps
+            n_launch = sum(e.count for e in kernels) // reps
+            n_kernels = sum(e.count for e in kernels if not e.key.startswith(
+                ("Memcpy", "Memset"))) // reps
             if busy <= 0:
                 print(f"[profile] {arch} {name}: wall {wall * 1e3:.3f} ms "
                       "(median of 5); torch.profiler shows no device time "
                       "here, so the busy share is not measured")
                 continue
+            kernel_time[name] = union / reps
             print(f"[profile] {arch} {name}: wall {wall * 1e3:.3f} ms (median"
                   f" of 5, no profiler), device kernel time "
-                  f"{busy * 1e3:.3f} ms in {n_launch} kernels, busy share "
-                  f"{busy / wall:.4f}")
+                  f"{busy * 1e3:.3f} ms in {n_launch} kernels per call; "
+                  f"{reps} calls traced in {traced_wall * 1e3:.3f} ms, kernels "
+                  f"busy {union * 1e3:.3f} ms of it, busy share of the "
+                  f"traced calls {union / traced_wall:.4f}")
+            if name == "decode_step":
+                # the same step with TALP's CUPTI collection open
+                be = CudaRuntimeBackend(device)
+                be.start()
+                wall_on = median_wall(step)
+                [(_, kinds, _, _, _)] = be.flush_arrays()
+                be.stop()
+                rows = int((kinds == 0).sum()) / 5
+                print(f"[overhead] {arch} decode step: wall {wall * 1e3:.3f} "
+                      f"ms without TALP's CUPTI collection, "
+                      f"{wall_on * 1e3:.3f} ms with it open (medians of 5): "
+                      f"{(wall_on - wall) * 1e3:.3f} ms per step, "
+                      f"{(wall_on - wall) / n_launch * 1e6:.2f} us per "
+                      f"kernel of the step's {n_launch}; the collection held "
+                      f"{rows:.1f} kernel rows per step against the trace's "
+                      f"{n_kernels} (memcpy and memset apart), "
+                      f"{be.lost_markers} marker rows lost")
             ranked = sorted(kernels, key=dev_time, reverse=True)
             # the six heaviest, then every other kernel of this repository
             for e in ranked[:6] + [e for e in ranked[6:]
                                    if re.search("|".join(KERNEL_NAMES), e.key)]:
-                print(f"[profile]   {dev_time(e) * 1e-3:9.3f} ms "
-                      f"x{e.count:<5d} {e.key[:90]}")
+                print(f"[profile]   {dev_time(e) * 1e-3 / reps:9.3f} ms "
+                      f"x{e.count // reps:<5d} {e.key[:90]}")
     del params, caches
+    return kernel_time
+
+
+def traced(step, reps: int = 1):
+    """``reps`` calls of ``step`` traced by ``torch.profiler`` with CUDA
+    activity only, the collection TALP's backend opens: (the profiler, the
+    host wall of the calls up to their synchronise, the union of their
+    kernels' intervals in seconds, the last call's result). The union over
+    the wall is the step's busy share: a share of one window, never above
+    1, which a sum of kernel times over another run's wall can exceed."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            out = step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    cpu = torch.autograd.DeviceType.CPU
+    spans = sorted((e.start_ns(), e.start_ns() + e.duration_ns())
+                   for e in prof.profiler.kineto_results.events()
+                   if e.device_type() != cpu and not e.is_user_annotation()
+                   and not e.name().startswith(("Memcpy", "Memset")))
+    busy, reach = 0, None
+    for start, end in spans:
+        if reach is None or start > reach:
+            busy, reach = busy + end - start, end
+        elif end > reach:
+            busy, reach = busy + end - reach, end
+    return prof, wall, busy * 1e-9, out
+
+
+def compare_pe(label: str, talp_pe: float, wall: float, kernel) -> None:
+    """TALP's device PE of a region against the profiler's busy share of
+    the same step: the profiler's kernel time for one call of the step
+    (``kernel``, seconds, from ``profile_phase`` or the traced training
+    step) over the region's own wall per call (``wall``), within
+    PE_BOUND. Host stalls in the region (a first call's allocations, the
+    collection's cost) lengthen both sides' window alike; what is held is
+    TALP's kernel time, record by record, against the profiler's."""
+    assert kernel is not None, f"{label}: the profiler measured no kernel time"
+    busy = kernel / wall
+    print(f"[talp-vs-profiler] {label}: TALP device PE {talp_pe:.4f} over "
+          f"{wall * 1e3:.3f} ms per call; profiler kernel time "
+          f"{kernel * 1e3:.3f} ms per call, busy share {busy:.4f} of that "
+          f"wall; difference {talp_pe - busy:+.4f} (bound {PE_BOUND})")
+    assert abs(talp_pe - busy) <= PE_BOUND, (label, talp_pe, busy)
 
 
 def main() -> int:
@@ -1186,6 +1506,7 @@ def main() -> int:
     print(f"[versions] python {sys.version.split()[0]}, torch "
           f"{torch.__version__}, cuda {torch.version.cuda}")
     sass = build_kernels()
+    talp_backend_check(device)
     records = {rec["name"]: rec
                for rec in (kernel_phase(device), backward_phase(device),
                            ssd_kernel_phase(device))}
@@ -1193,11 +1514,15 @@ def main() -> int:
         records[name]["sass"] = counts
     path_check(device)
     mamba_path_check(device)
+    zamba_path_check(device)
     train_path_check(device)
-    for arch, requests, prompt_len, gen_len, kernel_name in SERVE:
-        serve_phase(device, arch, requests, prompt_len, gen_len, kernel_name,
-                    records)
-        profile_phase(device, arch, requests, prompt_len, gen_len)
+    for arch, requests, prompt_len, gen_len, expected in SERVE:
+        talp = serve_phase(device, arch, requests, prompt_len, gen_len,
+                           expected, records)
+        torch.cuda.empty_cache()
+        busy = profile_phase(device, arch, requests, prompt_len, gen_len)
+        for region, step in (("prefill", "prefill"), ("decode", "decode_step")):
+            compare_pe(f"{arch} {region}", *talp[region], busy.get(step))
         torch.cuda.empty_cache()
     train_phase(device, *TRAIN, records)
     torch.cuda.empty_cache()

@@ -1,7 +1,8 @@
 """Architecture registry of the port, copied from ``repro.configs``.
 
-Only ``llama3.2-3b`` and ``mamba2-130m`` are registered: the other
-architectures come with the slices that port their blocks."""
+Three architectures are registered: ``llama3.2-3b``, ``mamba2-130m``
+and ``zamba2-2.7b``. The others come with the slices that port their
+blocks."""
 
 from .base import (
     ModelConfig,
@@ -14,7 +15,7 @@ from .base import (
 )
 
 # importing registers each config
-from . import llama3_2_3b, mamba2_130m  # noqa: F401
+from . import llama3_2_3b, mamba2_130m, zamba2_2_7b  # noqa: F401
 
 ALL_ARCHS = list_configs()
 

@@ -1,30 +1,98 @@
 """Live CUDA runtime backend — the port of ``repro.core.backends.runtime``.
 
-Same two paths as the JAX backend:
+The two paths of the paper's CUPTI plugin:
 
   * host path: the monitor's ``offload()`` scopes around ``wait()`` (the
     host blocked on the device);
-  * device path: ``launch()`` records a ``torch.cuda.Event`` before and
-    after the work it enqueues on the current stream; ``wait()``
-    synchronises on the end event and emits a KERNEL record spanning the
-    two events. ``record_transfer()`` does the same for a MEMORY record.
+  * device path: CUPTI activity records, one per kernel, memcpy and
+    memset the card ran, collected through ``torch.profiler``'s Kineto
+    collection with ``ProfilerActivity.CUDA`` only (no CPU ops are
+    recorded). ``start()`` opens the collection; the first
+    ``flush_arrays()``/``flush()`` closes it and converts its device rows
+    into KERNEL and MEMORY records on their streams; ``stop()`` closes it
+    too (in a ``finally``), so a later ``torch.profiler.profile`` in the
+    same process can open: Kineto allows one session at a time, so no
+    other profiler may be open while a monitored run collects. A
+    ``launch()`` after a flush opens a new collection.
 
-CUDA event times are GPU timestamps, valid only once the end event has
-completed, and measured relative to another event. They are mapped onto
-the monitor's clock through one anchor event recorded at ``start()``,
-right after a ``torch.cuda.synchronize()``, when GPU and host clocks are
-read together. Without the mapping the KERNEL records would fall outside
-the host's region windows and the device hierarchy would be wrong.
+``launch()``/``wait()`` keep their host role only: ``wait()`` synchronises
+on an event recorded after the launched work, inside the caller's
+``offload()``. On CUDA neither emits a record, and neither does
+``record_transfer()``: the eager step of the port enqueues thousands of
+kernels while the card waits between them, and a record spanning the
+whole step would count those waits as Kernel time. The JAX backend's one
+record per launch spans one compiled executable, which has no host gaps
+inside it.
 
-For CPU tensors (``device="cpu"``) ``launch``/``wait`` use host timing,
-exactly as the JAX backend did on its CPU "device".
+Clocks. Kineto stamps every activity in integer nanoseconds since the
+Unix epoch (``CLOCK_REALTIME``, as ``time.time_ns()``), carrying CUPTI's
+GPU timestamps onto that clock through the CPU's time-stamp counter. On
+an H100 that carriage was not to be trusted: the rows of a collection
+sat 30 to 85 µs early against the CUDA events around the same kernels,
+and in some processes that had opened earlier profiling sessions one
+collection's rows drifted by 2.6% and jumped by hundreds of ms against
+the events, which themselves agreed with the host clock within 30 µs
+over 9 s. So the rows are placed on the monitor's clock through markers
+whose true times are CUDA events:
+  * ``start()`` records an anchor event on the idle card between two
+    reads of the monitor's clock (the tightest of five tries, at its
+    midpoint: one read after a slow ``record()`` put every event up to
+    65 µs late); ``_event_time`` maps any later event through it;
+  * a marker is three things on a private side stream, after the main
+    stream's work so far: a sleep kernel that holds the side stream, an
+    event, and a one-cycle sleep kernel queued behind the event, which so
+    starts when the event completes, with no launch between them. One
+    marker opens and one closes each collection, and one more sits before
+    and after the work of every ``launch()``;
+  * at the drain, each row is placed by linear interpolation between the
+    two markers launched just before and just after it (CUPTI's
+    correlation ids give the launch order, which a jump of the clock
+    cannot reorder), and kept inside their window: stream order runs
+    work launched between two markers between them (from a blocker's
+    length before the first). The markers' rows, the only ones on the
+    side stream, are dropped. A jump of the clock inside one window so
+    moves rows within that launch only: a dump of 132 markers over one
+    llama3.2-3b serve run showed the clock constant to 0.2 ms but for
+    one jump of 1.16 ms.
+  * Kineto drops rows whose converted times fall outside its capture
+    window, so a collection lost its first or last kernels (on the H100
+    once both markers of a collection with no launch in it). Each
+    collection so waits 20 ms after it opens and before it closes, first
+    runs a kernel of its own on the side stream, finds the side stream
+    from the closing marker, launched last, and tells the markers from
+    the blockers by length, not by position. Under a serve
+    run's load CUPTI also lost a marker row or two of 132 (and so, at
+    that rate, about 1.5% of all rows, which no CUPTI counter in reach
+    reports); so each marker's kernel carries its index mod 8 in its
+    length, the marker rows are matched to their events in order, a lost
+    one skipped, and ``lost_markers`` counts them. The match is the
+    alignment whose gaps between successive marker rows best fit the gaps
+    between their events, a disagreeing code counted as 1 ms of misfit:
+    under a training step that fills every SM a marker's measured length
+    also held its wait for an SM, and 4 of 13 codes read wrong, while the
+    gaps, tens of ms apart, still fit to a ms.
+On the card a ``torch.cuda._sleep`` kernel's activity record is held
+against the CUDA events around it and against the host's window around
+its launch (tests/test_torch_gpu.py, chip_smoke.py). An activity source
+without a card (tests) is placed by one host anchor: its ``now_ns()``
+read beside the monitor's clock.
+
+There is no fallback: a collection that cannot open raises, and so does
+one that returns no device row after work was launched through this
+backend, or whose markers are not all there.
+
+For CPU tensors (``device="cpu"``) ``launch``/``wait`` record the host
+window of each eager call as a KERNEL record, as the JAX backend does on
+its CPU "device". Tests give a CPU backend an ``activity`` source of
+their own to drive the device path without a card.
 """
 
 from __future__ import annotations
 
 import time
+import warnings
 from dataclasses import dataclass
-from typing import Any, Callable, List, Optional, Union
+from typing import Any, Callable, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -33,19 +101,45 @@ from ..states import DeviceActivity, DeviceRecord
 from ..telemetry import overhead as _ovh
 from .base import register_backend
 
-__all__ = ["CudaRuntimeBackend", "AsyncHandle"]
+__all__ = ["CudaRuntimeBackend", "AsyncHandle", "KinetoActivity"]
+
+# One drained activity batch: (device, kinds u1, starts i8 ns, ends i8 ns,
+# streams u4, correlation ids i8), times on the source's clock.
+ActivityRows = Tuple[int, np.ndarray, np.ndarray, np.ndarray, np.ndarray,
+                     np.ndarray]
+
+# A marker's blocker: about 0.2 ms of a sleep kernel at the H100's clock,
+# long past the host's enqueueing of the event and the kernel behind it.
+_BLOCKER_CYCLES = 400_000
+# A marker's kernel sleeps 1 + code * _CODE_CYCLES cycles, code its index
+# in the collection mod _CODES: 1 to 36 µs at the H100's 1.98 GHz, under
+# 60 µs down to 1.2 GHz, so that a lost marker row can be told.
+_CODE_CYCLES = 10_000
+_CODES = 8
+# Side-stream rows shorter than this are the markers' kernels; the
+# blockers run 0.2 ms or more (at any clock up to 2 GHz).
+_MARKER_NS = 100_000
+# Work launched after a marker's blocker began cannot start earlier than
+# the blocker's length before the marker (stream order): 0.4 ms at 1 GHz.
+_SLACK_S = 5e-4
+# Host time between a collection's open and its first kernel, and between
+# its last kernel and its close: Kineto drops the rows whose converted
+# times fall outside its capture window.
+_PAD_S = 0.02
 
 
 class _DeviceColumns:
-    """Per-device scalar-append column buffer (kind/start/end/stream)."""
+    """Per-device column buffer (kind/start/end/stream): scalar appends and
+    whole activity batches."""
 
-    __slots__ = ("kinds", "starts", "ends", "streams")
+    __slots__ = ("kinds", "starts", "ends", "streams", "batches")
 
     def __init__(self):
         self.kinds: List[int] = []
         self.starts: List[float] = []
         self.ends: List[float] = []
         self.streams: List[int] = []
+        self.batches: List[Tuple[np.ndarray, ...]] = []
 
     def append(self, kind: int, start: float, end: float, stream: int) -> None:
         self.kinds.append(kind)
@@ -53,28 +147,84 @@ class _DeviceColumns:
         self.ends.append(end)
         self.streams.append(stream)
 
+    def extend(self, kinds, starts, ends, streams) -> None:
+        self.batches.append((kinds, starts, ends, streams))
+
     def drain(self):
-        cols = (
+        parts = [(
             np.asarray(self.kinds, dtype=np.uint8),
             np.asarray(self.starts, dtype=np.float64),
             np.asarray(self.ends, dtype=np.float64),
             np.asarray(self.streams, dtype=np.uint32),
-        )
+        )] + self.batches
+        cols = tuple(np.concatenate([p[i] for p in parts]) for i in range(4))
         self.kinds, self.starts, self.ends, self.streams = [], [], [], []
+        self.batches = []
         return cols
+
+
+class KinetoActivity:
+    """The card's CUPTI activity records through ``torch.profiler``
+    (Kineto): kernels as KERNEL rows, memcpy and memset as MEMORY rows.
+    Rows are read from the raw Kineto results, which build no Python
+    event tree."""
+
+    def __init__(self):
+        self._prof = None
+
+    @property
+    def is_open(self) -> bool:
+        return self._prof is not None
+
+    def open(self) -> None:
+        from torch.profiler import ProfilerActivity, profile
+
+        prof = profile(activities=[ProfilerActivity.CUDA])
+        with warnings.catch_warnings():
+            # "Profiler clears events at the end of each cycle": each
+            # collection is read once, at its close
+            warnings.simplefilter("ignore", UserWarning)
+            prof.start()
+        self._prof = prof
+
+    def close(self) -> List[ActivityRows]:
+        """Stop collecting; the device rows, one batch per device."""
+        prof, self._prof = self._prof, None
+        torch.cuda.synchronize()
+        prof.stop()
+        cpu = torch.autograd.DeviceType.CPU
+        kernel, memory = DeviceActivity.KERNEL.code, DeviceActivity.MEMORY.code
+        rows: dict = {}
+        for e in prof.profiler.kineto_results.events():
+            if e.device_type() == cpu or e.is_user_annotation():
+                continue
+            name = e.name()
+            kind = memory if name.startswith(("Memcpy", "Memset")) else kernel
+            start = e.start_ns()
+            rows.setdefault(e.device_index(), []).append(
+                (kind, start, start + e.duration_ns(), e.device_resource_id(),
+                 e.correlation_id()))
+        out = []
+        for dev, r in sorted(rows.items()):
+            kinds, starts, ends, streams, corrs = zip(*r)
+            out.append((dev, np.asarray(kinds, np.uint8),
+                        np.asarray(starts, np.int64),
+                        np.asarray(ends, np.int64),
+                        np.asarray(streams, np.uint32),
+                        np.asarray(corrs, np.int64)))
+        return out
 
 
 @dataclass
 class AsyncHandle:
-    """Tracks one launch: the work enqueued between two CUDA events (or,
-    on the CPU, the host window of an eager call)."""
+    """Tracks one launch: on the card, the event recorded after the work
+    it enqueued; on the CPU, the host window of an eager call."""
 
     out: Any
     launch_t: float
     device: int
     name: str
     stream: int = 0
-    start_event: Optional[torch.cuda.Event] = None
     end_event: Optional[torch.cuda.Event] = None
 
 
@@ -83,35 +233,220 @@ class CudaRuntimeBackend:
     """Collects device activity records from live PyTorch execution."""
 
     def __init__(self, device: Union[str, torch.device] = "cuda",
-                 clock: Callable[[], float] = time.perf_counter):
+                 clock: Callable[[], float] = time.perf_counter,
+                 activity: Optional[Any] = None):
         self.torch_device = torch.device(device)
         self.cuda = self.torch_device.type == "cuda"
         self.clock = clock
+        if activity is None and self.cuda:
+            activity = KinetoActivity()
+        # source of per-kernel device rows (None: host windows, CPU only)
+        self.activity = activity
         self._columns: dict = {}  # dev -> _DeviceColumns
         self._pending: List[AsyncHandle] = []
         self._anchor: Optional[torch.cuda.Event] = None
         self._anchor_t = 0.0
+        self._ns_anchor: Tuple[int, float] = (0, 0.0)   # host anchor (no card)
+        self._side: Optional[torch.cuda.Stream] = None  # the markers' stream
+        self._marks: List[torch.cuda.Event] = []        # this collection's
+        self.lost_markers = 0    # marker rows CUPTI lost, over the drains
+        self._launched = 0       # launches and transfers since the open
         self.enabled = False
 
     # -- plugin lifecycle ------------------------------------------------
     def start(self) -> None:
         if self.cuda:
+            # the anchor event of the idle card, between two reads of the
+            # monitor's clock: the tightest of five pairs, at its midpoint
+            best = None
+            stream = torch.cuda.current_stream(self.torch_device)
+            for _ in range(5):
+                torch.cuda.synchronize(self.torch_device)
+                anchor = torch.cuda.Event(enable_timing=True)
+                t0 = self.clock()
+                anchor.record(stream)
+                t1 = self.clock()
+                if best is None or t1 - t0 < best[2] - best[1]:
+                    best = (anchor, t0, t1)
             torch.cuda.synchronize(self.torch_device)
-            anchor = torch.cuda.Event(enable_timing=True)
-            anchor.record(torch.cuda.current_stream(self.torch_device))
-            self._anchor_t = self.clock()
-            anchor.synchronize()
-            self._anchor = anchor
+            self._anchor, t0, t1 = best
+            self._anchor_t = 0.5 * (t0 + t1)
+            self._side = torch.cuda.Stream(self.torch_device)
+        if self.activity is not None:
+            self._open()
         self.enabled = True
 
     def stop(self) -> None:
-        # Drain pending asynchronous work before disabling.
-        for h in list(self._pending):
-            self.wait(h)
-        self.enabled = False
+        try:
+            # Drain pending asynchronous work before disabling.
+            for h in list(self._pending):
+                self.wait(h)
+        finally:
+            self.enabled = False
+            if self.activity is not None and self.activity.is_open:
+                self._drain_activity()
+
+    def _open(self) -> None:
+        if self.cuda:
+            torch.cuda.synchronize(self.torch_device)
+        self.activity.open()
+        self._launched = 0
+        if self.cuda:
+            # the first rows of the collection: a kernel CUPTI may miss,
+            # then the opening marker
+            torch.cuda.synchronize(self.torch_device)
+            time.sleep(_PAD_S)
+            self._marks = []
+            with torch.cuda.stream(self._side):
+                torch.cuda._sleep(_BLOCKER_CYCLES)
+            self._mark()
+        else:
+            t0 = self.clock()
+            ns = self.activity.now_ns()
+            self._ns_anchor = (ns, 0.5 * (t0 + self.clock()))
+
+    def _mark(self) -> None:
+        """Enqueue a marker on the side stream, after the current stream's
+        work so far."""
+        main = torch.cuda.current_stream(self.torch_device)
+        self._side.wait_stream(main)
+        with torch.cuda.stream(self._side):
+            torch.cuda._sleep(_BLOCKER_CYCLES)
+            mark = torch.cuda.Event(enable_timing=True)
+            mark.record(self._side)
+            torch.cuda._sleep(1 + _CODE_CYCLES * (len(self._marks) % _CODES))
+        self._marks.append(mark)
+
+    def _align(self, codes: np.ndarray, ns: np.ndarray,
+               t: np.ndarray) -> List[int]:
+        """The marker index of each marker row (codes ``codes``, Kineto
+        starts ``ns`` in seconds): the increasing assignment, skipping at
+        most _CODES - 1 lost rows in a row, whose gaps between successive
+        rows best match the gaps between their events' times ``t``, a
+        disagreeing code counted as 1 ms of mismatch."""
+        n, m = len(codes), len(t)
+        if n == 0 or n > m:
+            raise RuntimeError(
+                f"the CUDA activity collection's {n} marker kernels do not "
+                f"match the {m} markers launched")
+        idx = np.arange(m)
+        miss = (codes[:, None] != (idx % _CODES)[None, :]) * 1e-3
+        cost, backs = miss[0].copy(), []
+        for j in range(1, n):
+            new, back = np.full(m, np.inf), np.zeros(m, dtype=int)
+            for d in range(1, _CODES + 1):
+                prev = np.maximum(idx - d, 0)
+                c = np.where(idx >= d, cost[prev] + miss[j] + np.abs(
+                    (ns[j] - ns[j - 1]) - (t - t[prev])), np.inf)
+                better = c < new
+                new[better], back[better] = c[better], prev[better]
+            cost = new
+            backs.append(back)
+        k = int(np.argmin(cost))
+        if not np.isfinite(cost[k]):
+            raise RuntimeError(
+                f"the CUDA activity collection's {n} marker kernels do not "
+                f"match the {m} markers launched")
+        ks = [k]
+        for back in reversed(backs):
+            k = int(back[k])
+            ks.append(k)
+        return ks[::-1]
+
+    def _place(self, batches: List[ActivityRows]):
+        """Rows on the monitor's clock: each placed by linear interpolation
+        between the markers launched just before and just after it; the
+        markers' rows (the side stream's) dropped."""
+        last = max((b for b in batches if len(b[5])),
+                   key=lambda b: b[5].max(), default=None)
+        if last is None:
+            raise RuntimeError(
+                "the CUDA activity collection returned no device rows: "
+                "CUPTI recorded nothing (is another profiler open?)")
+        dev_m, _, m_starts, m_ends, m_streams, m_corrs = last
+        side = m_streams[np.argmax(m_corrs)]   # the closing marker's stream
+        on_side = np.flatnonzero(m_streams == side)
+        on_side = on_side[np.argsort(m_corrs[on_side])]
+        dur = (m_ends - m_starts)[on_side]
+        is_mark = dur < _MARKER_NS
+        # a marker's code, from its length over its own blocker's (the side
+        # row just before it, run at the same clock)
+        blocker = np.where(np.r_[False, ~is_mark[:-1]], np.r_[0, dur[:-1]], 0)
+        blocker = np.where(blocker > 0, blocker, np.median(dur[~is_mark])
+                           if (~is_mark).any() else 2e5)
+        rows = on_side[is_mark]
+        codes = np.rint((dur[is_mark] - 1000.0) * _BLOCKER_CYCLES
+                        / (_CODE_CYCLES * blocker[is_mark])).astype(np.int64)
+        base = int(m_starts[rows[0]])
+        m_ns = (m_starts[rows] - base).astype(np.float64)
+        t_all = np.array([self._event_time(e) for e in self._marks])
+        ks = np.array(self._align(codes % _CODES, m_ns * 1e-9, t_all))
+        self.lost_markers += len(self._marks) - len(rows)
+        m_corr = m_corrs[rows]
+        m_t = t_all[ks]
+        if len(m_t) == 1:
+            # one marker left: Kineto's own rate from it, and no window
+            # after it (a marker far past every row)
+            m_corr = np.append(m_corr, np.iinfo(np.int64).max)
+            m_ns, m_t = np.append(m_ns, 1e18), np.append(m_t, m_t[0] + 1e9)
+        span = np.diff(m_ns)
+        rates = np.where(span > 0, np.diff(m_t) / np.maximum(span, 1.0), 1e-9)
+        out = []
+        for dev, kinds, starts, ends, streams, corrs in batches:
+            if dev == dev_m:
+                keep = streams != side
+                kinds, starts, ends, streams, corrs = (
+                    kinds[keep], starts[keep], ends[keep], streams[keep],
+                    corrs[keep])
+            # the markers before and after each row in launch order (-1 and
+            # len(m_t): none); interpolation takes the nearest window
+            before = np.searchsorted(m_corr, corrs, side="right") - 1
+            k = np.clip(before, 0, len(rates) - 1)
+            t0, ns0, rate = m_t[k], m_ns[k], rates[k]
+            lo = np.where(before >= 0, m_t[np.maximum(before, 0)] - _SLACK_S,
+                          -np.inf)
+            hi = np.where(before + 1 < len(m_t),
+                          m_t[np.minimum(before + 1, len(m_t) - 1)], np.inf)
+            t_start = np.clip(
+                t0 + ((starts - base).astype(np.float64) - ns0) * rate, lo, hi)
+            t_end = np.clip(
+                t0 + ((ends - base).astype(np.float64) - ns0) * rate,
+                t_start, hi)
+            out.append((dev, kinds, t_start, t_end, streams))
+        return out
+
+    def _drain_activity(self) -> None:
+        """Close the collection and buffer its rows on the monitor clock."""
+        if self.cuda:
+            self._mark()            # the closing marker
+            torch.cuda.synchronize(self.torch_device)
+            time.sleep(_PAD_S)
+        batches = self.activity.close()
+        n_rows = sum(len(b[1]) for b in batches)
+        if self.cuda:
+            placed = self._place(batches)
+        else:
+            ns0, t0 = self._ns_anchor
+            placed = [(dev, kinds, t0 + (starts - ns0) * 1e-9,
+                       t0 + (ends - ns0) * 1e-9, streams)
+                      for dev, kinds, starts, ends, streams, _ in batches]
+        if self._launched and not any(len(b[1]) for b in placed):
+            raise RuntimeError(
+                "the CUDA activity collection returned no device rows for "
+                f"{self._launched} launches ({n_rows} rows in all): CUPTI "
+                "recorded nothing (is another profiler open?)")
+        for dev, kinds, starts, ends, streams in placed:
+            cols = self._columns.get(dev)
+            if cols is None:
+                cols = self._columns[dev] = _DeviceColumns()
+            cols.extend(kinds, starts, ends, streams)
 
     def _event_time(self, event: torch.cuda.Event) -> float:
-        """A completed event's GPU timestamp on the monitor's clock."""
+        """A completed event's GPU timestamp on the monitor's clock, through
+        the anchor event of ``start()``: it places the markers, and it is
+        the yardstick the activity records are checked against. On the idle
+        card the anchor completes while ``record()`` returns; the monitor's
+        clock is read on both sides of the call."""
         return self._anchor_t + self._anchor.elapsed_time(event) * 1e-3
 
     def _record(self, dev: int, kind: DeviceActivity, start: float,
@@ -122,8 +457,11 @@ class CudaRuntimeBackend:
         cols.append(kind.code, start, end, stream)
 
     def flush_arrays(self):
-        """Drain buffered activity as per-device column batches."""
+        """Drain buffered activity as per-device column batches; the first
+        flush closes the activity collection."""
         with _ovh.section("flush"):
+            if self.activity is not None and self.activity.is_open:
+                self._drain_activity()
             return [
                 (dev, *self._columns[dev].drain())
                 for dev in sorted(self._columns)
@@ -141,62 +479,62 @@ class CudaRuntimeBackend:
         return out
 
     # -- device activity (async path) ------------------------------------
-    def _events(self):
-        if self._anchor is None:
-            raise RuntimeError("CudaRuntimeBackend.start() was not called")
-        stream = torch.cuda.current_stream(self.torch_device)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        return stream, start, end
+    def _collecting(self) -> bool:
+        """Whether device rows come from the activity source; opens a new
+        collection after a flush closed the last one."""
+        if self.activity is None:
+            return False
+        if self.enabled and not self.activity.is_open:
+            self._open()
+        self._launched += 1
+        return self.activity.is_open
+
+    def _end_event(self) -> torch.cuda.Event:
+        end = torch.cuda.Event()
+        end.record(torch.cuda.current_stream(self.torch_device))
+        return end
 
     def launch(self, fn: Callable, *args, device: int = 0, name: str = "",
                stream: int = 0, **kwargs) -> AsyncHandle:
-        """Enqueue ``fn``'s work without waiting for it; the device record
-        is completed at ``wait()``. The host time of the call itself (in
-        eager PyTorch: enqueueing every kernel) is charged by the caller's
-        scope."""
+        """Enqueue ``fn``'s work without waiting for it, between two markers
+        on the card. The host time of the call itself (in eager PyTorch:
+        enqueueing every kernel) is charged by the caller's scope."""
         label = name or getattr(fn, "__name__", "fn")
+        marked = self._collecting() and self.cuda
         t0 = self.clock()
-        start = end = None
-        if self.cuda:
-            cuda_stream, start, end = self._events()
-            start.record(cuda_stream)
+        if marked:
+            self._mark()
         out = fn(*args, **kwargs)
-        if end is not None:
-            end.record(cuda_stream)
-        h = AsyncHandle(out, t0, device, label, stream, start, end)
+        end = None
+        if self.cuda:
+            if marked:
+                self._mark()
+            end = self._end_event()
+        h = AsyncHandle(out, t0, device, label, stream, end)
         self._pending.append(h)
         return h
 
     def wait(self, handle: AsyncHandle) -> Any:
-        """Block until the work is done; emit the kernel activity record."""
+        """Block until the work is done. Without an activity source (CPU
+        tensors), emit the host window of the call as a kernel record."""
         if handle.end_event is not None:
             handle.end_event.synchronize()
-            start = self._event_time(handle.start_event)
-            end = self._event_time(handle.end_event)
-        else:
-            start, end = handle.launch_t, self.clock()
-        if self.enabled:
-            self._record(handle.device, DeviceActivity.KERNEL, start, end,
-                         handle.stream)
+        elif self.enabled and self.activity is None:
+            self._record(handle.device, DeviceActivity.KERNEL,
+                         handle.launch_t, self.clock(), handle.stream)
         if handle in self._pending:
             self._pending.remove(handle)
         return handle.out
 
     def record_transfer(self, fn: Callable, *args, device: int = 0,
                         name: str = "transfer", **kwargs) -> Any:
-        """Time a host↔device data movement as a MEMORY record."""
-        if not self.cuda:
-            t0 = self.clock()
-            out = fn(*args, **kwargs)
-            t1 = self.clock()
-        else:
-            cuda_stream, start, end = self._events()
-            start.record(cuda_stream)
-            out = fn(*args, **kwargs)
-            end.record(cuda_stream)
-            end.synchronize()
-            t0, t1 = self._event_time(start), self._event_time(end)
-        if self.enabled:
-            self._record(device, DeviceActivity.MEMORY, t0, t1)
+        """Run a host↔device data movement and wait for it; without an
+        activity source, its host window is a MEMORY record."""
+        collecting = self._collecting()
+        t0 = self.clock()
+        out = fn(*args, **kwargs)
+        if self.cuda:
+            self._end_event().synchronize()
+        if self.enabled and not collecting:
+            self._record(device, DeviceActivity.MEMORY, t0, self.clock())
         return out

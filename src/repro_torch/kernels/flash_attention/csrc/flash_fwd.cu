@@ -29,7 +29,9 @@
 //     pairs (K and V separately, so S = Q K^T starts before V lands). The
 //     tensor maps are 4-D over (B, S, H, D) and (B, T, K, D), so a ragged
 //     S or T is zero-filled by the hardware; rows are 128-byte swizzled
-//     (64-byte at D 32) in 64-column panels, the layout wgmma reads;
+//     (64-byte at D 32) in 64-column panels, the layout wgmma reads. At
+//     D 80 (zamba2-2.7b) a tile is two panels: the tensor maps' D extent is
+//     80, so TMA fills columns 80-127 of the second panel with zeros;
 //   * S = Q K^T is wgmma m64n128k16 with both operands in shared memory;
 //     the online softmax stays in registers, in base 2 with scale * log2(e)
 //     folded into one FFMA before ex2.approx; P is rounded to bf16 in
@@ -53,6 +55,14 @@
 // two on named barriers, as FlashAttention-3 does, measured no faster on
 // an H100); the softmax's exponentials and conversions take issue slots the
 // products need; and the output is stored from registers, not by TMA.
+//
+// At D 80 the kernel is the D-128 kernel over zero-filled columns: S = Q K^T
+// takes the 5 k-steps of the 80 real columns, but O += P V is one n128
+// product per k-step, of which 48 columns are zeros dropped at the store
+// (wgmma allows n80, as n64 on panel 0 plus n16 on panel 1, or n80 across
+// the two; either reads a partial 128-byte swizzle atom of the MN-major V,
+// which this first version does not risk), and shared memory holds the
+// padded tiles. So P V does 1.6 times the products it needs.
 //
 // The fp32 path (flash_fwd_f32) is off the serving path: full fp32 on the
 // CUDA cores (never TF32), q scaled after the load as the TPU kernel does.
@@ -106,21 +116,26 @@ constexpr int kProducerRegs = 40;
 constexpr int kConsumerRegs = 232;
 
 // Shared memory, from a 1024-byte aligned base: Q, then the K and V ring,
-// then the barriers. Each tile is stored as D / PANEL panels of rows of
-// PANEL elements (one swizzle row each: 128 bytes, or 64 at D 32).
+// then the barriers. Each tile is stored as DP / PANEL panels of rows of
+// PANEL elements (one swizzle row each: 128 bytes, or 64 at D 32), where
+// DP is D rounded up to whole panels (128 at D 80; the columns past D are
+// TMA's zeros).
 template <int D>
 struct WgLayout {
   static constexpr int PANEL = D < 64 ? D : 64;
+  static constexpr int DP = (D + PANEL - 1) / PANEL * PANEL;
+  static constexpr int PANELS = DP / PANEL;
   static constexpr int SWIZZLE = PANEL == 64 ? 1 : 2;   // wgmma code: 128 B, 64 B
   static constexpr int ROW_BYTES = PANEL * 2;
-  static constexpr int Q_BYTES = kBQ * D * 2;
-  static constexpr int KV_BYTES = kBK * D * 2;
+  static constexpr int Q_BYTES = kBQ * DP * 2;
+  static constexpr int KV_BYTES = kBK * DP * 2;
   static constexpr int K_OFF = Q_BYTES;
   static constexpr int V_OFF = K_OFF + kStages * KV_BYTES;
   static constexpr int BAR_OFF = V_OFF + kStages * KV_BYTES;
   static constexpr int BYTES = BAR_OFF + (2 + 4 * kStages) * 8;
   static constexpr int LAUNCH_BYTES = BYTES + 1024;   // room to align the base
   static_assert(LAUNCH_BYTES <= 232448, "over the 227 KB a block may use");
+  static_assert(D % 16 == 0 && (DP == D || DP == 128), "a head dim wgmma takes");
 };
 
 // One consumer warpgroup's view of the block: its rows, the softmax
@@ -128,7 +143,7 @@ struct WgLayout {
 template <int D>
 struct Consumer {
   using Lay = WgLayout<D>;
-  static constexpr int PANEL = Lay::PANEL, ROW = Lay::ROW_BYTES;
+  static constexpr int PANEL = Lay::PANEL, ROW = Lay::ROW_BYTES, DP = Lay::DP;
   const Params& p;
   uint32_t q_addr, k_base, v_base;
   int r0, row_lo, row_hi, c2, shift;
@@ -154,7 +169,8 @@ struct Consumer {
   }
 
   // O += P V for the V tile in ring slot `stage`; P in registers (bf16).
-  __device__ __forceinline__ void pv(float (&o)[D / 2], uint32_t (&pf)[kBK / 16][4],
+  // O spans the DP columns of the padded tile.
+  __device__ __forceinline__ void pv(float (&o)[DP / 2], uint32_t (&pf)[kBK / 16][4],
                                      int stage) const {
     const uint32_t v_addr = v_base + stage * Lay::KV_BYTES;
     fence_regs(o);
@@ -164,7 +180,7 @@ struct Consumer {
       // V rows kk*16.. of every panel: LBO steps across panels (along D),
       // SBO across groups of 8 keys
       const uint64_t db = wgmma_desc(v_addr + kk * 16 * ROW, kBK * ROW, 8 * ROW, Lay::SWIZZLE);
-      Wgmma<D>::rs_trans_b(o, pf[kk], db, 1);
+      Wgmma<DP>::rs_trans_b(o, pf[kk], db, 1);
     }
     wgmma_commit();
   }
@@ -240,7 +256,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
                     const __grid_constant__ CUtensorMap tm_k,
                     const __grid_constant__ CUtensorMap tm_v, Params p) {
   using Lay = WgLayout<D>;
-  constexpr int PANEL = Lay::PANEL, ROW = Lay::ROW_BYTES;
+  constexpr int PANEL = Lay::PANEL, ROW = Lay::ROW_BYTES, DP = Lay::DP;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* base =
       smem_raw + ((1024u - (smem_addr(smem_raw) & 1023u)) & 1023u);
@@ -282,7 +298,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
         mbar_wait(q_empty, (tc & 1) ^ 1);   // the last item's S products are done
         mbar_arrive_expect_tx(q_full, Lay::Q_BYTES);
 #pragma unroll
-        for (int pn = 0; pn < D / PANEL; ++pn)
+        for (int pn = 0; pn < Lay::PANELS; ++pn)
           tma_load_4d(q_s + pn * kBQ * PANEL, &tm_q, q_full, pn * PANEL, t.h, t.q0, t.b);
         for (int i = 0; i < t.n_tiles; ++i, ++it) {
           const int stage = it % kStages, parity = ((it / kStages) & 1) ^ 1;
@@ -292,12 +308,12 @@ __global__ void __launch_bounds__(kWgThreads, 1)
           mbar_wait(&k_empty[stage], parity);
           mbar_arrive_expect_tx(&k_full[stage], Lay::KV_BYTES);
 #pragma unroll
-          for (int pn = 0; pn < D / PANEL; ++pn)
+          for (int pn = 0; pn < Lay::PANELS; ++pn)
             tma_load_4d(k_s + pn * kBK * PANEL, &tm_k, &k_full[stage], pn * PANEL, kh, t0, t.b);
           mbar_wait(&v_empty[stage], parity);
           mbar_arrive_expect_tx(&v_full[stage], Lay::KV_BYTES);
 #pragma unroll
-          for (int pn = 0; pn < D / PANEL; ++pn)
+          for (int pn = 0; pn < Lay::PANELS; ++pn)
             tma_load_4d(v_s + pn * kBK * PANEL, &tm_v, &v_full[stage], pn * PANEL, kh, t0, t.b);
         }
       }
@@ -328,9 +344,9 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       cw.row_lo = cw.r0 + 16 * warp + lane / 4;
       cw.row_hi = cw.row_lo + 8;
 
-      float o[D / 2];
+      float o[DP / 2];
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+      for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
       float m[2] = {kMaxInit, kMaxInit}, l[2] = {0.f, 0.f}, alpha[2];
       float s[kBK / 2];          // scores of tile i, then its probabilities
       uint32_t pf[kBK / 16][4];  // P of tile i - 1 in bf16, the A operand of P V
@@ -362,7 +378,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
         mbar_wait(&k_full[stage], (cur / kStages) & 1);
         cw.qk(s, stage);                                  // S_i
 #pragma unroll
-        for (int j = 0; j < D / 2; ++j) o[j] *= alpha[(j / 2) & 1];
+        for (int j = 0; j < DP / 2; ++j) o[j] *= alpha[(j / 2) & 1];
         mbar_wait(&v_full[pstage], (prev / kStages) & 1);
         cw.pv(o, pf, pstage);                             // O += P_{i-1} V_{i-1}
         wgmma_wait<1>();                                  // S_i is done
@@ -390,7 +406,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       {
         const int last = it + t.n_tiles - 1, stage = last % kStages;
 #pragma unroll
-        for (int j = 0; j < D / 2; ++j) o[j] *= alpha[(j / 2) & 1];
+        for (int j = 0; j < DP / 2; ++j) o[j] *= alpha[(j / 2) & 1];
         mbar_wait(&v_full[stage], (last / kStages) & 1);
         cw.pv(o, pf, stage);
         wgmma_wait<0>();
@@ -429,10 +445,11 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 }
 
 // fp32: 4 warps, 4 query rows each, 32-key tiles. Lane j scores key j of the
-// tile; for the accumulator, lane i owns columns i, i + 32, ... of the row.
+// tile; for the accumulator, lane i owns columns i, i + 32, ... of the row
+// that are < D (at D 80 lanes 0-15 own three columns, lanes 16-31 two).
 template <int D>
 __global__ void __launch_bounds__(128) flash_fwd_f32(Params p) {
-  constexpr int BQ = 16, BK = 32, RPW = BQ / 4, NV = D / 32;
+  constexpr int BQ = 16, BK = 32, RPW = BQ / 4, NV = (D + 31) / 32;
   __shared__ float qs[BQ][D];
   __shared__ float ks[BK][D + 1];
   __shared__ float vs[BK][D];
@@ -494,7 +511,9 @@ __global__ void __launch_bounds__(128) flash_fwd_f32(Params p) {
       for (int j = 0; j < BK; ++j) {
         const float pj = __shfl_sync(0xffffffffu, pe, j);
 #pragma unroll
-        for (int i = 0; i < NV; ++i) acc[rr][i] = fmaf(pj, vs[j][lane + 32 * i], acc[rr][i]);
+        for (int i = 0; i < NV; ++i)
+          if (D % 32 == 0 || lane + 32 * i < D)
+            acc[rr][i] = fmaf(pj, vs[j][lane + 32 * i], acc[rr][i]);
       }
     }
   }
@@ -505,7 +524,9 @@ __global__ void __launch_bounds__(128) flash_fwd_f32(Params p) {
     if (r >= p.S) continue;
     const float denom = fmaxf(l[rr], 1e-30f);
 #pragma unroll
-    for (int i = 0; i < NV; ++i) ob[(size_t)r * q_stride + lane + 32 * i] = acc[rr][i] / denom;
+    for (int i = 0; i < NV; ++i)
+      if (D % 32 == 0 || lane + 32 * i < D)
+        ob[(size_t)r * q_stride + lane + 32 * i] = acc[rr][i] / denom;
     if (p.lse != nullptr && lane == 0)
       p.lse[((size_t)b * p.H + h) * p.S + r] = m[rr] + logf(denom);
   }
@@ -554,6 +575,7 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
     switch (D) {
       case 32: return launch_wgmma<32>(p, B, st);
       case 64: return launch_wgmma<64>(p, B, st);
+      case 80: return launch_wgmma<80>(p, B, st);
       case 128: return launch_wgmma<128>(p, B, st);
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
@@ -562,6 +584,7 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
   switch (D) {
     case 32: flash_fwd_f32<32><<<grid, 128, 0, st>>>(p); break;
     case 64: flash_fwd_f32<64><<<grid, 128, 0, st>>>(p); break;
+    case 80: flash_fwd_f32<80><<<grid, 128, 0, st>>>(p); break;
     case 128: flash_fwd_f32<128><<<grid, 128, 0, st>>>(p); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -17,6 +17,11 @@ with no autograd graph, so it refuses inputs that require grad under grad
 mode: :class:`FlashAttention` (through ``ops.attention``) is the
 differentiable path. Each function's ``launches`` attribute counts its
 calls; one backward call launches three kernels.
+
+Head dims: the forward takes 32, 64, 80 and 128 (80 is zamba2-2.7b's
+2560 / 32), the backward 32, 64 and 128. A D-80 backward is refused with
+``ValueError`` here, before the library's dispatch, until a model with
+that head dim trains.
 """
 
 from __future__ import annotations
@@ -29,13 +34,14 @@ import torch
 
 from .. import cuda_build
 
-__all__ = ["BWD_SOURCE", "FlashAttention", "HEAD_DIMS", "SOURCE",
-           "backward_library", "check_inputs", "flash_attention",
+__all__ = ["BWD_HEAD_DIMS", "BWD_SOURCE", "FWD_HEAD_DIMS", "FlashAttention",
+           "SOURCE", "backward_library", "check_inputs", "flash_attention",
            "flash_attention_backward", "library"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_fwd.cu"
 BWD_SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_bwd.cu"
-HEAD_DIMS = (32, 64, 128)
+FWD_HEAD_DIMS = (32, 64, 80, 128)
+BWD_HEAD_DIMS = (32, 64, 128)
 _MAX_GRID_YZ = 65535
 _lib: Optional[ctypes.CDLL] = None
 _bwd_lib: Optional[ctypes.CDLL] = None
@@ -72,8 +78,10 @@ def backward_library() -> ctypes.CDLL:
 
 
 def check_inputs(q, k, v, causal: bool, window: Optional[int],
-                 softcap: Optional[float]) -> None:
-    """Raise ``ValueError`` for any input the kernel does not take."""
+                 softcap: Optional[float],
+                 head_dims: tuple = FWD_HEAD_DIMS) -> None:
+    """Raise ``ValueError`` for any input the kernel does not take; the
+    head dim must be one of ``head_dims``."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash_attention wants q (B,S,H,D), k/v (B,T,K,D)")
     b, s, h, d = q.shape
@@ -83,8 +91,8 @@ def check_inputs(q, k, v, causal: bool, window: Optional[int],
     t, nk = k.shape[1], k.shape[2]
     if nk == 0 or h % nk:
         raise ValueError(f"GQA requires H % K == 0, got {h} % {nk}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head dim {d} not supported; have {HEAD_DIMS}")
+    if d not in head_dims:
+        raise ValueError(f"head dim {d} not supported; have {head_dims}")
     if q.dtype not in (torch.float32, torch.bfloat16) or not (
             k.dtype == v.dtype == q.dtype):
         raise ValueError(f"dtypes {q.dtype}/{k.dtype}/{v.dtype}: want all "
@@ -171,7 +179,7 @@ def flash_attention_backward(
 ):
     """Launch the three backward kernels on the current stream; returns
     (dq, dk, dv) in q's dtype. Does not synchronise."""
-    check_inputs(q, k, v, causal, window, softcap)
+    check_inputs(q, k, v, causal, window, softcap, BWD_HEAD_DIMS)
     do = do.contiguous()
     b, s, h, d = q.shape
     t, nk = k.shape[1], k.shape[2]

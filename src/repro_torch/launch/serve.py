@@ -6,8 +6,10 @@ caches, then decodes tokens greedily. Host and device states are
 TALP-monitored as in ``repro.launch.serve``: ``backend.launch`` (in eager
 PyTorch, the host enqueueing every kernel of the step) runs outside
 ``mon.offload()`` and counts as host Useful; ``backend.wait`` runs
-inside it. Device Kernel records come from CUDA events
-(:class:`repro_torch.core.backends.CudaRuntimeBackend`).
+inside it. On the card, device Kernel and Memory records come from CUPTI
+activity, one per kernel, memcpy and memset, collected through
+``torch.profiler`` (:class:`repro_torch.core.backends.CudaRuntimeBackend`),
+so no other profiler may be open while ``serve`` runs.
 
 Runs on ``cuda`` unless ``device="cpu"`` is asked for; without a card it
 raises instead of running on the CPU.

@@ -5,11 +5,14 @@ Every step runs under TALP regions and states, as in the JAX trainer:
                      ``backend.launch`` (in eager PyTorch, the host
                      enqueueing every kernel of the step: forward,
                      backward and the AdamW update);
-  * *Offload*      — ``backend.wait``, the host blocked on the card, with
-                     a device Kernel record from CUDA events
-                     (:class:`repro_torch.core.backends.CudaRuntimeBackend`);
+  * *Offload*      — ``backend.wait``, the host blocked on the card;
 and the paper's text/JSON report is emitted at exit and sampled every
-``--talp-interval`` steps (TALP's online mode).
+``--talp-interval`` steps (TALP's online mode). On the card, device Kernel
+and Memory records come from CUPTI activity, one per kernel, memcpy and
+memset, collected through ``torch.profiler``
+(:class:`repro_torch.core.backends.CudaRuntimeBackend`), so no other
+profiler may be open while ``train`` runs. Each sample closes that
+collection and the next step opens a new one.
 
 Runs on ``cuda`` unless ``device="cpu"`` is asked for; without a card it
 raises instead of running on the CPU. Checkpointing (``--ckpt-dir``),

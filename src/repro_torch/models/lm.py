@@ -1,20 +1,24 @@
 """Decoder-only LM assembled from config-driven block patterns. Port of
 ``repro.models.lm`` for the dense attention kinds (``attn``,
-``attn_local``, ``attn_global``) and Mamba-2 blocks (``ssm``) with the
-token frontend.
+``attn_local``, ``attn_global``), the shared attention block
+(``shared_attn``, Zamba-2) and Mamba-2 blocks (``ssm``) with the token
+frontend.
 
 Parameters keep the JAX package's tree and layouts: ``slots/slot<i>``
 holds each pattern slot's block parameters stacked over repeats
-(``(R, ...)``), weights are ``(in, out)``, and decode caches are stacked
-over repeats (``(R, B, T, K, D)`` for attention, ``(R, B, H, P, N)`` SSD
-states and ``(R, B, K-1, C)`` conv tails for SSM blocks). The JAX
+(``(R, ...)``), except ``shared_attn`` slots, whose one parameter set,
+``shared``, every repeat applies (unstacked). Weights are ``(in, out)``,
+and decode caches are stacked over repeats (``(R, B, T, K, D)`` for
+attention, a shared block included: one KV cache per repeat;
+``(R, B, H, P, N)`` SSD states and ``(R, B, K-1, C)`` conv tails for SSM
+blocks). The JAX
 ``lax.scan`` over repeats is a Python loop over layers here; with
 ``cfg.remat == "full"`` each repeat runs under activation checkpointing
 when gradients are taken, as the JAX scan body runs under
 ``jax.checkpoint``.
 
-``shared_attn`` blocks, MoE, the precomputed-embedding frontend and
-M-RoPE raise ``NotImplementedError``; they come with later slices.
+MoE, the precomputed-embedding frontend and M-RoPE raise
+``NotImplementedError``; they come with later slices.
 """
 
 from __future__ import annotations
@@ -40,7 +44,7 @@ __all__ = [
     "train_loss",
 ]
 
-_KINDS = ("attn", "attn_local", "attn_global", "ssm")
+_KINDS = ("attn", "attn_local", "attn_global", "shared_attn", "ssm")
 
 
 def check_supported(cfg, training: bool = False) -> None:
@@ -120,6 +124,8 @@ def init_params(cfg, generator, device=None, dtype=None) -> Dict[str, Any]:
     }
     slots: Dict[str, Any] = {}
     for i, kind in enumerate(cfg.pattern):
+        if kind == "shared_attn":
+            continue
         stacked = None
         for r in range(cfg.repeats):
             block = _init_block(cfg, kind, generator, dtype, device)
@@ -130,6 +136,9 @@ def init_params(cfg, generator, device=None, dtype=None) -> Dict[str, Any]:
             _copy_into(stacked, block, r)
         slots[f"slot{i}"] = stacked
     params["slots"] = slots
+    if "shared_attn" in cfg.pattern:
+        params["shared"] = _init_block(cfg, "shared_attn", generator, dtype,
+                                       device)
     params["final_norm"] = torch.zeros((cfg.d_model,), dtype=dtype,
                                        device=device)
     params["unembed"] = truncated_normal(
@@ -211,14 +220,22 @@ def _remat_repeat(cfg, x, layer, positions):
     return _repeat(cfg, layer, x, positions, False)[0]
 
 
-def _stack_fwd(cfg, params, x, positions, build_cache=False):
+def _layer_rows(cfg, params) -> List[Dict[str, Any]]:
+    """Each repeat's block parameters by slot: row r of every stacked slot,
+    and the one ``shared`` set for every ``shared_attn`` slot."""
     rows = {key: _unbind(slot, cfg.repeats)
             for key, slot in params["slots"].items()}
+    shared = {f"slot{i}": params["shared"]
+              for i, kind in enumerate(cfg.pattern) if kind == "shared_attn"}
+    return [{**{key: rows[key][r] for key in rows}, **shared}
+            for r in range(cfg.repeats)]
+
+
+def _stack_fwd(cfg, params, x, positions, build_cache=False):
     remat = (cfg.remat == "full" and torch.is_grad_enabled()
              and not build_cache)
     cache_rows: Dict[str, list] = {}
-    for r in range(cfg.repeats):
-        layer = {key: rows[key][r] for key in rows}
+    for layer in _layer_rows(cfg, params):
         if remat:
             x = checkpoint(_remat_repeat, cfg, x, layer, positions,
                            use_reentrant=False)
@@ -240,7 +257,8 @@ def _stack_decode(cfg, params, x, pos, caches):
     for r in range(cfg.repeats):
         for i, kind in enumerate(cfg.pattern):
             key = f"slot{i}"
-            bp = tree_map(lambda a: a[r], params["slots"][key])
+            bp = (params["shared"] if kind == "shared_attn" else
+                  tree_map(lambda a: a[r], params["slots"][key]))
             # views of row r: attention's hot-ring writes land in the
             # stacked cache; an SSM block returns a new state and new conv
             # tails, which are written back into row r here
@@ -322,7 +340,8 @@ def grow_caches(cfg, caches, new_len: int):
     """Extend prefill caches to ``new_len`` slots for decoding (windowed
     layers cap at their window; SSM carries, whose size does not grow with
     the sequence, pass through). New prefix slots are empty
-    (``kv_pos = -1``); the hot ring passes through untouched.
+    (``kv_pos = -1``); the hot ring passes through untouched. A
+    ``shared_attn`` block is never windowed, as in the JAX package.
 
     Decode writes only the hot ring, at ``pos % decode_hot_len``, and
     nothing here or in the serve loop flushes it into the prefix, so

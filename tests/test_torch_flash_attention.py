@@ -15,8 +15,12 @@ from repro.kernels.flash_attention.kernel import flash_attention as jax_flash  #
 from repro.kernels.flash_attention.ref import attention_reference as jax_ref  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel, ops, ref  # noqa: E402
 from test_kernels import ATTN_SWEEP, _tol  # noqa: E402
+from test_torch_gpu import D80  # noqa: E402
 
 _TORCH = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
+_JAX = {v: k for k, v in _TORCH.items()}
+# head dim 80 (zamba2-2.7b), the rows the CUDA forward runs on the card
+D80_ROWS = [row[:-1] + (_JAX[row[-1]],) for row in D80]
 
 
 def _inputs(seed, b, s, t, h, k, d, dtype):
@@ -51,6 +55,34 @@ def test_plain_flash_vs_jax_reference(b, s, t, h, k, d, window, softcap,
     via_ops = ops.attention(tq, tk, tv, causal=True, window=window,
                             softcap=softcap)
     assert torch.equal(via_ops, got)
+
+
+@pytest.mark.parametrize(
+    "b,s,t,h,k,d,window,softcap,dtype", D80_ROWS,
+    ids=[f"d80_{i}" for i in range(len(D80_ROWS))],
+)
+def test_plain_flash_d80_vs_jax_reference(b, s, t, h, k, d, window, softcap,
+                                          dtype):
+    """Head dim 80: the plain version (the CUDA forward's CPU path and its
+    yardstick on the card) against the JAX oracle, fp32 and bf16, MHA, GQA,
+    ragged S < T, window and soft-cap."""
+    test_plain_flash_vs_jax_reference(b, s, t, h, k, d, window, softcap,
+                                      dtype)
+
+
+@pytest.mark.parametrize("row", [0, 1, 2, 4, 5],
+                         ids=["f32_mha", "mha", "gqa2", "f32_win_cap",
+                              "win_cap"])
+def test_plain_flash_d80_vs_pallas_interpret(row):
+    """Head dim 80 against the JAX package's Pallas kernel, interpreted
+    (S = T on its block grid: the ragged row is the oracle's only)."""
+    b, s, t, h, k, d, window, softcap, dtype = D80_ROWS[row]
+    (jq, jk, jv), (tq, tk, tv) = _inputs(11, b, s, t, h, k, d, dtype)
+    want = jax_flash(jq, jk, jv, causal=True, window=window, softcap=softcap,
+                     interpret=True)
+    got = ref.attention_reference(tq, tk, tv, causal=True, window=window,
+                                  softcap=softcap)
+    np.testing.assert_allclose(_np(got), _np(want), **_tol(dtype))
 
 
 @pytest.mark.parametrize("row", [0, 2, 6], ids=["mha", "gqa4", "win_cap"])

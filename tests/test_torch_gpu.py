@@ -4,11 +4,14 @@ without one. They import no JAX, so they run on a machine with the card:
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
 
+import time
+
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.core import TalpMonitor  # noqa: E402
+from repro_torch.core import DeviceActivity, TalpMonitor  # noqa: E402
 from repro_torch.core.backends import CudaRuntimeBackend  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel, ops, ref  # noqa: E402
 from repro_torch.kernels.ssd import kernel as ssd_kernel  # noqa: E402
@@ -58,6 +61,18 @@ EDGES = [
     (1, 1, 130, 4, 4, 32, None, None, torch.bfloat16),
     (1, 100, 400, 4, 2, 64, 64, None, torch.bfloat16),
 ]
+# Head dim 80 (zamba2-2.7b's shared block: 2560 / 32, MHA), forward only:
+# fp32 and bf16 MHA, GQA 2:1, S and T off the tile grid with S < T, window
+# and soft-cap in both dtypes. tests/test_torch_flash_attention.py holds
+# the plain version at these rows against the JAX package's.
+D80 = [
+    (1, 256, 256, 4, 4, 80, None, None, torch.float32),
+    (2, 256, 256, 4, 4, 80, None, None, torch.bfloat16),
+    (1, 256, 256, 8, 4, 80, None, None, torch.bfloat16),
+    (1, 200, 328, 4, 2, 80, None, None, torch.bfloat16),
+    (1, 256, 256, 4, 2, 80, 64, 30.0, torch.float32),
+    (1, 384, 384, 4, 2, 80, 100, 50.0, torch.bfloat16),
+]
 
 # tests/test_kernels.py::SSD_SWEEP with torch dtypes;
 # tests/test_torch_ssd.py holds the two equal.
@@ -83,6 +98,15 @@ SSD_EDGES = [
     (1, 4096, 4, 64, 1, 128, 64, torch.bfloat16),
     (2, 512, 8, 64, 2, 128, 256, torch.bfloat16),
 ]
+# State size 64 on the bf16 path (zamba2-2.7b: P 64, N 64, chunk 256): one
+# ragged chunk, many chunks, two groups, and zamba2's 80 heads on a ragged
+# L. Every row takes an initial state.
+SSD_N64 = [
+    (1, 100, 4, 64, 1, 64, 256, torch.bfloat16),
+    (1, 4096, 4, 64, 1, 64, 64, torch.bfloat16),
+    (2, 512, 8, 64, 2, 64, 256, torch.bfloat16),
+    (1, 1000, 80, 64, 1, 64, 256, torch.bfloat16),
+]
 
 
 def _tol(dtype):
@@ -99,10 +123,11 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("row", SWEEP + RAGGED + EDGES,
+@pytest.mark.parametrize("row", SWEEP + RAGGED + EDGES + D80,
                          ids=[f"attn{i}" for i in range(len(SWEEP))]
                          + [f"ragged{i}" for i in range(len(RAGGED))]
-                         + [f"edge{i}" for i in range(len(EDGES))])
+                         + [f"edge{i}" for i in range(len(EDGES))]
+                         + [f"d80_{i}" for i in range(len(D80))])
 def test_cuda_kernel_vs_plain(cuda, row):
     b, s, t, h, k, d, window, softcap, dtype = row
     gen = torch.Generator(device=cuda).manual_seed(42)
@@ -203,17 +228,110 @@ def test_cuda_kernel_refuses_unsupported_head_dim(cuda):
         ops.attention(q, k, k)
 
 
+def test_cuda_backward_refuses_head_dim_80(cuda):
+    """The forward takes D 80; the backward refuses it with ValueError
+    before its library dispatches, launching nothing."""
+    q, kk, vv, do = _attn_grad_inputs(cuda, 1, 128, 128, 4, 2, 80,
+                                      torch.bfloat16)
+    o, lse = kernel.flash_attention(q, kk, vv, return_lse=True)
+    before = kernel.flash_attention_backward.launches
+    with pytest.raises(ValueError, match="head dim 80"):
+        kernel.flash_attention_backward(q, kk, vv, o, lse, do)
+    out = ops.attention(*(x.clone().requires_grad_() for x in (q, kk, vv)))
+    with pytest.raises(ValueError, match="head dim 80"):
+        out.backward(do)
+    assert kernel.flash_attention_backward.launches == before
+
+
 def test_cuda_event_records_lie_inside_the_region(cuda):
+    """The CUPTI activity records of one launch (a matmul, a reduction and
+    the copy of its result) fall inside the region: Kernel and Memory are
+    positive and no larger than the region."""
     be = CudaRuntimeBackend(cuda)
     mon = TalpMonitor("cuda", backend=be)
     x = torch.randn(2048, 2048, device=cuda)
     with mon.region("step"):
-        h = be.launch(lambda a: (a @ a).sum(), x, name="mm")
+        h = be.launch(lambda a: (a @ a).sum().cpu(), x, name="mm")
         with mon.offload():
             be.wait(h)
     r = mon.finalize()["step"]
     assert 0 < r.device_states[0]["kernel"] <= r.elapsed
+    assert 0 < r.device_states[0]["memory"] <= r.elapsed
     r.device.validate()
+
+
+def test_cuda_host_gap_inside_one_launch_is_device_idle(cuda):
+    """A sleep kernel, a host sleep of 50 ms, a sleep kernel, in one
+    launch/wait window: TALP reports the host gap as device Idle, where a
+    record spanning the launch counted it as Kernel."""
+    be = CudaRuntimeBackend(cuda)
+    mon = TalpMonitor("gap", backend=be)
+
+    def step():
+        torch.cuda._sleep(1_000_000)
+        time.sleep(0.05)
+        torch.cuda._sleep(1_000_000)
+
+    with mon.region("step"):
+        h = be.launch(step, name="sleeps")
+        with mon.offload():
+            be.wait(h)
+    r = mon.finalize()["step"]
+    assert r.device_states[0]["idle"] >= 0.04, r.device_states
+    assert 0 < r.device_states[0]["kernel"] < 0.01, r.device_states
+    assert r.device.parallel_efficiency < 0.2
+
+
+def test_cuda_activity_clock_agrees_with_cuda_events(cuda):
+    """The activity records are moved onto the monitor clock through a
+    marker kernel at the collection's open; the CUDA events are the
+    yardstick. A sleep kernel queued behind another (so that the event
+    before it and its start are not split by a launch) starts and ends
+    within 50 us of the events around it, on every one of five tries spread
+    over 0.3 s; a sleep kernel launched on the idle card lies inside the
+    host's window around its launch and wait, within 50 us."""
+    be = CudaRuntimeBackend(cuda)
+    be.start()
+
+    def bracketed():
+        torch.cuda._sleep(2_000_000)      # holds the queue while we enqueue
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        torch.cuda._sleep(1_000_000)
+        e1.record()
+        return e0, e1
+
+    events, windows = [], []
+    for _ in range(5):
+        events.append(be.wait(be.launch(bracketed)))
+        time.sleep(0.06)
+    for _ in range(5):
+        h0 = be.clock()
+        be.wait(be.launch(torch.cuda._sleep, 1_000_000))
+        windows.append((h0, be.clock()))
+    [(_, kinds, starts, ends, _)] = be.flush_arrays()
+    be.stop()
+    assert len(kinds) == 15 and set(kinds) == {DeviceActivity.KERNEL.code}
+    order = np.argsort(starts)
+    for (e0, e1), i in zip(events, order[1:10:2]):
+        assert abs(starts[i] - be._event_time(e0)) <= 50e-6
+        assert abs(ends[i] - be._event_time(e1)) <= 50e-6
+    for (h0, h1), i in zip(windows, order[10:]):
+        assert h0 - 50e-6 <= starts[i] < ends[i] <= h1 + 50e-6
+
+
+def test_cuda_activity_collection_closes_for_a_later_profiler(cuda):
+    """finalize() closes the collection, so torch.profiler can open after a
+    monitored run, as chip_smoke.py's profile phases do."""
+    be = CudaRuntimeBackend(cuda)
+    mon = TalpMonitor("t", backend=be)
+    with mon.region("step"):
+        be.wait(be.launch(lambda: torch.ones(8, device=cuda) * 2))
+    mon.finalize()
+    assert not be.activity.is_open
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]):
+        torch.ones(8, device=cuda).sum()
 
 
 def _ssd_inputs(device, b, l, h, p, g, n, dtype, seed=7):
@@ -229,10 +347,11 @@ def _ssd_inputs(device, b, l, h, p, g, n, dtype, seed=7):
     return x, dt, a, bm, cm, d, s0
 
 
-@pytest.mark.parametrize("row", SSD_SWEEP + SSD_RAGGED + SSD_EDGES,
+@pytest.mark.parametrize("row", SSD_SWEEP + SSD_RAGGED + SSD_EDGES + SSD_N64,
                          ids=[f"ssd{i}" for i in range(len(SSD_SWEEP))]
                          + [f"ragged{i}" for i in range(len(SSD_RAGGED))]
-                         + [f"edge{i}" for i in range(len(SSD_EDGES))])
+                         + [f"edge{i}" for i in range(len(SSD_EDGES))]
+                         + [f"n64_{i}" for i in range(len(SSD_N64))])
 def test_cuda_ssd_kernel_vs_plain(cuda, row):
     """y within _tol of its dtype, initial state in and final state out
     within fp32 _tol, of the plain version evaluated in float64 on the
@@ -357,3 +476,43 @@ def test_cuda_train_step_matches_cpu(cuda, compute_dtype):
 
     for g, w in pairs(got, new_cpu["params"]):
         torch.testing.assert_close(g, w, rtol=tol32, atol=2 * opt.lr + tol32)
+
+
+def test_cuda_zamba_smoke_decode_matches_cpu(cuda):
+    """smoke_config("zamba2-2.7b") with head_dim 80 (the smoke 16 is no head
+    dim the flash kernel takes): prefill of 40 tokens (a ragged SSD chunk)
+    and 4 decode steps on the card (flash D 80 and the SSD kernel at P 16,
+    N 16) against the CPU (plain versions), the same bf16 weights,
+    rtol = atol = 0.15 as tests/test_torch_lm.py's bf16 parity; the two
+    repeats of the shared block write their own KV rows."""
+    import dataclasses
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import lm
+
+    cfg = dataclasses.replace(smoke_config("zamba2-2.7b"), head_dim=80)
+    gen = torch.Generator().manual_seed(9)
+    cpu_params = lm.init_params(cfg, gen, device="cpu", dtype=torch.bfloat16)
+    toks = torch.randint(0, cfg.vocab_size, (2, 44), generator=gen,
+                         dtype=torch.int32)
+    outs, rows = [], []
+    for dev in (torch.device("cpu"), cuda):
+        params = lm.tree_map(lambda x: x.to(dev), cpu_params)
+        fwd, ssd = kernel.flash_attention.launches, ssd_kernel.ssd_scan.launches
+        with torch.inference_mode():
+            logits, caches, pos = lm.prefill(cfg, params, toks[:, :40].to(dev))
+            caches = lm.grow_caches(cfg, caches, 44)
+            seq = [logits]
+            for t in range(40, 44):
+                logits, caches, pos = lm.decode_step(
+                    cfg, params, toks[:, t:t + 1].to(dev), pos, caches)
+                seq.append(logits)
+        on_card = dev.type == "cuda"
+        assert kernel.flash_attention.launches - fwd == 2 * on_card
+        assert ssd_kernel.ssd_scan.launches - ssd == 10 * on_card
+        outs.append(torch.stack(seq).float().cpu())
+        rows.append(caches["slot5"]["k"].float().cpu())
+    assert torch.isfinite(outs[1]).all()
+    torch.testing.assert_close(outs[1], outs[0], rtol=0.15, atol=0.15)
+    assert not torch.equal(rows[1][0], rows[1][1])
+    torch.testing.assert_close(rows[1], rows[0], rtol=0.15, atol=0.15)

@@ -1,9 +1,12 @@
 """Slice parity: the port's serving path (prefill → grow_caches → greedy
-decode) against the JAX package's on smoke_config("llama3.2-3b") and
-smoke_config("mamba2-130m"), with the JAX-initialised weights carried
-over by ``params_from_jax``. The mamba prompt (16 tokens) is shorter than
-its ssm_chunk (32), so the SSD's ragged path runs; six decode steps, so a
-decode that dropped the SSM state it returns would show.
+decode) against the JAX package's on smoke_config("llama3.2-3b"),
+smoke_config("mamba2-130m") and smoke_config("zamba2-2.7b"), with the
+JAX-initialised weights carried over by ``params_from_jax``. The mamba
+and zamba2 prompts (16 tokens) are shorter than their ssm_chunk (32), so
+the SSD's ragged path runs; six decode steps, so a decode that dropped
+the SSM state it returns would show. zamba2's smoke config applies its
+one shared attention block at layers 6 and 12, each repeat with its own
+KV cache row.
 
 fp32 (compute dtype and weights): logits within 1e-3 and identical greedy
 tokens. The tolerance is looser than _tol's 2e-4 because reduction-order
@@ -15,6 +18,7 @@ tokens, so a near-tie in bf16 cannot make the sequences diverge.
 """
 
 import dataclasses
+import math
 
 import numpy as np
 import pytest
@@ -107,7 +111,7 @@ def test_full_config_shapes_match_jax_without_memory():
 
 
 @pytest.mark.parametrize("change", [
-    dict(pattern=("attn", "shared_attn")),
+    dict(pattern=("attn", "cross_attn")),
     dict(num_experts=4, num_experts_per_token=2, moe_d_ff=64),
     dict(frontend="embed"),
     dict(mrope_sections=(2, 3, 3)),
@@ -196,3 +200,99 @@ def test_mamba_full_config_shapes_match_jax_without_memory():
     assert got == want
     assert got["slots"]["slot0"]["ssm"]["wx"] == (24, 768, 1536)
     assert got["slots"]["slot0"]["ssm"]["conv_b"] == (24, 4, 128)
+
+
+def test_shared_attn_pattern_initialises_one_shared_block():
+    """A pattern with a shared attention block: one unstacked ``shared``
+    subtree and no stacked slot for it."""
+    cfg = dataclasses.replace(smoke_config("llama3.2-3b"),
+                              pattern=("attn", "shared_attn"))
+    tp = tlm.init_params(cfg, torch.Generator().manual_seed(0))
+    assert set(tp["slots"]) == {"slot0"}
+    assert set(tp["shared"]) == {"ln1", "attn", "ln2", "mlp"}
+    assert tuple(tp["shared"]["attn"]["wq"].shape) == (64, 64)
+    assert tuple(tp["slots"]["slot0"]["attn"]["wq"].shape) == (
+        cfg.repeats, 64, 64)
+
+
+def _zamba_caches_match(jc, tc):
+    """Every stacked cache equal: the shared block's KV rows (slot5, one
+    per repeat) and the SSD states and conv tails of slot0..4."""
+    assert set(tc) == set(jc) == {f"slot{i}" for i in range(6)}
+    assert set(tc["slot5"]) == {"k", "v", "kv_pos", "hk", "hv", "h_pos"}
+    for key in tc:
+        assert set(tc[key]) == set(jc[key]), key
+        for name in tc[key]:
+            assert tuple(tc[key][name].shape) == jc[key][name].shape
+            np.testing.assert_allclose(to_np(tc[key][name]),
+                                       to_np(jc[key][name]), rtol=1e-3,
+                                       atol=1e-3, err_msg=f"{key}/{name}")
+    # the two repeats of the shared block each wrote their own cache row
+    assert not np.array_equal(to_np(tc["slot5"]["k"][0]),
+                              to_np(tc["slot5"]["k"][1]))
+
+
+def test_zamba_serving_path_fp32_matches_jax():
+    jl, tl, jt, tt, jc, tc = _run_both("float32", own_greedy=True,
+                                       arch="zamba2-2.7b")
+    assert tl.shape == jl.shape == (STEPS + 1, B, 512)
+    np.testing.assert_allclose(tl, jl, rtol=1e-3, atol=1e-3)
+    np.testing.assert_array_equal(tt, jt)
+    _zamba_caches_match(jc, tc)
+
+
+def test_zamba_serving_path_bf16_matches_jax():
+    jl, tl, _, _, _, _ = _run_both("bfloat16", own_greedy=False,
+                                   arch="zamba2-2.7b")
+    assert np.isfinite(tl).all()
+    np.testing.assert_allclose(tl, jl, rtol=0.15, atol=0.15)
+
+
+def test_zamba_param_tree_and_count_match_jax():
+    """params_from_jax takes the zamba2 tree (five stacked SSM slots and the
+    unstacked ``shared`` block); the port's own draw has the same tree and
+    count, and a tree without ``shared`` is refused."""
+    jcfg, tcfg = configs("zamba2-2.7b")
+    jp, tp = params(jcfg, tcfg)
+    assert tlm.param_count(tp) == jlm.param_count(jp)
+    assert set(tp["slots"]) == {f"slot{i}" for i in range(5)}
+    np.testing.assert_array_equal(to_np(tp["shared"]["attn"]["wq"]),
+                                  to_np(jp["shared"]["attn"]["wq"]))
+    shapes = tlm.param_shapes(tcfg)
+    drawn = tlm.init_params(tcfg, torch.Generator().manual_seed(0))
+    assert tlm.param_count(drawn) == jlm.param_count(jp)
+    assert tlm.tree_map(lambda x: tuple(x.shape), drawn) == shapes
+    broken = dict(jax.tree.map(np.asarray, jp))
+    del broken["shared"]
+    with pytest.raises(ValueError):
+        params_from_jax(tcfg, broken)
+
+
+def test_zamba_full_config_shapes_match_jax_without_memory():
+    """Full-width zamba2-2.7b: the port's tree of shapes (meta device) is
+    JAX's (eval_shape), leaf for leaf, and so is its count. The config's
+    n_params() (the 6ND model-flops count) leaves out the final norm and,
+    in each of the 45 SSM blocks, the conv weights, dt_bias, a_log, d_skip
+    and the gated norm, while counting 2 d_model of norms where the tree
+    has one: 1,073,200 parameters fewer."""
+    import functools
+
+    from repro.configs import get_config as jax_get_config
+
+    jcfg = jax_get_config("zamba2-2.7b")
+    want = jax.eval_shape(functools.partial(jlm.init_params, jcfg),
+                          jax.random.PRNGKey(0))
+    want = jax.tree.map(lambda x: tuple(x.shape), want)
+    tcfg = get_config("zamba2-2.7b")
+    got = tlm.param_shapes(tcfg)
+    assert got == want
+    assert got["shared"]["attn"]["wq"] == (2560, 2560)
+    assert got["slots"]["slot0"]["ssm"]["wx"] == (9, 2560, 5120)
+    meta = tlm.init_params(tcfg, None, device="meta")
+    count = tlm.param_count(meta)
+    assert count == sum(math.prod(x) for x in jax.tree.leaves(
+        want, is_leaf=lambda x: isinstance(x, tuple))) == 2_063_439_920
+    d_in, m = tcfg.ssm_d_inner, tcfg.d_model
+    left_out = 45 * (tcfg.ssm_conv * (d_in + 2 * tcfg.ssm_state)
+                     + 3 * tcfg.ssm_heads + d_in - m) + m
+    assert count - left_out == jcfg.n_params() == 2_062_366_720

@@ -85,3 +85,15 @@ def test_main_cli_mamba_on_cpu(monkeypatch, capsys):
     serve_mod.main()
     last = capsys.readouterr().out.strip().splitlines()[-1]
     assert last.startswith("generated 6 tokens in ")
+
+
+def test_main_cli_zamba_on_cpu(monkeypatch, capsys):
+    """zamba2-2.7b comes from the registry: its smoke config serves through
+    the same entry point, the shared block's KV caches grown beside the
+    SSM carries."""
+    monkeypatch.setattr("sys.argv", [
+        "serve", "--arch", "zamba2-2.7b", "--smoke", "--device", "cpu",
+        "--requests", "2", "--prompt-len", "16", "--gen-len", "4"])
+    serve_mod.main()
+    last = capsys.readouterr().out.strip().splitlines()[-1]
+    assert last.startswith("generated 8 tokens in ")

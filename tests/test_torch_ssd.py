@@ -200,6 +200,15 @@ def test_cuda_wrapper_rejects_what_the_kernel_does_not_take(case):
     assert kernel.ssd_scan.launches == before
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_ssd_n64_vs_jax_reference_and_pallas(dtype):
+    """zamba2-2.7b's SSD head shape (P 64, N 64, chunk 256, G 1): the plain
+    version against the JAX oracle and the Pallas kernel, interpreted, at
+    _tol, in fp32 and bf16."""
+    test_plain_ssd_vs_jax_reference_and_pallas(
+        1, 512, 4, 64, 1, 64, 256, getattr(jnp, dtype))
+
+
 def test_gpu_sweep_copy_matches_ssd_sweep():
     """tests/test_torch_gpu.py runs on the card, where JAX is absent, so it
     keeps its own copy of SSD_SWEEP; the copy must stay the same."""
