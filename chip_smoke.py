@@ -5,15 +5,15 @@
 1. Prints the card (``nvidia-smi`` name and power limit), the torch and
    CUDA versions, and builds the CUDA kernels from the sources in this
    checkout (one ``nvcc`` per source, all started together: the flash
-   forward, the flash backward, the SSD scan), timing the build and
-   printing each kernel's ``ptxas -v`` registers and spills. Counts the
-   HGMMA (wgmma), UTMALDG (TMA load) and HMMA (mma.sync) instructions in
-   each library's SASS (``cuobjdump -sass``) and fails unless both flash
-   libraries have HGMMA and UTMALDG and no HMMA and the SSD library has
-   HMMA; fails if any ``ptxas`` log says it serialises wgmma (warning
-   C7520, a wgmma under a branch; C7512, too few registers), if a forward
-   kernel (D 32, 64, 80, 128) or a bf16 kernel of the flash backward
-   spills.
+   forward, the flash backward, the SSD scan forward and backward), timing
+   the build and printing each kernel's ``ptxas -v`` registers and spills.
+   Counts the HGMMA (wgmma), UTMALDG (TMA load) and HMMA (mma.sync)
+   instructions in each library's SASS (``cuobjdump -sass``) and fails
+   unless both flash libraries have HGMMA and UTMALDG and no HMMA and the
+   SSD forward has HMMA; fails if any ``ptxas`` log says it serialises
+   wgmma (warning C7520, a wgmma under a branch; C7512, too few
+   registers), if a forward kernel (D 32, 64, 80, 128), a bf16 kernel of
+   the flash backward or a bf16 kernel of the SSD backward spills.
    Then TALP's device records, which come from CUPTI activity through
    ``torch.profiler``: a sleep kernel's record against the CUDA events
    around it (CLOCK_BOUND), and a host sleep between two sleep kernels of
@@ -45,7 +45,17 @@
      version evaluated in float64 on the same inputs (the plain version's
      own fp32 evaluation is printed beside it); at both prefill shapes it
      times the plain version and the kernel in turns: plain, kernel,
-     kernel, plain (no single PyTorch call computes the scan).
+     kernel, plain (no single PyTorch call computes the scan);
+   * the SSD backward over the same SSD rows and the training shape of
+     mamba2-130m (B 8, L 4096, H 24, P 64, G 1, N 128, chunk 256, bf16):
+     every gradient (dx, ddt, da, dB, dC, dD and, with a state, the initial
+     state's) against autograd through the plain version evaluated in
+     float64 on the same inputs (one request at a time at the training
+     shape), fp32 rows elementwise at TOL[fp32], bf16 rows at TOL[bf16]
+     on each gradient over its reference's max-abs, a second run
+     bit-identical; at the training shape it times the plain backward
+     (autograd through the plain version in fp32), then the kernel, in
+     turns, beside the bound of ssd_backward_work.
    Timings are CUDA events around runs of back-to-back calls (ms per
    call), medians; kernel and yardstick are timed in turns.
 3. Path checks: two narrow layers of each model's block on the card
@@ -53,8 +63,9 @@
    decode steps, the same bf16 weights (zamba2: its smoke config with head
    dim 80 and P 64, N 64, chunk 256, whose two shared-block repeats must
    write different KV rows); and one training step of the llama3.2-3b
-   smoke config (head_dim 32) in fp32 and in bf16 compute on the card
-   against the CPU from the same state.
+   smoke config (head_dim 32) and one of the mamba2-130m smoke config, in
+   fp32 and in bf16 compute, on the card against the CPU from the same
+   state.
 4. Serve phases: ``repro_torch.launch.serve.serve`` under the TALP monitor
    at full width, random weights from a seed: llama3.2-3b with 8 requests
    of 1024 prompt tokens and 64 generated tokens, then mamba2-130m (all
@@ -73,16 +84,18 @@
    prefill and decode regions must match within PE_BOUND. The decode step
    is timed again with TALP's CUPTI collection open, for the collection's
    cost per step.
-6. Train phase: ``repro_torch.launch.train.train`` under the TALP monitor,
-   llama3.2-3b at full width and depth (3.61 B parameters, fp32 masters
-   and AdamW moments on the card), 6 steps of 2 x 2048 tokens. The launch
-   counters are set to 0 just before and read just after: 56 forward
-   launches per step (28 layers, twice with remat) and 28 backward calls.
-   Prints each step's loss (all finite), step time, tokens/s, MFU, peak
-   memory and TALP's train_loop numbers, then traces one more step with
-   ``torch.profiler``: its kernel time over the train_loop's wall per step
-   is the busy share TALP's train_loop device PE must match within
-   PE_BOUND.
+6. Train phases: ``repro_torch.launch.train.train`` under the TALP
+   monitor at full width and depth, fp32 masters and AdamW moments on the
+   card: llama3.2-3b (3.61 B parameters), 6 steps of 2 x 2048 tokens, and
+   mamba2-130m (24 layers), 6 steps of 8 x 4096 tokens. The launch
+   counters are set to 0 just before each run and read just after: per
+   step, llama launches the flash forward 56 times (28 layers, twice with
+   remat) and its backward 28 times; mamba the SSD forward 48 times and
+   its backward 24 times. Prints each step's loss (all finite), step time,
+   tokens/s, MFU, peak memory and TALP's train_loop numbers, then traces
+   one more step with ``torch.profiler``: its kernel time over the
+   train_loop's wall per step is the busy share TALP's train_loop device
+   PE must match within PE_BOUND.
 7. Prints one JSON line with every kernel's numbers, then, as the last
    line, ``{"ok": true, "device": {...}}``.
 
@@ -273,7 +286,10 @@ def attention_work(b, s, t, h, k, d, window, dtype):
 KERNEL_NAMES = ("flash_fwd_wgmma", "flash_fwd_f32", "flash_bwd_preprocess",
                 "flash_bwd_dkdv_f32", "flash_bwd_dq_f32", "flash_bwd_dkdv_wgmma",
                 "flash_bwd_dq_wgmma", "ssd_chunk_state", "ssd_state_pass",
-                "ssd_chunk_output", "ssd_fwd_f32")
+                "ssd_chunk_output", "ssd_fwd_f32", "ssd_bwd_outer",
+                "ssd_bwd_state_pass", "ssd_bwd_dstate_pass", "ssd_bwd_query",
+                "ssd_bwd_key", "ssd_bwd_chunk", "ssd_bwd_group_sum",
+                "ssd_bwd_head_sum")
 
 
 def _kernel_label(mangled: str) -> str:
@@ -330,10 +346,11 @@ def build_kernels() -> dict:
     """Compile every kernel source of the port at once, one ``nvcc`` per
     source, load the libraries, and check from their SASS that the flash
     forward and the flash backward run wgmma and TMA and no mma.sync and
-    the SSD kernels run mma.sync; that no ``ptxas`` log warns of
-    serialised wgmma (C7520 or C7512); and that no forward kernel (D 32,
-    64, 80 and 128, bf16 and fp32) and no bf16 kernel of the backward
-    spills. Returns each kernel record's SASS counts."""
+    the SSD forward's kernels run mma.sync; that no ``ptxas`` log warns of
+    serialised wgmma (C7520 or C7512); and that no flash forward kernel
+    (D 32, 64, 80 and 128, bf16 and fp32), no bf16 kernel of the flash
+    backward and no bf16 kernel of the SSD backward spills. Returns each
+    kernel record's SASS counts."""
     from repro_torch.kernels import cuda_build
     from repro_torch.kernels.flash_attention import kernel as flash
     from repro_torch.kernels.ssd import kernel as ssd
@@ -344,7 +361,7 @@ def build_kernels() -> dict:
         return lib, time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    sources = (flash.SOURCE, flash.BWD_SOURCE, ssd.SOURCE)
+    sources = (flash.SOURCE, flash.BWD_SOURCE, ssd.SOURCE, ssd.BWD_SOURCE)
     with ThreadPoolExecutor(len(sources)) as pool:
         built = list(pool.map(timed, sources))
     print(f"[build] {len(sources)} sources in {time.perf_counter() - t0:.1f}"
@@ -369,12 +386,21 @@ def build_kernels() -> dict:
               if label.startswith(("flash_bwd_dkdv_wgmma", "flash_bwd_dq_wgmma"))]
     assert len(spills) == 6, spills      # two passes at D 32, 64 and 128
     assert not any(spilled(s) for _, s in spills), spills
+    # four templated kernels (the two outer-product modes, query, key) at
+    # each of the 16 (P, N), and the group sum
+    ssd_bwd_log = built[3][0].with_suffix(".log")
+    spills = [(label, spill) for label, _, spill in ptxas_kernels(ssd_bwd_log)
+              if label.startswith("ssd_bwd_") and "bf16" in label]
+    assert len(spills) == 4 * 16 + 1, [label for label, _ in spills]
+    assert not any(spilled(s) for _, s in spills), [
+        (label, s) for label, s in spills if spilled(s)]
     flash.library()
     flash.backward_library()
     ssd.library()
+    ssd.backward_library()
     counts = {name: sass_counts(lib) for name, (lib, _) in
-              zip(("flash_attention_fwd", "flash_attention_bwd", "ssd_fwd"),
-                  built)}
+              zip(("flash_attention_fwd", "flash_attention_bwd", "ssd_fwd",
+                   "ssd_bwd"), built)}
     for name, c in counts.items():
         print(f"[sass] {name}: " + ", ".join(f"{op} {n}" for op, n in c.items()))
     f, b, s = (counts[name] for name in ("flash_attention_fwd",
@@ -787,6 +813,164 @@ def ssd_kernel_phase(device: torch.device) -> dict:
     }
 
 
+# The training shape of mamba2-130m (global batch 8 x 4096 tokens), where
+# the SSD backward runs on the main path; no state in or out.
+SSD_TRAIN = (8, 4096, 24, 64, 1, 128, 256, torch.bfloat16, False)
+
+
+def ssd_backward_work(b, l, h, p, g, n, chunk, dtype, with_state):
+    """(operations, bytes) the backward needs on these shapes, counted as
+    ssd_work counts the forward. Per chunk of q tokens: q(q+1)/2 (query,
+    key) pairs at 2(3N + 2P) operations (C·B and dy·x recomputed, the gate
+    times dy, M times B and times C) and 10·q·N·P for the five state
+    products (the recomputed local state, its gradient's local term, the
+    carried state's term of dC, G·B and Gᵀx). Bytes: x, dy, B, C and fp32
+    dt read once, dx, dB, dC and ddt written once; with a state, the
+    initial state and the final state's gradient read and the initial
+    state's gradient written."""
+    flops = 0.0
+    for c0 in range(0, l, chunk):
+        q = min(chunk, l - c0)
+        flops += q * (q + 1) / 2 * 2 * (3 * n + 2 * p) + 10.0 * q * n * p
+    flops *= b * h
+    esize = torch.finfo(dtype).bits // 8
+    nbytes = (esize * (3 * b * l * h * p + 4 * b * l * g * n) + 8 * b * l * h
+              + (3 * 4 * b * h * p * n if with_state else 0))
+    return flops, nbytes
+
+
+def ssd_backward_phase(device: torch.device) -> dict:
+    """The SSD backward on every row of SSD_SWEEP and at the training shape
+    (see the module docstring), then its timing at the training shape."""
+    from repro_torch.kernels.ssd import kernel, ref
+
+    names = ("dx", "ddt", "da", "dB", "dC", "dD", "ds0")
+
+    def inputs(i, b, l, h, p, g, n, dtype, with_state):
+        gen = torch.Generator(device=device).manual_seed(4000 + i)
+        rnd = lambda *shape: torch.randn(  # noqa: E731
+            shape, generator=gen, device=device)
+        x = rnd(b, l, h, p).to(dtype)
+        dt = torch.nn.functional.softplus(rnd(b, l, h))
+        a = -torch.exp(rnd(h) * 0.3)
+        bm, cm = rnd(b, l, g, n).to(dtype), rnd(b, l, g, n).to(dtype)
+        d = torch.full((h,), 0.5, device=device)
+        dy = rnd(b, l, h, p).to(dtype)
+        s0 = rnd(b, h, p, n) if with_state else None
+        dfin = rnd(b, h, p, n) if with_state else None
+        return x, dt, a, bm, cm, d, s0, dy, dfin
+
+    def grads64(chunk, x, dt, a, bm, cm, d, s0, dy, dfin):
+        """Autograd through the plain version in float64, one request at a
+        time (a and D's gradients summed over the requests)."""
+        out = []
+        for i in range(x.shape[0]):
+            one = lambda t: None if t is None else t[i:i + 1]  # noqa: E731
+            leaves = [t.double().requires_grad_() for t in
+                      (one(x), one(dt), a, one(bm), one(cm), d)]
+            s0_i = (one(s0).double().requires_grad_() if s0 is not None
+                    else None)
+            y, s_out = ref.ssd_reference(*leaves[:5], chunk=chunk,
+                                         d_skip=leaves[5],
+                                         initial_state=s0_i,
+                                         return_final_state=True)
+            outs, gouts = [y], [one(dy).double()]
+            if dfin is not None:
+                outs.append(s_out)
+                gouts.append(one(dfin).double())
+            out.append(torch.autograd.grad(
+                outs, leaves + ([s0_i] if s0_i is not None else []), gouts))
+            del leaves, y, s_out
+        cat = [torch.cat(parts) for parts in zip(*out)]
+        cat[2] = sum(o[2] for o in out)
+        cat[5] = sum(o[5] for o in out)
+        return cat
+
+    def err(got, want, dtype):
+        got, want = got.double(), want.double()
+        if dtype == torch.bfloat16:
+            m = want.abs().max().clamp_min(1e-30)
+            got, want = got / m, want / m
+        torch.testing.assert_close(got, want, rtol=TOL[dtype],
+                                   atol=TOL[dtype])
+        return (got - want).abs().max().item()
+
+    train_err = None
+    for i, row in enumerate(SSD_SWEEP + [SSD_TRAIN]):
+        b, l, h, p, g, n, chunk, dtype, with_state = row
+        x, dt, a, bm, cm, d, s0, dy, dfin = inputs(i, *row[:6], dtype,
+                                                   with_state)
+        got = kernel.ssd_scan_backward(x, dt, a, bm, cm, dy, chunk, d, s0,
+                                       dfin)
+        again = kernel.ssd_scan_backward(x, dt, a, bm, cm, dy, chunk, d, s0,
+                                         dfin)
+        torch.cuda.synchronize()
+        assert all(torch.equal(u, v) for u, v in zip(got, again)
+                   if u is not None), "two backward runs differ"
+        want = grads64(chunk, x, dt, a, bm, cm, d, s0, dy, dfin)
+        errs = {}
+        for name, gg, ww in zip(names, got, want):
+            try:
+                errs[name] = err(gg, ww, dtype)
+            except AssertionError as e:
+                raise AssertionError(f"SSD backward {row} {name}: {e}")
+        kind = ("max_abs_err / max|ref|" if dtype == torch.bfloat16
+                else "max_abs_err")
+        print(f"[ssd-backward] B{b} L{l} H{h} P{p} G{g} N{n} chunk={chunk} "
+              f"{str(dtype)[6:]} state={with_state}: {kind} vs float64 "
+              "autograd " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+              + f" (tol {TOL[dtype]}); rerun bit-identical")
+        if row is SSD_TRAIN:
+            train_err = max(errs.values())
+        del x, dt, a, bm, cm, d, s0, dy, dfin, got, again, want
+
+    b, l, h, p, g, n, chunk, dtype, with_state = SSD_TRAIN
+    x, dt, a, bm, cm, d, _, dy, _ = inputs(99, *SSD_TRAIN[:6], dtype, False)
+    leaves = [t.clone().requires_grad_() for t in (x, dt, a, bm, cm, d)]
+    y = ref.ssd_reference(*leaves[:5], chunk=chunk, d_skip=leaves[5])
+    plain = lambda: torch.autograd.grad(  # noqa: E731
+        y, leaves, dy, retain_graph=True)
+    plain_ms, kernel_ms = time_turns(
+        plain, lambda: kernel.ssd_scan_backward(x, dt, a, bm, cm, dy, chunk,
+                                                d), reps=3, inner=2)
+    del leaves, y
+    flops, nbytes = ssd_backward_work(*SSD_TRAIN)
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    bound = max(t_ops, t_bytes)
+    shape = (f"B{b} L{l} H{h} P{p} G{g} N{n} chunk{chunk} {str(dtype)[6:]}, "
+             "no state")
+    print(f"[ssd-backward] {shape}: kernel {kernel_ms:.4f} ms (10 "
+          f"launches), plain backward {plain_ms:.4f} ms (autograd through "
+          f"the plain version in fp32; in turns: plain, kernel, kernel, "
+          f"plain), no library call, bound {bound:.4f} ms "
+          f"({flops / 1e9:.2f} GFLOP is {t_ops:.4f} ms at the bf16 rate, "
+          f"{nbytes / 1e6:.1f} MB is {t_bytes:.4f} ms), kernel/bound "
+          f"{kernel_ms / bound:.2f}")
+    return {
+        "name": "ssd_bwd",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/ssd/csrc/ssd_bwd.cu",
+        "replaces": "none in JAX: the backward of "
+                    "src/repro/kernels/ssd/kernel.py:30 (_ssd_kernel), which "
+                    "JAX differentiates through XLA (ssd_reference)",
+        "replaces_fn": None,
+        "launches": None,
+        "launches_on_path": None,
+        "max_abs_err": train_err,
+        "tol": TOL[dtype],
+        "ms": kernel_ms,
+        "kernel_ms": kernel_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound,
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "library_ms": None,
+        "library": "none: no single PyTorch call computes the scan's "
+                   "backward",
+        "shape": shape + " (ten launches, fp32 CUDA-core products)",
+    }
+
+
 def path_check(device: torch.device) -> None:
     """The model path on the card against the same path on the CPU (plain
     attention), on a small input: two layers of llama3.2-3b's block
@@ -901,7 +1085,7 @@ def zamba_path_check(device: torch.device) -> None:
                 seq.append(logits)
         launches = {n: w.launches - before[n] for n, w in counters.items()}
         want = ({"flash_attention_fwd": cfg.repeats, "ssd_fwd": 5 * cfg.repeats,
-                 "flash_attention_bwd": 0} if dev.type == "cuda"
+                 "flash_attention_bwd": 0, "ssd_bwd": 0} if dev.type == "cuda"
                 else dict.fromkeys(counters, 0))
         assert launches == want, (dev, launches, want)
         outs.append(torch.stack(seq).float().cpu())
@@ -996,7 +1180,9 @@ def talp_backend_check(device: torch.device) -> None:
 
 def train_path_check(device: torch.device) -> None:
     """One ``make_train_step`` step of smoke_config("llama3.2-3b") with
-    head_dim 32 (the smoke config's 16 is no head dim the kernels take), on
+    head_dim 32 (the smoke config's 16 is no head dim the kernels take),
+    and one of smoke_config("mamba2-130m") (P 16, N 16, chunk 32: the SSD
+    forward twice per layer with remat and its backward once), on
     the card (the kernels) and on the CPU (the plain versions) from the
     same fp32 state and batch, in fp32 and in bf16 compute. Loss and grad
     norm within rtol = atol = TOL[compute dtype]. The gradient, leaf by
@@ -1011,18 +1197,28 @@ def train_path_check(device: torch.device) -> None:
     lr·sign(g), so an element whose gradient lies within rounding of 0 can
     land 2·lr apart."""
     from repro_torch.configs import smoke_config
-    from repro_torch.data.pipeline import DataConfig, SyntheticTokenPipeline
-    from repro_torch.launch.steps import init_train_state, make_train_step
-    from repro_torch.models import lm
     from repro_torch.optim.adamw import AdamWConfig
 
     opt = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=2)
+    for base, per_layer in (
+            (dataclasses.replace(smoke_config("llama3.2-3b"), head_dim=32),
+             {"flash_attention_fwd": 2, "flash_attention_bwd": 1}),
+            (smoke_config("mamba2-130m"), {"ssd_fwd": 2, "ssd_bwd": 1})):
+        train_step_check(device, base, per_layer, opt)
+
+
+def train_step_check(device, base, per_layer: dict, opt) -> None:
+    """train_path_check's step for one smoke config ``base``, whose card
+    run launches each kernel ``per_layer`` times per layer."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokenPipeline
+    from repro_torch.launch.steps import init_train_state, make_train_step
+    from repro_torch.models import lm
+
     counters = launch_counters()
     ftol = TOL[torch.float32]
     grads32 = None      # the CPU's fp32 gradient, the bf16 round's yardstick
     for cdt in ("float32", "bfloat16"):
-        cfg = dataclasses.replace(smoke_config("llama3.2-3b"), head_dim=32,
-                                  compute_dtype=cdt)
+        cfg = dataclasses.replace(base, compute_dtype=cdt)
         cpu_state = init_train_state(cfg, torch.Generator().manual_seed(7),
                                      device="cpu")
         gpu_state = lm.tree_map(
@@ -1040,9 +1236,8 @@ def train_path_check(device: torch.device) -> None:
             if dev.type == "cuda":
                 torch.cuda.synchronize()
             launches = {n: w.launches - before[n] for n, w in counters.items()}
-            want = ({"flash_attention_fwd": 2 * cfg.num_layers,
-                     "flash_attention_bwd": cfg.num_layers, "ssd_fwd": 0}
-                    if dev.type == "cuda" else dict.fromkeys(counters, 0))
+            want = {n: (per_layer.get(n, 0) * cfg.num_layers
+                        if dev.type == "cuda" else 0) for n in counters}
             assert launches == want, (dev, launches, want)
             gn = float(metrics["grad_norm"])
             out.append((lm.tree_map(lambda x: x.cpu(), new["params"]),
@@ -1073,7 +1268,7 @@ def train_path_check(device: torch.device) -> None:
                       f"the tightest leaf ({worst}) card "
                       f"{g_errs[worst][0]:.3e}, bound 2·cpu + {tol} = "
                       f"{2 * g_errs[worst][1] + tol:.3e}")
-        print(f"[train-path] smoke llama3.2-3b (D 32) {cdt}: loss card "
+        print(f"[train-path] smoke {cfg.name} {cdt}: loss card "
               f"{loss_gpu:.6f} cpu {loss_cpu:.6f}, grad norm card "
               f"{gn_gpu:.6f} cpu {gn_cpu:.6f} (rtol=atol={tol}); {g_note}; "
               f"params after the step max_abs_err={p_err:.3e} (atol 2·lr + "
@@ -1122,14 +1317,16 @@ def _leaves(tree):
 
 def launch_counters() -> dict:
     """Each kernel's wrapper, by the name of its JSON record; a wrapper's
-    ``launches`` grows by one where it launches its kernel (the backward:
-    one per call of its three launches)."""
+    ``launches`` grows by one where it launches its kernel (the flash
+    backward: one per call of its three launches; the SSD forward: one per
+    call of its three, the SSD backward of its ten)."""
     from repro_torch.kernels.flash_attention import kernel as flash
     from repro_torch.kernels.ssd import kernel as ssd
 
     return {"flash_attention_fwd": flash.flash_attention,
             "flash_attention_bwd": flash.flash_attention_backward,
-            "ssd_fwd": ssd.ssd_scan}
+            "ssd_fwd": ssd.ssd_scan,
+            "ssd_bwd": ssd.ssd_scan_backward}
 
 
 # (arch, requests, prompt tokens, generated tokens, the launches of each
@@ -1209,21 +1406,28 @@ def add_path_launches(records: dict, path: str, launches: dict) -> None:
             rec["launches"] = sum(rec["launches_on_path"].values())
 
 
-# (arch, steps, global batch, sequence length, AdamW lr, warmup steps): the
-# training phase at full width and full depth
-TRAIN = ("llama3.2-3b", 6, 2, 2048, 3e-4, 2)
+# (arch, steps, global batch, sequence length, AdamW lr, warmup steps, the
+# launches of each kernel per training step; every other kernel launches
+# none): the training phases at full width and full depth. Per layer and
+# step the forward runs twice (the second from remat's recompute) and the
+# backward once.
+TRAIN = [
+    ("llama3.2-3b", 6, 2, 2048, 3e-4, 2,
+     {"flash_attention_fwd": 56, "flash_attention_bwd": 28}),
+    ("mamba2-130m", 6, 8, 4096, 3e-4, 2, {"ssd_fwd": 48, "ssd_bwd": 24}),
+]
 
 
 def train_phase(device: torch.device, arch: str, steps: int, batch: int,
-                seq: int, lr: float, warmup: int, records: dict) -> None:
+                seq: int, lr: float, warmup: int, per_step: dict,
+                records: dict) -> None:
     """Full-width training of ``arch`` through the port's entry point
     (``repro_torch.launch.train.train``), random fp32 weights from a seed:
     per-step loss (all finite), step time, tokens/s and MFU (median of
-    steps 2-5), peak memory, the launches of both flash kernels (counts set
-    to 0 just before, read just after: 2 forwards per layer and step, the
-    second from remat's recompute, and 1 backward), and TALP's train_loop
-    hierarchies. Then one more step traced with ``torch.profiler``: device
-    time by kernel and the busy share."""
+    steps 2-5), peak memory, each kernel's launches (counts set to 0 just
+    before, read just after: ``per_step`` times the steps), and TALP's
+    train_loop hierarchies. Then one more step traced with
+    ``torch.profiler``: device time by kernel and the busy share."""
     from repro_torch.configs import ShapeConfig, get_config
     from repro_torch.data.pipeline import DataConfig, SyntheticTokenPipeline
     from repro_torch.launch.steps import make_train_step, model_flops
@@ -1244,8 +1448,7 @@ def train_phase(device: torch.device, arch: str, steps: int, batch: int,
     wall = time.perf_counter() - t0
     launches = {name: w.launches for name, w in counters.items()}
     peak = torch.cuda.max_memory_allocated(device)
-    want = {"flash_attention_fwd": 2 * cfg.num_layers * steps,
-            "flash_attention_bwd": cfg.num_layers * steps, "ssd_fwd": 0}
+    want = {name: per_step.get(name, 0) * steps for name in counters}
     assert launches == want, (
         f"{arch} training: launches {launches} in {steps} steps, want {want}"
         " (per step and layer: the forward twice, remat, and one backward)")
@@ -1257,16 +1460,18 @@ def train_phase(device: torch.device, arch: str, steps: int, batch: int,
     step_s = statistics.median([h["time_s"] for h in history[1:5]])
     tokens = batch * seq
     flops = model_flops(cfg, ShapeConfig("train", seq, batch, "train"))
+    note = (", the 6·N count, which leaves out the SSD scan's own "
+            "operations" if "ssm" in cfg.pattern else "")
     print(f"[train] {arch} full width, {cfg.num_layers} layers, "
           f"{lm.param_count(state['params']) / 1e9:.3f} B params, global "
           f"batch {batch} x {seq}: step {step_s * 1e3:.3f} ms (median of "
           f"steps 2-5), {tokens / step_s:.1f} tokens/s, MFU "
           f"{flops / (step_s * PEAK_FLOPS[torch.bfloat16]):.4f} "
-          f"({flops / 1e12:.2f} TFLOP model flops per step at 989 TFLOP/s),"
-          f" peak memory {peak / 2**30:.3f} GiB "
+          f"({flops / 1e12:.2f} TFLOP model flops per step at 989 TFLOP/s"
+          f"{note}), peak memory {peak / 2**30:.3f} GiB "
           f"({peak / 1e9:.3f} GB), wall {wall:.2f} s; launches {launches} "
-          f"({launches['flash_attention_fwd'] // steps} forward and "
-          f"{launches['flash_attention_bwd'] // steps} backward per step)")
+          "(per step: " + ", ".join(f"{n} {launches[n] // steps}"
+                                    for n in per_step) + ")")
     loop = result.regions["train_loop"]
     loop.host.validate(tol=1e-6)
     loop.device.validate(tol=1e-6)
@@ -1337,6 +1542,7 @@ def train_phase(device: torch.device, arch: str, steps: int, batch: int,
 # Kernel-name patterns by group, for the train step's device time.
 KERNEL_GROUPS = (
     ("flash (this repo)", "flash_"),
+    ("ssd (this repo)", "ssd_"),
     ("matmul (cuBLAS)", "nvjet|gemm|gemv|cutlass|sm90_xmma"),
     ("elementwise and copies", "elementwise|copy|Memcpy|Memset|fill"),
     ("reductions", "reduce|softmax|norm"),
@@ -1505,17 +1711,27 @@ def main() -> int:
     print(f"[card] {nvidia_smi()}")
     print(f"[versions] python {sys.version.split()[0]}, torch "
           f"{torch.__version__}, cuda {torch.version.cuda}")
+    t0 = time.perf_counter()
+    marks = []   # (phase, seconds since the start) after each phase
+
+    def mark(phase):
+        marks.append((phase, time.perf_counter() - t0))
+
     sass = build_kernels()
+    mark("build")
     talp_backend_check(device)
     records = {rec["name"]: rec
                for rec in (kernel_phase(device), backward_phase(device),
-                           ssd_kernel_phase(device))}
+                           ssd_kernel_phase(device),
+                           ssd_backward_phase(device))}
     for name, counts in sass.items():
         records[name]["sass"] = counts
+    mark("kernel phases")
     path_check(device)
     mamba_path_check(device)
     zamba_path_check(device)
     train_path_check(device)
+    mark("path checks")
     for arch, requests, prompt_len, gen_len, expected in SERVE:
         talp = serve_phase(device, arch, requests, prompt_len, gen_len,
                            expected, records)
@@ -1524,8 +1740,13 @@ def main() -> int:
         for region, step in (("prefill", "prefill"), ("decode", "decode_step")):
             compare_pe(f"{arch} {region}", *talp[region], busy.get(step))
         torch.cuda.empty_cache()
-    train_phase(device, *TRAIN, records)
-    torch.cuda.empty_cache()
+    mark("serve and profile")
+    for row in TRAIN:
+        train_phase(device, *row, records)
+        torch.cuda.empty_cache()
+    mark("training")
+    print("[time] seconds since the start, after each phase: " + ", ".join(
+        f"{phase} {secs:.1f}" for phase, secs in marks))
     missing = [name for name, rec in records.items() if not rec["launches"]]
     assert not missing, f"kernels no main path launched: {missing}"
     print(json.dumps({"kernels": list(records.values())}))

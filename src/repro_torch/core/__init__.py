@@ -8,8 +8,8 @@ synchronises CUDA instead of calling ``jax.block_until_ready``.
 same regions and device records give identical JSON and text reports.
 The runtime backend is a port: :mod:`.backends.cuda_runtime`.
 
-Not copied yet: ``merge``, ``collect``, ``pop``, ``scalability``,
-``traceview`` and the telemetry exporters, step series and watchdog.
+Not copied yet: ``merge``, ``collect`` and the telemetry exporters,
+step series and watchdog.
 """
 
 from . import intervals
@@ -17,6 +17,7 @@ from .analysis import TraceAnalysis, analyze_trace
 from .device_metrics import DeviceMetrics, device_metrics
 from .hierarchy import DEVICE, HOST, Hierarchy, MetricFrame, MetricSpec, StateDurations
 from .host_metrics import HostMetrics, host_metrics
+from .pop import PopMetrics, elapsed_time, pop_metrics
 from .states import DeviceActivity, DeviceRecord, DeviceTimeline, HostState
 from .talp import RegionResult, TalpMonitor, TalpResult
 
@@ -28,6 +29,9 @@ __all__ = [
     "device_metrics",
     "HostMetrics",
     "host_metrics",
+    "PopMetrics",
+    "elapsed_time",
+    "pop_metrics",
     "DEVICE",
     "HOST",
     "Hierarchy",

@@ -1,4 +1,5 @@
 from .base import ActivityBackend, available_backends, get_backend, register_backend
+from .synthetic import SyntheticBackend, SyntheticTraceBuilder
 from .cuda_runtime import CudaRuntimeBackend
 
 __all__ = [
@@ -6,5 +7,7 @@ __all__ = [
     "available_backends",
     "get_backend",
     "register_backend",
+    "SyntheticBackend",
+    "SyntheticTraceBuilder",
     "CudaRuntimeBackend",
 ]

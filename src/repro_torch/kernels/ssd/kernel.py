@@ -1,21 +1,31 @@
-"""Hand-written CUDA SSD chunked-scan forward (``csrc/ssd_fwd.cu``) and
-its ``ctypes`` binding.
+"""Hand-written CUDA SSD chunked scan, forward (``csrc/ssd_fwd.cu``) and
+backward (``csrc/ssd_bwd.cu``), their ``ctypes`` bindings and the
+``torch.autograd.Function`` that joins them.
 
-Replaces the Pallas TPU kernel ``src/repro/kernels/ssd/kernel.py::
-_ssd_kernel``; the source's header says what bounds it on the H100 and
-what its design does about that. For bf16 inputs one call launches three
-kernels on the current stream (chunk states, the state recurrence over
-the chunks, outputs) through an fp32 scratch of (B, chunks, H, P, N)
-that the wrapper allocates; for fp32 inputs it launches one. Beyond the TPU kernel it takes an
-initial state, returns the final state and takes any L (a ragged last
-chunk is masked), as :func:`..ref.ssd_reference` does. The library is
-built with ``nvcc`` at the first launch, never at import, so this module
-imports on machines without CUDA.
+The forward replaces the Pallas TPU kernel ``src/repro/kernels/ssd/
+kernel.py::_ssd_kernel``; the backward has no TPU counterpart (the JAX
+package differentiates ``ssd_reference`` through XLA). Each source's
+header says what bounds it on the H100 and what its design does about
+that. For bf16 inputs one forward call launches three kernels on the
+current stream (chunk states, the state recurrence over the chunks,
+outputs) through an fp32 scratch of (B, chunks, H, P, N) that the wrapper
+allocates; for fp32 inputs it launches one. Beyond the TPU kernel it
+takes an initial state, returns the final state and takes any L (a
+ragged last chunk is masked), as :func:`..ref.ssd_reference` does. One
+backward call launches ten kernels through one fp32 workspace; it
+recomputes the carried states from the inputs, so the forward saves
+nothing but its inputs. The libraries are built with ``nvcc`` at their
+first launch, never at import, so this module imports on machines
+without CUDA.
 
-:func:`ssd_scan` takes CUDA tensors only and raises for anything the
-kernel does not take; it never falls back to the plain version. Its
-``launches`` attribute counts calls (one per model layer), not the
-kernels a call launches.
+:func:`ssd_scan` and :func:`ssd_scan_backward` take CUDA tensors only
+and raise ``ValueError`` for anything their kernels do not take, before
+any library is loaded; they never fall back to the plain version.
+:func:`ssd_scan` returns a tensor with no autograd graph, so it refuses
+inputs that require grad under grad mode: :class:`SSDScan` (through
+``ops.ssd``) is the differentiable path. Each function's ``launches``
+attribute counts its calls (one per model layer), not the kernels a call
+launches.
 """
 
 from __future__ import annotations
@@ -28,14 +38,17 @@ import torch
 
 from .. import cuda_build
 
-__all__ = ["MAX_CHUNK", "SIZES", "SOURCE", "check_inputs", "library",
-           "ssd_scan"]
+__all__ = ["BWD_SOURCE", "MAX_CHUNK", "SIZES", "SOURCE", "SSDScan",
+           "backward_library", "check_inputs", "library", "ssd_scan",
+           "ssd_scan_backward"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "ssd_fwd.cu"
+BWD_SOURCE = Path(__file__).resolve().parent / "csrc" / "ssd_bwd.cu"
 SIZES = (16, 32, 64, 128)   # the head dims P and state sizes N compiled
 MAX_CHUNK = 1024
 _MAX_GRID_Y = 65535
 _lib: Optional[ctypes.CDLL] = None
+_bwd_lib: Optional[ctypes.CDLL] = None
 
 
 def library() -> ctypes.CDLL:
@@ -50,6 +63,22 @@ def library() -> ctypes.CDLL:
         lib.ssd_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+def backward_library() -> ctypes.CDLL:
+    """Build (at first use) and load the backward's library."""
+    global _bwd_lib
+    if _bwd_lib is None:
+        lib = cuda_build.load(BWD_SOURCE)
+        lib.ssd_bwd.argtypes = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 8
+                                + [ctypes.c_void_p])
+        lib.ssd_bwd.restype = ctypes.c_int
+        lib.ssd_bwd_workspace_floats.argtypes = [ctypes.c_int] * 6
+        lib.ssd_bwd_workspace_floats.restype = ctypes.c_longlong
+        lib.ssd_bwd_error_string.argtypes = [ctypes.c_int]
+        lib.ssd_bwd_error_string.restype = ctypes.c_char_p
+        _bwd_lib = lib
+    return _bwd_lib
 
 
 def check_inputs(x, dt, a, b_mat, c_mat, chunk: int, d_skip=None,
@@ -116,7 +145,14 @@ def ssd_scan(
 ):
     """Launch the kernel on the current stream; returns y (B, L, H, P) in
     x's dtype and, if asked, the final state (B, H, P, N) fp32. Does not
-    synchronise."""
+    synchronise. Refuses inputs that require grad under grad mode."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (x, dt, a, b_mat, c_mat, d_skip, initial_state)):
+        raise RuntimeError(
+            "kernel.ssd_scan returns a tensor with no autograd graph and "
+            "would cut the gradient to its inputs; call ops.ssd (SSDScan) "
+            "for inputs that require grad")
     check_inputs(x, dt, a, b_mat, c_mat, chunk, d_skip, initial_state)
     lib = library()
     bsz, l, h, p = x.shape
@@ -152,3 +188,89 @@ def ssd_scan(
 
 
 ssd_scan.launches = 0
+
+
+def ssd_scan_backward(
+    x: torch.Tensor,       # (B, L, H, P)
+    dt: torch.Tensor,      # (B, L, H) fp32
+    a: torch.Tensor,       # (H,) fp32
+    b_mat: torch.Tensor,   # (B, L, G, N)
+    c_mat: torch.Tensor,   # (B, L, G, N)
+    dy: torch.Tensor,      # (B, L, H, P), x's dtype
+    chunk: int = 256,
+    d_skip: Optional[torch.Tensor] = None,         # (H,) fp32
+    initial_state: Optional[torch.Tensor] = None,  # (B, H, P, N) fp32
+    d_final_state: Optional[torch.Tensor] = None,  # (B, H, P, N) fp32
+):
+    """Launch the backward's ten kernels on the current stream; returns
+    (dx, ddt, da, dB, dC, dd_skip, d_initial_state), each in its input's
+    dtype, dd_skip and d_initial_state None where that input is None, as
+    :func:`..ref.ssd_backward_reference`. Does not synchronise."""
+    bsz, l, h, p = x.shape if x.dim() == 4 else (0, 0, 0, 0)
+    n = b_mat.shape[-1] if b_mat.dim() == 4 else 0
+    if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
+        raise ValueError(f"dy {tuple(dy.shape)} {dy.dtype} on {dy.device}: "
+                         f"want x's {tuple(x.shape)} {x.dtype} on {x.device}")
+    if d_final_state is not None and (
+            tuple(d_final_state.shape) != (bsz, h, p, n)
+            or d_final_state.dtype != torch.float32
+            or d_final_state.device != x.device):
+        raise ValueError(f"d_final_state {tuple(d_final_state.shape)} "
+                         f"{d_final_state.dtype}: want {(bsz, h, p, n)} "
+                         f"float32 on {x.device}")
+    check_inputs(x, dt, a, b_mat, c_mat, chunk, d_skip, initial_state)
+    dy = dy.contiguous()
+    if d_final_state is not None:
+        d_final_state = d_final_state.contiguous()
+    lib = backward_library()
+    g = b_mat.shape[2]
+    f32 = dict(dtype=torch.float32, device=x.device)
+    dx, ddt, db, dc = (torch.empty_like(t) for t in (x, dt, b_mat, c_mat))
+    da = torch.empty((h,), **f32)
+    dd = torch.empty((h,), **f32) if d_skip is not None else None
+    ds0 = (torch.empty((bsz, h, p, n), **f32) if initial_state is not None
+           else None)
+    work = torch.empty(
+        (lib.ssd_bwd_workspace_floats(bsz, l, h, p, n, chunk),), **f32)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.ssd_bwd(
+            ptr(x), ptr(dt), ptr(a), ptr(b_mat), ptr(c_mat), ptr(d_skip),
+            ptr(initial_state), ptr(dy), ptr(d_final_state), ptr(dx),
+            ptr(ddt), ptr(da), ptr(db), ptr(dc), ptr(dd), ptr(ds0),
+            ptr(work), bsz, l, h, p, g, n, chunk,
+            int(x.dtype == torch.bfloat16), stream,
+        )
+    if rc != 0:
+        msg = lib.ssd_bwd_error_string(rc).decode()
+        raise RuntimeError(f"ssd_bwd launch failed: {msg} ({rc})")
+    ssd_scan_backward.launches += 1
+    return dx, ddt, da, db, dc, dd, ds0
+
+
+ssd_scan_backward.launches = 0
+
+
+class SSDScan(torch.autograd.Function):
+    """The SSD scan whose forward is the CUDA forward and whose backward is
+    the CUDA backward. The forward saves its inputs only: the backward
+    recomputes the states it needs."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a, b_mat, c_mat, chunk, d_skip, initial_state,
+                return_final_state):
+        ctx.config = (chunk, return_final_state)
+        ctx.save_for_backward(x, dt, a, b_mat, c_mat, d_skip, initial_state)
+        return ssd_scan(x, dt, a, b_mat, c_mat, chunk, d_skip, initial_state,
+                        return_final_state)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dy, *d_final):
+        chunk, return_final_state = ctx.config
+        x, dt, a, b_mat, c_mat, d_skip, initial_state = ctx.saved_tensors
+        dx, ddt, da, db, dc, dd, ds0 = ssd_scan_backward(
+            x, dt, a, b_mat, c_mat, dy, chunk, d_skip, initial_state,
+            d_final[0] if return_final_state else None)
+        return dx, ddt, da, db, dc, None, dd, ds0, None

@@ -1,10 +1,13 @@
 """Dispatching wrapper for the SSD primitive.
 
-A CUDA tensor goes to the hand-written kernel (:mod:`.kernel`), which
-launches or raises; a CPU tensor goes to the plain version
-(:func:`.ref.ssd_reference`). There is no fallback from the first to the
-second and no ``impl`` switch. Port of ``repro.kernels.ssd.ops.ssd``,
-with the initial and final state of ``ssd_reference`` on both paths."""
+A CUDA tensor goes to the hand-written kernels (:mod:`.kernel`), which
+launch or raise: through :class:`.kernel.SSDScan`, whose backward is the
+CUDA backward, when grad mode is on, and straight to
+:func:`.kernel.ssd_scan` when it is off. A CPU tensor goes to the plain
+version (:func:`.ref.ssd_reference`), which autograd differentiates.
+There is no fallback from the first to the second and no ``impl``
+switch. Port of ``repro.kernels.ssd.ops.ssd``, with the initial and
+final state of ``ssd_reference`` on both paths."""
 
 from __future__ import annotations
 
@@ -33,6 +36,9 @@ def ssd(
         return _ref.ssd_reference(x, dt, a, b_mat, c_mat, chunk=chunk,
                                   d_skip=d_skip, initial_state=initial_state,
                                   return_final_state=return_final_state)
+    if torch.is_grad_enabled():
+        return _kernel.SSDScan.apply(x, dt, a, b_mat, c_mat, chunk, d_skip,
+                                     initial_state, return_final_state)
     return _kernel.ssd_scan(x, dt, a, b_mat, c_mat, chunk=chunk,
                             d_skip=d_skip, initial_state=initial_state,
                             return_final_state=return_final_state)

@@ -15,7 +15,11 @@ profiler may be open while ``train`` runs. Each sample closes that
 collection and the next step opens a new one.
 
 Runs on ``cuda`` unless ``device="cpu"`` is asked for; without a card it
-raises instead of running on the CPU. Checkpointing (``--ckpt-dir``),
+raises instead of running on the CPU. On the card, attention trains only
+at a head dim the flash backward takes (``BWD_HEAD_DIMS``: zamba2-2.7b's
+80 is refused with ``ValueError`` before anything is allocated); the CPU
+trains every supported config through the plain versions. SSM blocks
+train through the CUDA SSD backward on the card. Checkpointing (``--ckpt-dir``),
 multi-process runs (``--rank``, ``--world-size``) and the spool, trace,
 telemetry, step-series and watchdog ``--talp-*`` flags are not ported
 yet: the command line refuses them.
@@ -23,6 +27,8 @@ yet: the command line refuses them.
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-3b \
       --steps 6 --batch 2 --seq 2048
+  PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-130m \
+      --steps 6 --batch 8 --seq 4096
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-3b \
       --smoke --device cpu --steps 4 --batch 2 --seq 64
 """
@@ -42,13 +48,14 @@ from ..core.backends import CudaRuntimeBackend
 from ..core.report import render_tables, to_json
 from ..core.talp import TalpMonitor
 from ..data.pipeline import DataConfig, SyntheticTokenPipeline
+from ..kernels.flash_attention.kernel import BWD_HEAD_DIMS
 from ..models import lm
 from ..optim.adamw import AdamWConfig
 from ..runtime.fault_tolerance import StragglerDetector
 from .serve import resolve_device
 from .steps import init_train_state, make_train_step
 
-__all__ = ["UNPORTED_FLAGS", "train", "main"]
+__all__ = ["UNPORTED_FLAGS", "check_trainable_on_card", "train", "main"]
 
 # Flags of the JAX trainer the port refuses, with what they wait for.
 UNPORTED_FLAGS = {
@@ -69,6 +76,18 @@ UNPORTED_FLAGS = {
 }
 
 
+def check_trainable_on_card(cfg) -> None:
+    """Raise ``ValueError`` if ``cfg`` has attention at a head dim the flash
+    backward does not take; the card would fail only inside the first
+    backward, after the weights and moments are allocated."""
+    if any(kind != "ssm" for kind in cfg.pattern) and (
+            cfg.resolved_head_dim not in BWD_HEAD_DIMS):
+        raise ValueError(
+            f"{cfg.name}: attention head_dim {cfg.resolved_head_dim} is not "
+            f"one the flash backward takes ({BWD_HEAD_DIMS}); it trains on "
+            "the CPU (device='cpu') through the plain versions")
+
+
 def train(
     cfg,
     steps: int = 50,
@@ -85,7 +104,9 @@ def train(
     ``steps`` AdamW steps of ``global_batch`` synthetic sequences of
     ``seq_len`` tokens. Returns (state, history, TalpResult); history holds
     one {"step", "loss", "grad_norm", "time_s"} per step."""
-    lm.check_supported(cfg, training=True)
+    lm.check_supported(cfg)
+    if torch.device(device).type == "cuda":
+        check_trainable_on_card(cfg)
     dev = resolve_device(device)
     opt_cfg = opt_cfg or AdamWConfig(warmup_steps=10, total_steps=steps)
     backend = CudaRuntimeBackend(dev)

@@ -47,13 +47,11 @@ __all__ = [
 _KINDS = ("attn", "attn_local", "attn_global", "shared_attn", "ssm")
 
 
-def check_supported(cfg, training: bool = False) -> None:
-    """Raise ``NotImplementedError`` for what the port does not have yet;
-    with ``training``, also for what it cannot differentiate."""
-    if training and "ssm" in cfg.pattern:
-        raise NotImplementedError(
-            f"{cfg.name}: training needs the SSD backward kernel, which is "
-            "not written yet (ssm blocks train only in the JAX package)")
+def check_supported(cfg) -> None:
+    """Raise ``NotImplementedError`` for what the port does not have yet.
+    Every supported block kind also trains (the flash backward's head-dim
+    limit on the card is checked by ``launch.train.train``, which knows the
+    device)."""
     for kind in cfg.pattern:
         if kind not in _KINDS:
             raise NotImplementedError(
@@ -298,7 +296,7 @@ def train_loss(cfg, params, batch) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """batch: {"inputs": (B, S) int tokens, "labels": (B, S) int, -1 =
     masked}. Returns (mean loss over unmasked labels, {"loss": the same,
     detached, "tokens": their count}), both fp32."""
-    check_supported(cfg, training=True)
+    check_supported(cfg)
     inputs, labels = batch["inputs"], batch["labels"]
     b, s = labels.shape
     x = _embed(cfg, params, inputs)

@@ -7,7 +7,10 @@ output projection. Decode carries (conv tails, SSD state) per layer.
 
 Both branches of :func:`ssm_forward` go through
 :func:`repro_torch.kernels.ssd.ops.ssd`: the hand-written CUDA kernel for
-tensors on the card, its plain version for tensors on the CPU. Prefill
+tensors on the card, its plain version for tensors on the CPU. The
+training branch (``build_cache=False``) differentiates end to end: on the
+card through the CUDA SSD backward (``kernel.SSDScan``), on the CPU by
+autograd through the plain version. Prefill
 (``build_cache=True``) asks the same call for the final state, where the
 JAX package calls ``ssd_reference`` directly because its Pallas kernel
 has no final-state output; the function computed is the same.

@@ -86,3 +86,99 @@ def test_copied_metric_specs_identical():
                             for s in h.walk()]
         assert (t.name, t.side, t.count_key) == (j.name, j.side, j.count_key)
         assert fields(t) == fields(j)
+
+
+# ---------------------------------------------------------------------------
+# The validation layer: PILS, the application emulators, POP, scalability
+# and the trace renderer give identical results in both packages.
+# ---------------------------------------------------------------------------
+import dataclasses  # noqa: E402
+
+import repro.appsim as jappsim  # noqa: E402
+import repro.core.scalability as jscal  # noqa: E402
+import repro.core.traceview as jview  # noqa: E402
+import repro.pils as jpils  # noqa: E402
+import repro_torch.appsim as tappsim  # noqa: E402
+import repro_torch.core.scalability as tscal  # noqa: E402
+import repro_torch.core.traceview as tview  # noqa: E402
+import repro_torch.pils as tpils  # noqa: E402
+
+
+def _analysis(a):
+    """Every number of a TraceAnalysis, as plain Python values."""
+    return {"host": dataclasses.asdict(a.host) if a.host else None,
+            "device": dataclasses.asdict(a.device) if a.device else None,
+            "elapsed": a.elapsed, "host_states": a.host_states,
+            "device_states": a.device_states, "name": a.name}
+
+
+@pytest.mark.parametrize("name", sorted(jpils.USE_CASES))
+def test_pils_use_case_identical(name):
+    j, t = jpils.run_use_case(name), tpils.run_use_case(name)
+    assert (t.name, t.description) == (j.name, j.description)
+    assert set(t.analyses) == set(j.analyses)
+    for key in j.analyses:
+        assert _analysis(t.analyses[key]) == _analysis(j.analyses[key])
+        for width in (40, 72):
+            assert (tview.render_trace(t.traces[key], width=width)
+                    == jview.render_trace(j.traces[key], width=width))
+
+
+@pytest.mark.parametrize("app", ["sod2d", "fall3d", "xshells"])
+def test_appsim_node_scan_identical(app):
+    j, t = jappsim.node_scan(app), tappsim.node_scan(app)
+    assert sorted(t) == sorted(j) == [1, 2, 4, 8]
+    for n in j:
+        assert _analysis(t[n]) == _analysis(j[n])
+    jpts = jscal.scalability_scan([j[n] for n in sorted(j)],
+                                  labels=[str(n) for n in sorted(j)],
+                                  resources=[4 * n for n in sorted(j)])
+    tpts = tscal.scalability_scan([t[n] for n in sorted(t)],
+                                  labels=[str(n) for n in sorted(t)],
+                                  resources=[4 * n for n in sorted(t)])
+    assert [dataclasses.asdict(p) for p in tpts] == [
+        dataclasses.asdict(p) for p in jpts]
+    assert tscal.render_scalability(tpts) == jscal.render_scalability(jpts)
+    trace = {"sod2d": "sod2d_trace", "fall3d": "fall3d_trace",
+             "xshells": "xshells_trace"}[app]
+    assert (tview.render_trace(getattr(tappsim, trace)(2), legend=False)
+            == jview.render_trace(getattr(jappsim, trace)(2), legend=False))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_pop_metrics_identical(seed):
+    rng = np.random.default_rng(seed)
+    useful = rng.uniform(0.1, 2.0, 6)
+    not_useful = rng.uniform(0.0, 0.5, 6)
+    for kw in ({"not_useful": not_useful},
+               {"elapsed": float((useful + not_useful).max()) * 1.1}):
+        j, t = jcore.pop_metrics(useful, **kw), tcore.pop_metrics(useful, **kw)
+        assert dataclasses.asdict(t) == dataclasses.asdict(j)
+        t.validate()
+    assert (tcore.elapsed_time(useful, not_useful)
+            == jcore.elapsed_time(useful, not_useful))
+
+
+def test_synthetic_backend_replays_identically():
+    """The copied SyntheticBackend drains the same records, column batches
+    and legacy objects, as the original; both are registered."""
+    from repro.core import backends as jb
+    from repro_torch.core import backends as tb
+
+    assert "synthetic" in tb.available_backends()
+    rng = np.random.default_rng(3)
+    kinds, starts, ends, streams = _device_columns(rng, 20, 5.0)
+    out = []
+    for core, mod in ((jcore, jb), (tcore, tb)):
+        be = mod.SyntheticBackend()
+        be.start()
+        be.push_arrays(1, kinds, starts, ends, streams)
+        be.push(0, core.DeviceRecord(core.DeviceActivity.KERNEL, 0.5, 0.75,
+                                     2))
+        cols = [(d, k.tolist(), s.tolist(), e.tolist(), st.tolist())
+                for d, k, s, e, st in be.flush_arrays()]
+        be.push_arrays(0, kinds[:3], starts[:3], ends[:3], streams[:3])
+        objs = [(d, r.kind.code, r.start, r.end, r.stream)
+                for d, r in be.flush()]
+        out.append((cols, objs))
+    assert out[0] == out[1]

@@ -385,6 +385,64 @@ def test_cuda_ssd_kernel_refuses_cpu_tensor_and_mixed_dtype(cuda):
     assert ssd_kernel.ssd_scan.launches == before
 
 
+# The SSD backward on the card: fp32 sweep rows, a ragged L with G > 1,
+# mamba2-130m's head shape (P 64, N 128, chunk 256) in bf16 over two
+# chunks and a ragged one, and N 64 with two groups. Every row takes an
+# initial state and a final-state gradient.
+SSD_BWD = [
+    (1, 64, 2, 16, 1, 16, 16, torch.float32),
+    (1, 128, 4, 64, 1, 64, 64, torch.float32),
+    (2, 100, 4, 16, 2, 32, 64, torch.float32),
+    (1, 600, 4, 64, 1, 128, 256, torch.bfloat16),
+    (2, 300, 8, 64, 2, 64, 256, torch.bfloat16),
+]
+
+
+def _ssd_bwd_close(got, want, dtype, name):
+    """fp32 elementwise at _tol; bf16 at _tol on the gradient divided by
+    its reference's max-abs (dx, dB and dC are rounded to bf16 once)."""
+    got, want = got.double(), want.double()
+    if dtype == torch.bfloat16:
+        m = want.abs().max().clamp_min(1e-30)
+        got, want = got / m, want / m
+    torch.testing.assert_close(got, want, **_tol(dtype), msg=name)
+
+
+@pytest.mark.parametrize("row", SSD_BWD,
+                         ids=[f"ssd_bwd{i}" for i in range(len(SSD_BWD))])
+def test_cuda_ssd_backward_vs_float64_autograd(cuda, row):
+    """Every gradient of ops.ssd on the card (SSDScan: the CUDA forward and
+    backward) against autograd through the plain version evaluated in
+    float64 on the same inputs; a second backward call is bit-identical."""
+    b, l, h, p, g, n, chunk, dtype = row
+    x, dt, a, bm, cm, d, s0 = _ssd_inputs(cuda, b, l, h, p, g, n, dtype)
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    dy = torch.randn(x.shape, generator=gen, device=cuda).to(dtype)
+    dfin = torch.randn(s0.shape, generator=gen, device=cuda)
+    leaves = [t.clone().requires_grad_() for t in (x, dt, a, bm, cm, d, s0)]
+    fwd = ssd_kernel.ssd_scan.launches
+    bwd = ssd_kernel.ssd_scan_backward.launches
+    y, s_out = ssd_ops.ssd(*leaves[:5], chunk=chunk, d_skip=leaves[5],
+                           initial_state=leaves[6], return_final_state=True)
+    got = torch.autograd.grad([y, s_out], leaves, [dy, dfin])
+    assert ssd_kernel.ssd_scan.launches == fwd + 1
+    assert ssd_kernel.ssd_scan_backward.launches == bwd + 1
+    again = ssd_kernel.ssd_scan_backward(x, dt, a, bm, cm, dy, chunk, d, s0,
+                                         dfin)
+    up = [t.double().requires_grad_() for t in (x, dt, a, bm, cm, d, s0)]
+    y64, s64 = ssd_ref.ssd_reference(*up[:5], chunk=chunk, d_skip=up[5],
+                                     initial_state=up[6],
+                                     return_final_state=True)
+    want = torch.autograd.grad([y64, s64], up, [dy.double(), dfin.double()])
+    torch.cuda.synchronize()
+    for name, gg, ag, ww, t in zip(("dx", "ddt", "da", "dB", "dC", "dD",
+                                    "ds0"), got, again, want,
+                                   (x, dt, a, bm, cm, d, s0)):
+        assert gg.dtype == t.dtype and gg.shape == t.shape, name
+        assert torch.equal(gg, ag), f"{name}: two backward runs differ"
+        _ssd_bwd_close(gg, ww, dtype, name)
+
+
 def _first_step_grads(state, metrics, opt):
     """The gradient of the first AdamW step, leaf by leaf, on the CPU: the
     first moment is then (1 - b1)·clip·g, clip = min(1, grad_clip / norm)."""
@@ -516,3 +574,58 @@ def test_cuda_zamba_smoke_decode_matches_cpu(cuda):
     torch.testing.assert_close(outs[1], outs[0], rtol=0.15, atol=0.15)
     assert not torch.equal(rows[1][0], rows[1][1])
     torch.testing.assert_close(rows[1], rows[0], rtol=0.15, atol=0.15)
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_cuda_mamba_train_step_matches_cpu(cuda, compute_dtype):
+    """One make_train_step step of smoke_config("mamba2-130m") (P 16, N 16,
+    chunk 32) on the card, through the SSD forward (2 calls per layer with
+    remat) and the SSD backward (1), against the same step on the CPU
+    (the plain version under autograd) from the same state, with the
+    criteria of test_cuda_train_step_matches_cpu."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokenPipeline
+    from repro_torch.launch.steps import init_train_state, make_train_step
+    from repro_torch.models import lm
+    from repro_torch.optim.adamw import AdamWConfig
+
+    import dataclasses
+
+    cfg = dataclasses.replace(smoke_config("mamba2-130m"),
+                              compute_dtype=compute_dtype)
+    opt = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=2)
+    cpu = init_train_state(cfg, torch.Generator().manual_seed(5), "cpu")
+    gpu = lm.tree_map(
+        lambda x: x.to(cuda, copy=True) if x.dim() else x.clone(), cpu)
+    batch = SyntheticTokenPipeline(DataConfig(2, 96, cfg.vocab_size,
+                                              seed=6)).batch_at(0)
+    cpu_batch = {k: torch.from_numpy(v) for k, v in batch.items()}
+    fwd = ssd_kernel.ssd_scan.launches
+    bwd = ssd_kernel.ssd_scan_backward.launches
+    new_gpu, m_gpu = make_train_step(cfg, opt)(
+        gpu, {k: v.to(cuda) for k, v in cpu_batch.items()})
+    torch.cuda.synchronize()
+    assert ssd_kernel.ssd_scan.launches == fwd + 2 * cfg.num_layers
+    assert ssd_kernel.ssd_scan_backward.launches == bwd + cfg.num_layers
+    new_cpu, m_cpu = make_train_step(cfg, opt)(cpu, cpu_batch)
+    dtype = getattr(torch, compute_dtype)
+    for key in ("loss", "grad_norm"):
+        torch.testing.assert_close(m_gpu[key].cpu(), m_cpu[key], **_tol(dtype))
+    g_gpu = _first_step_grads(new_gpu, m_gpu, opt)
+    g_cpu = _first_step_grads(new_cpu, m_cpu, opt)
+    tol32 = _tol(torch.float32)["atol"]
+    if dtype == torch.float32:
+        for name, want in g_cpu.items():
+            torch.testing.assert_close(g_gpu[name], want, **_tol(dtype),
+                                       msg=name)
+            assert _rel_norm(g_gpu[name], want) <= tol32, name
+    else:
+        cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+        ref_state = init_train_state(cfg32, torch.Generator().manual_seed(5),
+                                     "cpu")
+        g32 = _first_step_grads(*make_train_step(cfg32, opt)(ref_state,
+                                                            cpu_batch), opt)
+        tol = _tol(dtype)["atol"]
+        for name, want in g32.items():
+            card, plain = (_rel_norm(g[name], want) for g in (g_gpu, g_cpu))
+            assert card <= 2 * plain + tol, (name, card, plain)
