@@ -10,10 +10,10 @@
    Counts the HGMMA (wgmma), UTMALDG (TMA load) and HMMA (mma.sync)
    instructions in each library's SASS (``cuobjdump -sass``) and fails
    unless both flash libraries have HGMMA and UTMALDG and no HMMA and the
-   SSD forward has HMMA; fails if any ``ptxas`` log says it serialises
-   wgmma (warning C7520, a wgmma under a branch; C7512, too few
+   SSD forward and backward have HMMA; fails if any ``ptxas`` log says it
+   serialises wgmma (warning C7520, a wgmma under a branch; C7512, too few
    registers), if a forward kernel (D 32, 64, 80, 128), a bf16 kernel of
-   the flash backward or a bf16 kernel of the SSD backward spills.
+   the flash backward or a kernel of the SSD backward's bf16 path spills.
    Then TALP's device records, which come from CUPTI activity through
    ``torch.profiler``: a sleep kernel's record against the CUDA events
    around it (CLOCK_BOUND), and a host sleep between two sleep kernels of
@@ -39,9 +39,10 @@
      kernels and the backward of ``scaled_dot_product_attention`` in turns;
    * the SSD chunked scan over the JAX package's SSD sweep, ragged L,
      initial state in and final state out, the edges of the bf16 kernels'
-     chunk-parallel form, state size 64 on the bf16 path, and the serving
-     prefill shapes of mamba2-130m (B 8, L 4096, H 24, P 64, G 1, N 128,
-     chunk 256, bf16) and zamba2-2.7b (H 80, N 64), against the plain
+     chunk-parallel form, state size 64 and P = N = 128 on the bf16 path,
+     and the serving prefill shapes of mamba2-130m (B 8, L 4096, H 24,
+     P 64, G 1, N 128, chunk 256, bf16) and zamba2-2.7b (H 80, N 64),
+     against the plain
      version evaluated in float64 on the same inputs (the plain version's
      own fp32 evaluation is printed beside it); at both prefill shapes it
      times the plain version and the kernel in turns: plain, kernel,
@@ -54,8 +55,10 @@
      shape), fp32 rows elementwise at TOL[fp32], bf16 rows at TOL[bf16]
      on each gradient over its reference's max-abs, a second run
      bit-identical; at the training shape it times the plain backward
-     (autograd through the plain version in fp32), then the kernel, in
-     turns, beside the bound of ssd_backward_work.
+     (autograd through the plain version in fp32), the CUDA-core design
+     (the fp32 path's kernels on the same values widened to fp32) and the
+     tensor-core kernel in turns, beside the bound of ssd_backward_work,
+     and prints one traced call's kernels by name.
    Timings are CUDA events around runs of back-to-back calls (ms per
    call), medians; kernel and yardstick are timed in turns.
 3. Path checks: two narrow layers of each model's block on the card
@@ -218,6 +221,10 @@ SSD_SWEEP += [
 ]
 SSD_PREFILL = (8, 4096, 24, 64, 1, 128, 256, torch.bfloat16, False)
 ZAMBA_SSD_PREFILL = (8, 4096, 80, 64, 1, 64, 256, torch.bfloat16, False)
+# P 128, N 128 on the bf16 path, after every other row (their seeds stay):
+# there the backward's key pass gives each side of 16 key rows its own
+# warp, where one warp holding dx's and dB's accumulators would spill.
+SSD_P128 = (1, 600, 4, 128, 1, 128, 256, torch.bfloat16, True)
 
 # TALP's device PE against the profiler's busy share of the same step:
 # they must agree within this absolute bound on every serve path (prefill
@@ -257,15 +264,16 @@ def time_samples(fn, reps: int = 25, warmup: int = 3, inner: int = 10) -> list:
     return times
 
 
-def time_turns(first, second, reps: int = 25, inner: int = 10):
-    """Medians (ms per call) of ``first`` and ``second`` timed in turns:
-    first, second, second, first, ``reps`` samples each turn, so that a
-    drift of the card's clock falls on both alike."""
-    a = time_samples(first, reps, inner=inner)
-    b = (time_samples(second, reps, inner=inner)
-         + time_samples(second, reps, inner=inner))
-    a += time_samples(first, reps, inner=inner)
-    return statistics.median(a), statistics.median(b)
+def time_turns(*fns, reps: int = 25, inner: int = 10):
+    """Medians (ms per call) of each of ``fns`` timed in turns: in order,
+    then in reverse order (first, second, second, first for two), ``reps``
+    samples each turn, so that a drift of the card's clock falls on all
+    alike."""
+    samples = [[] for _ in fns]
+    for order in (range(len(fns)), reversed(range(len(fns)))):
+        for k in order:
+            samples[k] += time_samples(fns[k], reps, inner=inner)
+    return tuple(statistics.median(t) for t in samples)
 
 
 def attention_work(b, s, t, h, k, d, window, dtype):
@@ -287,7 +295,7 @@ KERNEL_NAMES = ("flash_fwd_wgmma", "flash_fwd_f32", "flash_bwd_preprocess",
                 "flash_bwd_dkdv_f32", "flash_bwd_dq_f32", "flash_bwd_dkdv_wgmma",
                 "flash_bwd_dq_wgmma", "ssd_chunk_state", "ssd_state_pass",
                 "ssd_chunk_output", "ssd_fwd_f32", "ssd_bwd_outer",
-                "ssd_bwd_state_pass", "ssd_bwd_dstate_pass", "ssd_bwd_query",
+                "ssd_bwd_tc_query", "ssd_bwd_tc_key", "ssd_bwd_query",
                 "ssd_bwd_key", "ssd_bwd_chunk", "ssd_bwd_group_sum",
                 "ssd_bwd_head_sum")
 
@@ -299,6 +307,12 @@ def _kernel_label(mangled: str) -> str:
     if "nv_bfloat16" in mangled:
         args.insert(0, "bf16")
     return f"{base.group(0) if base else mangled}<{','.join(args)}>"
+
+
+def _trace_label(key: str) -> str:
+    """A profiler row's kernel name without its return type, namespace and
+    parameters: ``ssd_chunk_state<64, 128, 0>``."""
+    return re.sub(r"^void |\(anonymous namespace\)::", "", key).split("(")[0]
 
 
 def ptxas_summary(log: Path):
@@ -346,11 +360,11 @@ def build_kernels() -> dict:
     """Compile every kernel source of the port at once, one ``nvcc`` per
     source, load the libraries, and check from their SASS that the flash
     forward and the flash backward run wgmma and TMA and no mma.sync and
-    the SSD forward's kernels run mma.sync; that no ``ptxas`` log warns of
-    serialised wgmma (C7520 or C7512); and that no flash forward kernel
-    (D 32, 64, 80 and 128, bf16 and fp32), no bf16 kernel of the flash
-    backward and no bf16 kernel of the SSD backward spills. Returns each
-    kernel record's SASS counts."""
+    the SSD forward's and backward's kernels run mma.sync; that no
+    ``ptxas`` log warns of serialised wgmma (C7520 or C7512); and that no
+    flash forward kernel (D 32, 64, 80 and 128, bf16 and fp32), no bf16
+    kernel of the flash backward and no kernel of the SSD backward's bf16
+    path spills. Returns each kernel record's SASS counts."""
     from repro_torch.kernels import cuda_build
     from repro_torch.kernels.flash_attention import kernel as flash
     from repro_torch.kernels.ssd import kernel as ssd
@@ -386,12 +400,17 @@ def build_kernels() -> dict:
               if label.startswith(("flash_bwd_dkdv_wgmma", "flash_bwd_dq_wgmma"))]
     assert len(spills) == 6, spills      # two passes at D 32, 64 and 128
     assert not any(spilled(s) for _, s in spills), spills
-    # four templated kernels (the two outer-product modes, query, key) at
-    # each of the 16 (P, N), and the group sum
+    # every kernel the SSD backward's bf16 path launches: four templated
+    # tensor-core kernels (the two chunk-state modes, query, key) at each of
+    # the 16 (P, N), the two recurrences, the chunk pass, the bf16 group sum
+    # and the head sum
     ssd_bwd_log = built[3][0].with_suffix(".log")
     spills = [(label, spill) for label, _, spill in ptxas_kernels(ssd_bwd_log)
-              if label.startswith("ssd_bwd_") and "bf16" in label]
-    assert len(spills) == 4 * 16 + 1, [label for label, _ in spills]
+              if label.startswith(("ssd_chunk_state", "ssd_state_pass",
+                                   "ssd_bwd_tc_", "ssd_bwd_chunk",
+                                   "ssd_bwd_head_sum"))
+              or label == "ssd_bwd_group_sum<bf16>"]
+    assert len(spills) == 4 * 16 + 5, [label for label, _ in spills]
     assert not any(spilled(s) for _, s in spills), [
         (label, s) for label, s in spills if spilled(s)]
     flash.library()
@@ -403,11 +422,12 @@ def build_kernels() -> dict:
                    "ssd_bwd"), built)}
     for name, c in counts.items():
         print(f"[sass] {name}: " + ", ".join(f"{op} {n}" for op, n in c.items()))
-    f, b, s = (counts[name] for name in ("flash_attention_fwd",
-                                         "flash_attention_bwd", "ssd_fwd"))
+    f, b, s, sb = (counts[name] for name in (
+        "flash_attention_fwd", "flash_attention_bwd", "ssd_fwd", "ssd_bwd"))
     assert f["HGMMA"] > 0 and f["UTMALDG"] > 0 and f["HMMA"] == 0, f
     assert b["HGMMA"] > 0 and b["UTMALDG"] > 0 and b["HMMA"] == 0, b
     assert s["HMMA"] > 0, s
+    assert sb["HMMA"] > 0, sb
     return counts
 
 
@@ -733,7 +753,8 @@ def ssd_kernel_phase(device: torch.device) -> dict:
         return None if t is None else t.double()
 
     errs = {}
-    for i, row in enumerate(SSD_SWEEP + [SSD_PREFILL, ZAMBA_SSD_PREFILL]):
+    for i, row in enumerate(SSD_SWEEP + [SSD_PREFILL, ZAMBA_SSD_PREFILL,
+                                         SSD_P128]):
         b, l, h, p, g, n, chunk, dtype, with_state = row
         x, dt, a, bm, cm, d, s0 = inputs(i, *row[:6], dtype, with_state)
         y, s_out = kernel.ssd_scan(x, dt, a, bm, cm, chunk=chunk, d_skip=d,
@@ -896,7 +917,7 @@ def ssd_backward_phase(device: torch.device) -> dict:
         return (got - want).abs().max().item()
 
     train_err = None
-    for i, row in enumerate(SSD_SWEEP + [SSD_TRAIN]):
+    for i, row in enumerate(SSD_SWEEP + [SSD_TRAIN, SSD_P128]):
         b, l, h, p, g, n, chunk, dtype, with_state = row
         x, dt, a, bm, cm, d, s0, dy, dfin = inputs(i, *row[:6], dtype,
                                                    with_state)
@@ -930,10 +951,15 @@ def ssd_backward_phase(device: torch.device) -> dict:
     y = ref.ssd_reference(*leaves[:5], chunk=chunk, d_skip=leaves[5])
     plain = lambda: torch.autograd.grad(  # noqa: E731
         y, leaves, dy, retain_graph=True)
-    plain_ms, kernel_ms = time_turns(
-        plain, lambda: kernel.ssd_scan_backward(x, dt, a, bm, cm, dy, chunk,
-                                                d), reps=3, inner=2)
-    del leaves, y
+    # the first design, kept as the fp32 path (products on the CUDA cores),
+    # on the same values widened to fp32
+    xf, bf, cf, dyf = (t.float() for t in (x, bm, cm, dy))
+    plain_ms, cuda_core_ms, kernel_ms = time_turns(
+        plain,
+        lambda: kernel.ssd_scan_backward(xf, dt, a, bf, cf, dyf, chunk, d),
+        lambda: kernel.ssd_scan_backward(x, dt, a, bm, cm, dy, chunk, d),
+        reps=3, inner=2)
+    del leaves, y, xf, bf, cf, dyf
     flops, nbytes = ssd_backward_work(*SSD_TRAIN)
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
@@ -941,12 +967,37 @@ def ssd_backward_phase(device: torch.device) -> dict:
     shape = (f"B{b} L{l} H{h} P{p} G{g} N{n} chunk{chunk} {str(dtype)[6:]}, "
              "no state")
     print(f"[ssd-backward] {shape}: kernel {kernel_ms:.4f} ms (10 "
-          f"launches), plain backward {plain_ms:.4f} ms (autograd through "
-          f"the plain version in fp32; in turns: plain, kernel, kernel, "
-          f"plain), no library call, bound {bound:.4f} ms "
-          f"({flops / 1e9:.2f} GFLOP is {t_ops:.4f} ms at the bf16 rate, "
-          f"{nbytes / 1e6:.1f} MB is {t_bytes:.4f} ms), kernel/bound "
-          f"{kernel_ms / bound:.2f}")
+          f"launches, bf16 products on the tensor cores), CUDA-core design "
+          f"{cuda_core_ms:.4f} ms (the fp32 path's kernels on the same values "
+          f"widened to fp32), plain backward {plain_ms:.4f} ms (autograd "
+          f"through the plain version in fp32); in turns: plain, CUDA-core, "
+          f"kernel, kernel, CUDA-core, plain; no library call, bound "
+          f"{bound:.4f} ms ({flops / 1e9:.2f} GFLOP is {t_ops:.4f} ms at the "
+          f"bf16 rate, {nbytes / 1e6:.1f} MB is {t_bytes:.4f} ms), "
+          f"kernel/bound {kernel_ms / bound:.2f}, CUDA-core/bound "
+          f"{cuda_core_ms / bound:.2f}")
+    # the kernels of a call, by name, from the profiler: three calls, a
+    # sleep kernel at each edge (a collection may lose its first or last
+    # rows)
+    def padded():
+        torch.cuda._sleep(200_000)
+        kernel.ssd_scan_backward(x, dt, a, bm, cm, dy, chunk, d)
+        torch.cuda._sleep(200_000)
+
+    reps = 3
+    prof, _, _, _ = traced(padded, reps)
+    dev_time = lambda e: getattr(  # noqa: E731
+        e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
+    passes = sorted((e for e in prof.key_averages()
+                     if e.device_type == torch.autograd.DeviceType.CUDA
+                     and _trace_label(e.key).startswith("ssd_")),
+                    key=dev_time, reverse=True)
+    print(f"[ssd-backward] {reps} traced calls: "
+          f"{sum(dev_time(e) for e in passes) * 1e-3 / reps:.4f} ms of "
+          "kernels a call")
+    for e in passes:
+        print(f"[ssd-backward]   {dev_time(e) * 1e-3 / reps:9.4f} ms "
+              f"x{e.count // reps} {_trace_label(e.key)}")
     return {
         "name": "ssd_bwd",
         "route": "cuda",
@@ -962,12 +1013,16 @@ def ssd_backward_phase(device: torch.device) -> dict:
         "ms": kernel_ms,
         "kernel_ms": kernel_ms,
         "plain_ms": plain_ms,
+        "cuda_core_ms": cuda_core_ms,
         "bound_ms": bound,
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "library_ms": None,
         "library": "none: no single PyTorch call computes the scan's "
                    "backward",
-        "shape": shape + " (ten launches, fp32 CUDA-core products)",
+        "passes_ms": {_trace_label(e.key): dev_time(e) * 1e-3 / reps
+                      for e in passes},
+        "shape": shape + " (ten launches, bf16 mma.sync on the tensor cores, "
+                         "fp32 operands split hi + lo)",
     }
 
 

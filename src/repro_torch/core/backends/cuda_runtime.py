@@ -59,8 +59,10 @@ whose true times are CUDA events:
     once both markers of a collection with no launch in it). Each
     collection so waits 20 ms after it opens and before it closes, first
     runs a kernel of its own on the side stream, finds the side stream
-    from the closing marker, launched last, and tells the markers from
-    the blockers by length, not by position. Under a serve
+    from the closing marker, launched last (or, when CUPTI lost the last
+    rows, as the latest stream with no more short kernels than markers
+    launched), and tells the markers from the blockers by length, not by
+    position. Under a serve
     run's load CUPTI also lost a marker row or two of 132 (and so, at
     that rate, about 1.5% of all rows, which no CUPTI counter in reach
     reports); so each marker's kernel carries its index mod 8 in its
@@ -363,8 +365,20 @@ class CudaRuntimeBackend:
             raise RuntimeError(
                 "the CUDA activity collection returned no device rows: "
                 "CUPTI recorded nothing (is another profiler open?)")
-        dev_m, _, m_starts, m_ends, m_streams, m_corrs = last
-        side = m_streams[np.argmax(m_corrs)]   # the closing marker's stream
+        dev_m, m_kinds, m_starts, m_ends, m_streams, m_corrs = last
+        # the side stream: the closing marker's, launched last; when CUPTI
+        # lost the collection's last rows, the latest stream whose short
+        # kernel rows are no more than the markers launched (a stream with
+        # more is doing the work)
+        short = (m_kinds == DeviceActivity.KERNEL.code) & (
+            m_ends - m_starts < _MARKER_NS)
+        sides = [st for st in np.unique(m_streams)
+                 if 0 < short[m_streams == st].sum() <= len(self._marks)]
+        if not sides:
+            raise RuntimeError(
+                "the CUDA activity collection holds no stream of marker "
+                f"kernels for the {len(self._marks)} markers launched")
+        side = max(sides, key=lambda st: m_corrs[m_streams == st].max())
         on_side = np.flatnonzero(m_streams == side)
         on_side = on_side[np.argsort(m_corrs[on_side])]
         dur = (m_ends - m_starts)[on_side]

@@ -3,7 +3,8 @@
 //
 // The JAX package has no TPU kernel for it: JAX differentiates
 // src/repro/kernels/ssd/ref.py::ssd_reference through XLA. This is the
-// backward of the CUDA forward in ssd_fwd.cu; its plain version is
+// backward of the CUDA forward in ssd_fwd.cu (which replaces
+// src/repro/kernels/ssd/kernel.py::_ssd_kernel); its plain version is
 // ref.ssd_backward_reference, whose docstring writes out the formulas.
 // Per (batch, head) and chunk z of Q tokens, with cum = cumsum(dt * a) over
 // the chunk (fp64, as the forward takes it), L_ij = exp(cum_i - cum_j) for
@@ -24,21 +25,19 @@
 //   dda = reverse in-chunk cumsum of dcum; da = sum dt dda; dD = sum dy.x
 // dB and dC sum over the heads of a group.
 //
-// Design: a simple kernel that is right. Every product runs in fp32 on the
-// CUDA cores from fp32 copies of the inputs in shared memory (bf16 x, B, C
-// and dy are widened on load). Ten launches on the caller's stream, through
-// one fp32 workspace the wrapper allocates (ssd_bwd_workspace_floats):
-//   1. ssd_bwd_outer<.., 0>, one block per (b, h, chunk): the chunk's local
-//      state sum_j w_j x_j B_j^T and its decay exp(cum_last);
-//   2. ssd_bwd_state_pass: the forward recurrence, leaving S_prev of every
-//      chunk and the final state (the carried states are recomputed: the
-//      forward saves only its inputs);
-//   3. ssd_bwd_outer<.., 1>: each chunk's sum_i exp(cum_i) dy_i C_i^T;
-//   4. ssd_bwd_dstate_pass: the reverse recurrence, leaving G of every chunk
-//      and the initial state's gradient;
-//   5. ssd_bwd_query, one block per 64-row query tile: dC (per head) and the
-//      query side of dcum;
-//   6. ssd_bwd_key, one block per 64-row key tile: dx, dB (per head), the
+// Ten launches on the caller's stream, through one fp32 workspace the
+// wrapper allocates (ssd_bwd_workspace_floats):
+//   1. the chunk's local state sum_j w_j x_j B_j^T and its decay
+//      exp(cum_last), one block per (b, h, chunk);
+//   2. the forward recurrence, leaving S_prev of every chunk and the final
+//      state (the carried states are recomputed: the forward saves only its
+//      inputs);
+//   3. each chunk's sum_i exp(cum_i) dy_i C_i^T;
+//   4. the reverse recurrence, leaving G of every chunk and the initial
+//      state's gradient;
+//   5. the query pass, one block per 64-row query tile: dC (per head) and
+//      the query side of dcum;
+//   6. the key pass, one block per 64-row key tile: dx, dB (per head), the
 //      direct part of ddt, the key side of dcum and each row's dy.x;
 //   7. ssd_bwd_chunk, one block per (b, h, chunk): <G, S_out>, the reverse
 //      cumsum of dcum in fp64, ddt += a dda, and per-chunk partials of da
@@ -49,50 +48,72 @@
 //      order.
 // Deterministic: every output element and every partial has one writer,
 // and every reduction runs in a fixed order; there are no atomics, so two
-// runs are bit-identical. Above the diagonal exp(cum_i - cum_j) can
-// overflow, so it is selected to 0 there (and past a ragged chunk's end),
-// never multiplied by a mask.
+// runs are bit-identical. Every sum that feeds dcum (the row and column
+// sums of F, x.G B, C.dC, dy.x), dcum itself and its reverse cumsum are
+// fp64: da weighs each row's dcum by its cum, which reaches a few hundred.
+// Above the diagonal exp(cum_i - cum_j) can overflow, so it is selected to
+// 0 there (and past a ragged chunk's end), never multiplied by a mask.
+//
+// bf16 inputs (the training path) run every product on the tensor cores,
+// mma.sync m16n8k16 bf16 with fp32 accumulation, operands from shared
+// memory by ldmatrix, tiles brought in by cp.async (bf16 rows padded by
+// kPad) and double-buffered. Passes 1-4 are the forward's chunk-state
+// product and batched recurrence (ssd_states.cuh): pass 1 is the forward's
+// pass 1, pass 3 the same product with u = dy, v = C and the scale
+// exp(cum), pass 4 the recurrence in reverse. Passes 5 and 6 take one
+// 64-row tile a block, 16 rows a warp (pass 6 at P + N > 192: two warps,
+// one for dx's side and one for dB's), and stream the other side's tiles
+// in halves of 32 rows: the tiles C B^T and dy x^T (query-major in pass 5,
+// key-major as B C^T and x dy^T in pass 6) are exact from the bf16 inputs,
+// and M (pass 5), gate^T and M^T (pass 6) come out of the accumulators
+// already in the A-operand layout of the next product. Off the diagonal
+// the decay factors into a row and a column term, so that only the
+// diagonal tiles take an exponential per element. Every fp32 operand is
+// split into bf16 hi + lo and multiplied twice: the w-weighted x and
+// exp(cum)-weighted dy of passes 1 and 3, S_prev, G, the gate and M
+// (tests/test_torch_ssd_numerics.py emulates this arithmetic and what each
+// split buys). Each warp owns its rows' sums, so the fp64 sums that feed
+// dcum are per-thread partials over the accumulator fragments reduced over
+// the four lanes of a row by __shfl_xor_sync, in a fixed order.
+// fp32 inputs keep the first design's kernels (ssd_bwd_outer, ssd_bwd_query,
+// ssd_bwd_key): fp32 products on the CUDA cores from fp32 tiles in shared
+// memory, with the same recurrences and passes 7-10.
 //
 // What bounds it on the H100. At the training shape of mamba2-130m (B 8,
 // L 4096, H 24, P 64, G 1, N 128, Q 256, bf16 x/B/C/dy) the backward needs
-// about 168 GFLOP (per chunk, q(q+1)/2 (query, key) pairs at 2(3N + 2P)
-// operations and 10 q N P for the five state products: 0.17 ms at the
+// about 167.91 GFLOP (per chunk, q(q+1)/2 (query, key) pairs at 2(3N + 2P)
+// operations and 10 q N P for the five state products: 0.1698 ms at the
 // 989 TFLOP/s bf16 rate) and about 342 MB of inputs and outputs once each
 // (0.10 ms at 3.35 TB/s): operations bound it.
-// What the simple design leaves on the table: the products run on fp32
-// CUDA cores (67 TFLOP/s, under a fifteenth of the tensor cores' rate) out
-// of shared memory, read by scalar loads; the query and key passes each
-// recompute the chunk's C B^T and dy x^T tiles (about 1.5 times the
-// pairwise operations); the workspace's round trips (two (B, chunks, H, P,
-// N) state arrays, 201 MB, and per-head dB and dC partials of (B, L, H, N),
-// 805 MB, at the training shape) are several times the inputs' bytes; and
-// with 140-200 KB of shared memory a block, one block runs per SM. Tensor
-// cores with the forward's hi + lo bf16 split, and fused passes, are later
-// work.
+// What still separates the bf16 design from the bound: the products it
+// runs beyond the count (the query and key passes each recompute C B^T and
+// dy x^T, the diagonal tiles' dead halves, the hi + lo splits: about 2.3
+// times the counted operations) at mma.sync's rate, below wgmma's, with
+// every warp reading its own B operands from shared memory by ldmatrix;
+// the elementwise work between products (the fp64 sums), with two blocks
+// of four warps an SM to hide it; and the workspace's round trips (two
+// (B, chunks, H, P, N) state arrays, 201 MB, and per-head dB and dC
+// partials of (B, L, H, N), 805 MB, at the training shape).
 //
 // Layouts as the forward: x, dy, dx (B, L, H, P); dt, ddt (B, L, H) fp32;
 // a, D, da, dD (H,) fp32; B, C, dB, dC (B, L, G, N), head h reading group
-// h / (H / G); states and their gradients (B, H, P, N) fp32. All contiguous.
+// h / (H / G); states and their gradients (B, H, P, N) fp32. All
+// contiguous; x, dy, B, C, the initial state and the final state's
+// gradient 16-byte aligned.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "ssd_states.cuh"
+
 namespace {
 
-typedef __nv_bfloat16 bf16;
-
-constexpr int kThreads = 256;   // 16 x 16
-constexpr int kTile = 64;       // rows of a query or key tile
+constexpr int kThreads = 256;   // 16 x 16, the fp32 kernels
 constexpr int kMaxChunk = 1024;
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(bf16* p, float v) { *p = __float2bfloat16(v); }
 
-__host__ __device__ constexpr int round_up(int v, int m) { return (v + m - 1) / m * m; }
 __host__ __device__ constexpr size_t align4(size_t v) { return (v + 3) / 4 * 4; }
 
 struct Params {
@@ -154,31 +175,13 @@ struct Workspace {
   }
 };
 
-// The chunk a block works on. blockIdx.x = (z * H + h) * tiles + tile,
-// blockIdx.y = b.
-struct Chunk {
-  int h, z, b, g, tile, c0, qlen, qpad;
-  size_t row0;   // token row of the chunk's first row in (B * L)
-  __device__ Chunk(const Params& p, int tiles) {
-    tile = blockIdx.x % tiles;
-    const int zh = blockIdx.x / tiles;
-    h = zh % p.H;
-    z = zh / p.H;
-    b = blockIdx.y;
-    g = h / (p.H / p.G);
-    c0 = z * p.Q;
-    qlen = min(p.Q, p.L - c0);
-    qpad = round_up(qlen, kTile);
-    row0 = (size_t)b * p.L + c0;
-  }
-  __device__ size_t bzh(const Params& p) const { return ((size_t)b * p.nc + z) * p.H + h; }
-};
+// ---- fp32: products on the CUDA cores ----------------------------------------
 
 // The chunk's dt (0 past its end) and inclusive cumsum of dt * a in fp64,
 // by every thread of the block: each sums a run of consecutive rows, thread
 // 0 scans the runs' totals, and each adds its offset. s_tot holds kThreads
 // doubles. Ends with a barrier.
-__device__ __forceinline__ void chunk_scan(const Params& p, const Chunk& ch, double* s_cum,
+__device__ __forceinline__ void block_scan(const Params& p, const Chunk& ch, double* s_cum,
                                            float* s_dt, double* s_tot) {
   const float a = p.a[ch.h];
   const float* dtc = p.dt + ch.row0 * p.H + ch.h;
@@ -210,12 +213,12 @@ __device__ __forceinline__ void chunk_scan(const Params& p, const Chunk& ch, dou
 // Rows [row0, row0 + kTile) of a chunk into shared memory as fp32 with row
 // stride LD: row r of the chunk starts at src + r * stride and has W values.
 // Rows at or past `nrows` are zero-filled.
-template <typename T, int W, int LD>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, size_t stride, int row0,
+template <int W, int LD>
+__device__ __forceinline__ void load_tile(float* dst, const float* src, size_t stride, int row0,
                                           int nrows) {
   for (int e = threadIdx.x; e < kTile * W; e += kThreads) {
     const int r = e / W, col = e % W;
-    dst[r * LD + col] = row0 + r < nrows ? to_f(src[(size_t)(row0 + r) * stride + col]) : 0.f;
+    dst[r * LD + col] = row0 + r < nrows ? src[(size_t)(row0 + r) * stride + col] : 0.f;
   }
 }
 
@@ -243,11 +246,11 @@ __device__ __forceinline__ void row_sum(const double (&v)[4], double* s_red, dou
 //         also writes the chunk's decay exp(cum_last).
 // MODE 1: u = dy, v = C, s = exp(cum) (the state gradient's local term).
 // Thread (ty, tx) owns output rows ty + 16 r and columns tx + 16 k.
-template <typename T, int P, int N, int MODE>
+template <int P, int N, int MODE>
 __global__ void __launch_bounds__(kThreads, 1) ssd_bwd_outer(Params p) {
   constexpr int RP = P / 16, CN = N / 16;
   extern __shared__ double smem_d[];
-  const Chunk ch(p, 1);
+  const Chunk ch(p.L, p.H, p.G, p.Q, 1);
   double* s_cum = smem_d;                                  // (qpad,)
   double* s_tot = s_cum + ch.qpad;                         // (kThreads,)
   float* s_dt = reinterpret_cast<float*>(s_tot + kThreads);  // (qpad,)
@@ -256,14 +259,14 @@ __global__ void __launch_bounds__(kThreads, 1) ssd_bwd_outer(Params p) {
   float* s_v = s_u + kTile * P;                            // (kTile, N)
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const size_t urow = (size_t)p.H * P, vrow = (size_t)p.G * N;
-  const T* u = static_cast<const T*>(MODE == 0 ? p.x : p.dy) + ch.row0 * urow + (size_t)ch.h * P;
-  const T* v = static_cast<const T*>(MODE == 0 ? p.b : p.c) + ch.row0 * vrow + (size_t)ch.g * N;
+  const float* u = static_cast<const float*>(MODE == 0 ? p.x : p.dy) + ch.row0 * urow + (size_t)ch.h * P;
+  const float* v = static_cast<const float*>(MODE == 0 ? p.b : p.c) + ch.row0 * vrow + (size_t)ch.g * N;
 
-  chunk_scan(p, ch, s_cum, s_dt, s_tot);
+  block_scan(p, ch, s_cum, s_dt, s_tot);
   const double cum_last = s_cum[ch.qlen - 1];
   for (int j = tid; j < ch.qpad; j += kThreads)
     s_scale[j] = MODE == 0 ? expf((float)(cum_last - s_cum[j])) * s_dt[j] : expf((float)s_cum[j]);
-  if (MODE == 0 && tid == 0) p.decay[ch.bzh(p)] = expf((float)cum_last);
+  if (MODE == 0 && tid == 0) p.decay[ch.bzh] = expf((float)cum_last);
 
   float acc[RP][CN];
 #pragma unroll
@@ -274,9 +277,9 @@ __global__ void __launch_bounds__(kThreads, 1) ssd_bwd_outer(Params p) {
     __syncthreads();   // the last tile is read (and s_scale is written)
     for (int e = tid; e < kTile * P; e += kThreads) {
       const int r = e / P, col = e % P;
-      s_u[e] = j0 + r < ch.qlen ? to_f(u[(size_t)(j0 + r) * urow + col]) * s_scale[j0 + r] : 0.f;
+      s_u[e] = j0 + r < ch.qlen ? u[(size_t)(j0 + r) * urow + col] * s_scale[j0 + r] : 0.f;
     }
-    load_tile<T, N, N>(s_v, v, vrow, j0, ch.qlen);
+    load_tile<N, N>(s_v, v, vrow, j0, ch.qlen);
     __syncthreads();
 #pragma unroll 4
     for (int jj = 0; jj < kTile; ++jj) {
@@ -291,50 +294,11 @@ __global__ void __launch_bounds__(kThreads, 1) ssd_bwd_outer(Params p) {
         for (int k = 0; k < CN; ++k) acc[r][k] = fmaf(uv[r], vv[k], acc[r][k]);
     }
   }
-  float* out = (MODE == 0 ? p.states : p.dstates) + ch.bzh(p) * P * N;
+  float* out = (MODE == 0 ? p.states : p.dstates) + ch.bzh * P * N;
 #pragma unroll
   for (int r = 0; r < RP; ++r)
 #pragma unroll
     for (int k = 0; k < CN; ++k) out[(size_t)(ty + 16 * r) * N + tx + 16 * k] = acc[r][k];
-}
-
-// ---- passes 2 and 4: the recurrences over the chunks, one thread per state
-// element of one (b, h) (blockIdx.y = b * H + h) ----------------------------
-// Forward: S_prev,z = S_{z-1}; S_z = S_{z-1} exp(cum_last_z) + local_z, from
-// the initial state. Replaces local_z by S_prev,z; writes the final state.
-__global__ void __launch_bounds__(256) ssd_bwd_state_pass(Params p) {
-  const int pn = p.P * p.N;
-  const int k = blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= pn) return;
-  const int bh = blockIdx.y, b = bh / p.H, h = bh % p.H;
-  float* slot = p.states + ((size_t)b * p.nc * p.H + h) * pn + k;
-  const size_t zstride = (size_t)p.H * pn;
-  float s = p.s0 != nullptr ? p.s0[(size_t)bh * pn + k] : 0.f;
-  for (int z = 0; z < p.nc; ++z) {
-    const float local = slot[z * zstride];
-    slot[z * zstride] = s;
-    s = s * p.decay[((size_t)b * p.nc + z) * p.H + h] + local;
-  }
-  p.s_last[(size_t)bh * pn + k] = s;
-}
-
-// Reverse: G_z = dS_prev,z+1 (the final state's gradient for the last
-// chunk); dS_prev,z = dlocal_z + exp(cum_last_z) G_z. Replaces dlocal_z by
-// G_z; writes dS_prev,0, the initial state's gradient, when asked.
-__global__ void __launch_bounds__(256) ssd_bwd_dstate_pass(Params p) {
-  const int pn = p.P * p.N;
-  const int k = blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= pn) return;
-  const int bh = blockIdx.y, b = bh / p.H, h = bh % p.H;
-  float* slot = p.dstates + ((size_t)b * p.nc * p.H + h) * pn + k;
-  const size_t zstride = (size_t)p.H * pn;
-  float g = p.dfinal != nullptr ? p.dfinal[(size_t)bh * pn + k] : 0.f;
-  for (int z = p.nc - 1; z >= 0; --z) {
-    const float local = slot[z * zstride];
-    slot[z * zstride] = g;
-    g = local + p.decay[((size_t)b * p.nc + z) * p.H + h] * g;
-  }
-  if (p.ds0 != nullptr) p.ds0[(size_t)bh * pn + k] = g;
 }
 
 // Shared memory of the tile passes: fp64 cum, scan totals, three per-row
@@ -356,14 +320,14 @@ struct TileSmem {
 // dc_part); dcum_i = C_i.(exp(cum_i) S_prev^T dy_i) + sum_j F_ij dt_j.
 // Thread (ty, tx) owns rows ty + 16 r of the tile; its dC columns are
 // tx + 16 k, and in a (query, key) tile pair its keys are tx + 16 k.
-template <typename T, int P, int N>
+template <int P, int N>
 __global__ void __launch_bounds__(kThreads, 1) ssd_bwd_query(Params p, int tiles) {
   using S = TileSmem<P, N>;
   constexpr int LDP = S::LDP, LDN = S::LDN, LDT = S::LDT;
   constexpr int CN = N / 16;
   constexpr int PT = P < kTile ? P : kTile;   // rows of S_prev per state tile
   extern __shared__ double smem_d[];
-  const Chunk ch(p, tiles);
+  const Chunk ch(p.L, p.H, p.G, p.Q, tiles);
   const int i0 = ch.tile * kTile;
   if (i0 >= ch.qlen) return;
   double* s_cum = smem_d;
@@ -380,16 +344,16 @@ __global__ void __launch_bounds__(kThreads, 1) ssd_bwd_query(Params p, int tiles
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const size_t xrow = (size_t)p.H * P, brow = (size_t)p.G * N;
   const size_t hoff = (size_t)ch.h * P, goff = (size_t)ch.g * N;
-  const T* xc = static_cast<const T*>(p.x) + ch.row0 * xrow + hoff;
-  const T* dyc = static_cast<const T*>(p.dy) + ch.row0 * xrow + hoff;
-  const T* bc = static_cast<const T*>(p.b) + ch.row0 * brow + goff;
-  const T* cc = static_cast<const T*>(p.c) + ch.row0 * brow + goff;
+  const float* xc = static_cast<const float*>(p.x) + ch.row0 * xrow + hoff;
+  const float* dyc = static_cast<const float*>(p.dy) + ch.row0 * xrow + hoff;
+  const float* bc = static_cast<const float*>(p.b) + ch.row0 * brow + goff;
+  const float* cc = static_cast<const float*>(p.c) + ch.row0 * brow + goff;
 
-  chunk_scan(p, ch, s_cum, s_dt, s_tot);
+  block_scan(p, ch, s_cum, s_dt, s_tot);
   for (int j = tid; j < ch.qpad; j += kThreads) s_ecum[j] = expf((float)s_cum[j]);
   if (tid < kTile) s_acc[tid] = 0.0;
-  load_tile<T, N, LDN>(s_c, cc, brow, i0, ch.qlen);
-  load_tile<T, P, LDP>(s_dy, dyc, xrow, i0, ch.qlen);
+  load_tile<N, LDN>(s_c, cc, brow, i0, ch.qlen);
+  load_tile<P, LDP>(s_dy, dyc, xrow, i0, ch.qlen);
 
   // carried state: acc[r][k] = sum_p dy[i][p] S_prev[p][n], PT rows of S_prev
   // at a time through s_b
@@ -398,7 +362,7 @@ __global__ void __launch_bounds__(kThreads, 1) ssd_bwd_query(Params p, int tiles
   for (int r = 0; r < 4; ++r)
 #pragma unroll
     for (int k = 0; k < CN; ++k) acc[r][k] = 0.f;
-  const float* sp = p.states + ch.bzh(p) * P * N;
+  const float* sp = p.states + ch.bzh * P * N;
   for (int p0 = 0; p0 < P; p0 += PT) {
     __syncthreads();
     for (int e = tid; e < PT * N; e += kThreads) s_b[(e / N) * LDN + e % N] = sp[(size_t)p0 * N + e];
@@ -434,8 +398,8 @@ __global__ void __launch_bounds__(kThreads, 1) ssd_bwd_query(Params p, int tiles
   // intra-chunk: key tiles at or below the diagonal
   for (int j0 = 0; j0 <= i0; j0 += kTile) {
     __syncthreads();   // the last key tile and M are read
-    load_tile<T, N, LDN>(s_b, bc, brow, j0, ch.qlen);
-    load_tile<T, P, LDP>(s_x, xc, xrow, j0, ch.qlen);
+    load_tile<N, LDN>(s_b, bc, brow, j0, ch.qlen);
+    load_tile<P, LDP>(s_x, xc, xrow, j0, ch.qlen);
     __syncthreads();
     float sc[4][4], dot[4][4];
 #pragma unroll
@@ -517,7 +481,7 @@ __global__ void __launch_bounds__(kThreads, 1) ssd_bwd_query(Params p, int tiles
 // x_j.G B_j; dd_rows_j = dy_j.x_j. Thread (ty, tx) owns key rows ty + 16 r
 // of the tile for dx (columns tx + 16 k) and dB; in a (query, key) tile
 // pair its queries are ty + 16 r and its keys tx + 16 k.
-template <typename T, int P, int N>
+template <int P, int N>
 __global__ void __launch_bounds__(kThreads, 1) ssd_bwd_key(Params p, int tiles) {
   using S = TileSmem<P, N>;
   constexpr int LDP = S::LDP, LDN = S::LDN, LDT = S::LDT;
@@ -525,7 +489,7 @@ __global__ void __launch_bounds__(kThreads, 1) ssd_bwd_key(Params p, int tiles) 
   constexpr int PT = P < kTile ? P : kTile;   // rows of G per state tile
   constexpr int KT = PT / 16;
   extern __shared__ double smem_d[];
-  const Chunk ch(p, tiles);
+  const Chunk ch(p.L, p.H, p.G, p.Q, tiles);
   const int j0 = ch.tile * kTile;
   if (j0 >= ch.qlen) return;
   double* s_cum = smem_d;
@@ -546,19 +510,19 @@ __global__ void __launch_bounds__(kThreads, 1) ssd_bwd_key(Params p, int tiles) 
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const size_t xrow = (size_t)p.H * P, brow = (size_t)p.G * N;
   const size_t hoff = (size_t)ch.h * P, goff = (size_t)ch.g * N;
-  const T* xc = static_cast<const T*>(p.x) + ch.row0 * xrow + hoff;
-  const T* dyc = static_cast<const T*>(p.dy) + ch.row0 * xrow + hoff;
-  const T* bc = static_cast<const T*>(p.b) + ch.row0 * brow + goff;
-  const T* cc = static_cast<const T*>(p.c) + ch.row0 * brow + goff;
+  const float* xc = static_cast<const float*>(p.x) + ch.row0 * xrow + hoff;
+  const float* dyc = static_cast<const float*>(p.dy) + ch.row0 * xrow + hoff;
+  const float* bc = static_cast<const float*>(p.b) + ch.row0 * brow + goff;
+  const float* cc = static_cast<const float*>(p.c) + ch.row0 * brow + goff;
   const float dskip = p.d != nullptr ? p.d[ch.h] : 0.f;
 
-  chunk_scan(p, ch, s_cum, s_dt, s_tot);
+  block_scan(p, ch, s_cum, s_dt, s_tot);
   const double cum_last = s_cum[ch.qlen - 1];
   for (int j = tid; j < ch.qpad; j += kThreads)
     s_w[j] = expf((float)(cum_last - s_cum[j])) * s_dt[j];
   if (tid < kTile) s_dw[tid] = s_fcol[tid] = s_ddr[tid] = 0.0;
-  load_tile<T, P, LDP>(s_x, xc, xrow, j0, ch.qlen);
-  load_tile<T, N, LDN>(s_b, bc, brow, j0, ch.qlen);
+  load_tile<P, LDP>(s_x, xc, xrow, j0, ch.qlen);
+  load_tile<N, LDN>(s_b, bc, brow, j0, ch.qlen);
 
   float dxa[4][CP], dba[4][CN];
 #pragma unroll
@@ -570,7 +534,7 @@ __global__ void __launch_bounds__(kThreads, 1) ssd_bwd_key(Params p, int tiles) 
   }
 
   // the state handed on: G B_j and G^T x_j, PT rows of G at a time through s_c
-  const float* gp = p.dstates + ch.bzh(p) * P * N;
+  const float* gp = p.dstates + ch.bzh * P * N;
   double dwp[4] = {0.0, 0.0, 0.0, 0.0};
 #pragma unroll
   for (int p0 = 0; p0 < P; p0 += PT) {   // unrolled: dxa's column index is constant
@@ -624,8 +588,8 @@ __global__ void __launch_bounds__(kThreads, 1) ssd_bwd_key(Params p, int tiles) 
   // intra-chunk: query tiles at or above the diagonal
   for (int i0 = j0; i0 < ch.qlen; i0 += kTile) {
     __syncthreads();   // the last query tile, gate, M and F are read
-    load_tile<T, N, LDN>(s_c, cc, brow, i0, ch.qlen);
-    load_tile<T, P, LDP>(s_dy, dyc, xrow, i0, ch.qlen);
+    load_tile<N, LDN>(s_c, cc, brow, i0, ch.qlen);
+    load_tile<P, LDP>(s_dy, dyc, xrow, i0, ch.qlen);
     __syncthreads();
     float sc[4][4], dot[4][4];
 #pragma unroll
@@ -717,7 +681,7 @@ __global__ void __launch_bounds__(kThreads, 1) ssd_bwd_key(Params p, int tiles) 
   __syncthreads();   // s_fcol is complete
 
   const size_t rowh = ch.row0 * p.H + ch.h;
-  T* dxc = static_cast<T*>(p.dx) + ch.row0 * xrow + hoff;
+  float* dxc = static_cast<float*>(p.dx) + ch.row0 * xrow + hoff;
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
     const int j = j0 + ty + 16 * r;
@@ -738,12 +702,553 @@ __global__ void __launch_bounds__(kThreads, 1) ssd_bwd_key(Params p, int tiles) 
   }
 }
 
+// ---- bf16: the query and key passes on the tensor cores ----------------------
+
+// Shared memory of passes 5 and 6: fp64 cum, fp32 dt and the off-diagonal
+// column factors of the chunk, then bf16 tiles with rows padded by kPad:
+// the block's own N and X tiles, and two buffers of the streamed side's N
+// and X tiles. Before the stream starts, the second buffer holds the state
+// (S_prev or G) as bf16 hi and lo.
+template <int P, int N>
+struct TcTiles {
+  static constexpr int LDX = P + kPad, LDN = N + kPad;
+  static constexpr int X_TILE = kTile * LDX, N_TILE = kTile * LDN;   // bf16 elements
+  static constexpr int STATE = P * LDN;
+  static constexpr int BUF = N_TILE + X_TILE;
+  static constexpr int BUF1 = BUF > 2 * STATE ? BUF : 2 * STATE;
+  static size_t bytes(int q) {
+    return 16 * (size_t)round_up(q, kTile) + 2 * ((size_t)N_TILE + X_TILE + BUF + BUF1);
+  }
+};
+
+// Fragment addresses, for a warp's 16 rows starting at `row0` of a tile
+// with row stride LD (bf16 elements) and 16-wide k-step ks:
+// the A operand (rows are M, columns are K)
+template <int LD>
+__device__ __forceinline__ int a_frag(int row0, int ks) {
+  const int lane = threadIdx.x % 32;
+  return (row0 + lane % 8 + ((lane / 8) % 2) * 8) * LD + ks * 16 + (lane / 16) * 8;
+}
+// the B operands of n-tiles nt and nt + 1 from a tile whose rows are N and
+// columns K (ldmatrix), and from one whose rows are K and columns N
+// (ldmatrix.trans); k0 is the first row or column of K
+template <int LD>
+__device__ __forceinline__ int b_frag_nk(int nt, int k0) {
+  const int lane = threadIdx.x % 32;
+  return (nt * 8 + lane % 8 + (lane / 16) * 8) * LD + k0 + ((lane / 8) % 2) * 8;
+}
+template <int LD>
+__device__ __forceinline__ int b_frag_kn(int nt, int k0) {
+  const int lane = threadIdx.x % 32;
+  return (k0 + lane % 8 + ((lane / 8) % 2) * 8) * LD + nt * 8 + (lane / 16) * 8;
+}
+
+// acc[t] += A B for the NT n-tiles of B, with A one 16 x 16 fragment (or
+// the sum of two, hi and lo, each B fragment loaded once for both): B's
+// fragments by ldmatrix (TRANS 0: rows of `b` are N) or ldmatrix.trans
+// (TRANS 1: rows are K), k-step at row or column k0.
+template <int NT, int LD, int TRANS, int PARTS = 1>
+__device__ __forceinline__ void mma_row(float (&acc)[NT][4], const uint32_t (&a)[PARTS][4],
+                                        const bf16* b, int k0) {
+#pragma unroll
+  for (int nt = 0; nt < NT; nt += 2) {
+    uint32_t bb[4];
+    if (TRANS)
+      ldmatrix_x4_trans(bb, b + b_frag_kn<LD>(nt, k0));
+    else
+      ldmatrix_x4(bb, b + b_frag_nk<LD>(nt, k0));
+#pragma unroll
+    for (int part = 0; part < PARTS; ++part) {
+      mma_16816(acc[nt], a[part], bb[0], bb[1]);
+      mma_16816(acc[nt + 1], a[part], bb[2], bb[3]);
+    }
+  }
+}
+
+// The A operand of one 16-column k-step (accumulator tiles 2 kk and
+// 2 kk + 1 of a 16-row fp32 tile) split into bf16 hi (a[0]) and lo (a[1]).
+__device__ __forceinline__ void split_frag(const float (&t0)[4], const float (&t1)[4],
+                                           uint32_t (&a)[2][4]) {
+  split_bf16x2(t0[0], t0[1], a[0][0], a[1][0]);
+  split_bf16x2(t0[2], t0[3], a[0][1], a[1][1]);
+  split_bf16x2(t1[0], t1[1], a[0][2], a[1][2]);
+  split_bf16x2(t1[2], t1[3], a[0][3], a[1][3]);
+}
+
+// acc += (rows of tile `a` from row0, K columns) times the state (P, N) in
+// shared memory as bf16 hi and lo: TRANS 0 takes the state's rows as N
+// (A's K is the state's N), TRANS 1 as K (A's K is the state's P).
+template <int NT, int K, int LDA, int LDS, int TRANS>
+__device__ __forceinline__ void mma_state(float (&acc)[NT][4], const bf16* a, int row0,
+                                          const bf16* s_hi, const bf16* s_lo) {
+#pragma unroll
+  for (int ks = 0; ks < K / 16; ++ks) {
+    uint32_t af[1][4];
+    ldmatrix_x4(af[0], a + a_frag<LDA>(row0, ks));
+    mma_row<NT, LDS, TRANS>(acc, af, s_hi, ks * 16);
+    mma_row<NT, LDS, TRANS>(acc, af, s_lo, ks * 16);
+  }
+}
+
+// out[t] = (rows of tile `a` from row0) (rows of tile `b` from col0)^T over
+// K columns, for 4 n-tiles (32 columns): the exact bf16 products C B^T,
+// dy x^T, B C^T and x dy^T.
+template <int K, int LD>
+__device__ __forceinline__ void score_half(float (&out)[4][4], const bf16* a, int row0,
+                                           const bf16* b, int col0) {
+#pragma unroll
+  for (int t = 0; t < 4; ++t) out[t][0] = out[t][1] = out[t][2] = out[t][3] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < K / 16; ++ks) {
+    uint32_t af[1][4];
+    ldmatrix_x4(af[0], a + a_frag<LD>(row0, ks));
+    mma_row<4, LD, 0>(out, af, b + col0 * LD, ks * 16);
+  }
+}
+
+__device__ __forceinline__ double row_total(double v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// exp(hi - lo) of two fp64 cumsums, by the special-function unit: the
+// difference is taken in fp64 and rounded to fp32 once.
+__device__ __forceinline__ float decay(double hi, double lo) {
+  return ex2_approx((float)((hi - lo) * kLog2eD));
+}
+
+// Off the diagonal every key j of a (query, key) tile pair lies before every
+// query i, and with R the cumsum at the key tile's last row the decay
+// factors as exp(cum_i - R) exp(R - cum_j), both at most 1 (cum falls along
+// the chunk): the passes take the key factors once per key tile, the query
+// factors once per tile pair, and no exponential per element. On the
+// diagonal cum_i - R can be large and positive, so the diagonal tile keeps
+// exp(cum_i - cum_j) per element, selected to 0 above the diagonal (where it
+// can overflow) and past the chunk's end: never multiplied by a mask.
+
+// ---- pass 5: the query side, one block per 64-row query tile -----------------
+// One warp per 16 query rows i:
+//   dC_i   = exp(cum_i) S_prev^T dy_i + sum_{j<=i} M_ij B_j   (per head)
+//   dcum_i = C_i . (exp(cum_i) S_prev^T dy_i) + sum_j (C_i . B_j) M_ij
+// The carried term is dy (A) times S_prev split hi + lo. Key tiles at or
+// below the diagonal stream through two buffers; for each half of 32 keys,
+// C B^T and dy x^T, M, and dC += M B with M split hi + lo as the A operand
+// straight from the accumulator layout.
+template <int P, int N>
+__global__ void __launch_bounds__(kTcThreads, 1) ssd_bwd_tc_query(Params p, int tiles) {
+  using S = TcTiles<P, N>;
+  constexpr int LDX = S::LDX, LDN = S::LDN;
+  constexpr int NT = N / 8;   // 8-column tiles of dC
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Chunk ch(p.L, p.H, p.G, p.Q, tiles);
+  const int i0 = ch.tile * kTile;
+  if (i0 >= ch.qlen) return;
+  double* s_cum = reinterpret_cast<double*>(smem);
+  float* s_dt = reinterpret_cast<float*>(s_cum + ch.qpad);
+  float* s_colf = s_dt + ch.qpad;                          // exp(R - cum_j) dt_j
+  bf16* s_c = reinterpret_cast<bf16*>(s_colf + ch.qpad);  // (kTile, LDN) query rows
+  bf16* s_dy = s_c + S::N_TILE;                           // (kTile, LDX) query rows
+  bf16* s_kv = s_dy + S::X_TILE;                          // 2 x key tiles: B, then x
+  bf16* s_shi = s_kv + S::BUF;                            // S_prev hi and lo, (P, LDN)
+  bf16* s_slo = s_shi + S::STATE;                         // each, in the second buffer
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int c2 = 2 * (lane % 4);
+  const size_t xrow = (size_t)p.H * P, brow = (size_t)p.G * N;
+  const size_t hoff = (size_t)ch.h * P, goff = (size_t)ch.g * N;
+  const bf16* xc = static_cast<const bf16*>(p.x) + ch.row0 * xrow + hoff;
+  const bf16* dyc = static_cast<const bf16*>(p.dy) + ch.row0 * xrow + hoff;
+  const bf16* bc = static_cast<const bf16*>(p.b) + ch.row0 * brow + goff;
+  const bf16* cc = static_cast<const bf16*>(p.c) + ch.row0 * brow + goff;
+
+  load_tile_async<N>(s_c, cc, brow, i0, ch.qlen);
+  load_tile_async<P>(s_dy, dyc, xrow, i0, ch.qlen);
+  load_tile_async<N>(s_kv, bc, brow, 0, ch.qlen);
+  load_tile_async<P>(s_kv + S::N_TILE, xc, xrow, 0, ch.qlen);
+  cp_async_commit();
+  if (warp == 0)
+    chunk_scan(p.dt + ch.row0 * p.H + ch.h, p.H, p.a[ch.h], ch.qlen, ch.qpad, s_cum, s_dt);
+  load_state_split<P, N>(s_shi, s_slo, p.states + ch.bzh * P * N);
+  __syncthreads();   // the scan is done
+  for (int j = tid; j < i0; j += kTcThreads)   // keys of the tiles below the diagonal
+    s_colf[j] = decay(s_cum[(j / kTile) * kTile + kTile - 1], s_cum[j]) * s_dt[j];
+  cp_async_wait<0>();
+  __syncthreads();   // S_prev, the column factors and the first tiles are in
+
+  const int r0 = warp * 16;                    // the warp's first row of the tile
+  const int rl = r0 + lane / 4, rh = rl + 8;   // this thread's two rows
+  const int il = i0 + rl, ih = i0 + rh;        // the same, rows of the chunk
+  float acc[NT][4];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
+  // carried state: acc = exp(cum_i) dy_i (S_hi + S_lo)
+  mma_state<NT, P, LDX, LDN, 1>(acc, s_dy, r0, s_shi, s_slo);
+  double fl = 0.0, fh = 0.0;   // the rows' dcum
+  {
+    const float el = expf((float)s_cum[il]), eh = expf((float)s_cum[ih]);
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const int col = nt * 8 + c2;
+      const float2 cl = unpack_bf16x2(*reinterpret_cast<const uint32_t*>(s_c + rl * LDN + col));
+      const float2 chv = unpack_bf16x2(*reinterpret_cast<const uint32_t*>(s_c + rh * LDN + col));
+      acc[nt][0] *= el;
+      acc[nt][1] *= el;
+      acc[nt][2] *= eh;
+      acc[nt][3] *= eh;
+      fl += (double)(cl.x * acc[nt][0]) + (double)(cl.y * acc[nt][1]);
+      fh += (double)(chv.x * acc[nt][2]) + (double)(chv.y * acc[nt][3]);
+    }
+  }
+
+  const double cum_l = s_cum[il], cum_h = s_cum[ih];
+  for (int kt = 0; kt <= ch.tile; ++kt) {
+    const int buf = kt & 1;
+    cp_async_wait<0>();
+    __syncthreads();   // key tile kt has landed; every warp is done with the other buffer
+    if (kt < ch.tile) {
+      bf16* nb = s_kv + (buf ^ 1) * S::BUF;
+      load_tile_async<N>(nb, bc, brow, (kt + 1) * kTile, ch.qlen);
+      load_tile_async<P>(nb + S::N_TILE, xc, xrow, (kt + 1) * kTile, ch.qlen);
+    }
+    cp_async_commit();
+    const bf16* bs = s_kv + buf * S::BUF;
+    const bf16* xs = bs + S::N_TILE;
+    const bool diag = kt == ch.tile;
+    const int j0 = kt * kTile;
+    // the rows' decay factors off the diagonal, exp(cum_i - R)
+    const double rk = s_cum[j0 + kTile - 1];
+    const float rfl = diag ? 0.f : decay(cum_l, rk), rfh = diag ? 0.f : decay(cum_h, rk);
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int k0 = half * 32;   // the half's first key, in the tile
+      // on the diagonal the warp's rows see keys up to r0 + 15 only
+      if (diag && k0 > r0 + 15) continue;
+      float sc[4][4], m[4][4];
+      score_half<N, LDN>(sc, s_c, r0, bs, k0);
+      score_half<P, LDX>(m, s_dy, r0, xs, k0);
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int j = j0 + k0 + t * 8 + c2 + c;
+          if (diag) {
+            const double cum_j = s_cum[j];
+            const float dtj = s_dt[j];
+#pragma unroll
+            for (int hi = 0; hi < 2; ++hi) {
+              const int e = 2 * hi + c, i = hi ? ih : il;
+              const bool live = j <= i && i < ch.qlen;
+              const float ell = decay(live ? (hi ? cum_h : cum_l) : cum_j, cum_j);
+              m[t][e] = live ? m[t][e] * ell * dtj : 0.f;
+            }
+          } else {
+            // rows past the chunk's end have dy = 0, so M = 0 there
+            const float cf = s_colf[j];
+            m[t][c] *= rfl * cf;
+            m[t][2 + c] *= rfh * cf;
+          }
+          fl += (double)(sc[t][c] * m[t][c]);
+          fh += (double)(sc[t][2 + c] * m[t][2 + c]);
+        }
+      }
+      // dC += M B over the half's keys
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        if (diag && k0 + kk * 16 > r0 + 15) continue;   // all-zero columns of M
+        uint32_t ma[2][4];
+        split_frag(m[2 * kk], m[2 * kk + 1], ma);
+        mma_row<NT, LDN, 1, 2>(acc, ma, bs, k0 + kk * 16);
+      }
+    }
+  }
+
+  fl = row_total(fl);
+  fh = row_total(fh);
+  const size_t rowh = ch.row0 * p.H + ch.h;   // (b, chunk row 0, h) in (B, L, H)
+#pragma unroll
+  for (int hi = 0; hi < 2; ++hi) {
+    const int i = hi ? ih : il;
+    if (i >= ch.qlen) continue;
+    float* out = p.dc_part + (rowh + (size_t)i * p.H) * N;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+      *reinterpret_cast<float2*>(out + nt * 8 + c2) =
+          make_float2(acc[nt][2 * hi], acc[nt][2 * hi + 1]);
+    if (lane % 4 == 0) p.dcum[rowh + (size_t)i * p.H] = hi ? fh : fl;
+  }
+}
+
+// ---- pass 6: the key side, one block per 64-row key tile ---------------------
+// For 16 key rows j:
+//   dx side: dx_j = w_j G B_j + sum_{i>=j} gate_ij dy_i + D dy_j;
+//     ddt_j (direct) = sum_i F_ij + exp(cum_last - cum_j) x_j.G B_j;
+//     dcum_j += -dt_j sum_i F_ij - w_j x_j.G B_j;  dd_rows_j = dy_j.x_j
+//   dB side: dB_j = w_j G^T x_j + sum_{i>=j} M_ij C_i   (per head)
+// One warp takes both sides of 16 rows, unless dx's and dB's accumulators
+// together pass 96 fp32 registers a thread (P + N > 192): then two warps
+// take one side each, so that neither spills (8 warps; with 4, two blocks
+// share an SM, which measured faster where both fit). The state terms are B or x (A) times G split hi + lo. Query
+// tiles at or above the diagonal stream through two buffers; for each half
+// of 32 queries, the key-major B C^T (dx side) and x dy^T (both), then
+// gate^T and F's sums or M^T, and dx += gate^T dy or dB += M^T C with
+// gate^T or M^T split hi + lo as the A operand.
+template <int P, int N>
+struct KeyWarps {
+  static constexpr int value = P + N > 192 ? 8 : 4;
+};
+constexpr int kSideDx = 1, kSideDb = 2;   // bit masks of the sides a warp takes
+
+template <int P, int N, int SIDES, int THREADS>
+__device__ __forceinline__ void key_side(const Params& p, const Chunk& ch, unsigned char* smem) {
+  using S = TcTiles<P, N>;
+  constexpr int LDX = S::LDX, LDN = S::LDN;
+  constexpr bool DX = SIDES & kSideDx, DB = SIDES & kSideDb;
+  constexpr int PT = DX ? P / 8 : 2, NT = DB ? N / 8 : 2;   // 8-column tiles of dx, dB
+  const int j0 = ch.tile * kTile;
+  double* s_cum = reinterpret_cast<double*>(smem);
+  float* s_dt = reinterpret_cast<float*>(s_cum + ch.qpad);
+  float* s_colf = s_dt + ch.qpad;                          // exp(cum_i - R)
+  bf16* s_b = reinterpret_cast<bf16*>(s_colf + ch.qpad);  // (kTile, LDN) key rows
+  bf16* s_x = s_b + S::N_TILE;                            // (kTile, LDX) key rows
+  bf16* s_qv = s_x + S::X_TILE;                           // 2 x query tiles: C, then dy
+  bf16* s_ghi = s_qv + S::BUF;                            // G hi and lo, (P, LDN) each,
+  bf16* s_glo = s_ghi + S::STATE;                         // in the second buffer
+
+  const int lane = threadIdx.x % 32, c2 = 2 * (lane % 4);
+  const int r0 = (threadIdx.x / 32) % 4 * 16;
+  const int rl = r0 + lane / 4, rh = rl + 8;   // this thread's two key rows of the tile
+  const int jl = j0 + rl, jh = j0 + rh;        // the same, rows of the chunk
+  const size_t xrow = (size_t)p.H * P, brow = (size_t)p.G * N;
+  const size_t hoff = (size_t)ch.h * P, goff = (size_t)ch.g * N;
+  const bf16* dyc = static_cast<const bf16*>(p.dy) + ch.row0 * xrow + hoff;
+  const bf16* cc = static_cast<const bf16*>(p.c) + ch.row0 * brow + goff;
+  const double cum_last = s_cum[ch.qlen - 1];
+  const double cum_l = s_cum[jl], cum_h = s_cum[jh];
+  const float dtl = s_dt[jl], dth = s_dt[jh];
+  const float wl = expf((float)(cum_last - cum_l)) * dtl;
+  const float wh = expf((float)(cum_last - cum_h)) * dth;
+
+  float dxa[PT][4], dba[NT][4];
+  double dwl = 0.0, dwh = 0.0;
+  if constexpr (DX) {
+    // dxa = G B_j, then x_j . G B_j and dxa *= w_j
+#pragma unroll
+    for (int t = 0; t < PT; ++t) dxa[t][0] = dxa[t][1] = dxa[t][2] = dxa[t][3] = 0.f;
+    mma_state<PT, N, LDN, LDN, 0>(dxa, s_b, r0, s_ghi, s_glo);
+#pragma unroll
+    for (int t = 0; t < PT; ++t) {
+      const int col = t * 8 + c2;
+      const float2 xl = unpack_bf16x2(*reinterpret_cast<const uint32_t*>(s_x + rl * LDX + col));
+      const float2 xh = unpack_bf16x2(*reinterpret_cast<const uint32_t*>(s_x + rh * LDX + col));
+      dwl += (double)(xl.x * dxa[t][0]) + (double)(xl.y * dxa[t][1]);
+      dwh += (double)(xh.x * dxa[t][2]) + (double)(xh.y * dxa[t][3]);
+      dxa[t][0] *= wl;
+      dxa[t][1] *= wl;
+      dxa[t][2] *= wh;
+      dxa[t][3] *= wh;
+    }
+  }
+  if constexpr (DB) {
+    // dba = w_j G^T x_j
+#pragma unroll
+    for (int t = 0; t < NT; ++t) dba[t][0] = dba[t][1] = dba[t][2] = dba[t][3] = 0.f;
+    mma_state<NT, P, LDX, LDN, 1>(dba, s_x, r0, s_ghi, s_glo);
+#pragma unroll
+    for (int t = 0; t < NT; ++t) {
+      dba[t][0] *= wl;
+      dba[t][1] *= wl;
+      dba[t][2] *= wh;
+      dba[t][3] *= wh;
+    }
+  }
+
+  // the key rows' decay factors off the diagonal, exp(R - cum_j), R the
+  // cumsum at the key tile's last row
+  const double rk = s_cum[j0 + kTile - 1];
+  const float rfl = decay(rk, cum_l), rfh = decay(rk, cum_h);
+  double fl = 0.0, fh = 0.0, ddl = 0.0, ddh = 0.0;   // the rows' sum_i F_ij and dy.x
+  const float dskip = p.d != nullptr ? p.d[ch.h] : 0.f;
+  const int n_it = (ch.qpad - j0) / kTile;   // query tiles at or above the diagonal
+  for (int it = 0; it < n_it; ++it) {
+    const int buf = it & 1;
+    cp_async_wait<0>();
+    __syncthreads();   // query tile it has landed; every warp is done with the other buffer
+    if (it + 1 < n_it) {
+      bf16* nb = s_qv + (buf ^ 1) * S::BUF;
+      load_tile_async<N, THREADS>(nb, cc, brow, j0 + (it + 1) * kTile, ch.qlen);
+      load_tile_async<P, THREADS>(nb + S::N_TILE, dyc, xrow, j0 + (it + 1) * kTile, ch.qlen);
+    }
+    cp_async_commit();
+    const bf16* cs = s_qv + buf * S::BUF;
+    const bf16* ds = cs + S::N_TILE;
+    const bool diag = it == 0;
+    const int i0 = j0 + it * kTile;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int q0 = half * 32;   // the half's first query, in the tile
+      // on the diagonal the warp's keys see queries from r0 on only
+      if (diag && q0 + 31 < r0) continue;
+      float sc[4][4], m[4][4];   // B C^T (dx side) and x dy^T
+      if constexpr (DX) score_half<N, LDN>(sc, s_b, r0, cs, q0);
+      score_half<P, LDX>(m, s_x, r0, ds, q0);
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int i = i0 + q0 + t * 8 + c2 + c;
+          // ell_ij dt_j and ell_ij for the two key rows: rows past the
+          // chunk's end have dt = 0, columns past it C = dy = 0
+          float el, eh;
+          if (diag) {
+            const double cum_i = s_cum[i];
+            const bool live_l = jl <= i && i < ch.qlen, live_h = jh <= i && i < ch.qlen;
+            el = live_l ? decay(cum_i, cum_l) : 0.f;
+            eh = live_h ? decay(cum_i, cum_h) : 0.f;
+          } else {
+            const float cf = s_colf[i];
+            el = rfl * cf;
+            eh = rfh * cf;
+          }
+          if constexpr (DX) {
+            const float gl = el * sc[t][c], gh = eh * sc[t][2 + c];
+            fl += (double)(gl * m[t][c]);
+            fh += (double)(gh * m[t][2 + c]);
+            sc[t][c] = gl * dtl;   // gate^T
+            sc[t][2 + c] = gh * dth;
+          }
+          if constexpr (DB) {
+            m[t][c] *= el * dtl;   // M^T
+            m[t][2 + c] *= eh * dth;
+          }
+        }
+      }
+      // dx += gate^T dy and dB += M^T C over the half's queries
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        if (diag && q0 + kk * 16 + 15 < r0) continue;   // all-zero columns
+        uint32_t ga[2][4];
+        if constexpr (DX) {
+          split_frag(sc[2 * kk], sc[2 * kk + 1], ga);
+          mma_row<PT, LDX, 1, 2>(dxa, ga, ds, q0 + kk * 16);
+        }
+        if constexpr (DB) {
+          split_frag(m[2 * kk], m[2 * kk + 1], ga);
+          mma_row<NT, LDN, 1, 2>(dba, ga, cs, q0 + kk * 16);
+        }
+      }
+    }
+    if (DX && diag) {
+      // the diagonal tile's dy rows are the key rows: skip term and dy.x
+#pragma unroll
+      for (int t = 0; t < PT; ++t) {
+        const int col = t * 8 + c2;
+        const float2 yl = unpack_bf16x2(*reinterpret_cast<const uint32_t*>(ds + rl * LDX + col));
+        const float2 yh = unpack_bf16x2(*reinterpret_cast<const uint32_t*>(ds + rh * LDX + col));
+        const float2 xl = unpack_bf16x2(*reinterpret_cast<const uint32_t*>(s_x + rl * LDX + col));
+        const float2 xh = unpack_bf16x2(*reinterpret_cast<const uint32_t*>(s_x + rh * LDX + col));
+        dxa[t][0] = fmaf(dskip, yl.x, dxa[t][0]);
+        dxa[t][1] = fmaf(dskip, yl.y, dxa[t][1]);
+        dxa[t][2] = fmaf(dskip, yh.x, dxa[t][2]);
+        dxa[t][3] = fmaf(dskip, yh.y, dxa[t][3]);
+        ddl += (double)(yl.x * xl.x) + (double)(yl.y * xl.y);
+        ddh += (double)(yh.x * xh.x) + (double)(yh.y * xh.y);
+      }
+    }
+  }
+
+  const size_t rowh = ch.row0 * p.H + ch.h;
+  if constexpr (DB) {
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi) {
+      const int j = hi ? jh : jl;
+      if (j >= ch.qlen) continue;
+      float* out = p.db_part + (rowh + (size_t)j * p.H) * N;
+#pragma unroll
+      for (int t = 0; t < NT; ++t)
+        *reinterpret_cast<float2*>(out + t * 8 + c2) = make_float2(dba[t][2 * hi], dba[t][2 * hi + 1]);
+    }
+  }
+  if constexpr (DX) {
+    fl = row_total(fl);
+    fh = row_total(fh);
+    dwl = row_total(dwl);
+    dwh = row_total(dwh);
+    ddl = row_total(ddl);
+    ddh = row_total(ddh);
+    bf16* dxc = static_cast<bf16*>(p.dx) + ch.row0 * xrow + hoff;
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi) {
+      const int j = hi ? jh : jl;
+      if (j >= ch.qlen) continue;
+#pragma unroll
+      for (int t = 0; t < PT; ++t)
+        *reinterpret_cast<uint32_t*>(dxc + (size_t)j * xrow + t * 8 + c2) =
+            pack_bf16x2(dxa[t][2 * hi], dxa[t][2 * hi + 1]);
+      if (lane % 4 == 0) {
+        const size_t o = rowh + (size_t)j * p.H;
+        const double f = hi ? fh : fl, dw = hi ? dwh : dwl;
+        p.ddt[o] = (float)(f + (double)expf((float)(cum_last - s_cum[j])) * dw);
+        p.dcum[o] += -(double)s_dt[j] * f - (double)(hi ? wh : wl) * dw;   // pass 5 wrote the query side
+        p.dd_rows[o] = (float)(hi ? ddh : ddl);
+      }
+    }
+  }
+}
+
+template <int P, int N>
+__global__ void __launch_bounds__(32 * KeyWarps<P, N>::value, 1)
+    ssd_bwd_tc_key(Params p, int tiles) {
+  using S = TcTiles<P, N>;
+  constexpr int kKeyThreads = 32 * KeyWarps<P, N>::value;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Chunk ch(p.L, p.H, p.G, p.Q, tiles);
+  const int j0 = ch.tile * kTile;
+  if (j0 >= ch.qlen) return;
+  double* s_cum = reinterpret_cast<double*>(smem);
+  float* s_dt = reinterpret_cast<float*>(s_cum + ch.qpad);
+  float* s_colf = s_dt + ch.qpad;
+  bf16* s_b = reinterpret_cast<bf16*>(s_colf + ch.qpad);
+  bf16* s_x = s_b + S::N_TILE;
+  bf16* s_qv = s_x + S::X_TILE;
+  bf16* s_ghi = s_qv + S::BUF;
+  const size_t xrow = (size_t)p.H * P, brow = (size_t)p.G * N;
+  const size_t hoff = (size_t)ch.h * P, goff = (size_t)ch.g * N;
+  load_tile_async<N, kKeyThreads>(s_b, static_cast<const bf16*>(p.b) + ch.row0 * brow + goff,
+                                  brow, j0, ch.qlen);
+  load_tile_async<P, kKeyThreads>(s_x, static_cast<const bf16*>(p.x) + ch.row0 * xrow + hoff,
+                                  xrow, j0, ch.qlen);
+  load_tile_async<N, kKeyThreads>(s_qv, static_cast<const bf16*>(p.c) + ch.row0 * brow + goff,
+                                  brow, j0, ch.qlen);
+  load_tile_async<P, kKeyThreads>(s_qv + S::N_TILE,
+                                  static_cast<const bf16*>(p.dy) + ch.row0 * xrow + hoff, xrow,
+                                  j0, ch.qlen);
+  cp_async_commit();
+  if (threadIdx.x < 32)
+    chunk_scan(p.dt + ch.row0 * p.H + ch.h, p.H, p.a[ch.h], ch.qlen, ch.qpad, s_cum, s_dt);
+  load_state_split<P, N, kKeyThreads>(s_ghi, s_ghi + S::STATE, p.dstates + ch.bzh * P * N);
+  __syncthreads();   // the scan is done
+  const double rk = s_cum[j0 + kTile - 1];
+  for (int i = j0 + kTile + threadIdx.x; i < ch.qpad; i += kKeyThreads)   // queries past the tile
+    s_colf[i] = decay(s_cum[i], rk);
+  cp_async_wait<0>();
+  __syncthreads();   // G, the column factors and the first tiles are in
+  if constexpr (kKeyThreads == kTcThreads) {
+    key_side<P, N, kSideDx | kSideDb, kKeyThreads>(p, ch, smem);
+  } else {
+    // warp-uniform: both sides pass the same barriers, once per query tile
+    if (threadIdx.x < kTcThreads)
+      key_side<P, N, kSideDx, kKeyThreads>(p, ch, smem);
+    else
+      key_side<P, N, kSideDb, kKeyThreads>(p, ch, smem);
+  }
+}
+
 // ---- pass 7: one block per (b, h, chunk) ------------------------------------
 // dcum of the chunk's last row += <G, S_out>; dda = reverse cumsum of dcum
 // (fp64); ddt += a dda; part_a = sum dt dda; part_d = sum dy.x.
 __global__ void __launch_bounds__(kThreads) ssd_bwd_chunk(Params p) {
   extern __shared__ double smem_d[];
-  const Chunk ch(p, 1);
+  const Chunk ch(p.L, p.H, p.G, p.Q, 1);
   double* s_cum = smem_d;
   double* s_tot = s_cum + ch.qpad;
   double* s_dda = s_tot + kThreads;        // (qpad,) dcum, then dda
@@ -756,11 +1261,11 @@ __global__ void __launch_bounds__(kThreads) ssd_bwd_chunk(Params p) {
     s_dda[i] = p.dcum[rowh + (size_t)i * p.H];
     s_ddr[i] = p.dd_rows[rowh + (size_t)i * p.H];
   }
-  chunk_scan(p, ch, s_cum, s_dt, s_tot);
+  block_scan(p, ch, s_cum, s_dt, s_tot);
 
   // <G_z, S_out_z>: S_out_z is S_prev of the next chunk, or the final state
-  const float* gz = p.dstates + ch.bzh(p) * pn;
-  const float* so = ch.z + 1 < p.nc ? p.states + (ch.bzh(p) + p.H) * pn
+  const float* gz = p.dstates + ch.bzh * pn;
+  const float* so = ch.z + 1 < p.nc ? p.states + (ch.bzh + p.H) * pn
                                     : p.s_last + ((size_t)ch.b * p.H + ch.h) * pn;
   double part = 0.0;
   for (int e = tid; e < pn; e += kThreads) part += (double)gz[e] * (double)so[e];
@@ -778,8 +1283,8 @@ __global__ void __launch_bounds__(kThreads) ssd_bwd_chunk(Params p) {
       pa += (double)s_dt[i] * acc;
       pd += (double)s_ddr[i];
     }
-    p.part_a[ch.bzh(p)] = (float)pa;
-    p.part_d[ch.bzh(p)] = (float)pd;
+    p.part_a[ch.bzh] = (float)pa;
+    p.part_d[ch.bzh] = (float)pd;
   }
   __syncthreads();
   const float a = p.a[ch.h];
@@ -823,8 +1328,25 @@ cudaError_t set_smem(K kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-template <typename T, int P, int N>
-int launch(Params& p, cudaStream_t st) {
+// Passes 7-10, after the query and key passes of either path.
+template <typename T>
+cudaError_t launch_sums(Params& p, size_t chunk_bytes, cudaStream_t st) {
+  cudaError_t err = set_smem(ssd_bwd_chunk, chunk_bytes);
+  if (err != cudaSuccess) return err;
+  ssd_bwd_chunk<<<dim3(p.nc * p.H, p.B), kThreads, chunk_bytes, st>>>(p);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const int rows = p.B * p.L;
+  const unsigned gsum = (unsigned)(((size_t)rows * p.G * p.N + 255) / 256);
+  ssd_bwd_group_sum<T><<<gsum, 256, 0, st>>>(p.db_part, static_cast<T*>(p.db), rows, p.H, p.G, p.N);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  ssd_bwd_group_sum<T><<<gsum, 256, 0, st>>>(p.dc_part, static_cast<T*>(p.dc), rows, p.H, p.G, p.N);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  ssd_bwd_head_sum<<<(p.H + 127) / 128, 128, 0, st>>>(p);
+  return cudaGetLastError();
+}
+
+template <int P, int N>
+cudaError_t launch_f32(Params& p, cudaStream_t st) {
   using S = TileSmem<P, N>;
   const int qpad = round_up(p.Q, kTile), tiles = qpad / kTile;
   const size_t outer = sizeof(double) * (qpad + kThreads) +
@@ -833,56 +1355,68 @@ int launch(Params& p, cudaStream_t st) {
   const size_t key = S::bytes(p.Q, 2, 2, 3);
   const size_t chunk = sizeof(double) * (2 * (size_t)qpad + kThreads) + sizeof(float) * 2 * qpad;
   cudaError_t err;
-  if ((err = set_smem(ssd_bwd_outer<T, P, N, 0>, outer)) != cudaSuccess ||
-      (err = set_smem(ssd_bwd_outer<T, P, N, 1>, outer)) != cudaSuccess ||
-      (err = set_smem(ssd_bwd_query<T, P, N>, query)) != cudaSuccess ||
-      (err = set_smem(ssd_bwd_key<T, P, N>, key)) != cudaSuccess ||
-      (err = set_smem(ssd_bwd_chunk, chunk)) != cudaSuccess)
-    return static_cast<int>(err);
+  if ((err = set_smem(ssd_bwd_outer<P, N, 0>, outer)) != cudaSuccess ||
+      (err = set_smem(ssd_bwd_outer<P, N, 1>, outer)) != cudaSuccess ||
+      (err = set_smem(ssd_bwd_query<P, N>, query)) != cudaSuccess ||
+      (err = set_smem(ssd_bwd_key<P, N>, key)) != cudaSuccess)
+    return err;
   const dim3 per_chunk(p.nc * p.H, p.B), per_tile(p.nc * p.H * tiles, p.B);
-  const dim3 per_state((P * N + 255) / 256, p.B * p.H);
-  ssd_bwd_outer<T, P, N, 0><<<per_chunk, kThreads, outer, st>>>(p);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  ssd_bwd_state_pass<<<per_state, 256, 0, st>>>(p);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  ssd_bwd_outer<T, P, N, 1><<<per_chunk, kThreads, outer, st>>>(p);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  ssd_bwd_dstate_pass<<<per_state, 256, 0, st>>>(p);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  ssd_bwd_query<T, P, N><<<per_tile, kThreads, query, st>>>(p, tiles);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  ssd_bwd_key<T, P, N><<<per_tile, kThreads, key, st>>>(p, tiles);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  ssd_bwd_chunk<<<per_chunk, kThreads, chunk, st>>>(p);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  const int rows = p.B * p.L;
-  const unsigned gsum = (unsigned)(((size_t)rows * p.G * N + 255) / 256);
-  ssd_bwd_group_sum<T><<<gsum, 256, 0, st>>>(p.db_part, static_cast<T*>(p.db), rows, p.H, p.G, N);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  ssd_bwd_group_sum<T><<<gsum, 256, 0, st>>>(p.dc_part, static_cast<T*>(p.dc), rows, p.H, p.G, N);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  ssd_bwd_head_sum<<<(p.H + 127) / 128, 128, 0, st>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  const RecurrenceArgs fwd{p.states, p.decay, p.s0, p.s_last, p.H, p.nc, P * N};
+  const RecurrenceArgs rev{p.dstates, p.decay, p.dfinal, p.ds0, p.H, p.nc, P * N};
+  ssd_bwd_outer<P, N, 0><<<per_chunk, kThreads, outer, st>>>(p);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if ((err = launch_state_pass<0>(fwd, p.B, st)) != cudaSuccess) return err;
+  ssd_bwd_outer<P, N, 1><<<per_chunk, kThreads, outer, st>>>(p);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if ((err = launch_state_pass<1>(rev, p.B, st)) != cudaSuccess) return err;
+  ssd_bwd_query<P, N><<<per_tile, kThreads, query, st>>>(p, tiles);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  ssd_bwd_key<P, N><<<per_tile, kThreads, key, st>>>(p, tiles);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  return launch_sums<float>(p, chunk, st);
 }
 
-template <typename T, int P>
-int launch_n(Params& p, cudaStream_t st) {
+template <int P, int N>
+cudaError_t launch_tc(Params& p, cudaStream_t st) {
+  const int qpad = round_up(p.Q, kTile), tiles = qpad / kTile;
+  const size_t tile_bytes = TcTiles<P, N>::bytes(p.Q);
+  const size_t chunk = sizeof(double) * (2 * (size_t)qpad + kThreads) + sizeof(float) * 2 * qpad;
+  cudaError_t err;
+  if ((err = set_smem(ssd_bwd_tc_query<P, N>, tile_bytes)) != cudaSuccess ||
+      (err = set_smem(ssd_bwd_tc_key<P, N>, tile_bytes)) != cudaSuccess)
+    return err;
+  const bf16 *x = static_cast<const bf16*>(p.x), *dy = static_cast<const bf16*>(p.dy);
+  const bf16 *b = static_cast<const bf16*>(p.b), *c = static_cast<const bf16*>(p.c);
+  const StateArgs local{x, b, p.dt, p.a, p.states, p.decay, p.L, p.H, p.G, p.Q};
+  const StateArgs dlocal{dy, c, p.dt, p.a, p.dstates, nullptr, p.L, p.H, p.G, p.Q};
+  const RecurrenceArgs fwd{p.states, p.decay, p.s0, p.s_last, p.H, p.nc, P * N};
+  const RecurrenceArgs rev{p.dstates, p.decay, p.dfinal, p.ds0, p.H, p.nc, P * N};
+  const dim3 per_tile(p.nc * p.H * tiles, p.B);
+  if ((err = launch_chunk_state<P, N, kScaleToEnd>(local, p.B, p.nc, st)) != cudaSuccess ||
+      (err = launch_state_pass<0>(fwd, p.B, st)) != cudaSuccess ||
+      (err = launch_chunk_state<P, N, kScaleFromStart>(dlocal, p.B, p.nc, st)) != cudaSuccess ||
+      (err = launch_state_pass<1>(rev, p.B, st)) != cudaSuccess)
+    return err;
+  ssd_bwd_tc_query<P, N><<<per_tile, kTcThreads, tile_bytes, st>>>(p, tiles);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  constexpr int key_threads = 32 * KeyWarps<P, N>::value;
+  ssd_bwd_tc_key<P, N><<<per_tile, key_threads, tile_bytes, st>>>(p, tiles);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  return launch_sums<bf16>(p, chunk, st);
+}
+
+template <int P, int N>
+int launch(Params& p, int is_bf16, cudaStream_t st) {
+  return static_cast<int>(is_bf16 ? launch_tc<P, N>(p, st) : launch_f32<P, N>(p, st));
+}
+
+template <int P>
+int launch_n(Params& p, int is_bf16, cudaStream_t st) {
   switch (p.N) {
-    case 16: return launch<T, P, 16>(p, st);
-    case 32: return launch<T, P, 32>(p, st);
-    case 64: return launch<T, P, 64>(p, st);
-    case 128: return launch<T, P, 128>(p, st);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
-
-template <typename T>
-int launch_p(Params& p, cudaStream_t st) {
-  switch (p.P) {
-    case 16: return launch_n<T, 16>(p, st);
-    case 32: return launch_n<T, 32>(p, st);
-    case 64: return launch_n<T, 64>(p, st);
-    case 128: return launch_n<T, 128>(p, st);
+    case 16: return launch<P, 16>(p, is_bf16, st);
+    case 32: return launch<P, 32>(p, is_bf16, st);
+    case 64: return launch<P, 64>(p, is_bf16, st);
+    case 128: return launch<P, 128>(p, is_bf16, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -897,12 +1431,13 @@ long long ssd_bwd_workspace_floats(int B, int L, int H, int P, int N, int Q) {
 }
 
 // Launches on `stream` and returns the CUDA error code (0 on success).
-// is_bf16: 1 for bf16 x/B/C/dy/dx/dB/dC, 0 for fp32. d, s0 and dfinal may
-// be null (no skip term, zero initial state, zero final-state gradient);
-// dd is null when d is, ds0 may be null. workspace holds
-// ssd_bwd_workspace_floats(...) floats, 16-byte aligned. P and N must be
-// one of 16, 32, 64, 128; 1 <= Q <= 1024; H % G == 0. The caller checks
-// shapes, types and contiguity.
+// is_bf16: 1 for bf16 x/B/C/dy/dx/dB/dC (the tensor-core kernels), 0 for
+// fp32 (the CUDA-core kernels). d, s0 and dfinal may be null (no skip
+// term, zero initial state, zero final-state gradient); dd is null when d
+// is, ds0 may be null. workspace holds ssd_bwd_workspace_floats(...)
+// floats, 16-byte aligned. P and N must be one of 16, 32, 64, 128;
+// 1 <= Q <= 1024; H % G == 0. The caller checks shapes, types, contiguity
+// and 16-byte alignment of x, dy, B, C, s0 and dfinal.
 int ssd_bwd(const void* x, const float* dt, const float* a, const void* b, const void* c,
             const float* d, const float* s0, const void* dy, const float* dfinal, void* dx,
             float* ddt, float* da, void* db, void* dc, float* dd, float* ds0, float* workspace,
@@ -920,7 +1455,13 @@ int ssd_bwd(const void* x, const float* dt, const float* a, const void* b, const
   p.nc = (L + Q - 1) / Q;
   Workspace(B, L, H, P, N, Q).carve(workspace, p);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch_p<bf16>(p, st) : launch_p<float>(p, st);
+  switch (P) {
+    case 16: return launch_n<16>(p, is_bf16, st);
+    case 32: return launch_n<32>(p, is_bf16, st);
+    case 64: return launch_n<64>(p, is_bf16, st);
+    case 128: return launch_n<128>(p, is_bf16, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 const char* ssd_bwd_error_string(int code) {

@@ -76,14 +76,11 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "hopper.cuh"
+#include "ssd_states.cuh"
 
 namespace {
 
-using namespace hopper;
-
 constexpr int kThreads = 256;  // 16 x 16
-constexpr int kTile = 64;      // query rows and key rows per tile
 constexpr int kMaxChunk = 1024;
 
 struct Params {
@@ -103,8 +100,6 @@ struct Params {
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
-
-__host__ __device__ constexpr int round_up(int v, int m) { return (v + m - 1) / m * m; }
 
 // Rows [row0, row0 + kTile) of a chunk into shared memory (fp32, row stride
 // LD): row r of the chunk starts at src + r * row_stride and has W values.
@@ -354,77 +349,11 @@ __global__ void __launch_bounds__(kThreads, 1) ssd_fwd_f32(Params p) {
 
 // ---- bf16: chunk-parallel on the tensor cores ------------------------------
 
-constexpr int kTcThreads = 128;   // 4 warps
-constexpr double kLog2eD = 1.4426950408889634;
-constexpr int kPad = 8;           // bf16 row padding: the 8 rows an ldmatrix
-                                  // reads start in 8 different bank groups
-
-// The chunk's dt (0 past its end) and inclusive cumsum of dt * a in fp64,
-// by one warp, 32 rows at a time. Rows past the end get dt = 0, so their
-// cum is cum_last (the plain version's zero padding).
-__device__ __forceinline__ void chunk_scan(const float* dtc, size_t trow, float a, int qlen,
-                                           int qpad, double* s_cum, float* s_dt) {
-  const int lane = threadIdx.x % 32;
-  for (int j = lane; j < qpad; j += 32)   // every load in flight at once
-    s_dt[j] = j < qlen ? dtc[(size_t)j * trow] : 0.f;
-  __syncwarp();
-  double carry = 0.0;
-  for (int base = 0; base < qpad; base += 32) {
-    const int j = base + lane;
-    const float dtj = s_dt[j];
-    double v = (double)(dtj * a);  // the product rounds to fp32 as in the plain version
-#pragma unroll
-    for (int o = 1; o < 32; o *= 2) {
-      const double up = __shfl_up_sync(0xffffffffu, v, o);
-      if (lane >= o) v += up;
-    }
-    v += carry;
-    s_cum[j] = v;
-    carry = __shfl_sync(0xffffffffu, v, 31);
-  }
-}
-
-// Rows [row0, row0 + kTile) of a chunk (W bf16 values each, row stride
-// `stride` in global memory) into shared memory with row stride W + kPad,
-// by cp.async; rows at or past `nrows` are zero-filled.
-template <int W>
-__device__ __forceinline__ void load_tile_async(bf16* dst, const bf16* src, size_t stride,
-                                                int row0, int nrows) {
-  constexpr int CH = W / 8;   // 16-byte pieces per row
-  for (int e = threadIdx.x; e < kTile * CH; e += kTcThreads) {
-    const int r = e / CH, c = e % CH;
-    const bool in = row0 + r < nrows;
-    cp_async_16(dst + r * (W + kPad) + c * 8,
-                in ? src + (size_t)(row0 + r) * stride + c * 8 : src, in ? 16 : 0);
-  }
-}
-
-// The chunk a block of passes 1 and 3 owns: blockIdx.x = z * H + h (heads of
-// one chunk are neighbours and share its B and C rows in L2), blockIdx.y = b.
-struct Chunk {
-  int h, z, b, g, c0, qlen, qpad;
-  size_t row0;   // token row of the chunk's first row in (B * L)
-  __device__ Chunk(const Params& p) {
-    h = blockIdx.x % p.H;
-    z = blockIdx.x / p.H;
-    b = blockIdx.y;
-    g = h / (p.H / p.G);
-    c0 = z * p.Q;
-    qlen = min(p.Q, p.L - c0);
-    qpad = round_up(qlen, kTile);
-    row0 = (size_t)b * p.L + c0;
-  }
-};
-
 template <int P, int N>
 struct TcSmem {
   static constexpr int LDX = P + kPad, LDN = N + kPad;
   static constexpr size_t X_TILE = (size_t)kTile * LDX * 2;   // bytes
   static constexpr size_t N_TILE = (size_t)kTile * LDN * 2;
-  // pass 1: cum (fp64), dt, w; two X and two B tiles
-  static size_t state_bytes(int q) {
-    return 16 * (size_t)round_up(q, kTile) + 2 * X_TILE + 2 * N_TILE;
-  }
   // pass 3: cum (fp64), dt, the column factors of off-diagonal gates; the
   // carried state as bf16 hi and lo; one C tile; two B and two X tiles
   static size_t output_bytes(int q) {
@@ -432,156 +361,8 @@ struct TcSmem {
   }
 };
 
-// Pass 1: local state X^T (w B) of one chunk, w_j = exp(cum_last - cum_j)
-// dt_j, as a (P, N) product over the chunk's rows: A = (w x)^T from the X
-// tile by ldmatrix.trans, split hi + lo; B from the B tile by
-// ldmatrix.trans. Warps tile the (P, N) output WM x WN.
-template <int P, int N>
-__global__ void __launch_bounds__(kTcThreads) ssd_chunk_state(Params p) {
-  using L = TcSmem<P, N>;
-  constexpr int LDX = L::LDX, LDN = L::LDN;
-  constexpr int WM = P / 16 < 4 ? P / 16 : 4;
-  constexpr int WN = 4 / WM < N / 16 ? 4 / WM : N / 16;
-  constexpr int MT = P / 16 / WM;   // 16-row tiles of P per warp
-  constexpr int NT = N / 8 / WN;    // 8-column tiles of N per warp (even)
-  extern __shared__ __align__(16) unsigned char smem[];
-  const Chunk ch(p);
-  double* s_cum = reinterpret_cast<double*>(smem);
-  float* s_dt = reinterpret_cast<float*>(s_cum + ch.qpad);
-  float* s_w = s_dt + ch.qpad;
-  bf16* s_x = reinterpret_cast<bf16*>(s_w + ch.qpad);
-  bf16* s_b = s_x + 2 * kTile * LDX;
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const size_t xrow = (size_t)p.H * P, brow = (size_t)p.G * N;
-  const bf16* xc = static_cast<const bf16*>(p.x) + ch.row0 * xrow + (size_t)ch.h * P;
-  const bf16* bc = static_cast<const bf16*>(p.b) + ch.row0 * brow + (size_t)ch.g * N;
-
-  load_tile_async<P>(s_x, xc, xrow, 0, ch.qlen);
-  load_tile_async<N>(s_b, bc, brow, 0, ch.qlen);
-  cp_async_commit();
-  const float a = p.a[ch.h];
-  if (warp == 0) chunk_scan(p.dt + ch.row0 * p.H + ch.h, p.H, a, ch.qlen, ch.qpad, s_cum, s_dt);
-  __syncthreads();
-  const double cum_last = s_cum[ch.qlen - 1];
-  for (int j = tid; j < ch.qpad; j += kTcThreads)
-    s_w[j] = expf((float)(cum_last - s_cum[j])) * s_dt[j];
-  const size_t bzh = ((size_t)ch.b * p.nc + ch.z) * p.H + ch.h;
-  if (tid == 0) p.decay[bzh] = expf((float)cum_last);
-
-  const int wm = warp % WM, wn = warp / WM;
-  const bool active = warp < WM * WN;
-  float acc[MT][NT][4];
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) acc[mt][nt][0] = acc[mt][nt][1] = acc[mt][nt][2] = acc[mt][nt][3] = 0.f;
-
-  const int n_tiles = ch.qpad / kTile;
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int buf = kt & 1;
-    cp_async_wait<0>();
-    __syncthreads();   // tile kt has landed; every warp is done with tile kt - 1
-    if (kt + 1 < n_tiles) {
-      load_tile_async<P>(s_x + (buf ^ 1) * kTile * LDX, xc, xrow, (kt + 1) * kTile, ch.qlen);
-      load_tile_async<N>(s_b + (buf ^ 1) * kTile * LDN, bc, brow, (kt + 1) * kTile, ch.qlen);
-    }
-    cp_async_commit();
-    if (!active) continue;
-    const bf16* xs = s_x + buf * kTile * LDX;
-    const bf16* bs = s_b + buf * kTile * LDN;
-#pragma unroll
-    for (int ks = 0; ks < kTile / 16; ++ks) {
-      const int jr = ks * 16;   // row of the tile
-      uint32_t ahi[MT][4], alo[MT][4];
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        const int p0 = (wm * MT + mt) * 16;
-        uint32_t raw[4];
-        ldmatrix_x4_trans(raw, xs + (jr + lane % 8 + (lane / 16) * 8) * LDX + p0 +
-                                   ((lane / 8) % 2) * 8);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          // raw[i] holds x at rows j, j + 1 of column p0 + lane / 4 (+ 8)
-          const int j = kt * kTile + jr + 2 * (lane % 4) + (i / 2) * 8;
-          const float2 xv = unpack_bf16x2(raw[i]);
-          split_bf16x2(xv.x * s_w[j], xv.y * s_w[j + 1], ahi[mt][i], alo[mt][i]);
-        }
-      }
-      uint32_t bf[NT / 2][4];
-#pragma unroll
-      for (int nt = 0; nt < NT; nt += 2)
-        ldmatrix_x4_trans(bf[nt / 2], bs + (jr + lane % 8 + ((lane / 8) % 2) * 8) * LDN +
-                                          (wn * NT + nt) * 8 + (lane / 16) * 8);
-      // the hi products over every accumulator, then the lo ones: no two
-      // products in a row wait on each other
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt)
-          mma_16816(acc[mt][nt], ahi[mt], bf[nt / 2][2 * (nt % 2)], bf[nt / 2][2 * (nt % 2) + 1]);
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt)
-          mma_16816(acc[mt][nt], alo[mt], bf[nt / 2][2 * (nt % 2)], bf[nt / 2][2 * (nt % 2) + 1]);
-    }
-  }
-
-  if (active) {
-    float* out = p.states + bzh * P * N;
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const int r = (wm * MT + mt) * 16 + lane / 4, n = (wn * NT + nt) * 8 + 2 * (lane % 4);
-        *reinterpret_cast<float2*>(out + (size_t)r * N + n) = make_float2(acc[mt][nt][0], acc[mt][nt][1]);
-        *reinterpret_cast<float2*>(out + (size_t)(r + 8) * N + n) =
-            make_float2(acc[mt][nt][2], acc[mt][nt][3]);
-      }
-  }
-}
-
-// Pass 2: the recurrence S_z = S_{z-1} exp(cum_last_z) + local_z from the
-// initial state, four state elements of one (b, h) per thread
-// (blockIdx.y = b * H + h). Replaces local_z in the scratch by S_{z-1}, the
-// state carried into chunk z, and writes the final state. Every load of a
-// batch of chunks is issued before its first store: a store to the scratch
-// may alias a later load as far as the compiler knows, so loads and stores
-// interleaved chunk by chunk would wait out one memory round trip each.
-__global__ void __launch_bounds__(256) ssd_state_pass(Params p, int pn) {
-  constexpr int kBatch = 8;
-  const int k = (blockIdx.x * blockDim.x + threadIdx.x) * 4;
-  if (k >= pn) return;
-  const int bh = blockIdx.y, b = bh / p.H, h = bh % p.H;
-  const size_t zstride = (size_t)p.H * pn;   // floats from chunk z to z + 1
-  float* slot0 = p.states + ((size_t)b * p.nc * p.H + h) * pn + k;
-  const float* dec0 = p.decay + (size_t)b * p.nc * p.H + h;
-  float4 s = p.s0 != nullptr ? *reinterpret_cast<const float4*>(p.s0 + (size_t)bh * pn + k)
-                             : make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int z0 = 0; z0 < p.nc; z0 += kBatch) {
-    float4 local[kBatch];
-    float dec[kBatch];
-#pragma unroll
-    for (int i = 0; i < kBatch; ++i) {
-      if (z0 + i < p.nc) {
-        local[i] = *reinterpret_cast<const float4*>(slot0 + (z0 + i) * zstride);
-        dec[i] = dec0[(size_t)(z0 + i) * p.H];
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < kBatch; ++i) {
-      if (z0 + i < p.nc) {
-        *reinterpret_cast<float4*>(slot0 + (z0 + i) * zstride) = s;
-        s.x = s.x * dec[i] + local[i].x;
-        s.y = s.y * dec[i] + local[i].y;
-        s.z = s.z * dec[i] + local[i].z;
-        s.w = s.w * dec[i] + local[i].w;
-      }
-    }
-  }
-  if (p.s_out != nullptr) *reinterpret_cast<float4*>(p.s_out + (size_t)bh * pn + k) = s;
-}
+// Passes 1 and 2 are ssd_chunk_state<P, N, kScaleToEnd> and
+// ssd_state_pass<0> of ssd_states.cuh, which the backward shares.
 
 // Pass 3: y of one chunk, 64-row query tiles, one warp per 16 rows:
 // exp(cum_i) C_i . S^T (S split hi + lo), then for each key tile at or
@@ -594,7 +375,7 @@ __global__ void __launch_bounds__(kTcThreads) ssd_chunk_output(Params p) {
   constexpr int KS = N / 16;   // k-steps over the state dimension
   constexpr int PT = P / 8;    // 8-column tiles of y
   extern __shared__ __align__(16) unsigned char smem[];
-  const Chunk ch(p);
+  const Chunk ch(p.L, p.H, p.G, p.Q, 1);
   double* s_cum = reinterpret_cast<double*>(smem);
   float* s_dt = reinterpret_cast<float*>(s_cum + ch.qpad);
   float* s_colf = s_dt + ch.qpad;                          // (qpad,)
@@ -620,18 +401,7 @@ __global__ void __launch_bounds__(kTcThreads) ssd_chunk_output(Params p) {
   cp_async_commit();
   if (warp == 0)
     chunk_scan(p.dt + ch.row0 * p.H + ch.h, p.H, p.a[ch.h], ch.qlen, ch.qpad, s_cum, s_dt);
-  {
-    const float4* sp = reinterpret_cast<const float4*>(
-        p.states + (((size_t)ch.b * p.nc + ch.z) * p.H + ch.h) * P * N);
-    for (int e = tid; e < P * N / 4; e += kTcThreads) {
-      const float4 v = sp[e];
-      const int r = e * 4 / N, n = e * 4 % N;
-      uint32_t* hi = reinterpret_cast<uint32_t*>(s_shi + r * LDN + n);
-      uint32_t* lo = reinterpret_cast<uint32_t*>(s_slo + r * LDN + n);
-      split_bf16x2(v.x, v.y, hi[0], lo[0]);
-      split_bf16x2(v.z, v.w, hi[1], lo[1]);
-    }
-  }
+  load_state_split<P, N>(s_shi, s_slo, p.states + ch.bzh * P * N);
 
   // Off the diagonal, every row i of a query tile lies below every row j of
   // the key tile, and with R the (base-2) cumsum of the key tile's last row
@@ -812,22 +582,18 @@ __global__ void __launch_bounds__(kTcThreads) ssd_chunk_output(Params p) {
 
 template <int P, int N>
 int launch_tc(const Params& p, int B, cudaStream_t st) {
-  using L = TcSmem<P, N>;
-  const size_t s1 = L::state_bytes(p.Q), s3 = L::output_bytes(p.Q);
-  cudaError_t err = cudaFuncSetAttribute(ssd_chunk_state<P, N>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(s1));
+  const size_t s3 = TcSmem<P, N>::output_bytes(p.Q);
+  const StateArgs sa{static_cast<const bf16*>(p.x), static_cast<const bf16*>(p.b), p.dt, p.a,
+                     p.states, p.decay, p.L, p.H, p.G, p.Q};
+  const RecurrenceArgs ra{p.states, p.decay, p.s0, p.s_out, p.H, p.nc, P * N};
+  cudaError_t err = launch_chunk_state<P, N, kScaleToEnd>(sa, B, p.nc, st);
+  if (err == cudaSuccess) err = launch_state_pass<0>(ra, B, st);
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(ssd_chunk_output<P, N>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(s3));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(p.nc * p.H, B);
-  ssd_chunk_state<P, N><<<grid, kTcThreads, s1, st>>>(p);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  ssd_state_pass<<<dim3((P * N / 4 + 255) / 256, B * p.H), 256, 0, st>>>(p, P * N);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  ssd_chunk_output<P, N><<<grid, kTcThreads, s3, st>>>(p);
+  ssd_chunk_output<P, N><<<dim3(p.nc * p.H, B), kTcThreads, s3, st>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -14,9 +14,14 @@ takes an initial state, returns the final state and takes any L (a
 ragged last chunk is masked), as :func:`..ref.ssd_reference` does. One
 backward call launches ten kernels through one fp32 workspace; it
 recomputes the carried states from the inputs, so the forward saves
-nothing but its inputs. The libraries are built with ``nvcc`` at their
-first launch, never at import, so this module imports on machines
-without CUDA.
+nothing but its inputs. Operations bound the backward (167.91 GFLOP,
+0.1698 ms at mamba2-130m's training shape, B 8, L 4096, H 24, P 64, N 128,
+bf16). For bf16 inputs every product runs on the tensor cores (bf16
+``mma.sync``, each fp32 operand split into bf16 hi + lo), the chunk-state
+product and the recurrence over the chunks being the forward's own
+(``csrc/ssd_states.cuh``); fp32 inputs take CUDA-core kernels. The choice
+is by dtype. The libraries are built with ``nvcc`` at their first launch,
+never at import, so this module imports on machines without CUDA.
 
 :func:`ssd_scan` and :func:`ssd_scan_backward` take CUDA tensors only
 and raise ``ValueError`` for anything their kernels do not take, before
@@ -132,6 +137,14 @@ def check_inputs(x, dt, a, b_mat, c_mat, chunk: int, d_skip=None,
         raise ValueError("ssd wants tensors aligned to their element size")
 
 
+def _aligned16(*tensors):
+    """Each tensor as it is when its data is 16-byte aligned (or it is
+    None), else an aligned copy: the kernels move x, dy, B, C and the
+    states 16 bytes at a time (``cp.async``, ``float4``)."""
+    return tuple(t if t is None or t.data_ptr() % 16 == 0 else t.clone()
+                 for t in tensors)
+
+
 def ssd_scan(
     x: torch.Tensor,       # (B, L, H, P)
     dt: torch.Tensor,      # (B, L, H) fp32
@@ -159,11 +172,8 @@ def ssd_scan(
     g, n = b_mat.shape[2], b_mat.shape[3]
     bf16 = x.dtype == torch.bfloat16
     if bf16:
-        # the bf16 kernels load x, B, C and the initial state 16 bytes at a
-        # time; a tensor that is not 16-byte aligned is copied once
-        x, b_mat, c_mat, initial_state = (
-            t if t is None or t.data_ptr() % 16 == 0 else t.clone()
-            for t in (x, b_mat, c_mat, initial_state))
+        x, b_mat, c_mat, initial_state = _aligned16(x, b_mat, c_mat,
+                                                    initial_state)
     y = torch.empty_like(x)
     final = (torch.empty((bsz, h, p, n), dtype=torch.float32,
                          device=x.device) if return_final_state else None)
@@ -202,7 +212,8 @@ def ssd_scan_backward(
     initial_state: Optional[torch.Tensor] = None,  # (B, H, P, N) fp32
     d_final_state: Optional[torch.Tensor] = None,  # (B, H, P, N) fp32
 ):
-    """Launch the backward's ten kernels on the current stream; returns
+    """Launch the backward's ten kernels on the current stream (for bf16
+    inputs the tensor-core kernels, for fp32 the CUDA-core ones); returns
     (dx, ddt, da, dB, dC, dd_skip, d_initial_state), each in its input's
     dtype, dd_skip and d_initial_state None where that input is None, as
     :func:`..ref.ssd_backward_reference`. Does not synchronise."""
@@ -222,6 +233,10 @@ def ssd_scan_backward(
     dy = dy.contiguous()
     if d_final_state is not None:
         d_final_state = d_final_state.contiguous()
+    # both paths run the state recurrences on float4s; the bf16 path also
+    # loads x, dy, B and C by cp.async
+    x, b_mat, c_mat, dy, initial_state, d_final_state = _aligned16(
+        x, b_mat, c_mat, dy, initial_state, d_final_state)
     lib = backward_library()
     g = b_mat.shape[2]
     f32 = dict(dtype=torch.float32, device=x.device)

@@ -61,8 +61,9 @@ def test_the_flags_enter_the_tag(tree):
             != cuda_build.tag(source, [inc_dir], flags=("-O2",)))
 
 
-@pytest.mark.parametrize("source", [flash.SOURCE, flash.BWD_SOURCE, ssd.SOURCE],
-                         ids=["flash", "flash_bwd", "ssd"])
+@pytest.mark.parametrize("source", [flash.SOURCE, flash.BWD_SOURCE, ssd.SOURCE,
+                                    ssd.BWD_SOURCE],
+                         ids=["flash", "flash_bwd", "ssd", "ssd_bwd"])
 def test_port_kernels_include_the_shared_header(source):
     """Every kernel source includes hopper.cuh from the shared directory,
     which nvcc is told about and whose content is in the library's tag."""
@@ -71,3 +72,19 @@ def test_port_kernels_include_the_shared_header(source):
     assert shared.resolve() in cuda_build.includes(source)
     flags = cuda_build.NVCC_FLAGS
     assert flags[flags.index("-I") + 1] == str(cuda_build.INCLUDE_DIR)
+
+
+def test_the_shared_state_header_is_in_both_ssd_libraries_tags(tmp_path):
+    """The chunk-state product and the recurrence live once, in
+    ssd_states.cuh beside the two SSD sources, and enter both libraries'
+    tags: an edit there rebuilds the forward and the backward."""
+    header = ssd.SOURCE.parent / "ssd_states.cuh"
+    for source in (ssd.SOURCE, ssd.BWD_SOURCE):
+        assert header.resolve() in cuda_build.includes(source)
+    for path in (ssd.SOURCE, ssd.BWD_SOURCE, header):
+        (tmp_path / path.name).write_text(path.read_text())
+    copies = [tmp_path / ssd.SOURCE.name, tmp_path / ssd.BWD_SOURCE.name]
+    before = [cuda_build.tag(c) for c in copies]
+    (tmp_path / header.name).write_text(header.read_text() + "// edited\n")
+    after = [cuda_build.tag(c) for c in copies]
+    assert all(b != a for b, a in zip(before, after))

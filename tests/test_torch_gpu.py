@@ -443,6 +443,39 @@ def test_cuda_ssd_backward_vs_float64_autograd(cuda, row):
         _ssd_bwd_close(gg, ww, dtype, name)
 
 
+def test_cuda_ssd_backward_on_unaligned_views_matches_aligned_copies(cuda):
+    """bf16 x, dy, B and C and the fp32 initial state and final-state
+    gradient that are not 16-byte aligned (views one element into a larger
+    buffer) give, bit for bit, what the same call on aligned copies gives:
+    the kernels move them 16 bytes at a time, so the wrapper copies such a
+    tensor once."""
+    b, l, h, p, g, n, chunk = 1, 300, 4, 64, 1, 128, 256
+    x, dt, a, bm, cm, d, s0 = _ssd_inputs(cuda, b, l, h, p, g, n,
+                                          torch.bfloat16)
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    dy = torch.randn(x.shape, generator=gen, device=cuda).to(torch.bfloat16)
+    dfin = torch.randn(s0.shape, generator=gen, device=cuda)
+
+    def unaligned(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        assert view.is_contiguous() and view.data_ptr() % 16
+        return view
+
+    xv, bv, cv, dyv, s0v, dfv = map(unaligned, (x, bm, cm, dy, s0, dfin))
+    before = ssd_kernel.ssd_scan_backward.launches
+    got = ssd_kernel.ssd_scan_backward(xv, dt, a, bv, cv, dyv, chunk, d, s0v,
+                                       dfv)
+    want = ssd_kernel.ssd_scan_backward(x, dt, a, bm, cm, dy, chunk, d, s0,
+                                        dfin)
+    torch.cuda.synchronize()
+    assert ssd_kernel.ssd_scan_backward.launches == before + 2
+    for name, gg, ww in zip(("dx", "ddt", "da", "dB", "dC", "dD", "ds0"),
+                            got, want):
+        assert torch.equal(gg, ww), name
+
+
 def _first_step_grads(state, metrics, opt):
     """The gradient of the first AdamW step, leaf by leaf, on the CPU: the
     first moment is then (1 - b1)·clip·g, clip = min(1, grad_clip / norm)."""

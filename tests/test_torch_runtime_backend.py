@@ -415,3 +415,29 @@ def test_markers_place_rows_through_a_drifting_and_jumping_clock():
     be._marks = be._marks[:-1]
     with pytest.raises(RuntimeError, match="marker"):
         be._place([_marked_batch(true_marks, work, kineto_ns)])
+
+
+def test_markers_place_rows_when_the_collection_lost_its_last_rows():
+    """CUPTI may lose a collection's last rows, the closing marker's
+    among them: the side stream is then the latest stream with no more
+    short kernel rows than markers launched, not the stream of the work
+    launched last, and the rows are placed as before."""
+    be = CudaRuntimeBackend("cpu")
+    true_marks = [10.0, 10.5, 11.0, 11.5]
+    be._marks = list(range(len(true_marks)))
+    be._event_time = lambda m: true_marks[m]
+    # short work rows, more of them than markers, some launched after the
+    # last marker whose rows survive
+    work = [(t0 + 0.01 * k, t0 + 0.01 * k + 2e-6)
+            for t0 in (10.1, 11.1) for k in range(30)]
+    steady = lambda t: round(t * 1e9) + EPOCH_NS       # noqa: E731
+    batch = _marked_batch(true_marks, work, steady)
+    keep = np.ones(len(batch[1]), dtype=bool)
+    keep[np.flatnonzero(batch[4] == 3)[-2:]] = False   # the closing marker
+    batch = (batch[0],) + tuple(col[keep] for col in batch[1:])
+    assert batch[4][np.argmax(batch[5])] == 7           # work launched last
+    [(_, _, starts, ends, streams)] = be._place([batch])
+    assert set(streams) == {7} and len(starts) == len(work)
+    np.testing.assert_allclose(np.c_[starts, ends][np.argsort(starts)],
+                               work, atol=2e-6)
+    assert be.lost_markers == 1
