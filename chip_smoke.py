@@ -14,8 +14,9 @@
    serialises wgmma (warning C7520, a wgmma under a branch; C7512, too few
    registers), if a forward kernel (D 32, 64, 80, 128), a bf16 kernel of
    the flash backward or a kernel of the SSD backward's bf16 path spills.
-   Then TALP's device records, which come from CUPTI activity through
-   ``torch.profiler``: a sleep kernel's record against the CUDA events
+   Then TALP's device records, which come from CUPTI's activity API
+   (read by a host library built here at first use): a sleep kernel's
+   record against the CUDA events
    around it (CLOCK_BOUND), and a host sleep between two sleep kernels of
    one launch reported as device Idle.
 2. Kernel phases: each hand-written kernel against its plain PyTorch
@@ -99,7 +100,33 @@
    one more step with ``torch.profiler``: its kernel time over the
    train_loop's wall per step is the busy share TALP's train_loop device
    PE must match within PE_BOUND.
-7. Prints one JSON line with every kernel's numbers, then, as the last
+7. TALP flags phase: llama3.2-3b serving as in the serve phase, four
+   times in turns: plain, with every runtime output of TALP (the
+   ``--talp-*`` flags but the fault plan: step series of 64 decode steps,
+   watchdog and its anomaly log, Chrome trace, JSONL stream, Prometheus on
+   an ephemeral port of 127.0.0.1, spool, a sample every 16 tokens),
+   plain, and flagged again with the JSON spool format; then a fifth run,
+   flagged, with the step series draining at every step close as the
+   JAX package's recorder does (what the deferral saves). Prints each run's
+   prefill time and decode rate, the ratio of the medians, TALP Overhead,
+   Computational Efficiency, the step rows and watchdog events, the bytes
+   of the trace, stream and spool and the seconds of export and merge.
+   Holds the trace valid with its device lane's Kernel time equal to the
+   report's (1e-6 relative), one JSONL line per sample and one more, a
+   scrape of ``/metrics`` during the run equal to the snapshot it names,
+   the spool's one-rank job report, CE in (0, 1] and the step rows' mean
+   device PE within PE_BOUND of the profiler's busy share of a decode
+   step (the profile phase's kernel time over the rows' mean wall).
+8. Fleet phase: two ``python -m repro_torch.launch.train`` processes on the
+   one card, ranks 0 and 1 of mamba2-130m training at full width (global
+   batch 8 x 4096, 4 x 4096 each, 6 steps), one spool, a step series,
+   the watchdog and a sample every 3 steps. Both must exit 0, each
+   launching the SSD kernels 48 and 24 times a step; the job report they
+   publish must be byte-identical to an in-process merge of their two
+   payloads, with two host-state rows; each rank's CE in (0, 1]; 6 step
+   rows per rank. Prints each rank's step time, peak memory and device
+   PE, and the job's host Load Balance and PE.
+9. Prints one JSON line with every kernel's numbers, then, as the last
    line, ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -111,12 +138,19 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
+import threading
 import time
+import urllib.request
 from concurrent.futures import ThreadPoolExecutor
+from unittest import mock
+from contextlib import nullcontext, redirect_stdout
 from pathlib import Path
 
 import torch
@@ -1157,8 +1191,8 @@ def zamba_path_check(device: torch.device) -> None:
 
 
 def talp_backend_check(device: torch.device) -> None:
-    """TALP's device records on the card (CUPTI activity through
-    torch.profiler, repro_torch.core.backends.cuda_runtime). The clock: a
+    """TALP's device records on the card (CUPTI activity read by
+    repro_torch.core.backends.cuda_runtime.CuptiActivity). The clock: a
     sleep kernel queued behind another (so that no launch separates it
     from the event before it) starts and ends within CLOCK_BOUND of the
     CUDA events around it, in five tries over 0.3 s; and a sleep kernel
@@ -1751,6 +1785,318 @@ def compare_pe(label: str, talp_pe: float, wall: float, kernel) -> None:
     assert abs(talp_pe - busy) <= PE_BOUND, (label, talp_pe, busy)
 
 
+# (arch, requests, prompt tokens, generated tokens, decode steps a sample):
+# the serving run the TALP flags phase drives four times, and the flags
+TALP_FLAGS_RUN = ("llama3.2-3b", 8, 1024, 64, 16)
+
+
+class _Scraper:
+    """A stand-in for stdout during a flagged run: lines beginning with
+    ``[talp`` go to the real stdout; on the exporter's ``prometheus
+    exposition on :PORT/metrics`` line it starts polling that endpoint on
+    127.0.0.1 every 0.25 s, keeping each scrape that holds a snapshot."""
+
+    def __init__(self, out):
+        self.out, self.buf, self.scrapes = out, "", []
+        self._stop = threading.Event()
+        self._thread = None
+
+    def write(self, text):
+        self.buf += text
+        *lines, self.buf = self.buf.split("\n")
+        for line in lines:
+            if line.startswith("[talp"):
+                self.out.write(line + "\n")
+            m = re.search(r"prometheus exposition on :(\d+)/metrics", line)
+            if m and self._thread is None:
+                self._thread = threading.Thread(
+                    target=self._poll, args=(int(m.group(1)),), daemon=True)
+                self._thread.start()
+        return len(text)
+
+    def flush(self):
+        self.out.flush()
+
+    def _poll(self, port):
+        while not self._stop.wait(0.25):
+            try:
+                with urllib.request.urlopen(
+                        f"http://127.0.0.1:{port}/metrics", timeout=2) as r:
+                    body = r.read().decode()
+            except OSError:
+                continue
+            if not body.startswith("# no samples"):
+                self.scrapes.append(body)
+
+    def stop(self):
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join()
+
+
+def _prom_value(body: str, family: str, region: str = "Global") -> float:
+    m = re.search(rf'^{family}{{region="{region}",[^}}]*}} (\S+)$', body,
+                  re.M)
+    assert m, f"no {family} for region {region} in the scrape"
+    return float(m.group(1))
+
+
+def talp_flags_phase(device: torch.device, decode_kernel_s: float,
+                     records: dict) -> None:
+    """TALP's runtime outputs on llama3.2-3b serving at full width and depth
+    (``repro_torch.launch.serve.serve`` with the keyword arguments of the
+    ``--talp-*`` flags), in turns with plain runs of the same serve;
+    ``decode_kernel_s`` is the profile phase's kernel time of one decode
+    step. Each run's launch counters are set to 0 just before it and read
+    just after: 28 flash forwards in its prefill."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.backends import CudaRuntimeBackend
+    from repro_torch.core.merge import (FileSpoolTransport,
+                                        load_spool_payload, merge_spool)
+    from repro_torch.core.report import to_json
+    from repro_torch.core.telemetry import overhead as ovh
+    from repro_torch.core.telemetry.traceexport import (
+        PID_DEVICE, validate_chrome_trace)
+    from repro_torch.launch.serve import serve
+
+    arch, requests, prompt_len, gen_len, every = TALP_FLAGS_RUN
+    cfg = get_config(arch)
+    counters = launch_counters()
+    runs = []
+    # plain, flagged, plain, flagged with the JSON spool; then once more
+    # flagged with the copy's step series, which drains at every step
+    # close (the backend's flag that makes it defer, switched off)
+    for i, (fmt, per_step) in enumerate(((None, False), ("binary", False),
+                                         (None, False), ("json", False),
+                                         ("binary", True))):
+        tmp = Path(tempfile.mkdtemp(prefix="talp_flags_"))
+        kw = {} if fmt is None else dict(
+            talp_step_series=gen_len, talp_watchdog=True,
+            talp_anomaly_log=str(tmp / "anomalies.jsonl"),
+            talp_trace_out=str(tmp / "trace.json"),
+            talp_metrics_jsonl=str(tmp / "metrics.jsonl"),
+            talp_prometheus_port=0, talp_spool=str(tmp / "spool"),
+            talp_spool_format=fmt, talp_sample_every=every)
+        scraper = _Scraper(sys.stdout) if fmt else None
+        for wrapper in counters.values():
+            wrapper.launches = 0
+        t0 = time.perf_counter()
+        with redirect_stdout(scraper) if scraper else nullcontext(), (
+                mock.patch.object(CudaRuntimeBackend,
+                                  "flush_closes_collection", False)
+                if per_step else nullcontext()):
+            tokens, result = serve(cfg, requests=requests,
+                                   prompt_len=prompt_len, gen_len=gen_len,
+                                   seed=0, verbose=bool(fmt), device=device,
+                                   **kw)
+        wall = time.perf_counter() - t0
+        if scraper:
+            scraper.stop()
+        launches = {name: w.launches for name, w in counters.items()}
+        assert launches == {**{n: 0 for n in counters},
+                            "flash_attention_fwd": 28}, launches
+        add_path_launches(records, f"serve {arch} TALP flags run {i + 1}",
+                          launches)
+        assert tokens.shape == (requests, gen_len)
+        acc = ovh.current().as_dict()
+        sections, counts = acc["sections"], acc["counts"]
+        glob, dec = result.regions["Global"], result.regions["decode"]
+        glob.host.validate(tol=1e-6)
+        glob.device.validate(tol=1e-6)
+        run = {"flags": fmt, "per_step": per_step, "wall": wall,
+               "tok_s": requests * gen_len
+               / dec.elapsed, "prefill_ms":
+               result.regions["prefill"].elapsed * 1e3,
+               "overhead": glob.host.talp_overhead,
+               "ce": glob.device.computational_efficiency}
+        label = ("plain" if fmt is None else f"flagged, spool {fmt}"
+                 + (", drained at every step close" if per_step else ""))
+        print(f"[talp-flags] run {i + 1} ({label}): "
+              f"prefill {run['prefill_ms']:.3f} ms, decode "
+              f"{run['tok_s']:.2f} tok/s ({dec.elapsed * 1e3 / gen_len:.3f} "
+              f"ms/step), decode device PE "
+              f"{dec.device.parallel_efficiency:.4f}, wall {wall:.3f} s "
+              f"(Global {glob.elapsed:.3f} s); TALP Overhead "
+              f"{run['overhead']}, overhead sections (s) "
+              + ", ".join(f"{k} {v:.3f}" for k, v in sorted(sections.items()))
+              + f"; CE {run['ce']}")
+        if fmt is not None:
+            spool = tmp / "spool"
+            # the trace: valid, its device lane's Kernel time the report's
+            text = (tmp / "trace.json").read_text()
+            summary = validate_chrome_trace(text)
+            lane = sum(e["dur"] for e in json.loads(text)["traceEvents"]
+                       if e.get("ph") == "X" and e.get("pid") == PID_DEVICE
+                       and e.get("name") == "Kernel") * 1e-6
+            kern = glob.device_states[0]["kernel"]
+            assert abs(lane - kern) <= 1e-6 * kern, (lane, kern)
+            # the stream: one line per sample, and the final one
+            lines = (tmp / "metrics.jsonl").read_text().splitlines()
+            assert len(lines) == gen_len // every + 1, len(lines)
+            stream = [json.loads(line) for line in lines]
+            # the scrape: the host PE of the snapshot it names
+            assert scraper.scrapes, "no scrape of /metrics held a snapshot"
+            body = scraper.scrapes[-1]
+            seq = int(re.search(r"^talp_sample_seq\{[^}]*\} (\d+)$", body,
+                                re.M).group(1))
+            scraped = _prom_value(body, "talp_host_parallel_efficiency")
+            want = stream[seq]["regions"]["Global"]["host"][
+                "parallel_efficiency"]
+            assert scraped == want, (seq, scraped, want)
+            # the spool: a one-rank job report; its re-merge timed
+            job = json.loads((spool / "talp_job.json").read_text())
+            assert len(job["regions"]["Global"]["host_states"]) == 1
+            t1 = time.perf_counter()
+            merged = to_json(merge_spool(str(spool)))
+            merge_s = time.perf_counter() - t1
+            assert json.loads(merged)["regions"].keys() == job[
+                "regions"].keys()
+            rows = FileSpoolTransport(str(spool)).collect_steps()[0]
+            _, timelines = load_spool_payload(
+                str(next(spool.glob("talp_rank00000.*"))))
+            n_rows = sum(tl.n_kernel_records for tl in timelines.values())
+            anomalies = tmp / "anomalies.jsonl"
+            n_events = (len(anomalies.read_text().splitlines())
+                        if anomalies.exists() else 0)
+            ce = run["ce"]
+            assert ce is not None and 0 < ce <= 1, ce
+            sizes = {f.name: f.stat().st_size for f in sorted(
+                list(tmp.glob("*.json*")) + list(spool.iterdir()))}
+            print(f"[talp-flags] run {i + 1}: {len(rows)} step rows, "
+                  f"{n_events} watchdog events, {len(lines)} stream lines "
+                  f"({stream[-1]['seq'] + 1} snapshots); scrape of /metrics "
+                  f"named snapshot {seq}, host PE {scraped!r}; trace "
+                  f"{summary['n_events']} events, device-lane Kernel "
+                  f"{lane:.6f} s against the report's {kern:.6f} s; CE "
+                  f"{ce:.6f} over {1 + gen_len} launches (counting the "
+                  f"{n_rows} kernel rows in their place would read "
+                  f"{ce * n_rows / (1 + gen_len):.1f}); bytes " + ", ".join(f"{k} {v}" for k, v in sizes.items())
+                  + f"; export {sections.get('export', 0.0):.3f} s, spool "
+                  f"publish {sections.get('spool', 0.0):.3f} s, re-merge of "
+                  f"the spool {merge_s:.3f} s; {counts.get('drain', 0)} "
+                  f"drains of the collection {sections.get('drain', 0.0):.3f}"
+                  f" s ({sections.get('drain', 0.0) / n_rows * 1e6:.2f} us "
+                  f"per kernel row)")
+            assert len(rows) == gen_len, len(rows)
+            pe = rows.column("device_parallel_efficiency")
+            elapsed = rows.column("elapsed")
+            compare_pe(f"{arch} decode_step rows (run {i + 1})",
+                       float(pe.mean()), float(elapsed.mean()),
+                       decode_kernel_s)
+        runs.append(run)
+        shutil.rmtree(tmp)
+        del tokens, result
+        torch.cuda.empty_cache()
+    from repro_torch.core.backends.cuda_runtime import CuptiActivity
+
+    print(f"[talp-flags] records CUPTI dropped in this process: "
+          f"{CuptiActivity().dropped}")
+    plain = [r for r in runs if r["flags"] is None]
+    flagged = [r for r in runs if r["flags"] and not r["per_step"]]
+    med = lambda rs, key: statistics.median(r[key] for r in rs)  # noqa: E731
+    print(f"[talp-flags] decode rate, median of 2: plain "
+          f"{med(plain, 'tok_s'):.2f} tok/s, flagged {med(flagged, 'tok_s'):.2f}"
+          f" tok/s, flagged/plain "
+          f"{med(flagged, 'tok_s') / med(plain, 'tok_s'):.4f}; prefill plain "
+          f"{med(plain, 'prefill_ms'):.3f} ms, flagged "
+          f"{med(flagged, 'prefill_ms'):.3f} ms; drained at every step "
+          f"close: {runs[-1]['tok_s']:.2f} tok/s, "
+          f"{runs[-1]['tok_s'] / med(plain, 'tok_s'):.4f} of plain")
+
+
+# (arch, ranks, steps, global batch, sequence length, launches per step on
+# each rank)
+FLEET = ("mamba2-130m", 2, 6, 8, 4096, {"ssd_fwd": 48, "ssd_bwd": 24})
+
+
+def fleet_phase(device: torch.device, records: dict) -> None:
+    """Two ranks of one mamba2-130m training job as two concurrent
+    ``python -m repro_torch.launch.train`` processes on the one card, with
+    a shared spool, the step series, the watchdog and a sample every 3
+    steps: each rank trains its half of the global batch (no collective;
+    TALP's job report merges their spooled reports)."""
+    from repro_torch.core.merge import (FileSpoolTransport, InProcessGather,
+                                        load_spool_payload)
+    from repro_torch.core.report import to_json
+
+    arch, ranks, steps, batch, seq, per_step = FLEET
+    tmp = Path(tempfile.mkdtemp(prefix="talp_fleet_"))
+    spool = tmp / "spool"
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch", arch,
+         "--steps", str(steps), "--batch", str(batch), "--seq", str(seq),
+         "--rank", str(r), "--world-size", str(ranks),
+         "--talp-spool", str(spool), "--talp-step-series", str(steps),
+         "--talp-watchdog", "--talp-sample-every", "3",
+         "--history-json", str(tmp / f"history{r}.json")],
+        env=env, cwd=str(SRC.parent), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for r in range(ranks)]
+    outs = []
+    try:
+        for proc in procs:
+            outs.append(proc.communicate(timeout=600))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    wall = time.perf_counter() - t0
+    for r, (proc, (out, err)) in enumerate(zip(procs, outs)):
+        assert proc.returncode == 0, (r, out[-3000:], err[-3000:])
+    payloads = [load_spool_payload(str(spool / f"talp_rank{r:05d}.npz"))[0]
+                for r in range(ranks)]
+    gather = InProcessGather(world_size=ranks)
+    for r, res in enumerate(payloads):
+        gather.submit(res, rank=r)
+    job_text = (spool / "talp_job.json").read_text()
+    assert job_text == to_json(gather.merge(name="train")), (
+        "the fleet's talp_job.json differs from the in-process merge")
+    job = json.loads(job_text)
+    g = job["regions"]["Global"]
+    assert len(g["host_states"]) == ranks, g["host_states"]
+    transport = FileSpoolTransport(str(spool))
+    series = transport.collect_steps()
+    assert sorted(series) == list(range(ranks)), sorted(series)
+    assert all(len(s) == steps for s in series.values()), {
+        r: len(s) for r, s in series.items()}
+    table = transport.merge_steps(name="train")
+    assert len(table) == steps, len(table)
+    for r, ((out, _), res) in enumerate(zip(outs, payloads)):
+        m = re.search(r"peak memory ([\d.]+) GiB; kernel launches (\{.*\})",
+                      out)
+        assert m, out[-2000:]
+        launches = json.loads(m.group(2))
+        want = {n: per_step.get(n, 0) * steps for n in launches}
+        assert launches == want, (r, launches, want)
+        add_path_launches(records, f"train {arch} rank {r} of {ranks} "
+                                   f"({steps} steps)", launches)
+        history = json.loads((tmp / f"history{r}.json").read_text())
+        assert all(map(math.isfinite, (h["loss"] for h in history)))
+        step_s = statistics.median(h["time_s"] for h in history[1:5])
+        rg = res.regions["Global"]
+        ce = rg.device.computational_efficiency
+        assert ce is not None and 0 < ce <= 1, (r, ce)
+        loop = res.regions["train_loop"]
+        rows_pe = series[r].column("device_parallel_efficiency")
+        print(f"[fleet] rank {r}: step {step_s * 1e3:.3f} ms (median of "
+              f"steps 2-5), {batch // ranks * seq / step_s:.1f} tokens/s, "
+              f"peak memory {float(m.group(1)):.3f} GiB, train_loop device "
+              f"PE {loop.device.parallel_efficiency:.4f} (step rows' device "
+              f"PE " + ", ".join(f"{v:.4f}" for v in rows_pe) + "), host PE "
+              f"{loop.host.parallel_efficiency:.4f}, CE {ce:.6f}, losses "
+              + ", ".join(f"{h['loss']:.4f}" for h in history))
+    hm = g["host_metrics"]
+    print(f"[fleet] {arch} {ranks} ranks on one card, global batch {batch} x "
+          f"{seq}, {steps} steps: wall {wall:.2f} s; job Global host PE "
+          f"{hm['parallel_efficiency']:.4f}, Load Balance "
+          f"{hm['load_balance']:.4f}; step table {len(table)} rows of "
+          f"{len(series)} ranks; talp_job.json equal to the in-process "
+          f"merge ({len(job_text)} bytes)")
+    shutil.rmtree(tmp)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -1787,11 +2133,13 @@ def main() -> int:
     zamba_path_check(device)
     train_path_check(device)
     mark("path checks")
+    busy_by_arch = {}
     for arch, requests, prompt_len, gen_len, expected in SERVE:
         talp = serve_phase(device, arch, requests, prompt_len, gen_len,
                            expected, records)
         torch.cuda.empty_cache()
-        busy = profile_phase(device, arch, requests, prompt_len, gen_len)
+        busy = busy_by_arch[arch] = profile_phase(device, arch, requests,
+                                                  prompt_len, gen_len)
         for region, step in (("prefill", "prefill"), ("decode", "decode_step")):
             compare_pe(f"{arch} {region}", *talp[region], busy.get(step))
         torch.cuda.empty_cache()
@@ -1800,6 +2148,11 @@ def main() -> int:
         train_phase(device, *row, records)
         torch.cuda.empty_cache()
     mark("training")
+    talp_flags_phase(device, busy_by_arch[TALP_FLAGS_RUN[0]].get(
+        "decode_step"), records)
+    mark("TALP flags")
+    fleet_phase(device, records)
+    mark("fleet")
     print("[time] seconds since the start, after each phase: " + ", ".join(
         f"{phase} {secs:.1f}" for phase, secs in marks))
     missing = [name for name, rec in records.items() if not rec["launches"]]

@@ -5,15 +5,21 @@ The two paths of the paper's CUPTI plugin:
   * host path: the monitor's ``offload()`` scopes around ``wait()`` (the
     host blocked on the device);
   * device path: CUPTI activity records, one per kernel, memcpy and
-    memset the card ran, collected through ``torch.profiler``'s Kineto
-    collection with ``ProfilerActivity.CUDA`` only (no CPU ops are
-    recorded). ``start()`` opens the collection; the first
-    ``flush_arrays()``/``flush()`` closes it and converts its device rows
-    into KERNEL and MEMORY records on their streams; ``stop()`` closes it
-    too (in a ``finally``), so a later ``torch.profiler.profile`` in the
-    same process can open: Kineto allows one session at a time, so no
-    other profiler may be open while a monitored run collects. A
-    ``launch()`` after a flush opens a new collection.
+    memset the card ran, read straight from CUPTI's activity API by a
+    small host library (``csrc/cupti_activity.cpp``, built with ``nvcc``
+    at first use and bound with ``ctypes``; :class:`CuptiActivity`).
+    ``start()`` opens a collection (enables the records); the first
+    ``flush_arrays()``/``flush()`` closes it (a forced flush of CUPTI's
+    buffers, records disabled) and converts its rows into KERNEL and
+    MEMORY records on their streams; ``stop()`` closes it too (in a
+    ``finally``). A ``launch()`` after a flush opens a new collection. No
+    profiler session is involved: a drain costs a fraction of a µs per
+    row, where reading the rows through ``torch.profiler`` (Kineto), its
+    stop and its event parsing, took about 27 µs per row on the H100
+    (``PERF.md``): seconds for every sample of a decode run.
+    CUPTI serves one client at a time, and Kineto registers its own
+    buffer callbacks when it starts, so a ``torch.profiler`` session may
+    open after a monitored run, never during one.
 
 ``launch()``/``wait()`` keep their host role only: ``wait()`` synchronises
 on an event recorded after the launched work, inside the caller's
@@ -24,16 +30,19 @@ whole step would count those waits as Kernel time. The JAX backend's one
 record per launch spans one compiled executable, which has no host gaps
 inside it.
 
-Clocks. Kineto stamps every activity in integer nanoseconds since the
-Unix epoch (``CLOCK_REALTIME``, as ``time.time_ns()``), carrying CUPTI's
-GPU timestamps onto that clock through the CPU's time-stamp counter. On
-an H100 that carriage was not to be trusted: the rows of a collection
-sat 30 to 85 µs early against the CUDA events around the same kernels,
-and in some processes that had opened earlier profiling sessions one
-collection's rows drifted by 2.6% and jumped by hundreds of ms against
-the events, which themselves agreed with the host clock within 30 µs
-over 9 s. So the rows are placed on the monitor's clock through markers
-whose true times are CUDA events:
+Clocks. CUPTI stamps each record in its own time base: wall-clock
+nanoseconds, or the units of a timestamp callback another client has
+registered (Kineto registers the CPU's time-stamp counter, so after a
+``torch.profiler`` session a process's rows count TSC ticks, 2.1 GHz on
+the H100's host). :class:`CuptiActivity` reads CUPTI's clock beside the
+host's at each open and close and converts its rows to nanoseconds at
+the rate between them. Kineto's
+own conversion of those stamps was not to be trusted on an H100 either:
+its rows sat 30 to 85 µs early against the CUDA events around the same
+kernels, and in some processes drifted by 2.6% and jumped by hundreds
+of ms, while the events agreed with the host clock within 30 µs over
+9 s. So the rows are placed on the monitor's clock through markers whose
+true times are CUDA events, whatever their units:
   * ``start()`` records an anchor event on the idle card between two
     reads of the monitor's clock (the tightest of five tries, at its
     midpoint: one read after a slow ``record()`` put every event up to
@@ -54,25 +63,21 @@ whose true times are CUDA events:
     moves rows within that launch only: a dump of 132 markers over one
     llama3.2-3b serve run showed the clock constant to 0.2 ms but for
     one jump of 1.16 ms.
-  * Kineto drops rows whose converted times fall outside its capture
-    window, so a collection lost its first or last kernels (on the H100
-    once both markers of a collection with no launch in it). Each
-    collection so waits 20 ms after it opens and before it closes, first
-    runs a kernel of its own on the side stream, finds the side stream
-    from the closing marker, launched last (or, when CUPTI lost the last
-    rows, as the latest stream with no more short kernels than markers
-    launched), and tells the markers from the blockers by length, not by
-    position. Under a serve
-    run's load CUPTI also lost a marker row or two of 132 (and so, at
-    that rate, about 1.5% of all rows, which no CUPTI counter in reach
-    reports); so each marker's kernel carries its index mod 8 in its
-    length, the marker rows are matched to their events in order, a lost
-    one skipped, and ``lost_markers`` counts them. The match is the
-    alignment whose gaps between successive marker rows best fit the gaps
-    between their events, a disagreeing code counted as 1 ms of misfit:
-    under a training step that fills every SM a marker's measured length
-    also held its wait for an SM, and 4 of 13 codes read wrong, while the
-    gaps, tens of ms apart, still fit to a ms.
+  * Each collection first runs a kernel of its own on the side stream,
+    finds the side stream from the closing marker, launched last (or,
+    when rows were lost at the end, as the latest stream with no more
+    short kernels than markers launched), and tells the markers from the
+    blockers by length, not by position. Through Kineto a serve run lost
+    a marker row or two of 132, so each marker's kernel carries its index
+    mod 8 in its length, the marker rows are matched to their events in
+    order, a lost one skipped, and ``lost_markers`` counts them. The
+    match is the alignment whose gaps between successive marker rows best
+    fit the gaps between their events, a disagreeing code counted as
+    1 ms of misfit: under a training step that fills every SM a marker's
+    measured length also held its wait for an SM, and 4 of 13 codes read
+    wrong, while the gaps, tens of ms apart, still fit to a ms. Records
+    CUPTI itself drops (buffers full) are counted in
+    ``CuptiActivity.dropped``.
 On the card a ``torch.cuda._sleep`` kernel's activity record is held
 against the CUDA events around it and against the host's window around
 its launch (tests/test_torch_gpu.py, chip_smoke.py). An activity source
@@ -87,13 +92,29 @@ For CPU tensors (``device="cpu"``) ``launch``/``wait`` record the host
 window of each eager call as a KERNEL record, as the JAX backend does on
 its CPU "device". Tests give a CPU backend an ``activity`` source of
 their own to drive the device path without a card.
+
+Two things the monitor reads, where the card differs from the JAX
+backend's one record per compiled launch:
+  * ``launch_counts`` (device -> ``launch`` calls while enabled, under
+    the card's ordinal on CUDA): the unit a flop model's FLOPs are per,
+    for Computational Efficiency. None without an activity source, whose
+    one KERNEL record per launch the monitor counts itself.
+  * ``flush_closes_collection``: true with an activity source, whose
+    drain closes the collection (a synchronise, the closing marker,
+    CUPTI's forced flush, the rows' placement), which the next launch
+    reopens. A step-series recorder then defers a step's device columns
+    to the next drain instead of draining at every step close. The
+    reopening is charged to the monitor's ``flush`` overhead section
+    with the drain, the reading of the rows to ``drain``.
 """
 
 from __future__ import annotations
 
+import ctypes
+import os
 import time
-import warnings
 from dataclasses import dataclass
+from pathlib import Path
 from typing import Any, Callable, List, Optional, Tuple, Union
 
 import numpy as np
@@ -103,7 +124,7 @@ from ..states import DeviceActivity, DeviceRecord
 from ..telemetry import overhead as _ovh
 from .base import register_backend
 
-__all__ = ["CudaRuntimeBackend", "AsyncHandle", "KinetoActivity"]
+__all__ = ["CudaRuntimeBackend", "AsyncHandle", "CuptiActivity"]
 
 # One drained activity batch: (device, kinds u1, starts i8 ns, ends i8 ns,
 # streams u4, correlation ids i8), times on the source's clock.
@@ -124,10 +145,7 @@ _MARKER_NS = 100_000
 # Work launched after a marker's blocker began cannot start earlier than
 # the blocker's length before the marker (stream order): 0.4 ms at 1 GHz.
 _SLACK_S = 5e-4
-# Host time between a collection's open and its first kernel, and between
-# its last kernel and its close: Kineto drops the rows whose converted
-# times fall outside its capture window.
-_PAD_S = 0.02
+CUPTI_SOURCE = Path(__file__).resolve().parent / "csrc" / "cupti_activity.cpp"
 
 
 class _DeviceColumns:
@@ -165,55 +183,128 @@ class _DeviceColumns:
         return cols
 
 
-class KinetoActivity:
-    """The card's CUPTI activity records through ``torch.profiler``
-    (Kineto): kernels as KERNEL rows, memcpy and memset as MEMORY rows.
-    Rows are read from the raw Kineto results, which build no Python
-    event tree."""
+def _cupti_library() -> Path:
+    """The libcupti this process has loaded (PyTorch's, for Kineto); one
+    CUPTI instance then serves both."""
+    maps = Path("/proc/self/maps").read_text()
+    found = sorted({line.split()[-1] for line in maps.splitlines()
+                    if "/libcupti" in line})
+    if not found:
+        raise RuntimeError(
+            "no libcupti is loaded in this process: TALP's device records "
+            "read CUPTI through the copy PyTorch's CUDA build loads")
+    return Path(found[0])
+
+
+def _cupti_include() -> Path:
+    """The CUDA toolkit's directory holding ``cupti.h``."""
+    home = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda"))
+    for d in (home / "extras" / "CUPTI" / "include", home / "include"):
+        if (d / "cupti.h").is_file():
+            return d
+    raise RuntimeError(f"cupti.h not found under {home}: the CUDA toolkit's "
+                       "CUPTI headers build TALP's activity reader")
+
+
+def cupti_ns(stamps: np.ndarray, opened: Tuple[int, float],
+             closed: Tuple[int, float]) -> np.ndarray:
+    """CUPTI stamps as int64 nanoseconds since ``opened``: each of
+    ``opened`` and ``closed`` is (CUPTI's clock, the host's seconds), read
+    together; CUPTI's units per ns are their ratio."""
+    (s0, h0), (s1, h1) = opened, closed
+    per_ns = (s1 - s0) / max((h1 - h0) * 1e9, 1.0)
+    return np.rint((stamps - s0) / per_ns).astype(np.int64)
+
+
+class CuptiActivity:
+    """The card's CUPTI activity records, read straight from CUPTI:
+    kernels as KERNEL rows, memcpy and memset as MEMORY rows, one batch
+    per device at each close."""
+
+    _lib = None
 
     def __init__(self):
-        self._prof = None
+        self._open = False
+
+    @classmethod
+    def library(cls):
+        """Build (at first use) and load ``csrc/cupti_activity.cpp``, bound
+        to the process's libcupti."""
+        if cls._lib is None:
+            from ...kernels import cuda_build
+
+            flags = ("-std=c++17", "-O2", "-shared", "-Xcompiler", "-fPIC",
+                     "-I", str(_cupti_include()))
+            lib = cuda_build.load(CUPTI_SOURCE, flags)
+            for name, restype, argtypes in (
+                    ("init", ctypes.c_int, [ctypes.c_char_p]),
+                    ("enable", ctypes.c_int, []),
+                    ("flush", ctypes.c_int, [ctypes.c_int, ctypes.c_int]),
+                    ("count", ctypes.c_int64, []),
+                    ("take", ctypes.c_int64,
+                     [ctypes.c_void_p] * 6 + [ctypes.c_int64]),
+                    ("dropped", ctypes.c_uint64, []),
+                    ("timestamp", ctypes.c_uint64, []),
+                    ("error", ctypes.c_char_p, [ctypes.c_int])):
+                fn = getattr(lib, f"talp_cupti_{name}")
+                fn.restype, fn.argtypes = restype, argtypes
+            err = lib.talp_cupti_init(str(_cupti_library()).encode())
+            if err:
+                raise RuntimeError(
+                    f"CUPTI's entry points not found in {_cupti_library()} "
+                    f"(code {err})")
+            cls._lib = lib
+        return cls._lib
+
+    def _check(self, err: int, what: str) -> None:
+        if err:
+            raise RuntimeError(
+                f"CUPTI {what} failed: "
+                f"{self.library().talp_cupti_error(err).decode()}")
 
     @property
     def is_open(self) -> bool:
-        return self._prof is not None
+        return self._open
+
+    @property
+    def dropped(self) -> int:
+        """Records CUPTI dropped in this process (its buffers were full)."""
+        return int(self.library().talp_cupti_dropped())
+
+    def _clocks(self) -> Tuple[int, float]:
+        """CUPTI's clock, in its records' units, beside the host's."""
+        t0 = time.perf_counter()
+        stamp = self.library().talp_cupti_timestamp()
+        return stamp, 0.5 * (t0 + time.perf_counter())
 
     def open(self) -> None:
-        from torch.profiler import ProfilerActivity, profile
-
-        prof = profile(activities=[ProfilerActivity.CUDA])
-        with warnings.catch_warnings():
-            # "Profiler clears events at the end of each cycle": each
-            # collection is read once, at its close
-            warnings.simplefilter("ignore", UserWarning)
-            prof.start()
-        self._prof = prof
+        self._check(self.library().talp_cupti_enable(), "enable")
+        self._open = True
+        self._opened = self._clocks()
 
     def close(self) -> List[ActivityRows]:
-        """Stop collecting; the device rows, one batch per device."""
-        prof, self._prof = self._prof, None
+        """Stop collecting; the device rows, one batch per device, in
+        nanoseconds since the open: CUPTI's units (wall-clock nanoseconds,
+        or a registered timestamp callback's) are converted at the rate its
+        clock ran against the host's over the collection."""
+        lib = self.library()
+        self._open = False
         torch.cuda.synchronize()
-        prof.stop()
-        cpu = torch.autograd.DeviceType.CPU
-        kernel, memory = DeviceActivity.KERNEL.code, DeviceActivity.MEMORY.code
-        rows: dict = {}
-        for e in prof.profiler.kineto_results.events():
-            if e.device_type() == cpu or e.is_user_annotation():
-                continue
-            name = e.name()
-            kind = memory if name.startswith(("Memcpy", "Memset")) else kernel
-            start = e.start_ns()
-            rows.setdefault(e.device_index(), []).append(
-                (kind, start, start + e.duration_ns(), e.device_resource_id(),
-                 e.correlation_id()))
+        self._check(lib.talp_cupti_flush(1, 1), "flush")
+        closed = self._clocks()
+        n = lib.talp_cupti_count()
+        cols = (np.empty(n, np.uint8), np.empty(n, np.int64),
+                np.empty(n, np.int64), np.empty(n, np.uint32),
+                np.empty(n, np.int64), np.empty(n, np.uint32))
+        n = lib.talp_cupti_take(*[c.ctypes.data for c in cols], n)
+        kinds, starts, ends, streams, corrs, devs = (c[:n] for c in cols)
+        starts, ends = (cupti_ns(x, self._opened, closed)
+                        for x in (starts, ends))
         out = []
-        for dev, r in sorted(rows.items()):
-            kinds, starts, ends, streams, corrs = zip(*r)
-            out.append((dev, np.asarray(kinds, np.uint8),
-                        np.asarray(starts, np.int64),
-                        np.asarray(ends, np.int64),
-                        np.asarray(streams, np.uint32),
-                        np.asarray(corrs, np.int64)))
+        for dev in np.unique(devs):
+            on = devs == dev
+            out.append((int(dev), kinds[on], starts[on], ends[on],
+                        streams[on], corrs[on]))
         return out
 
 
@@ -241,7 +332,7 @@ class CudaRuntimeBackend:
         self.cuda = self.torch_device.type == "cuda"
         self.clock = clock
         if activity is None and self.cuda:
-            activity = KinetoActivity()
+            activity = CuptiActivity()
         # source of per-kernel device rows (None: host windows, CPU only)
         self.activity = activity
         self._columns: dict = {}  # dev -> _DeviceColumns
@@ -253,7 +344,22 @@ class CudaRuntimeBackend:
         self._marks: List[torch.cuda.Event] = []        # this collection's
         self.lost_markers = 0    # marker rows CUPTI lost, over the drains
         self._launched = 0       # launches and transfers since the open
+        self._launch_counts: dict = {}  # device -> launch() calls, enabled
+        self._ordinal = 0        # the card's device index (CUDA)
         self.enabled = False
+
+    @property
+    def launch_counts(self) -> Optional[dict]:
+        """``launch`` calls made while enabled, by device, where device rows
+        come from an activity source (one per kernel); None where each
+        launch is one KERNEL record."""
+        return self._launch_counts if self.activity is not None else None
+
+    @property
+    def flush_closes_collection(self) -> bool:
+        """Whether a flush closes a device activity collection (which the
+        next launch reopens), rather than copying out buffered rows."""
+        return self.activity is not None
 
     # -- plugin lifecycle ------------------------------------------------
     def start(self) -> None:
@@ -274,6 +380,9 @@ class CudaRuntimeBackend:
             self._anchor, t0, t1 = best
             self._anchor_t = 0.5 * (t0 + t1)
             self._side = torch.cuda.Stream(self.torch_device)
+            self._ordinal = (self.torch_device.index
+                             if self.torch_device.index is not None
+                             else torch.cuda.current_device())
         if self.activity is not None:
             self._open()
         self.enabled = True
@@ -294,10 +403,8 @@ class CudaRuntimeBackend:
         self.activity.open()
         self._launched = 0
         if self.cuda:
-            # the first rows of the collection: a kernel CUPTI may miss,
+            # the first rows of the collection: a kernel that may be missed,
             # then the opening marker
-            torch.cuda.synchronize(self.torch_device)
-            time.sleep(_PAD_S)
             self._marks = []
             with torch.cuda.stream(self._side):
                 torch.cuda._sleep(_BLOCKER_CYCLES)
@@ -321,8 +428,8 @@ class CudaRuntimeBackend:
 
     def _align(self, codes: np.ndarray, ns: np.ndarray,
                t: np.ndarray) -> List[int]:
-        """The marker index of each marker row (codes ``codes``, Kineto
-        starts ``ns`` in seconds): the increasing assignment, skipping at
+        """The marker index of each marker row (codes ``codes``, starts
+        ``ns`` in seconds): the increasing assignment, skipping at
         most _CODES - 1 lost rows in a row, whose gaps between successive
         rows best match the gaps between their events' times ``t``, a
         disagreeing code counted as 1 ms of mismatch."""
@@ -399,7 +506,7 @@ class CudaRuntimeBackend:
         m_corr = m_corrs[rows]
         m_t = t_all[ks]
         if len(m_t) == 1:
-            # one marker left: Kineto's own rate from it, and no window
+            # one marker left: the source's own rate from it, and no window
             # after it (a marker far past every row)
             m_corr = np.append(m_corr, np.iinfo(np.int64).max)
             m_ns, m_t = np.append(m_ns, 1e18), np.append(m_t, m_t[0] + 1e9)
@@ -434,8 +541,8 @@ class CudaRuntimeBackend:
         if self.cuda:
             self._mark()            # the closing marker
             torch.cuda.synchronize(self.torch_device)
-            time.sleep(_PAD_S)
-        batches = self.activity.close()
+        with _ovh.section("drain"):
+            batches = self.activity.close()
         n_rows = sum(len(b[1]) for b in batches)
         if self.cuda:
             placed = self._place(batches)
@@ -499,7 +606,8 @@ class CudaRuntimeBackend:
         if self.activity is None:
             return False
         if self.enabled and not self.activity.is_open:
-            self._open()
+            with _ovh.section("flush"):
+                self._open()
         self._launched += 1
         return self.activity.is_open
 
@@ -514,6 +622,9 @@ class CudaRuntimeBackend:
         on the card. The host time of the call itself (in eager PyTorch:
         enqueueing every kernel) is charged by the caller's scope."""
         label = name or getattr(fn, "__name__", "fn")
+        if self.enabled:
+            dev = self._ordinal if self.cuda else device
+            self._launch_counts[dev] = self._launch_counts.get(dev, 0) + 1
         marked = self._collecting() and self.cuda
         t0 = self.clock()
         if marked:

@@ -1,4 +1,7 @@
-"""TalpMonitor — the TALP measurement engine (paper §3.2, §4.2), JAX-adapted.
+"""TalpMonitor — the TALP measurement engine (paper §3.2, §4.2). Copied
+from ``repro.core.talp``; the changes for the card (the instrument
+fallback's synchronise, the launch count of Computational Efficiency,
+``on_flush``) are listed in :mod:`repro_torch.core`.
 
 Mirrors TALP's design:
 
@@ -206,6 +209,7 @@ class TalpMonitor:
         self._acc: Dict[str, _RegionAcc] = {}
         self._region_stack: List[str] = []
         self._close_callbacks: List[Callable[["TalpMonitor", StepCloseEvent], None]] = []
+        self._flush_callbacks: List[Callable[["TalpMonitor"], None]] = []
         self._state: Optional[HostState] = None
         self._state_since: Optional[float] = None
         self.devices: Dict[int, DeviceTimeline] = {}
@@ -249,6 +253,25 @@ class TalpMonitor:
         def unregister() -> None:
             try:
                 self._close_callbacks.remove(callback)
+            except ValueError:
+                pass
+
+        return unregister
+
+    def on_flush(
+        self, callback: Callable[["TalpMonitor"], None]
+    ) -> Callable[[], None]:
+        """Register a callback fired after every drain of the backend into
+        the device timelines (``sample()``, ``sample_result()``,
+        ``finalize()`` and direct ``_flush_backend()`` calls): the moment
+        the records launched so far are in. A step-series recorder that
+        defers its device columns fills them here. Returns an unregister
+        function."""
+        self._flush_callbacks.append(callback)
+
+        def unregister() -> None:
+            try:
+                self._flush_callbacks.remove(callback)
             except ValueError:
                 pass
 
@@ -370,6 +393,8 @@ class TalpMonitor:
                     self.device(dev).ingest(recs)
         finally:
             self.overhead.end("ingest", t0)
+        for cb in tuple(self._flush_callbacks):
+            cb(self)
 
     # ------------------------------------------------------------------
     # Transparent instrumentation
@@ -463,7 +488,14 @@ class TalpMonitor:
         ``model_flops``) over peak throughput during the measured kernel
         busy time — ``None`` without a model or kernel activity. CE is a
         property of the kernels themselves, so the single monitor-wide
-        value annotates every region's device frame."""
+        value annotates every region's device frame.
+
+        A launch is what ``model_flops`` is per: one ``launch`` of the
+        backend. A backend that counts them (``launch_counts``, device ->
+        launches) is read; otherwise each kernel record is one launch, as
+        with the JAX runtime backend's one record per compiled executable.
+        On the card the CUDA backend records every kernel of an eager
+        step, thousands per launch."""
         fm = self.flop_model
         if fm is None:
             return None
@@ -478,9 +510,11 @@ class TalpMonitor:
             float(np.sum(kern[:, 1] - kern[:, 0]))
             for kern, _ in device_flats.values()
         )
+        counts = getattr(self.backend, "launch_counts", None)
         launches = sum(
-            self.devices[d].n_kernel_records for d in device_flats
-            if d in self.devices
+            (counts.get(d, 0) if counts is not None
+             else self.devices[d].n_kernel_records)
+            for d in device_flats if d in self.devices
         )
         if busy <= 0 or launches == 0:
             return None

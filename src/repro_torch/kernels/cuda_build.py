@@ -79,15 +79,17 @@ def tag(source: Path, include_dirs: Iterable[Path] = (INCLUDE_DIR,),
     return h.hexdigest()[:16]
 
 
-def build(source: Path) -> Path:
-    """Compile ``source`` unless a library of the same content exists."""
-    out = BUILD_DIR / f"{source.stem}-{tag(source)}.so"
+def build(source: Path, flags: Iterable[str] = NVCC_FLAGS) -> Path:
+    """Compile ``source`` with ``flags`` unless a library of the same
+    content exists."""
+    flags = tuple(flags)
+    out = BUILD_DIR / f"{source.stem}-{tag(source, flags=flags)}.so"
     if out.is_file():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
     proc = subprocess.run(
-        [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
+        [nvcc(), *flags, "-o", str(tmp), str(source)],
         capture_output=True, text=True,
     )
     out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
@@ -100,5 +102,5 @@ def build(source: Path) -> Path:
     return out
 
 
-def load(source: Path) -> ctypes.CDLL:
-    return ctypes.CDLL(str(build(source)))
+def load(source: Path, flags: Iterable[str] = NVCC_FLAGS) -> ctypes.CDLL:
+    return ctypes.CDLL(str(build(source, flags)))

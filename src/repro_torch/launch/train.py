@@ -9,9 +9,8 @@ Every step runs under TALP regions and states, as in the JAX trainer:
 and the paper's text/JSON report is emitted at exit and sampled every
 ``--talp-interval`` steps (TALP's online mode). On the card, device Kernel
 and Memory records come from CUPTI activity, one per kernel, memcpy and
-memset, collected through ``torch.profiler``
-(:class:`repro_torch.core.backends.CudaRuntimeBackend`), so no other
-profiler may be open while ``train`` runs. Each sample closes that
+memset (:class:`repro_torch.core.backends.CudaRuntimeBackend`), so no
+profiler may be open while ``train`` runs. Each sample drains that
 collection and the next step opens a new one.
 
 Runs on ``cuda`` unless ``device="cpu"`` is asked for; without a card it
@@ -19,10 +18,19 @@ raises instead of running on the CPU. On the card, attention trains only
 at a head dim the flash backward takes (``BWD_HEAD_DIMS``: zamba2-2.7b's
 80 is refused with ``ValueError`` before anything is allocated); the CPU
 trains every supported config through the plain versions. SSM blocks
-train through the CUDA SSD backward on the card. Checkpointing (``--ckpt-dir``),
-multi-process runs (``--rank``, ``--world-size``) and the spool, trace,
-telemetry, step-series and watchdog ``--talp-*`` flags are not ported
-yet: the command line refuses them.
+train through the CUDA SSD backward on the card.
+
+TALP's runtime outputs are those of ``repro.launch.train``: the
+``--talp-*`` flags (step series and watchdog in a nested ``step``
+region, snapshots every N steps through the exporter when one is
+attached, Chrome trace, JSONL and Prometheus streams, the per-rank spool
+and the job-level merge, fault injection;
+:mod:`repro_torch.launch.talp_outputs`). ``--rank``/``--world-size``
+are what the JAX trainer makes of them: this process's shard of the
+synthetic data and its rank in the spool, with no collective (each
+process trains its own replica; sharding is not ported yet).
+Checkpointing (``--ckpt-dir``, ``--ckpt-every``) is not ported yet: the
+command line refuses it.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-3b \
@@ -31,6 +39,13 @@ Usage:
       --steps 6 --batch 8 --seq 4096
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-3b \
       --smoke --device cpu --steps 4 --batch 2 --seq 64
+  # two ranks of one job, each on half the global batch, one spool
+  PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-130m \
+      --steps 6 --batch 8 --seq 4096 --rank 0 --world-size 2 \
+      --talp-spool /tmp/spool --talp-step-series 6 --talp-watchdog &
+  PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-130m \
+      --steps 6 --batch 8 --seq 4096 --rank 1 --world-size 2 \
+      --talp-spool /tmp/spool --talp-step-series 6 --talp-watchdog
 """
 
 from __future__ import annotations
@@ -43,17 +58,17 @@ import time
 import numpy as np
 import torch
 
-from ..configs import get_config, list_configs, smoke_config
+from ..configs import ShapeConfig, get_config, list_configs, smoke_config
 from ..core.backends import CudaRuntimeBackend
-from ..core.report import render_tables, to_json
-from ..core.talp import TalpMonitor
 from ..data.pipeline import DataConfig, SyntheticTokenPipeline
+from ..kernels import launch_counts
 from ..kernels.flash_attention.kernel import BWD_HEAD_DIMS
 from ..models import lm
 from ..optim.adamw import AdamWConfig
 from ..runtime.fault_tolerance import StragglerDetector
 from .serve import resolve_device
-from .steps import init_train_state, make_train_step
+from .steps import init_train_state, make_train_step, model_flops
+from .talp_outputs import TalpOutputs, add_talp_arguments, talp_kwargs
 
 __all__ = ["UNPORTED_FLAGS", "check_trainable_on_card", "train", "main"]
 
@@ -61,18 +76,6 @@ __all__ = ["UNPORTED_FLAGS", "check_trainable_on_card", "train", "main"]
 UNPORTED_FLAGS = {
     "--ckpt-dir": "checkpointing",
     "--ckpt-every": "checkpointing",
-    "--rank": "multi-GPU runs",
-    "--world-size": "multi-GPU runs",
-    "--talp-spool": "the job-level merge",
-    "--talp-spool-format": "the job-level merge",
-    "--talp-sample-every": "the job-level merge",
-    "--talp-trace-out": "the telemetry copies",
-    "--talp-metrics-jsonl": "the telemetry copies",
-    "--talp-prometheus-port": "the telemetry copies",
-    "--talp-step-series": "the telemetry copies",
-    "--talp-watchdog": "the telemetry copies",
-    "--talp-anomaly-log": "the telemetry copies",
-    "--talp-fault-plan": "the fault-tolerant collection",
 }
 
 
@@ -99,22 +102,51 @@ def train(
     seed: int = 0,
     verbose: bool = True,
     device="cuda",
+    rank: int = 0,
+    world_size: int = 1,
+    talp_spool: str = None,
+    talp_sample_every: int = 0,
+    talp_spool_format: str = "binary",
+    talp_trace_out: str = None,
+    talp_metrics_jsonl: str = None,
+    talp_prometheus_port: int = None,
+    talp_step_series: int = 0,
+    talp_watchdog: bool = False,
+    talp_anomaly_log: str = None,
+    talp_fault_plan=None,
 ):
     """Train ``cfg`` from random fp32 weights drawn from ``seed`` for
     ``steps`` AdamW steps of ``global_batch`` synthetic sequences of
-    ``seq_len`` tokens. Returns (state, history, TalpResult); history holds
-    one {"step", "loss", "grad_norm", "time_s"} per step."""
+    ``seq_len`` tokens (this rank's ``global_batch / world_size`` of
+    them). Returns (state, history, TalpResult); history holds one
+    {"step", "loss", "grad_norm", "time_s"} per step.
+
+    The ``rank`` .. ``talp_fault_plan`` keywords are those of
+    ``repro.launch.train.train``: each process of a job passes its
+    ``rank``/``world_size`` and a shared ``talp_spool``; whichever rank
+    completes the spool merges it into ``talp_job.json``."""
     lm.check_supported(cfg)
     if torch.device(device).type == "cuda":
         check_trainable_on_card(cfg)
     dev = resolve_device(device)
     opt_cfg = opt_cfg or AdamWConfig(warmup_steps=10, total_steps=steps)
     backend = CudaRuntimeBackend(dev)
-    mon = TalpMonitor("train", backend=backend, overhead_report=True)
+    shape = ShapeConfig(name="train", seq_len=seq_len,
+                        global_batch=global_batch, kind="train")
+    talp = TalpOutputs(
+        "train", backend, "step", lambda: model_flops(cfg, shape),
+        verbose=verbose, rank=rank, world_size=world_size,
+        talp_spool=talp_spool, talp_sample_every=talp_sample_every,
+        talp_spool_format=talp_spool_format, talp_trace_out=talp_trace_out,
+        talp_metrics_jsonl=talp_metrics_jsonl,
+        talp_prometheus_port=talp_prometheus_port,
+        talp_step_series=talp_step_series, talp_watchdog=talp_watchdog,
+        talp_anomaly_log=talp_anomaly_log, talp_fault_plan=talp_fault_plan)
+    mon = talp.mon
     data = SyntheticTokenPipeline(
         DataConfig(global_batch=global_batch, seq_len=seq_len,
                    vocab_size=cfg.vocab_size, seed=seed),
-        process_index=0, process_count=1,
+        process_index=rank, process_count=world_size,
     )
     step_fn = make_train_step(cfg, opt_cfg)
     detector = StragglerDetector()
@@ -129,14 +161,16 @@ def train(
     with mon.region("train_loop"):
         for step in range(steps):
             t0 = time.perf_counter()
-            # host Useful: data synthesis and the copy to the card
-            batch = {k: torch.from_numpy(v).to(dev)
-                     for k, v in data.batch_at(step).items()}
-            # host Useful: enqueueing the step; Offload: the wait for the
-            # card, which closes the step's Kernel record
-            handle = backend.launch(step_fn, state, batch, name="train_step")
-            with mon.offload():
-                state, metrics = backend.wait(handle)
+            with talp.step():
+                # host Useful: data synthesis and the copy to the card
+                batch = {k: torch.from_numpy(v).to(dev)
+                         for k, v in data.batch_at(step).items()}
+                # host Useful: enqueueing the step; Offload: the wait for
+                # the card
+                handle = backend.launch(step_fn, state, batch,
+                                        name="train_step")
+                with mon.offload():
+                    state, metrics = backend.wait(handle)
             dt = time.perf_counter() - t0
             detector.observe(step, dt)
             history.append(
@@ -148,20 +182,19 @@ def train(
                 print(f"[talp online] step {step} "
                       f"PE_host={snap.host.parallel_efficiency:.3f} "
                       f"OE={snap.host.device_offload_efficiency:.3f}")
+            talp.sample(step, f"step {step}")
             if verbose and (step % 10 == 0 or step == steps - 1):
                 print(f"step {step:5d} loss {history[-1]['loss']:.4f} "
                       f"({dt*1e3:.0f} ms)")
                 sys.stdout.flush()
 
     data.stop()
-    result = mon.finalize()
-    if verbose:
-        print(render_tables(result))
+
+    def stragglers():
         if detector.events:
             print(f"straggler events at steps: {detector.events}")
-    if talp_json:
-        with open(talp_json, "w") as f:
-            f.write(to_json(result))
+
+    result = talp.finish(talp_json, notes=stragglers)
     return state, history, result
 
 
@@ -179,6 +212,7 @@ def main(argv=None):
     ap.add_argument("--history-json", default=None)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu; cuda without a card fails")
+    add_talp_arguments(ap, "step")
     for flag in UNPORTED_FLAGS:
         ap.add_argument(flag, nargs="?", const=True, default=None,
                         help=argparse.SUPPRESS)
@@ -199,10 +233,14 @@ def main(argv=None):
         talp_json=args.talp_json,
         seed=args.seed,
         device=args.device,
+        **talp_kwargs(args),
     )
     if args.history_json:
         with open(args.history_json, "w") as f:
             json.dump(history, f)
+    if torch.device(args.device).type == "cuda":
+        print(f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f} "
+              f"GiB; kernel launches {json.dumps(launch_counts())}")
     losses = [h["loss"] for h in history]
     if losses and not (np.isfinite(losses[-1]) and losses[-1] < losses[0]):
         print("WARNING: loss did not decrease")

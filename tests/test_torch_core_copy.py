@@ -182,3 +182,225 @@ def test_synthetic_backend_replays_identically():
                 for d, r in be.flush()]
         out.append((cols, objs))
     assert out[0] == out[1]
+
+
+# ---------------------------------------------------------------------------
+# TALP's runtime outputs: the collection layer (merge, collect), the step
+# series and watchdog, the metric stream and the trace exporter give
+# identical outputs in both packages on the same inputs.
+# ---------------------------------------------------------------------------
+import importlib  # noqa: E402
+import io  # noqa: E402
+import json  # noqa: E402
+import shutil  # noqa: E402
+import time  # noqa: E402
+from types import SimpleNamespace  # noqa: E402
+
+
+def _pkg(root):
+    mod = lambda name: importlib.import_module(f"{root}.core.{name}")  # noqa: E731
+    return SimpleNamespace(
+        core=importlib.import_module(f"{root}.core"), merge=mod("merge"),
+        collect=mod("collect"), report=mod("report"),
+        stepseries=mod("telemetry.stepseries"),
+        watchdog=mod("telemetry.watchdog"),
+        exporter=mod("telemetry.exporter"),
+        traceexport=mod("telemetry.traceexport"))
+
+
+JAX_PKG, TORCH_PKG = _pkg("repro"), _pkg("repro_torch")
+
+
+def _telemetry_run(p, rank, seed):
+    """One rank's scripted run with every runtime output attached: a step
+    series (a ring smaller than the run) and watchdog over the ``step``
+    region, an exporter sampled every 4 steps, device records from two
+    devices whose second starves from step 9 on (the watchdog fires), and
+    a flop model. Returns the monitor, its result and the outputs."""
+    rng = np.random.default_rng(seed)
+    clk = FakeClock()
+    flop = SimpleNamespace(model_flops=2e9,
+                           hw=SimpleNamespace(peak_flops=1e12))
+    mon = p.core.TalpMonitor("job", rank=rank, clock=clk,
+                             overhead_report=False, flop_model=flop)
+    wd_sink, stream = io.StringIO(), io.StringIO()
+    wd = p.watchdog.EfficiencyWatchdog(jsonl=wd_sink)
+    rec = p.stepseries.StepSeriesRecorder(mon, capacity=10,
+                                          regions=("step",), watchdog=wd)
+    exp = p.exporter.TelemetryExporter(mon, capacity=3, jsonl=stream,
+                                       watchdog=wd)
+    prom = []
+    K, M = p.core.DeviceActivity.KERNEL, p.core.DeviceActivity.MEMORY
+    with mon.region("init"):
+        clk.advance(0.3 + 0.1 * rank)
+    with mon.region("train_loop"):
+        for step in range(14):
+            with mon.region("step"):
+                t0 = clk()
+                k = 0.05 * (1.0 + 0.01 * rng.standard_normal(2))
+                if step >= 9:
+                    k[1] *= 0.3
+                for dev in (0, 1):
+                    mon.add_device_record(dev, K, t0, t0 + k[dev])
+                mon.add_device_record(0, M, t0 + k[0], t0 + k[0] + 0.004)
+                clk.advance(0.01 + 0.002 * rank)
+                with mon.offload():
+                    clk.advance(float(k.max()))
+                if step % 5 == 4:
+                    with mon.mpi():
+                        clk.advance(0.003)
+            if step % 4 == 3:
+                exp.sample()
+                prom.append(exp.prometheus_text())
+    exp.sample()
+    rec.close()
+    result = mon.finalize()
+    trace = p.traceexport.export_monitor(
+        mon, result=result, samples=exp.trace_samples(),
+        step_series=rec.series, anomalies=wd.events)
+    exp.close()
+    wd.close()
+    return SimpleNamespace(mon=mon, result=result, series=rec.series,
+                           events=[e.as_dict() for e in wd.events],
+                           anomaly_jsonl=wd_sink.getvalue(),
+                           stream=stream.getvalue(), prom=prom, trace=trace)
+
+
+def _rows_equal(a, b):
+    assert a.dtype == b.dtype
+    for f in a.dtype.names:
+        np.testing.assert_array_equal(a[f], b[f], err_msg=f)
+
+
+@pytest.fixture
+def fixed_wall(monkeypatch):
+    """The exporter stamps snapshots with time.time(): one value for both."""
+    monkeypatch.setattr(time, "time", lambda: 1.7e9)
+
+
+@pytest.mark.parametrize("rank", [0, 1])
+def test_runtime_outputs_identical(rank, fixed_wall):
+    """Step-series rows, watchdog events and anomaly JSONL, the exporter's
+    JSONL and Prometheus text, and the Chrome trace of one rank."""
+    j = _telemetry_run(JAX_PKG, rank, seed=rank)
+    t = _telemetry_run(TORCH_PKG, rank, seed=rank)
+    assert t.series.n_dropped == 4
+    _rows_equal(t.series.rows(), j.series.rows())
+    assert t.series.region_names == j.series.region_names
+    assert t.series.as_table() == j.series.as_table()
+    assert j.events and t.events == j.events
+    assert t.anomaly_jsonl == j.anomaly_jsonl
+    assert len(t.stream.splitlines()) == 4 and t.stream == j.stream
+    assert t.prom == j.prom
+    assert t.trace == j.trace
+    TORCH_PKG.traceexport.validate_chrome_trace(t.trace)
+    assert TORCH_PKG.report.to_json(t.result) == JAX_PKG.report.to_json(
+        j.result)
+
+
+def _spool_job(p, root, fmt, world=3):
+    """Three ranks spooled (with their timelines and step series) through
+    emit_job_report: the published job JSON, the merge of the spool, the
+    job trace, the merged step table and the payload text of rank 0."""
+    runs = [_telemetry_run(p, r, seed=10 + r) for r in range(world)]
+    transport = p.merge.FileSpoolTransport(str(root), world_size=world,
+                                           payload=fmt)
+    for r, run in enumerate(runs):
+        transport.submit_steps(run.series, rank=r)
+        p.merge.emit_job_report(run.result, str(root), r, world,
+                                verbose=False, payload=fmt,
+                                timelines=run.mon.devices)
+    job = (root / "talp_job.json").read_text()
+    merged = p.report.to_json(p.merge.merge_spool(str(root), name="job"))
+    trace = p.traceexport.export_job(
+        p.merge.talp_result_from_json(job), transport.collect_timelines())
+    steps = transport.merge_steps(name="job").as_table()
+    direct = p.report.to_json(p.merge.merge_results(
+        [run.result for run in runs], name="job"))
+    return SimpleNamespace(job=job, merged=merged, trace=trace, steps=steps,
+                           direct=direct, runs=runs)
+
+
+@pytest.mark.parametrize("fmt", ["binary", "json"])
+def test_job_merge_identical(fmt, tmp_path, fixed_wall):
+    """merge_results, the spool's job report (binary and JSON payloads),
+    the job trace and the rank-aligned step table: byte-identical."""
+    j = _spool_job(JAX_PKG, tmp_path / "jax", fmt)
+    t = _spool_job(TORCH_PKG, tmp_path / "torch", fmt)
+    for field in ("job", "merged", "trace", "steps", "direct"):
+        assert getattr(t, field) == getattr(j, field), field
+    assert t.job == t.direct
+    assert len(json.loads(t.job)["regions"]["Global"]["host_states"]) == 3
+
+
+@pytest.mark.parametrize("fmt", ["binary", "json"])
+def test_spool_payload_round_trip_identical(fmt, tmp_path, fixed_wall):
+    """One rank's payload with its timelines: each package reads the
+    other's, and both give the same result and timeline columns."""
+    runs = {name: _telemetry_run(p, 0, seed=4)
+            for name, p in (("jax", JAX_PKG), ("torch", TORCH_PKG))}
+    decoded = {}
+    for writer, p in (("jax", JAX_PKG), ("torch", TORCH_PKG)):
+        run = runs[writer]
+        if fmt == "binary":
+            data = p.merge.result_to_spool_bytes(run.result, run.mon.devices)
+            path = tmp_path / f"{writer}.npz"
+            path.write_bytes(data)
+        else:
+            data = p.merge.result_to_spool_json(run.result, run.mon.devices)
+            path = tmp_path / f"{writer}.json"
+            path.write_text(data)
+        for reader, q in (("jax", JAX_PKG), ("torch", TORCH_PKG)):
+            result, tls = q.merge.load_spool_payload(str(path))
+            decoded[writer, reader] = (
+                q.report.to_json(result),
+                {d: {k: (v.tolist() if hasattr(v, "tolist") else v)
+                     for k, v in tl.to_columns().items()}
+                 for d, tl in tls.items()})
+    if fmt == "json":
+        assert (TORCH_PKG.merge.result_to_spool_json(
+            runs["torch"].result, runs["torch"].mon.devices)
+            == JAX_PKG.merge.result_to_spool_json(
+                runs["jax"].result, runs["jax"].mon.devices))
+    values = list(decoded.values())
+    assert len(values) == 4 and all(v == values[0] for v in values)
+    assert set(values[0][1]) == {0, 1}
+
+
+def test_fault_plan_and_coverage_identical(tmp_path):
+    """FaultPlan parsing in every form, its byte mutations, and the
+    tolerant merge's rank_coverage on the same injected losses."""
+    spec = {"drop": [2], "truncate": {"1": 96},
+            "corrupt": {"0": {"offset": 4, "length": 2, "xor": 255}},
+            "delay": {"1": 0.25}, "clock_skew": {"0": 1.5}}
+    path = tmp_path / "plan.json"
+    path.write_text(json.dumps(spec))
+    seen = []
+    for p in (JAX_PKG, TORCH_PKG):
+        FaultPlan = p.collect.FaultPlan
+        plans = [FaultPlan.from_spec(s) for s in
+                 (spec, json.dumps(spec), str(path), "@" + str(path))]
+        seen.append([
+            (fp.drop, fp.truncate, fp.corrupt, fp.delay, fp.clock_skew,
+             [fp.describe(r) for r in range(4)],
+             [fp.mutate_bytes(bytes(range(40)), r) for r in range(4)],
+             [(fp.drops(r), fp.delay_s(r), fp.skew_s(r), fp.touches(r))
+              for r in range(4)])
+            for fp in plans])
+        with pytest.raises(ValueError, match="unknown fault plan"):
+            FaultPlan.from_spec({"explode": True})
+    assert seen[0] == seen[1]
+
+    jobs = []
+    for name, p in (("jax", JAX_PKG), ("torch", TORCH_PKG)):
+        root = tmp_path / "spool"          # the same path: the same reasons
+        plan = p.collect.FaultPlan.from_spec({"truncate": {"1": 64}})
+        for r in range(3):
+            run = _telemetry_run(p, r, seed=20 + r)
+            p.merge.emit_job_report(run.result, str(root), r, 3,
+                                    verbose=False, fault_plan=plan)
+        job = (root / "talp_job.json").read_text()
+        assert json.loads(job)["rank_coverage"]["merged"] == [0, 2]
+        jobs.append(job)
+        shutil.rmtree(root)
+    assert jobs[0] == jobs[1]

@@ -290,6 +290,42 @@ def test_cuda_activity_clock_agrees_with_cuda_events(cuda):
     within 50 us of the events around it, on every one of five tries spread
     over 0.3 s; a sleep kernel launched on the idle card lies inside the
     host's window around its launch and wait, within 50 us."""
+    _check_activity_clock(cuda)
+
+
+def test_cuda_activity_clock_after_a_profiler_session(cuda):
+    """A torch.profiler session registers Kineto's timestamp callback, and
+    CUPTI's records then count the CPU's time-stamp counter, not ns: the
+    rows still agree with the CUDA events within 50 us."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]):
+        torch.cuda._sleep(100_000)
+        torch.cuda.synchronize()
+    _check_activity_clock(cuda)
+
+
+def test_cuda_drain_reads_rows_in_well_under_a_us_each(cuda):
+    """A drain of 20,000 kernel rows (CUPTI's forced flush, the rows'
+    placement) takes under 0.1 s: reading them through torch.profiler's
+    stop and events took about 27 us a row."""
+    x = torch.ones(16, device=cuda)
+    be = CudaRuntimeBackend(cuda)
+    be.start()
+
+    def many():
+        for _ in range(20_000):
+            x.add_(1)
+
+    be.wait(be.launch(many))
+    t0 = time.perf_counter()
+    [(_, kinds, _, _, _)] = be.flush_arrays()
+    took = time.perf_counter() - t0
+    be.stop()
+    assert len(kinds) == 20_000
+    assert took < 0.1, took
+
+
+def _check_activity_clock(cuda):
     be = CudaRuntimeBackend(cuda)
     be.start()
 
@@ -662,3 +698,122 @@ def test_cuda_mamba_train_step_matches_cpu(cuda, compute_dtype):
         for name, want in g32.items():
             card, plain = (_rel_norm(g[name], want) for g in (g_gpu, g_cpu))
             assert card <= 2 * plain + tol, (name, card, plain)
+
+
+# ---------------------------------------------------------------------------
+# TALP's runtime outputs on the card
+# ---------------------------------------------------------------------------
+PE_BOUND = 0.10   # chip_smoke.py::PE_BOUND
+
+
+def test_cuda_computational_efficiency_counts_launches(cuda):
+    """Five launches of four fp32 matmuls (2048³ each, TF32 off): the flop
+    model's FLOPs are per launch, so CE is the matmuls' share of the fp32
+    peak, in (0, 1], though CUPTI records every kernel (counting those
+    rows in place of the launches would read four times as much)."""
+    from repro_torch.core.backends import HardwareSpec, StepModel
+
+    n = 2048
+    x = torch.randn(n, n, device=cuda) / n ** 0.5
+    fm = StepModel(flops=0.0, hbm_bytes=0.0, collective_bytes=0.0,
+                   model_flops=4 * 2 * n ** 3,
+                   hw=HardwareSpec(peak_flops=67e12))
+    be = CudaRuntimeBackend(cuda)
+    mon = TalpMonitor("ce", backend=be, flop_model=fm)
+
+    def step(a):
+        for _ in range(4):
+            a = a @ x
+        return a
+
+    with mon.region("loop"):
+        for _ in range(5):
+            h = be.launch(step, x)
+            with mon.offload():
+                be.wait(h)
+    ce = mon.finalize()["Global"].device.computational_efficiency
+    assert be.launch_counts == {torch.cuda.current_device(): 5}
+    assert mon.devices[0].n_kernel_records >= 20
+    assert 0.2 < ce <= 1, ce
+
+
+def test_cuda_decode_step_series_matches_the_profiler(cuda, tmp_path):
+    """16 decode steps of the llama3.2-3b smoke config (head_dim 32) with
+    --talp-step-series: the rows' mean device PE lies within PE_BOUND of
+    the profiler's busy share, its kernel time per decode step over the
+    rows' mean wall."""
+    import dataclasses
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.core.merge import FileSpoolTransport
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import lm
+
+    cfg = dataclasses.replace(smoke_config("llama3.2-3b"), head_dim=32)
+    serve(cfg, requests=2, prompt_len=64, gen_len=16, verbose=False,
+          device=cuda, talp_step_series=16, talp_spool=str(tmp_path))
+    rows = FileSpoolTransport(str(tmp_path)).collect_steps()[0]
+    assert len(rows) == 16
+    pe = float(rows.column("device_parallel_efficiency").mean())
+    wall = float(rows.column("elapsed").mean())
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    with torch.inference_mode():
+        params = lm.init_params(cfg, gen, device=cuda, dtype=torch.bfloat16)
+        prompts = torch.randint(0, cfg.vocab_size, (2, 64), generator=gen,
+                                device=cuda, dtype=torch.int32)
+        logits, caches, pos = lm.prefill(cfg, params, prompts)
+        caches = lm.grow_caches(cfg, caches, 80)
+        tok = logits.argmax(-1).to(torch.int32)[:, None]
+        lm.decode_step(cfg, params, tok, pos, caches)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(8):
+                lm.decode_step(cfg, params, tok, pos, caches)
+            torch.cuda.synchronize()
+    spans = sorted((e.start_ns(), e.start_ns() + e.duration_ns())
+                   for e in prof.profiler.kineto_results.events()
+                   if e.device_type() != torch.autograd.DeviceType.CPU
+                   and not e.is_user_annotation()
+                   and not e.name().startswith(("Memcpy", "Memset")))
+    busy, reach = 0, None
+    for start, end in spans:
+        if reach is None or start > reach:
+            busy, reach = busy + end - start, end
+        elif end > reach:
+            busy, reach = busy + end - reach, end
+    share = busy * 1e-9 / 8 / wall
+    assert abs(pe - share) <= PE_BOUND, (pe, share)
+
+
+def test_cuda_two_rank_training_job_report_equals_in_process_merge(
+        cuda, tmp_path):
+    """Two processes of one mamba2-130m smoke training job on the card,
+    sharing a spool: the job report they publish equals InProcessGather's
+    merge of their payloads, with two host-state rows and each rank's CE
+    in (0, 1]."""
+    import json
+    import sys
+
+    sys.path.insert(0, str(__import__("pathlib").Path(__file__).parent))
+    from mp_harness import launch_fleet
+    from repro_torch.core.merge import InProcessGather, load_spool_payload
+    from repro_torch.core.report import to_json
+
+    spool = tmp_path / "spool"
+    res = launch_fleet(str(spool), n_ranks=2,
+                       driver="repro_torch.launch.train",
+                       extra_args=("--arch", "mamba2-130m", "--seq", "64",
+                                   "--talp-step-series", "3"))
+    assert res.ok, res.report()
+    gather = InProcessGather(world_size=2)
+    for rank in range(2):
+        result = load_spool_payload(
+            str(spool / f"talp_rank{rank:05d}.npz"))[0]
+        ce = result.regions["Global"].device.computational_efficiency
+        assert ce is not None and 0 < ce <= 1, (rank, ce)
+        gather.submit(result, rank=rank)
+    job = (spool / "talp_job.json").read_text()
+    assert job == to_json(gather.merge(name="train"))
+    assert len(json.loads(job)["regions"]["Global"]["host_states"]) == 2

@@ -441,3 +441,21 @@ def test_markers_place_rows_when_the_collection_lost_its_last_rows():
     np.testing.assert_allclose(np.c_[starts, ends][np.argsort(starts)],
                                work, atol=2e-6)
     assert be.lost_markers == 1
+
+
+@pytest.mark.parametrize("per_ns", [1.0, 2.1, 3.0])
+def test_cupti_stamps_convert_to_nanoseconds(per_ns):
+    """CUPTI counts wall-clock ns, or a registered callback's units (the
+    CPU's time-stamp counter once a profiler has run): the stamps come out
+    as ns since the open, at the rate of CUPTI's clock against the host's
+    over the collection."""
+    from repro_torch.core.backends.cuda_runtime import cupti_ns
+
+    origin = 1_792_244_520_031_955_589
+    opened = (origin, 17.25)
+    closed = (origin + round(0.5e9 * per_ns), 17.75)
+    raw = origin + np.rint(np.array([0, 1_000, 250_000_000]) * per_ns
+                           ).astype(np.int64)
+    np.testing.assert_array_equal(
+        cupti_ns(raw, opened, closed),
+        [0, 1_000, 250_000_000])
