@@ -28,15 +28,17 @@
      D 128, bf16), its output and its row log-sum-exp; then head dim 80
      (fp32 and bf16 MHA, GQA, ragged, window and soft-cap) and the serving
      prefill shape of zamba2-2.7b (B 8, S 4096, H = K 32, D 80, bf16;
-     its plain version one request at a time). At both prefill shapes it
-     times the plain version, then the kernel and one PyTorch library call
-     (``scaled_dot_product_attention``, a yardstick only) in turns:
-     library, kernel, kernel, library;
+     its plain version one request at a time), then the serving prefill
+     shape of granite-moe-3b-a800m (B 8, S 1024, H 24, K 8, D 64, bf16). At
+     the three prefill shapes it times the plain version, then the kernel
+     and one PyTorch library call (``scaled_dot_product_attention``, a
+     yardstick only) in turns: library, kernel, kernel, library;
    * the flash-attention backward over the same rows and the training
-     shape of llama3.2-3b (B 2, S 2048, H 24, K 8, D 128, bf16): dq, dk, dv
-     against the plain backward and against autograd through the plain
-     forward, both in fp32, and a second run bit-identical; at the training
-     and the serving prefill shapes it times the plain version, then the
+     shapes of llama3.2-3b (B 2, S 2048, H 24, K 8, D 128, bf16) and of
+     granite-moe-3b-a800m (the same at D 64): dq, dk, dv against the plain
+     backward and against autograd through the plain forward, both in
+     fp32, and a second run bit-identical; at both training shapes and
+     llama's serving prefill shape it times the plain version, then the
      kernels and the backward of ``scaled_dot_product_attention`` in turns;
    * the SSD chunked scan over the JAX package's SSD sweep, ragged L,
      initial state in and final state out, the edges of the bf16 kernels'
@@ -66,19 +68,23 @@
    against the same layers on the CPU (plain versions), prefill then 4
    decode steps, the same bf16 weights (zamba2: its smoke config with head
    dim 80 and P 64, N 64, chunk 256, whose two shared-block repeats must
-   write different KV rows); and one training step of the llama3.2-3b
-   smoke config (head_dim 32) and one of the mamba2-130m smoke config, in
-   fp32 and in bf16 compute, on the card against the CPU from the same
-   state.
+   write different KV rows; granite-moe-3b-a800m: its smoke config with
+   head dim 64 and capacity factor 1.25, which drops tokens, in fp32 with
+   every token's experts and capacity slots equal on both, and in bf16
+   with the share of equal routings printed); and one training step of
+   the llama3.2-3b smoke config (head_dim 32) and one of the mamba2-130m
+   smoke config, in fp32 and in bf16 compute, on the card against the CPU
+   from the same state.
 4. Serve phases: ``repro_torch.launch.serve.serve`` under the TALP monitor
    at full width, random weights from a seed: llama3.2-3b with 8 requests
    of 1024 prompt tokens and 64 generated tokens, then mamba2-130m (all
    24 layers) and zamba2-2.7b (all 54 layers) with 8 requests of 4096
-   prompt tokens and 64 generated tokens. Every launch counter is set to 0
-   just before each run and read just after: the prefill must launch each
-   kernel as often as SERVE says (llama: the flash forward 28 times;
-   mamba: the SSD scan 24 times; zamba2: 9 and 45) and no other. Checks
-   the tokens and the TALP hierarchies.
+   prompt tokens and 64 generated tokens, then granite-moe-3b-a800m (32
+   layers, 40 experts top-8, 3.98 B parameters) as llama. Every launch
+   counter is set to 0 just before each run and read just after: the
+   prefill must launch each kernel as often as SERVE says (llama: the flash
+   forward 28 times; mamba: the SSD scan 24 times; zamba2: 9 and 45;
+   granite: 32) and no other. Checks the tokens and the TALP hierarchies.
 5. Profile phases: prefills and decode steps of each model at its serve
    phase's shapes, timed without the profiler and traced with
    ``torch.profiler`` (CUDA activity only): the card's kernel time per
@@ -90,17 +96,30 @@
    cost per step.
 6. Train phases: ``repro_torch.launch.train.train`` under the TALP
    monitor at full width and depth, fp32 masters and AdamW moments on the
-   card: llama3.2-3b (3.61 B parameters), 6 steps of 2 x 2048 tokens, and
-   mamba2-130m (24 layers), 6 steps of 8 x 4096 tokens. The launch
-   counters are set to 0 just before each run and read just after: per
-   step, llama launches the flash forward 56 times (28 layers, twice with
-   remat) and its backward 28 times; mamba the SSD forward 48 times and
-   its backward 24 times. Prints each step's loss (all finite), step time,
+   card: llama3.2-3b (3.61 B parameters), 6 steps of 2 x 2048 tokens,
+   mamba2-130m (24 layers), 6 steps of 8 x 4096 tokens, and
+   granite-moe-3b-a800m, 6 steps of 2 x 2048. The launch counters are set
+   to 0 just before each run and read just after: per step, llama launches
+   the flash forward 56 times (28 layers, twice with remat) and its
+   backward 28 times; mamba the SSD forward 48 times and its backward 24
+   times; granite the flash forward 64 times and its backward 32. Prints
+   each step's loss (all finite; granite's moe_aux too), step time,
    tokens/s, MFU, peak memory and TALP's train_loop numbers, then traces
    one more step with ``torch.profiler``: its kernel time over the
    train_loop's wall per step is the busy share TALP's train_loop device
-   PE must match within PE_BOUND.
-7. TALP flags phase: llama3.2-3b serving as in the serve phase, four
+   PE must match within PE_BOUND. For granite one more step is traced with
+   CPU activity too, for the MoE's device time by part (routing,
+   dispatch/combine, expert products; ``moe_step_breakdown``).
+7. Checkpoint and restart phase: mamba2-130m training at full width (8 x
+   4096, 6 steps) uninterrupted, then with a checkpoint every 3 steps and
+   a failure injected before step 4 under ``run_with_restarts``: every
+   step's loss and grad norm and the final state held to the
+   uninterrupted run's (bit for bit, else within TOL[fp32], the largest
+   difference printed), the restarted run's launches counted; one more
+   save timed (its synchronous part, the writer, the bytes) and restored
+   onto the card bit for bit against its host snapshot; TALP's train_loop
+   host PE with its MPI child (the save's synchronous part).
+8. TALP flags phase: llama3.2-3b serving as in the serve phase, four
    times in turns: plain, with every runtime output of TALP (the
    ``--talp-*`` flags but the fault plan: step series of 64 decode steps,
    watchdog and its anomaly log, Chrome trace, JSONL stream, Prometheus on
@@ -117,7 +136,7 @@
    the spool's one-rank job report, CE in (0, 1] and the step rows' mean
    device PE within PE_BOUND of the profiler's busy share of a decode
    step (the profile phase's kernel time over the rows' mean wall).
-8. Fleet phase: two ``python -m repro_torch.launch.train`` processes on the
+9. Fleet phase: two ``python -m repro_torch.launch.train`` processes on the
    one card, ranks 0 and 1 of mamba2-130m training at full width (global
    batch 8 x 4096, 4 x 4096 each, 6 steps), one spool, a step series,
    the watchdog and a sample every 3 steps. Both must exit 0, each
@@ -126,7 +145,7 @@
    payloads, with two host-state rows; each rank's CE in (0, 1]; 6 step
    rows per rank. Prints each rank's step time, peak memory and device
    PE, and the job's host Load Balance and PE.
-9. Prints one JSON line with every kernel's numbers, then, as the last
+10. Prints one JSON line with every kernel's numbers, then, as the last
    line, ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -221,6 +240,10 @@ SWEEP_D80 = [
     (1, 384, 384, 4, 2, 80, 100, 50.0, torch.bfloat16),
 ]
 ZAMBA_PREFILL = (8, 4096, 4096, 32, 32, 80, None, None, torch.bfloat16)
+# Head dim 64 at a model's shapes: the serving prefill of
+# granite-moe-3b-a800m (1536 / 24 heads, GQA 3:1) and, below, its training
+# shape.
+GRANITE_PREFILL = (8, 1024, 1024, 24, 8, 64, None, None, torch.bfloat16)
 
 # (B, L, H, P, G, N, chunk, dtype, with_state): the rows of
 # tests/test_kernels.py::SSD_SWEEP (no initial state, as the TPU kernel),
@@ -524,7 +547,7 @@ def kernel_phase(device: torch.device) -> dict:
         return mk(b, s, h, d), mk(b, t, k, d), mk(b, t, k, d)
 
     errs = {}
-    rows = SWEEP + SWEEP_D80 + [PREFILL, ZAMBA_PREFILL]
+    rows = SWEEP + SWEEP_D80 + [PREFILL, ZAMBA_PREFILL, GRANITE_PREFILL]
     for i, row in enumerate(rows):
         b, s, t, h, k, d, window, softcap, dtype = row
         q, kk, vv = inputs(i, b, s, t, h, k, d, dtype)
@@ -556,6 +579,8 @@ def kernel_phase(device: torch.device) -> dict:
     llama = flash_timing(device, PREFILL, inputs, plain_by_request=False)
     zamba = flash_timing(device, ZAMBA_PREFILL, inputs,
                          plain_by_request=True)
+    granite = flash_timing(device, GRANITE_PREFILL, inputs,
+                           plain_by_request=False)
     return {
         "name": "flash_attention_fwd",
         "route": "cuda",
@@ -576,6 +601,8 @@ def kernel_phase(device: torch.device) -> dict:
         "zamba2_prefill_shape": {**zamba,
                                  "max_abs_err": errs[ZAMBA_PREFILL],
                                  "plain": "one request at a time"},
+        "granite_prefill_shape": {**granite,
+                                  "max_abs_err": errs[GRANITE_PREFILL]},
         "note": "writes the row log-sum-exp, fp32 (B, H, S), when asked "
                 "(training); serving passes a null pointer, as timed here",
     }
@@ -584,6 +611,8 @@ def kernel_phase(device: torch.device) -> dict:
 # The training shape of llama3.2-3b (global batch 2 x 2048 tokens), where
 # the backward runs on the main path.
 TRAIN_ATTN = (2, 2048, 2048, 24, 8, 128, None, None, torch.bfloat16)
+# ... and of granite-moe-3b-a800m (head dim 64).
+GRANITE_TRAIN_ATTN = (2, 2048, 2048, 24, 8, 64, None, None, torch.bfloat16)
 
 
 def attention_backward_work(b, s, t, h, k, d, window, dtype):
@@ -619,7 +648,8 @@ def backward_phase(device: torch.device) -> dict:
     TOL[bf16] on each gradient divided by the reference gradient's
     max-abs. A second backward run must be bit-identical. Times (kernel vs
     the backward of scaled_dot_product_attention, in turns) at the
-    training shape and at the serving prefill shape."""
+    training shape, at the serving prefill shape and at granite's training
+    shape (head dim 64)."""
     from repro_torch.kernels.flash_attention import kernel, ref
 
     def inputs(i, b, s, t, h, k, d, dtype):
@@ -636,8 +666,8 @@ def backward_phase(device: torch.device) -> dict:
         torch.testing.assert_close(got, want, rtol=TOL[dtype], atol=TOL[dtype])
         return (got - want).abs().max().item()
 
-    train_err = train_o_err = None
-    for i, row in enumerate(SWEEP + [TRAIN_ATTN]):
+    train_errs = {}
+    for i, row in enumerate(SWEEP + [TRAIN_ATTN, GRANITE_TRAIN_ATTN]):
         b, s, t, h, k, d, window, softcap, dtype = row
         cfg = dict(causal=True, window=window, softcap=softcap)
         q, kk, vv, do = inputs(i, b, s, t, h, k, d, dtype)
@@ -669,12 +699,13 @@ def backward_phase(device: torch.device) -> dict:
               f"(tol {TOL[dtype]}); forward o max_abs_err {o_err:.3e} (tol "
               f"{TOL[dtype]}), lse {lse_err:.3e} (tol {TOL[torch.float32]}); "
               f"rerun bit-identical")
-        if row is TRAIN_ATTN:
-            train_err, train_o_err = max(errs + errs_ag), o_err
+        if row in (TRAIN_ATTN, GRANITE_TRAIN_ATTN):
+            train_errs[row] = (max(errs + errs_ag), o_err)
         del q, kk, vv, do, o, o_want, lse, got, again, plain, up, leaves
 
     timings = {}
-    for label, row in (("train", TRAIN_ATTN), ("prefill", PREFILL)):
+    for label, row in (("train", TRAIN_ATTN), ("prefill", PREFILL),
+                       ("granite train", GRANITE_TRAIN_ATTN)):
         b, s, t, h, k, d, window, softcap, dtype = row
         q, kk, vv, do = inputs(99, b, s, t, h, k, d, dtype)
         o, lse = kernel.flash_attention(q, kk, vv, return_lse=True)
@@ -723,6 +754,8 @@ def backward_phase(device: torch.device) -> dict:
         del q, kk, vv, do, o, lse, qt, kt, vt, dot, out
 
     tr = timings["train"]
+    train_err, train_o_err = train_errs[TRAIN_ATTN]
+    granite_err, granite_o_err = train_errs[GRANITE_TRAIN_ATTN]
     return {
         "name": "flash_attention_bwd",
         "route": "cuda",
@@ -747,6 +780,10 @@ def backward_phase(device: torch.device) -> dict:
         "shape": "B2 S2048 T2048 H24 K8 D128 bf16 causal (three launches: "
                  "Delta, dK/dV and dQ, both on wgmma fed by TMA)",
         "prefill_shape_ms": timings["prefill"],
+        "granite_train_shape": {
+            **timings["granite train"], "max_abs_err": granite_err,
+            "forward_o_max_abs_err": granite_o_err,
+            "shape": "B2 S2048 T2048 H24 K8 D64 bf16 causal"},
     }
 
 
@@ -1190,6 +1227,95 @@ def zamba_path_check(device: torch.device) -> None:
     torch.testing.assert_close(outs[1], outs[0], rtol=0.15, atol=0.15)
 
 
+def granite_path_check(device: torch.device) -> None:
+    """The MoE model path on the card against the same path on the CPU
+    (plain attention), on a small input: smoke_config("granite-moe-3b-a800m")
+    (two layers, 4 experts of 64, top-2, 44 dead expert slots) with head
+    dim 64, so that the flash forward runs (the smoke 16 is no head dim the
+    kernel takes), and granite's own capacity factor 1.25, so that tokens
+    are dropped; a 2 x 300 prompt (600 tokens: groups of 60, the largest
+    divisor of 600 under the 64 of the config), then 4 decode steps, the
+    same weights on both. Each run's launches are counted as in
+    zamba_path_check: the flash forward once per layer in the prefill.
+
+    fp32: every (token, k) goes to the same expert and capacity slot on
+    both (the routing of every MoE call, read through ``moe.route``), some
+    are dropped, and the logits agree within TOL[fp32].
+    bf16: prints the share of (token, layer) routings (a token's experts
+    and slots in one layer) that agree, and of its experts alone, and holds
+    the logits to 0.15, the bf16 tolerance of tests/test_torch_lm.py. The
+    bf16 router logits tie or nearly tie often (8 bits of mantissa), so
+    the card's and the CPU's roundings pick different experts for some
+    tokens, and every later token of the group routed to those experts
+    then takes another capacity slot: the routings are printed, and the
+    logits, which carry the flips' effect, are what is held."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import lm, moe
+
+    counters = launch_counters()
+    for cdt in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(smoke_config("granite-moe-3b-a800m"),
+                                  head_dim=64, capacity_factor=1.25,
+                                  compute_dtype=cdt)
+        dtype = getattr(torch, cdt)
+        gen = torch.Generator().manual_seed(10)
+        cpu_params = lm.init_params(cfg, gen, device="cpu", dtype=dtype)
+        toks = torch.randint(0, cfg.vocab_size, (2, 304), generator=gen,
+                             dtype=torch.int32)
+        outs, routes = [], []
+        for dev in (torch.device("cpu"), device):
+            params = lm.tree_map(lambda x: x.to(dev), cpu_params)
+            seen, real = [], moe.route
+
+            def spy(cfg_, router, xg):
+                out = real(cfg_, router, xg)
+                seen.append((out[2].cpu(), out[4].cpu()))
+                return out
+
+            before = {n: w.launches for n, w in counters.items()}
+            with torch.inference_mode(), mock.patch.object(moe, "route", spy):
+                logits, caches, pos = lm.prefill(cfg, params,
+                                                 toks[:, :300].to(dev))
+                caches = lm.grow_caches(cfg, caches, 304)
+                seq = [logits]
+                for t in range(300, 304):
+                    logits, caches, pos = lm.decode_step(
+                        cfg, params, toks[:, t:t + 1].to(dev), pos, caches)
+                    seq.append(logits)
+            launches = {n: w.launches - before[n] for n, w in counters.items()}
+            want = {n: 0 for n in counters}
+            if dev.type == "cuda":
+                want["flash_attention_fwd"] = cfg.num_layers
+            assert launches == want, (dev, launches, want)
+            outs.append(torch.stack(seq).float().cpu())
+            routes.append(seen)
+        assert torch.isfinite(outs[1]).all(), "non-finite logits on the card"
+        assert len(routes[0]) == len(routes[1]) == 5 * cfg.num_layers
+        # (token, layer) routings: a token's k experts (and slots), per call
+        same = same_experts = total = 0
+        for (ei, si), (ej, sj) in zip(*routes):
+            experts = (ei == ej).all(-1)
+            agree = experts & (si == sj).all(-1)
+            same, total = same + int(agree.sum()), total + agree.numel()
+            same_experts += int(experts.sum())
+        c = moe.moe_capacity(cfg, 60)
+        dropped = int(sum((s >= c).sum() for _, s in routes[0][:cfg.num_layers]))
+        err = (outs[0] - outs[1]).abs().max().item()
+        tol = TOL[torch.float32] if cdt == "float32" else 0.15
+        print(f"[path] granite-moe smoke {cdt} (D 64, 4 experts top-2, "
+              f"capacity factor 1.25: capacity {c} in groups of 60, "
+              f"{dropped} of {2 * 300 * 2 * cfg.num_layers} prefill "
+              f"assignments dropped on the CPU), prefill 300 + 4 decode "
+              f"steps: (token, layer) routings equal on card and CPU "
+              f"{same} of {total} ({same / total:.4f}; the experts alone "
+              f"{same_experts / total:.4f}); logits card vs CPU "
+              f"max_abs_err={err:.3e} (rtol=atol={tol})")
+        assert dropped > 0, "no token dropped: the check shows nothing"
+        if cdt == "float32":
+            assert same == total, "the card routes otherwise than the CPU"
+        torch.testing.assert_close(outs[1], outs[0], rtol=tol, atol=tol)
+
+
 def talp_backend_check(device: torch.device) -> None:
     """TALP's device records on the card (CUPTI activity read by
     repro_torch.core.backends.cuda_runtime.CuptiActivity). The clock: a
@@ -1424,6 +1550,7 @@ SERVE = [
     ("llama3.2-3b", 8, 1024, 64, {"flash_attention_fwd": 28}),
     ("mamba2-130m", 8, 4096, 64, {"ssd_fwd": 24}),
     ("zamba2-2.7b", 8, 4096, 64, {"flash_attention_fwd": 9, "ssd_fwd": 45}),
+    ("granite-moe-3b-a800m", 8, 1024, 64, {"flash_attention_fwd": 32}),
 ]
 
 
@@ -1504,6 +1631,8 @@ TRAIN = [
     ("llama3.2-3b", 6, 2, 2048, 3e-4, 2,
      {"flash_attention_fwd": 56, "flash_attention_bwd": 28}),
     ("mamba2-130m", 6, 8, 4096, 3e-4, 2, {"ssd_fwd": 48, "ssd_bwd": 24}),
+    ("granite-moe-3b-a800m", 6, 2, 2048, 3e-4, 2,
+     {"flash_attention_fwd": 64, "flash_attention_bwd": 32}),
 ]
 
 
@@ -1544,8 +1673,11 @@ def train_phase(device: torch.device, arch: str, steps: int, batch: int,
     losses = [h["loss"] for h in history]
     assert len(history) == steps and all(map(math.isfinite, losses)), losses
     for h in history:
+        aux = f", moe_aux {h['moe_aux']:.6f}" if "moe_aux" in h else ""
         print(f"[train] step {h['step']}: loss {h['loss']:.6f}, grad norm "
-              f"{h['grad_norm']:.6f}, {h['time_s'] * 1e3:.3f} ms")
+              f"{h['grad_norm']:.6f}{aux}, {h['time_s'] * 1e3:.3f} ms")
+    if cfg.is_moe:
+        assert all(math.isfinite(h["moe_aux"]) for h in history), history
     step_s = statistics.median([h["time_s"] for h in history[1:5]])
     tokens = batch * seq
     flops = model_flops(cfg, ShapeConfig("train", seq, batch, "train"))
@@ -1612,6 +1744,8 @@ def train_phase(device: torch.device, arch: str, steps: int, batch: int,
         compare_pe(f"{arch} train_loop vs the traced step",
                    loop.device.parallel_efficiency, loop.elapsed / steps,
                    union)
+    if cfg.is_moe:
+        state, _ = moe_step_breakdown(lambda: step_fn(state, b), union)
     # the AdamW update alone (CUDA events around it; bf16 copies of the
     # parameters stand in for the gradients)
     grads = lm.tree_map(lambda x: x.to(torch.bfloat16), state["params"])
@@ -1626,6 +1760,103 @@ def train_phase(device: torch.device, arch: str, steps: int, batch: int,
     print(f"[train] AdamW update alone: {statistics.median(times):.3f} ms "
           f"(median of 3, CUDA events) of the {step_s * 1e3:.3f} ms step")
     del state, b, grads
+
+
+# The MoE's parts, by the functions of repro_torch.models.moe a traced step
+# wraps in profiler ranges; the rest of moe_forward (applying dispatch and
+# combine, the aux loss) counts as dispatch/combine.
+MOE_PARTS = (("route", "routing"), ("dispatch_tensors", "dispatch/combine"),
+             ("expert_ffn", "expert products"))
+
+
+def moe_step_breakdown(step, busy_s):
+    """The MoE's device time in one training step: ``step`` traced by
+    ``torch.profiler`` (CPU and CUDA activity) with its routing
+    (``moe.route``), dispatch and combine (``moe.dispatch_tensors`` and the
+    rest of ``moe.moe_forward``) and expert products (``moe.expert_ffn``)
+    in ranges, and each checkpointed repeat in one more. Every kernel goes
+    to the innermost range around the op that launched it (the forward,
+    and remat's recompute, which runs inside the backward); a backward
+    op's kernels go to the part whose forward op made its autograd node
+    (the same sequence number, on the forward's thread). ``busy_s`` is the
+    traced step's kernel time (seconds), for the shares. Returns the
+    step's result."""
+    from repro_torch.models import lm, moe
+
+    def ranged(name, fn):
+        def wrapped(*args, **kwargs):
+            with torch.profiler.record_function(name):
+                return fn(*args, **kwargs)
+        return wrapped
+
+    patches = [mock.patch.object(moe, fn, ranged(f"moe.{fn}",
+                                                 getattr(moe, fn)))
+               for fn, _ in MOE_PARTS]
+    patches += [mock.patch.object(lm, "moe_forward",
+                                  ranged("moe", lm.moe_forward)),
+                mock.patch.object(lm, "_remat_repeat",
+                                  ranged("repeat", lm._remat_repeat))]
+    part = {f"moe.{fn}": label for fn, label in MOE_PARTS}
+    part.update({"moe": "dispatch/combine", "repeat": None})
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for p in patches:
+        p.start()
+    try:
+        with torch.profiler.profile(activities=acts) as prof:
+            out = step()
+            torch.cuda.synchronize()
+    finally:
+        for p in patches:
+            p.stop()
+    events = prof.events()
+    self_dev = lambda e: getattr(  # noqa: E731
+        e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
+
+    def owner(e):
+        """(part or None, "fwd" | "bwd" | None) of an op."""
+        while e is not None:
+            if e.name in part:
+                return part[e.name], "fwd"
+            if e.name.startswith("autograd::engine::evaluate_function"):
+                return forward_part.get((e.fwd_thread, e.sequence_nr)), "bwd"
+            e = e.cpu_parent
+        return None, None
+
+    forward_part = {}
+    for e in events:
+        if e.sequence_nr >= 0 and not e.name.startswith("autograd::"):
+            label, kind = owner(e)
+            if kind == "fwd" and label is not None:
+                forward_part[(e.thread, e.sequence_nr)] = label
+    ms: dict = {}
+    total = 0.0
+    cpu = torch.autograd.DeviceType.CPU
+    for e in events:
+        # an op's self device time is its kernels'; the kernels' own
+        # events would count them twice
+        if e.device_type != cpu:
+            continue
+        t = self_dev(e) * 1e-3
+        if t <= 0:
+            continue
+        total += t
+        label, kind = owner(e)
+        if label is not None:
+            ms[(label, kind)] = ms.get((label, kind), 0.0) + t
+    moe_ms = sum(ms.values())
+    if total <= 0:
+        print("[moe] the traced step shows no device time by op here, so "
+              "the MoE's share is not measured")
+        return out
+    print(f"[moe] granite train step, MoE device time {moe_ms:.3f} ms of "
+          f"{total:.3f} ms of kernel time attributed to ops "
+          f"({moe_ms / total:.4f}; the step's kernels were busy "
+          f"{busy_s * 1e3:.3f} ms in the CUDA-only trace): " + ", ".join(
+              f"{label} {ms.get((label, 'fwd'), 0.0):.3f} forward (with "
+              f"remat's recompute) + {ms.get((label, 'bwd'), 0.0):.3f} "
+              f"backward ms" for _, label in MOE_PARTS))
+    return out
 
 
 # Kernel-name patterns by group, for the train step's device time.
@@ -1783,6 +2014,161 @@ def compare_pe(label: str, talp_pe: float, wall: float, kernel) -> None:
           f"{kernel * 1e3:.3f} ms per call, busy share {busy:.4f} of that "
           f"wall; difference {talp_pe - busy:+.4f} (bound {PE_BOUND})")
     assert abs(talp_pe - busy) <= PE_BOUND, (label, talp_pe, busy)
+
+
+# (arch, steps, global batch, sequence length, checkpoint every, the step
+# before which the first attempt fails, the launches of each kernel per
+# training step): the checkpoint and restart phase, at mamba2-130m's full
+# width (a 2.0 GB train state; a granite or llama state is 43-48 GB).
+CHECKPOINT_RUN = ("mamba2-130m", 6, 8, 4096, 3, 4,
+                  {"ssd_fwd": 48, "ssd_bwd": 24})
+
+
+def _max_diff(got, want) -> float:
+    return (got.double() - want.double()).abs().max().item()
+
+
+def checkpoint_phase(device: torch.device, records: dict) -> None:
+    """Checkpoint and restart through the port's trainer at full width:
+    ``train`` uninterrupted (6 steps), then under ``run_with_restarts``
+    with ``ckpt_every`` 3 and a failure injected before step 4: the second
+    attempt restores step_2 (written by the first) and runs steps 3-5. Every
+    step of both attempts (loss and grad norm, read from the step function's
+    metrics) and the final state (parameters, moments, counts) are held
+    against the uninterrupted run's: bit for bit where they are equal, else
+    the largest difference is printed and held to TOL[fp32]. The restarted
+    run's launches are counted (set to 0 just before, read just after: the
+    7 steps it ran). Then one more save of the final state by a
+    CheckpointManager (its synchronous part, the host snapshot, and the
+    writer thread's seconds, and the bytes), restored onto the card and held
+    bit for bit against a host snapshot of the state it was written from;
+    and TALP's train_loop host PE of the resumed run with its MPI child (the
+    save's synchronous part runs in the trainer's ``mpi()`` state). All in a
+    temporary directory, removed at the end."""
+    from repro_torch.checkpoint import CheckpointManager, checkpointer
+    from repro_torch.checkpoint.manager import host_snapshot
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.steps import train_state_devices
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.runtime import run_with_restarts
+
+    arch, steps, batch, seq, every, fail, per_step = CHECKPOINT_RUN
+    cfg = get_config(arch)
+    kw = dict(steps=steps, global_batch=batch, seq_len=seq, seed=0,
+              opt_cfg=AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=steps),
+              verbose=False, device=device)
+    tmp = Path(tempfile.mkdtemp(prefix="talp_ckpt_"))
+    try:
+        t0 = time.perf_counter()
+        full, h_full, _ = train_mod.train(cfg, **kw)
+        full_s = time.perf_counter() - t0
+
+        # every step the restarted run takes: (step, metrics), in order
+        taken = []
+        real = train_mod.make_train_step
+
+        def recording(cfg_, opt_):
+            fn = real(cfg_, opt_)
+
+            def step(state, batch_):
+                taken.append((int(state["step"]), None))
+                new, metrics = fn(state, batch_)
+                taken[-1] = (taken[-1][0], metrics)
+                return new, metrics
+            return step
+
+        runs, errors = [], []
+        counters = launch_counters()
+        for wrapper in counters.values():
+            wrapper.launches = 0
+        t0 = time.perf_counter()
+        with mock.patch.object(train_mod, "make_train_step", recording):
+            report = run_with_restarts(
+                lambda i: runs.append(train_mod.train(
+                    cfg, ckpt_dir=str(tmp / "run"), ckpt_every=every,
+                    fail_at_step=fail if i == 0 else None, **kw)),
+                max_restarts=1,
+                on_restart=lambda i, e: errors.append(str(e)))
+        restart_s = time.perf_counter() - t0
+        launches = {name: w.launches for name, w in counters.items()}
+        ran = [i for i, _ in taken]
+        assert report.restarts == 1 and len(runs) == 1, report
+        assert f"injected failure at step {fail}" in errors[0], errors
+        assert ran == list(range(fail)) + list(range(every, steps)), ran
+        want = {name: per_step.get(name, 0) * len(ran) for name in counters}
+        assert launches == want, (launches, want)
+        add_path_launches(records, f"train {arch} with a restart "
+                                   f"({len(ran)} steps)", launches)
+        state, h_res, result = runs[0]
+        assert [h["step"] for h in h_res] == list(range(every, steps))
+
+        diffs = []
+        for i, metrics in taken:
+            for key in ("loss", "grad_norm"):
+                got, want_v = float(metrics[key]), h_full[i][key]
+                assert math.isfinite(got), (i, key, got)
+                diffs.append(abs(got - want_v))
+        full_leaves = dict(checkpointer.flatten_with_keys(full))
+        state_diff = max(_max_diff(leaf, full_leaves[key]) for key, leaf in
+                         checkpointer.flatten_with_keys(state))
+        print(f"[ckpt] {arch} full width, global batch {batch} x {seq}, "
+              f"{steps} steps: uninterrupted {full_s:.2f} s; with a "
+              f"checkpoint every {every} and a failure before step {fail}: "
+              f"{report.restarts} restart, steps {ran}, {restart_s:.2f} s; "
+              f"launches {launches}; loss and grad norm of every step vs the "
+              f"uninterrupted run: largest difference {max(diffs):.3e}"
+              f"{' (bit-identical)' if max(diffs) == 0 else ''}; final "
+              f"params, moments and counts: largest difference "
+              f"{state_diff:.3e}"
+              f"{' (bit-identical)' if state_diff == 0 else ''} "
+              f"(held to {TOL[torch.float32]} where not equal); on disk "
+              f"{sorted(os.listdir(tmp / 'run'))}")
+        assert max(diffs) <= TOL[torch.float32], diffs
+        assert state_diff <= TOL[torch.float32], state_diff
+        del full, full_leaves
+
+        loop = result.regions["train_loop"]
+        loop.host.validate(tol=1e-6)
+        hs = loop.host_states[0]
+        assert hs["mpi"] > 0, hs
+        print(f"[talp] {arch} resumed train_loop (steps {every}-{steps - 1}, "
+              f"one save in it): Host PE {loop.host.parallel_efficiency:.4f}"
+              f", MPI PE {loop.host.mpi_parallel_efficiency:.4f} (useful "
+              f"{hs['useful']:.6f} s, offload {hs['offload']:.6f} s, mpi "
+              f"{hs['mpi']:.6f} s), Offload Eff. "
+              f"{loop.host.device_offload_efficiency:.4f}")
+
+        # one more save, timed, and its restore onto the card
+        snap = host_snapshot(state)
+        manager = CheckpointManager(str(tmp / "timed"))
+        t0 = time.perf_counter()
+        manager.save(steps - 1, state)
+        sync_s = time.perf_counter() - t0
+        manager.wait()
+        write_s = time.perf_counter() - t0 - sync_s
+        files = list((tmp / "timed" / f"step_{steps - 1}").iterdir())
+        nbytes = sum(f.stat().st_size for f in files)
+        t0 = time.perf_counter()
+        restored = checkpointer.restore_checkpoint(
+            str(tmp / "timed"), steps - 1, state,
+            train_state_devices(state, device))
+        torch.cuda.synchronize(device)
+        restore_s = time.perf_counter() - t0
+        snap_leaves = dict(checkpointer.flatten_with_keys(snap))
+        for key, leaf in checkpointer.flatten_with_keys(restored):
+            assert leaf.device.type == ("cuda" if leaf.is_floating_point()
+                                        else "cpu"), key
+            assert torch.equal(leaf.cpu(), snap_leaves[key]), key
+        print(f"[ckpt] save of the {arch} train state: synchronous part (the "
+              f"host snapshot) {sync_s:.3f} s, writer thread {write_s:.3f} s,"
+              f" {nbytes / 1e9:.3f} GB in {len(files)} files "
+              f"({nbytes / 1e9 / max(write_s, 1e-9):.2f} GB/s); restore onto "
+              f"the card {restore_s:.3f} s, bit-identical to the host "
+              f"snapshot it was written from")
+        del state, snap, restored
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 # (arch, requests, prompt tokens, generated tokens, decode steps a sample):
@@ -2131,6 +2517,7 @@ def main() -> int:
     path_check(device)
     mamba_path_check(device)
     zamba_path_check(device)
+    granite_path_check(device)
     train_path_check(device)
     mark("path checks")
     busy_by_arch = {}
@@ -2148,6 +2535,9 @@ def main() -> int:
         train_phase(device, *row, records)
         torch.cuda.empty_cache()
     mark("training")
+    checkpoint_phase(device, records)
+    torch.cuda.empty_cache()
+    mark("checkpoint and restart")
     talp_flags_phase(device, busy_by_arch[TALP_FLAGS_RUN[0]].get(
         "decode_step"), records)
     mark("TALP flags")

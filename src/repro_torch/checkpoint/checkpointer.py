@@ -1,0 +1,155 @@
+"""Checkpoint serialization: a tree of tensors ↔ a directory of ``.npy``
+files and a manifest. Port of ``repro.checkpoint.checkpointer``, with its
+layout byte for byte, so a checkpoint written by either package restores
+in the other.
+
+Layout (one checkpoint):
+    <dir>/step_<N>/
+        manifest.json       # {"step", "leaves": [{"key", "shape", "dtype"}]}
+        <leaf-key>.npy      # one file per leaf
+
+Leaves are taken in JAX's flatten order (dict keys sorted) and named by
+their path joined with ``__``. bfloat16 leaves are stored as ``uint16``
+views, with ``"bfloat16"`` in the manifest (NumPy has no bfloat16; the
+port goes through ``torch.int16`` views of the same bits). Writes are
+crash-safe: everything lands in ``step_<N>.tmp`` and is renamed once the
+manifest is fsynced, so a half-written checkpoint is never visible to
+``latest_step``. Restore places each leaf on the device its ``devices``
+entry names, where the JAX package takes shardings.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import re
+import shutil
+from typing import Any, Dict, Iterator, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+__all__ = ["save_checkpoint", "restore_checkpoint", "latest_step",
+           "list_steps", "flatten_with_keys"]
+
+_STEP_RE = re.compile(r"^step_(\d+)$")
+
+
+def flatten_with_keys(tree: Any, prefix: Tuple[str, ...] = ()
+                      ) -> Iterator[Tuple[str, Any]]:
+    """(key, leaf) of a nested dict in JAX's flatten order (keys sorted),
+    the key its path joined by ``__`` (``"root"`` for a bare leaf)."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from flatten_with_keys(tree[k], prefix + (str(k),))
+    else:
+        yield "__".join(prefix) or "root", tree
+
+
+def _unflatten_like(tree: Any, by_key: Dict[str, Any],
+                    prefix: Tuple[str, ...] = ()) -> Any:
+    """``tree``'s structure, in its own key order, with the leaf of each
+    path taken from ``by_key``."""
+    if isinstance(tree, dict):
+        return {k: _unflatten_like(v, by_key, prefix + (str(k),))
+                for k, v in tree.items()}
+    return by_key["__".join(prefix) or "root"]
+
+
+def _to_storable(t: torch.Tensor) -> Tuple[np.ndarray, str]:
+    t = t.detach().cpu().contiguous()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
+    arr = t.numpy()
+    return arr, arr.dtype.name
+
+
+def _from_storable(arr: np.ndarray, dtype_name: str) -> torch.Tensor:
+    if dtype_name == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
+
+
+def save_checkpoint(directory: str, step: int, state: Any) -> str:
+    """Write a checkpoint of ``state`` (a nested dict of tensors, on any
+    device); returns the final path."""
+    final = os.path.join(directory, f"step_{step}")
+    tmp = final + ".tmp"
+    if os.path.exists(tmp):
+        shutil.rmtree(tmp)
+    os.makedirs(tmp, exist_ok=True)
+
+    entries: List[Dict[str, Any]] = []
+    for key, leaf in flatten_with_keys(state):
+        arr, dtype_name = _to_storable(leaf)
+        np.save(os.path.join(tmp, key + ".npy"), arr)
+        entries.append({
+            "key": key,
+            "shape": list(arr.shape),
+            "dtype": dtype_name,
+        })
+    manifest = {"step": step, "leaves": entries}
+    mpath = os.path.join(tmp, "manifest.json")
+    with open(mpath, "w") as f:
+        json.dump(manifest, f)
+        f.flush()
+        os.fsync(f.fileno())
+    if os.path.exists(final):
+        shutil.rmtree(final)
+    os.replace(tmp, final)
+    return final
+
+
+def list_steps(directory: str) -> List[int]:
+    if not os.path.isdir(directory):
+        return []
+    steps = []
+    for name in os.listdir(directory):
+        m = _STEP_RE.match(name)
+        if m and os.path.exists(os.path.join(directory, name, "manifest.json")):
+            steps.append(int(m.group(1)))
+    return sorted(steps)
+
+
+def latest_step(directory: str) -> Optional[int]:
+    steps = list_steps(directory)
+    return steps[-1] if steps else None
+
+
+def restore_checkpoint(
+    directory: str,
+    step: int,
+    target: Any,
+    devices: Any = None,
+) -> Any:
+    """Load ``step`` into the structure of ``target`` (a nested dict of
+    tensors, which may lie on the meta device: only their shapes and
+    dtypes are read). With ``devices`` (a matching tree of devices), each
+    leaf is placed on its device; without, on the CPU. Raises ``KeyError``
+    for a leaf the checkpoint lacks and ``ValueError`` for a shape that
+    differs."""
+    path = os.path.join(directory, f"step_{step}")
+    with open(os.path.join(path, "manifest.json")) as f:
+        manifest = json.load(f)
+    available = {e["key"]: e for e in manifest["leaves"]}
+
+    leaves = list(flatten_with_keys(target))
+    places = ([d for _, d in flatten_with_keys(devices)]
+              if devices is not None else [None] * len(leaves))
+    if len(places) != len(leaves):
+        raise ValueError("devices tree does not match target tree")
+
+    out = {}
+    for (key, leaf), device in zip(leaves, places):
+        if key not in available:
+            raise KeyError(f"checkpoint {path} missing leaf {key}")
+        t = _from_storable(np.load(os.path.join(path, key + ".npy")),
+                           available[key]["dtype"])
+        want_shape = tuple(leaf.shape)
+        if tuple(t.shape) != want_shape:
+            raise ValueError(
+                f"{key}: checkpoint shape {tuple(t.shape)} != target "
+                f"{want_shape}"
+            )
+        out[key] = t.to(device=device or "cpu", dtype=leaf.dtype)
+    return _unflatten_like(target, out)

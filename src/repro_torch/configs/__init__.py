@@ -1,8 +1,8 @@
 """Architecture registry of the port, copied from ``repro.configs``.
 
-Three architectures are registered: ``llama3.2-3b``, ``mamba2-130m``
-and ``zamba2-2.7b``. The others come with the slices that port their
-blocks."""
+Four architectures are registered: ``llama3.2-3b``, ``mamba2-130m``,
+``zamba2-2.7b`` and ``granite-moe-3b-a800m``. The others come with the
+slices that port their blocks."""
 
 from .base import (
     ModelConfig,
@@ -15,7 +15,12 @@ from .base import (
 )
 
 # importing registers each config
-from . import llama3_2_3b, mamba2_130m, zamba2_2_7b  # noqa: F401
+from . import (  # noqa: F401
+    granite_moe_3b_a800m,
+    llama3_2_3b,
+    mamba2_130m,
+    zamba2_2_7b,
+)
 
 ALL_ARCHS = list_configs()
 

@@ -1,6 +1,7 @@
 """Step-function factories: training and serving. Port of
-``repro.launch.steps`` (``init_train_state``, ``make_train_step``,
-``make_prefill_step``, ``make_serve_step``, ``model_flops``)."""
+``repro.launch.steps`` (``init_train_state``, ``train_state_shapes``,
+``make_train_step``, ``make_prefill_step``, ``make_serve_step``,
+``model_flops``)."""
 
 from __future__ import annotations
 
@@ -14,6 +15,8 @@ from ..optim.adamw import AdamWConfig, adamw_update, init_opt_state
 
 __all__ = [
     "init_train_state",
+    "train_state_shapes",
+    "train_state_devices",
     "make_train_step",
     "make_prefill_step",
     "make_serve_step",
@@ -33,6 +36,22 @@ def init_train_state(cfg: ModelConfig, generator, device=None) -> Dict[str, Any]
         "opt": init_opt_state(params),
         "step": torch.zeros((), dtype=torch.int32),
     }
+
+
+def train_state_shapes(cfg: ModelConfig) -> Dict[str, Any]:
+    """The train state's tree with no memory: its float leaves on the meta
+    device (shapes and dtypes only), as ``lm.param_shapes`` builds the
+    parameters; a restore target for ``repro_torch.checkpoint``."""
+    return init_train_state(cfg, None, device="meta")
+
+
+def train_state_devices(state: Dict[str, Any], device) -> Dict[str, Any]:
+    """Where each leaf of a train state lives, as ``init_train_state``
+    places it: ``device`` for the float leaves (parameters and moments),
+    the CPU for the int32 step counts."""
+    return lm.tree_map(
+        lambda x: torch.device(device) if x.is_floating_point()
+        else torch.device("cpu"), state)
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig = AdamWConfig()):

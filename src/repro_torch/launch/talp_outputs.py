@@ -92,7 +92,8 @@ def talp_kwargs(args) -> dict:
 class TalpOutputs:
     """One driver run's monitor and its runtime outputs, as the JAX drivers
     build them: construct before the run, wrap each step in :meth:`step`,
-    call :meth:`sample` after each step and :meth:`finish` at the end.
+    call :meth:`sample` after each step and :meth:`finish` at the end, or
+    :meth:`abort` if the run raises.
 
     ``model_flops`` gives the useful FLOPs of one launch for the whole job;
     it is called only when a step series is on.
@@ -201,6 +202,19 @@ class TalpOutputs:
                 print(f"[talp sample] {tag} "
                       f"ranks={g.n_ranks} devices={g.n_devices} "
                       f"PE_host={g.host.parallel_efficiency:.3f}")
+
+    def abort(self) -> None:
+        """Release what a run that raised leaves open, writing no output:
+        the backend's device collection (one per process: the next run
+        opens its own), the exporter's server and stream, the watchdog's
+        log."""
+        backend = self.mon.backend
+        if backend is not None and getattr(backend, "enabled", False):
+            backend.stop()
+        if self.telemetry is not None:
+            self.telemetry.close()
+        if self.watchdog is not None:
+            self.watchdog.close()
 
     def finish(self, talp_json: Optional[str] = None,
                notes: Callable[[], None] = None):

@@ -6,6 +6,9 @@ Every step runs under TALP regions and states, as in the JAX trainer:
                      enqueueing every kernel of the step: forward,
                      backward and the AdamW update);
   * *Offload*      — ``backend.wait``, the host blocked on the card;
+  * *MPI*          — a checkpoint save's synchronous part (the host
+                     snapshot; a worker thread writes the files), where
+                     the JAX trainer counts it;
 and the paper's text/JSON report is emitted at exit and sampled every
 ``--talp-interval`` steps (TALP's online mode). On the card, device Kernel
 and Memory records come from CUPTI activity, one per kernel, memcpy and
@@ -29,8 +32,16 @@ and the job-level merge, fault injection;
 are what the JAX trainer makes of them: this process's shard of the
 synthetic data and its rank in the spool, with no collective (each
 process trains its own replica; sharding is not ported yet).
-Checkpointing (``--ckpt-dir``, ``--ckpt-every``) is not ported yet: the
-command line refuses it.
+
+Checkpoint and restart are those of the JAX trainer: with ``--ckpt-dir``
+the state (fp32 parameters, AdamW moments, step counts) is saved every
+``--ckpt-every`` steps and at the end in ``repro.checkpoint``'s layout
+(``repro_torch.checkpoint``), and a run that finds a checkpoint there
+resumes from the latest one instead of initialising, with the same
+batches (``batch_at(step)``) from the next step on; its history holds
+the steps it ran. A failure injected at ``fail_at_step`` (tests) raises
+before that step; :func:`repro_torch.runtime.run_with_restarts` is the
+restart loop around ``train``.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-3b \
@@ -39,6 +50,10 @@ Usage:
       --steps 6 --batch 8 --seq 4096
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-3b \
       --smoke --device cpu --steps 4 --batch 2 --seq 64
+  PYTHONPATH=src python -m repro_torch.launch.train \
+      --arch granite-moe-3b-a800m --steps 6 --batch 2 --seq 2048
+  PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-130m \
+      --steps 6 --batch 8 --seq 4096 --ckpt-dir /tmp/ckpt --ckpt-every 3
   # two ranks of one job, each on half the global batch, one spool
   PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-130m \
       --steps 6 --batch 8 --seq 4096 --rank 0 --world-size 2 \
@@ -58,6 +73,7 @@ import time
 import numpy as np
 import torch
 
+from ..checkpoint.manager import CheckpointManager
 from ..configs import ShapeConfig, get_config, list_configs, smoke_config
 from ..core.backends import CudaRuntimeBackend
 from ..data.pipeline import DataConfig, SyntheticTokenPipeline
@@ -67,16 +83,13 @@ from ..models import lm
 from ..optim.adamw import AdamWConfig
 from ..runtime.fault_tolerance import StragglerDetector
 from .serve import resolve_device
-from .steps import init_train_state, make_train_step, model_flops
+from .steps import (
+    init_train_state, make_train_step, model_flops, train_state_devices,
+    train_state_shapes,
+)
 from .talp_outputs import TalpOutputs, add_talp_arguments, talp_kwargs
 
-__all__ = ["UNPORTED_FLAGS", "check_trainable_on_card", "train", "main"]
-
-# Flags of the JAX trainer the port refuses, with what they wait for.
-UNPORTED_FLAGS = {
-    "--ckpt-dir": "checkpointing",
-    "--ckpt-every": "checkpointing",
-}
+__all__ = ["check_trainable_on_card", "train", "main"]
 
 
 def check_trainable_on_card(cfg) -> None:
@@ -96,9 +109,12 @@ def train(
     steps: int = 50,
     global_batch: int = 8,
     seq_len: int = 128,
+    ckpt_dir: str = None,
+    ckpt_every: int = 20,
     talp_interval: int = 0,
     talp_json: str = None,
     opt_cfg: AdamWConfig = None,
+    fail_at_step: int = None,   # failure injection (tests)
     seed: int = 0,
     verbose: bool = True,
     device="cuda",
@@ -119,7 +135,9 @@ def train(
     ``steps`` AdamW steps of ``global_batch`` synthetic sequences of
     ``seq_len`` tokens (this rank's ``global_batch / world_size`` of
     them). Returns (state, history, TalpResult); history holds one
-    {"step", "loss", "grad_norm", "time_s"} per step.
+    {"step", "loss", "grad_norm", "time_s"} per step this run took (with
+    ``ckpt_dir``, from the step after the latest checkpoint found there;
+    ``moe_aux`` too for an MoE model).
 
     The ``rank`` .. ``talp_fault_plan`` keywords are those of
     ``repro.launch.train.train``: each process of a job passes its
@@ -149,46 +167,76 @@ def train(
         process_index=rank, process_count=world_size,
     )
     step_fn = make_train_step(cfg, opt_cfg)
+    manager = CheckpointManager(ckpt_dir) if ckpt_dir else None
     detector = StragglerDetector()
-
-    with mon.region("init"):
-        gen = torch.Generator(device=dev).manual_seed(seed)
-        state = init_train_state(cfg, gen, device=dev)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-
     history = []
-    with mon.region("train_loop"):
-        for step in range(steps):
-            t0 = time.perf_counter()
-            with talp.step():
-                # host Useful: data synthesis and the copy to the card
-                batch = {k: torch.from_numpy(v).to(dev)
-                         for k, v in data.batch_at(step).items()}
-                # host Useful: enqueueing the step; Offload: the wait for
-                # the card
-                handle = backend.launch(step_fn, state, batch,
-                                        name="train_step")
-                with mon.offload():
-                    state, metrics = backend.wait(handle)
-            dt = time.perf_counter() - t0
-            detector.observe(step, dt)
-            history.append(
-                {"step": step, "loss": float(metrics["loss"]),
-                 "grad_norm": float(metrics["grad_norm"]), "time_s": dt}
-            )
-            if talp_interval and (step + 1) % talp_interval == 0 and verbose:
-                snap = mon.sample("train_loop")
-                print(f"[talp online] step {step} "
-                      f"PE_host={snap.host.parallel_efficiency:.3f} "
-                      f"OE={snap.host.device_offload_efficiency:.3f}")
-            talp.sample(step, f"step {step}")
-            if verbose and (step % 10 == 0 or step == steps - 1):
-                print(f"step {step:5d} loss {history[-1]['loss']:.4f} "
-                      f"({dt*1e3:.0f} ms)")
-                sys.stdout.flush()
+    try:
+        # --- init or resume ---------------------------------------------
+        start_step, state = 0, None
+        if manager is not None:
+            shapes = train_state_shapes(cfg)
+            state, start_step = manager.restore_latest(
+                shapes, train_state_devices(shapes, dev))
+        if state is None:
+            with mon.region("init"):
+                gen = torch.Generator(device=dev).manual_seed(seed)
+                state = init_train_state(cfg, gen, device=dev)
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
 
-    data.stop()
+        with mon.region("train_loop"):
+            for step in range(start_step, steps):
+                t0 = time.perf_counter()
+                if fail_at_step is not None and step == fail_at_step:
+                    raise RuntimeError(f"injected failure at step {step}")
+                with talp.step():
+                    # host Useful: data synthesis and the copy to the card
+                    batch = {k: torch.from_numpy(v).to(dev)
+                             for k, v in data.batch_at(step).items()}
+                    # host Useful: enqueueing the step; Offload: the wait
+                    # for the card
+                    handle = backend.launch(step_fn, state, batch,
+                                            name="train_step")
+                    with mon.offload():
+                        state, metrics = backend.wait(handle)
+                    if manager is not None and (step + 1) % ckpt_every == 0:
+                        # the host snapshot is synchronous, the file write
+                        # asynchronous
+                        with mon.mpi():   # control-plane barrier analogue
+                            manager.save(step, state)
+                dt = time.perf_counter() - t0
+                detector.observe(step, dt)
+                history.append(
+                    {"step": step, "loss": float(metrics["loss"]),
+                     "grad_norm": float(metrics["grad_norm"]), "time_s": dt}
+                )
+                if "moe_aux" in metrics:
+                    history[-1]["moe_aux"] = float(metrics["moe_aux"])
+                if talp_interval and (step + 1) % talp_interval == 0 \
+                        and verbose:
+                    snap = mon.sample("train_loop")
+                    print(f"[talp online] step {step} "
+                          f"PE_host={snap.host.parallel_efficiency:.3f} "
+                          f"OE={snap.host.device_offload_efficiency:.3f}")
+                talp.sample(step, f"step {step}")
+                if verbose and (step % 10 == 0 or step == steps - 1):
+                    print(f"step {step:5d} loss {history[-1]['loss']:.4f} "
+                          f"({dt*1e3:.0f} ms)")
+                    sys.stdout.flush()
+
+        if manager is not None:
+            manager.save(steps - 1, state)
+            manager.wait()
+    except BaseException:
+        # a restart in this process finds what this run wrote (an
+        # in-flight save is finished, its error secondary to this one) and
+        # no collection or server of this run left open
+        talp.abort()
+        if manager is not None:
+            manager.wait()
+        raise
+    finally:
+        data.stop()
 
     def stragglers():
         if detector.events:
@@ -206,6 +254,8 @@ def main(argv=None):
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=20)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--talp-interval", type=int, default=0)
     ap.add_argument("--talp-json", default=None)
@@ -213,15 +263,7 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu; cuda without a card fails")
     add_talp_arguments(ap, "step")
-    for flag in UNPORTED_FLAGS:
-        ap.add_argument(flag, nargs="?", const=True, default=None,
-                        help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
-    given = [flag for flag in UNPORTED_FLAGS
-             if getattr(args, flag[2:].replace("-", "_")) is not None]
-    if given:
-        ap.error("not ported yet: " + ", ".join(
-            f"{flag} ({UNPORTED_FLAGS[flag]})" for flag in given))
 
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
     _, history, _ = train(
@@ -229,6 +271,8 @@ def main(argv=None):
         steps=args.steps,
         global_batch=args.batch,
         seq_len=args.seq,
+        ckpt_dir=args.ckpt_dir,
+        ckpt_every=args.ckpt_every,
         talp_interval=args.talp_interval,
         talp_json=args.talp_json,
         seed=args.seed,

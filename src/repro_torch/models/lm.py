@@ -2,7 +2,9 @@
 ``repro.models.lm`` for the dense attention kinds (``attn``,
 ``attn_local``, ``attn_global``), the shared attention block
 (``shared_attn``, Zamba-2) and Mamba-2 blocks (``ssm``) with the token
-frontend.
+frontend, each attention block's feed-forward a dense SwiGLU or a top-k
+MoE (``models.moe``), whose load-balancing loss ``train_loss`` adds
+(``MOE_AUX_WEIGHT``).
 
 Parameters keep the JAX package's tree and layouts: ``slots/slot<i>``
 holds each pattern slot's block parameters stacked over repeats
@@ -15,9 +17,10 @@ blocks). The JAX
 ``lax.scan`` over repeats is a Python loop over layers here; with
 ``cfg.remat == "full"`` each repeat runs under activation checkpointing
 when gradients are taken, as the JAX scan body runs under
-``jax.checkpoint``.
+``jax.checkpoint``: the recomputed forward is the same computation on
+the same inputs, so an MoE layer routes as it did the first time.
 
-MoE, the precomputed-embedding frontend and M-RoPE raise
+The precomputed-embedding frontend and M-RoPE raise
 ``NotImplementedError``; they come with later slices.
 """
 
@@ -31,6 +34,7 @@ from torch.utils.checkpoint import checkpoint
 from .attention import attn_decode, attn_forward, init_attn_params
 from .common import chunked_softmax_xent, rms_norm, soft_cap, truncated_normal
 from .mlp import init_mlp_params, mlp_forward
+from .moe import init_moe_params, moe_forward
 from .ssm import init_ssm_params, ssm_decode, ssm_forward
 
 __all__ = [
@@ -42,7 +46,10 @@ __all__ = [
     "grow_caches",
     "decode_step",
     "train_loss",
+    "MOE_AUX_WEIGHT",
 ]
+
+MOE_AUX_WEIGHT = 0.01
 
 _KINDS = ("attn", "attn_local", "attn_global", "shared_attn", "ssm")
 
@@ -56,8 +63,6 @@ def check_supported(cfg) -> None:
         if kind not in _KINDS:
             raise NotImplementedError(
                 f"{cfg.name}: block kind {kind!r} is not ported yet")
-    if cfg.is_moe:
-        raise NotImplementedError(f"{cfg.name}: MoE is not ported yet")
     if cfg.frontend != "token":
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.frontend!r} frontend is not ported yet")
@@ -93,7 +98,10 @@ def _init_block(cfg, kind, generator, dtype, device) -> Dict[str, Any]:
         "ln1": torch.zeros((cfg.d_model,), dtype=dtype, device=device),
         "attn": init_attn_params(generator, cfg, dtype, device),
     }
-    if cfg.d_ff:
+    if cfg.is_moe:
+        p["ln2"] = torch.zeros((cfg.d_model,), dtype=dtype, device=device)
+        p["moe"] = init_moe_params(generator, cfg, dtype, device)
+    elif cfg.d_ff:
         p["ln2"] = torch.zeros((cfg.d_model,), dtype=dtype, device=device)
         p["mlp"] = init_mlp_params(generator, cfg, dtype, device)
     return p
@@ -157,26 +165,32 @@ def param_count(params) -> int:
 # ---------------------------------------------------------------------------
 # block application
 # ---------------------------------------------------------------------------
-def _ffn(cfg, bp, x):
+def _ffn(cfg, bp, x, aux):
+    """The feed-forward half of an attention block; ``aux`` accumulates
+    the MoE's load-balancing loss."""
+    if cfg.is_moe:
+        h = rms_norm(x, bp["ln2"])
+        y, a = moe_forward(cfg, bp["moe"], h)
+        return x + y, aux + a
     if cfg.d_ff:
         h = rms_norm(x, bp["ln2"])
-        return x + mlp_forward(bp["mlp"], h)
-    return x
+        return x + mlp_forward(bp["mlp"], h), aux
+    return x, aux
 
 
-def _block_fwd(cfg, kind, bp, x, positions, build_cache):
-    """Full-sequence application (prefill)."""
+def _block_fwd(cfg, kind, bp, x, positions, aux, build_cache):
+    """Full-sequence application (train / prefill): (x, aux, cache)."""
     if kind == "ssm":
         h = rms_norm(x, bp["ln"])
         if build_cache:
             y, cache = ssm_forward(cfg, bp["ssm"], h, build_cache=True)
-            return x + y, cache
-        return x + ssm_forward(cfg, bp["ssm"], h), None
+            return x + y, aux, cache
+        return x + ssm_forward(cfg, bp["ssm"], h), aux, None
     h = rms_norm(x, bp["ln1"])
     y, cache = attn_forward(cfg, bp["attn"], h, positions, kind,
                             build_cache=build_cache)
-    x = _ffn(cfg, bp, x + y)
-    return x, cache
+    x, aux = _ffn(cfg, bp, x + y, aux)
+    return x, aux, cache
 
 
 def _block_decode(cfg, kind, bp, x, pos, cache):
@@ -186,7 +200,8 @@ def _block_decode(cfg, kind, bp, x, pos, cache):
         return x + y, cache
     h = rms_norm(x, bp["ln1"])
     y, cache = attn_decode(cfg, bp["attn"], h, pos, cache, kind)
-    return _ffn(cfg, bp, x + y), cache
+    x, _ = _ffn(cfg, bp, x + y, 0.0)   # the aux loss is dropped
+    return x, cache
 
 
 # ---------------------------------------------------------------------------
@@ -203,19 +218,20 @@ def _unbind(tree, repeats: int) -> List[Dict[str, Any]]:
     return list(tree.unbind(0))
 
 
-def _repeat(cfg, layer, x, positions, build_cache):
+def _repeat(cfg, layer, x, aux, positions, build_cache):
     """One repeat of the block pattern (the JAX scan body)."""
     caches = {}
     for i, kind in enumerate(cfg.pattern):
         key = f"slot{i}"
-        x, cache = _block_fwd(cfg, kind, layer[key], x, positions, build_cache)
+        x, aux, cache = _block_fwd(cfg, kind, layer[key], x, positions, aux,
+                                   build_cache)
         if build_cache:
             caches[key] = cache
-    return x, caches
+    return x, aux, caches
 
 
-def _remat_repeat(cfg, x, layer, positions):
-    return _repeat(cfg, layer, x, positions, False)[0]
+def _remat_repeat(cfg, x, aux, layer, positions):
+    return _repeat(cfg, layer, x, aux, positions, False)[:2]
 
 
 def _layer_rows(cfg, params) -> List[Dict[str, Any]]:
@@ -230,15 +246,17 @@ def _layer_rows(cfg, params) -> List[Dict[str, Any]]:
 
 
 def _stack_fwd(cfg, params, x, positions, build_cache=False):
+    """(x, aux: the MoE loss summed over layers, fp32, caches)."""
     remat = (cfg.remat == "full" and torch.is_grad_enabled()
              and not build_cache)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     cache_rows: Dict[str, list] = {}
     for layer in _layer_rows(cfg, params):
         if remat:
-            x = checkpoint(_remat_repeat, cfg, x, layer, positions,
-                           use_reentrant=False)
+            x, aux = checkpoint(_remat_repeat, cfg, x, aux, layer, positions,
+                                use_reentrant=False)
             continue
-        x, caches = _repeat(cfg, layer, x, positions, build_cache)
+        x, aux, caches = _repeat(cfg, layer, x, aux, positions, build_cache)
         for key, cache in caches.items():
             cache_rows.setdefault(key, []).append(cache)
     caches = None
@@ -248,7 +266,7 @@ def _stack_fwd(cfg, params, x, positions, build_cache=False):
                   for name in per_layer[0]}
             for key, per_layer in cache_rows.items()
         }
-    return x, caches
+    return x, aux, caches
 
 
 def _stack_decode(cfg, params, x, pos, caches):
@@ -295,12 +313,16 @@ def _logits(cfg, params, h):
 def train_loss(cfg, params, batch) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """batch: {"inputs": (B, S) int tokens, "labels": (B, S) int, -1 =
     masked}. Returns (mean loss over unmasked labels, {"loss": the same,
-    detached, "tokens": their count}), both fp32."""
+    detached, "tokens": their count}), both fp32. An MoE model adds
+    ``MOE_AUX_WEIGHT`` times its load-balancing loss to the loss it returns
+    and reports that loss as ``metrics["moe_aux"]``; ``metrics["loss"]``
+    stays the cross-entropy, as in the JAX package."""
     check_supported(cfg)
     inputs, labels = batch["inputs"], batch["labels"]
     b, s = labels.shape
     x = _embed(cfg, params, inputs)
-    x, _ = _stack_fwd(cfg, params, x, _positions(cfg, b, s, labels.device))
+    x, aux, _ = _stack_fwd(cfg, params, x,
+                           _positions(cfg, b, s, labels.device))
     h = rms_norm(x, params["final_norm"])
     loss_sum, count = chunked_softmax_xent(
         h.reshape(-1, cfg.d_model),
@@ -310,7 +332,11 @@ def train_loss(cfg, params, batch) -> Tuple[torch.Tensor, Dict[str, Any]]:
         final_softcap=cfg.final_logit_softcap,
     )
     loss = loss_sum / torch.clamp_min(count, 1.0)
-    return loss, {"loss": loss.detach(), "tokens": count}
+    metrics = {"loss": loss.detach(), "tokens": count}
+    if cfg.is_moe:
+        metrics["moe_aux"] = aux.detach()
+        loss = loss + MOE_AUX_WEIGHT * aux
+    return loss, metrics
 
 
 def prefill(cfg, params, inputs) -> Tuple[torch.Tensor, Any, torch.Tensor]:
@@ -318,9 +344,9 @@ def prefill(cfg, params, inputs) -> Tuple[torch.Tensor, Any, torch.Tensor]:
     logits (B, V) fp32, stacked caches, pos (B,) = S)."""
     b, s = inputs.shape
     x = _embed(cfg, params, inputs)
-    x, caches = _stack_fwd(cfg, params, x,
-                           _positions(cfg, b, s, inputs.device),
-                           build_cache=True)
+    x, _, caches = _stack_fwd(cfg, params, x,
+                              _positions(cfg, b, s, inputs.device),
+                              build_cache=True)
     h = rms_norm(x[:, -1:], params["final_norm"])
     pos = torch.full((b,), s, dtype=torch.int32, device=inputs.device)
     return _logits(cfg, params, h)[:, 0], caches, pos

@@ -1,3 +1,9 @@
-from .fault_tolerance import StragglerDetector
+from .fault_tolerance import (
+    FaultToleranceReport,
+    Heartbeat,
+    StragglerDetector,
+    run_with_restarts,
+)
 
-__all__ = ["StragglerDetector"]
+__all__ = ["Heartbeat", "StragglerDetector", "run_with_restarts",
+           "FaultToleranceReport"]

@@ -817,3 +817,148 @@ def test_cuda_two_rank_training_job_report_equals_in_process_merge(
     job = (spool / "talp_job.json").read_text()
     assert job == to_json(gather.merge(name="train"))
     assert len(json.loads(job)["regions"]["Global"]["host_states"]) == 2
+
+
+# ---------------------------------------------------------------------------
+# MoE and checkpoint/restart on the card
+# ---------------------------------------------------------------------------
+def _granite_smoke(**change):
+    """smoke_config("granite-moe-3b-a800m") with head dim 64 (the smoke 16
+    is no head dim the flash kernels take) and granite's own capacity
+    factor, 1.25, at which tokens are dropped."""
+    import dataclasses
+
+    from repro_torch.configs import smoke_config
+
+    return dataclasses.replace(smoke_config("granite-moe-3b-a800m"),
+                               head_dim=64, capacity_factor=1.25, **change)
+
+
+def _routings(cfg, run):
+    """(result of ``run()``, each MoE call's (experts, capacity slots))."""
+    from unittest import mock
+
+    from repro_torch.models import moe
+
+    seen, real = [], moe.route
+
+    def spy(cfg_, router, xg):
+        out = real(cfg_, router, xg)
+        seen.append((out[2].cpu(), out[4].cpu()))
+        return out
+
+    with mock.patch.object(moe, "route", spy):
+        return run(), seen
+
+
+def test_cuda_granite_smoke_serving_routes_as_cpu(cuda):
+    """The MoE model in fp32 on the card (flash forward at D 64, the MoE's
+    einsums) against the CPU from the same weights: a 64-token prefill and
+    4 decode steps route every (token, k) to the same expert and capacity
+    slot, tokens are dropped, and the logits agree within fp32 _tol; the
+    flash forward runs once per layer in the prefill."""
+    from repro_torch.models import lm
+    from repro_torch.models.moe import moe_capacity
+
+    cfg = _granite_smoke(compute_dtype="float32")
+    gen = torch.Generator().manual_seed(11)
+    cpu_params = lm.init_params(cfg, gen, device="cpu")
+    toks = torch.randint(0, cfg.vocab_size, (2, 68), generator=gen,
+                         dtype=torch.int32)
+    outs, routes = [], []
+    for dev in (torch.device("cpu"), cuda):
+        params = lm.tree_map(lambda x: x.to(dev), cpu_params)
+        fwd = kernel.flash_attention.launches
+
+        def run():
+            with torch.inference_mode():
+                logits, caches, pos = lm.prefill(cfg, params,
+                                                 toks[:, :64].to(dev))
+                caches = lm.grow_caches(cfg, caches, 68)
+                seq = [logits]
+                for t in range(64, 68):
+                    logits, caches, pos = lm.decode_step(
+                        cfg, params, toks[:, t:t + 1].to(dev), pos, caches)
+                    seq.append(logits)
+            return torch.stack(seq).cpu()
+
+        out, seen = _routings(cfg, run)
+        assert kernel.flash_attention.launches - fwd == (
+            cfg.num_layers if dev.type == "cuda" else 0)
+        outs.append(out)
+        routes.append(seen)
+    assert len(routes[0]) == len(routes[1]) == 5 * cfg.num_layers
+    for (ei, si), (ej, sj) in zip(*routes):
+        assert torch.equal(ei, ej) and torch.equal(si, sj)
+    c = moe_capacity(cfg, 64)
+    assert any((s >= c).any() for _, s in routes[0][:cfg.num_layers])
+    torch.testing.assert_close(outs[1], outs[0], **_tol(torch.float32))
+
+
+def test_cuda_granite_train_step_matches_cpu(cuda):
+    """One fp32 make_train_step step of the MoE model on the card (both
+    flash kernels at D 64) against the CPU from the same state: loss, grad
+    norm and moe_aux within fp32 _tol."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokenPipeline
+    from repro_torch.launch.steps import init_train_state, make_train_step
+    from repro_torch.models import lm
+    from repro_torch.optim.adamw import AdamWConfig
+
+    cfg = _granite_smoke(compute_dtype="float32")
+    opt = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=2)
+    cpu = init_train_state(cfg, torch.Generator().manual_seed(3), "cpu")
+    gpu = lm.tree_map(
+        lambda x: x.to(cuda, copy=True) if x.dim() else x.clone(), cpu)
+    batch = SyntheticTokenPipeline(DataConfig(2, 64, cfg.vocab_size,
+                                              seed=4)).batch_at(0)
+    cpu_batch = {k: torch.from_numpy(v) for k, v in batch.items()}
+    bwd = kernel.flash_attention_backward.launches
+    _, m_gpu = make_train_step(cfg, opt)(
+        gpu, {k: v.to(cuda) for k, v in cpu_batch.items()})
+    torch.cuda.synchronize()
+    assert kernel.flash_attention_backward.launches == bwd + cfg.num_layers
+    _, m_cpu = make_train_step(cfg, opt)(cpu, cpu_batch)
+    for key in ("loss", "grad_norm", "moe_aux"):
+        torch.testing.assert_close(m_gpu[key].cpu(), m_cpu[key],
+                                   **_tol(torch.float32), msg=key)
+
+
+def test_cuda_resume_after_a_failure_is_bit_identical(cuda, tmp_path):
+    """The MoE smoke model trained on the card for 6 steps with a
+    checkpoint every 3 and a failure injected before step 4, restarted by
+    run_with_restarts (the failed run's CUPTI collection is closed, so the
+    second opens its own): the resumed steps' losses and grad norms and
+    the final state are bit-identical to an uninterrupted run's; a restored
+    checkpoint is bit-identical to the state it was written from, its float
+    leaves on the card and its counts on the CPU."""
+    from repro_torch.checkpoint import checkpointer
+    from repro_torch.launch.steps import train_state_devices
+    from repro_torch.launch.train import train
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.runtime import run_with_restarts
+
+    cfg = _granite_smoke()
+    kw = dict(steps=6, global_batch=2, seq_len=64, verbose=False,
+              opt_cfg=AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=6),
+              device=cuda)
+    full, h_full, _ = train(cfg, **kw)
+    runs = []
+    report = run_with_restarts(lambda i: runs.append(train(
+        cfg, ckpt_dir=str(tmp_path), ckpt_every=3,
+        fail_at_step=4 if i == 0 else None, **kw)), max_restarts=1)
+    assert report.restarts == 1
+    state, h_res, result = runs[0]
+    assert [h["step"] for h in h_res] == [3, 4, 5]
+    for got, want in zip(h_res, h_full[3:]):
+        assert (got["loss"], got["grad_norm"]) == (want["loss"],
+                                                   want["grad_norm"])
+    assert result.regions["train_loop"].device_states[0]["kernel"] > 0
+    got = dict(checkpointer.flatten_with_keys(state))
+    for key, want in checkpointer.flatten_with_keys(full):
+        assert torch.equal(got[key], want), key
+    restored = checkpointer.restore_checkpoint(
+        str(tmp_path), 5, state, train_state_devices(state, cuda))
+    for key, leaf in checkpointer.flatten_with_keys(restored):
+        assert leaf.device.type == ("cuda" if leaf.is_floating_point()
+                                    else "cpu"), key
+        assert torch.equal(leaf, got[key]), key

@@ -1,6 +1,7 @@
 """Import hygiene of the port: repro_torch and chip_smoke.py import
-neither JAX nor the JAX package ``repro`` — checked at run time in a
-fresh interpreter and statically over the sources."""
+neither JAX, nor ``ml_dtypes`` (JAX's bfloat16 for NumPy), nor the JAX
+package ``repro`` — checked at run time in a fresh interpreter and
+statically over the sources."""
 
 import ast
 import os
@@ -14,7 +15,7 @@ pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "src" / "repro_torch"
-FORBIDDEN = {"jax", "jaxlib", "repro"}
+FORBIDDEN = {"jax", "jaxlib", "ml_dtypes", "repro"}
 
 
 def _port_modules():

@@ -1,7 +1,8 @@
 """Slice parity: the port's serving path (prefill → grow_caches → greedy
 decode) against the JAX package's on smoke_config("llama3.2-3b"),
-smoke_config("mamba2-130m") and smoke_config("zamba2-2.7b"), with the
-JAX-initialised weights carried over by ``params_from_jax``. The mamba
+smoke_config("mamba2-130m"), smoke_config("zamba2-2.7b") and
+smoke_config("granite-moe-3b-a800m"), with the JAX-initialised weights
+carried over by ``params_from_jax``. The mamba
 and zamba2 prompts (16 tokens) are shorter than their ssm_chunk (32), so
 the SSD's ragged path runs; six decode steps, so a decode that dropped
 the SSM state it returns would show. zamba2's smoke config applies its
@@ -37,8 +38,10 @@ from torch_parity import configs, params, to_np, to_torch  # noqa: E402
 B, S, STEPS = 2, 16, 6
 
 
-def _run_both(dtype, own_greedy, arch="llama3.2-3b"):
+def _run_both(dtype, own_greedy, arch="llama3.2-3b", **change):
     jcfg, tcfg = configs(arch, compute_dtype=dtype)
+    jcfg = dataclasses.replace(jcfg, **change)
+    tcfg = dataclasses.replace(tcfg, **change)
     jp, tp = params(jcfg, tcfg, dtype=dtype)
     prompts = np.random.default_rng(0).integers(
         0, jcfg.vocab_size, (B, S)).astype(np.int32)
@@ -112,7 +115,6 @@ def test_full_config_shapes_match_jax_without_memory():
 
 @pytest.mark.parametrize("change", [
     dict(pattern=("attn", "cross_attn")),
-    dict(num_experts=4, num_experts_per_token=2, moe_d_ff=64),
     dict(frontend="embed"),
     dict(mrope_sections=(2, 3, 3)),
 ])
@@ -296,3 +298,76 @@ def test_zamba_full_config_shapes_match_jax_without_memory():
     left_out = 45 * (tcfg.ssm_conv * (d_in + 2 * tcfg.ssm_state)
                      + 3 * tcfg.ssm_heads + d_in - m) + m
     assert count - left_out == jcfg.n_params() == 2_062_366_720
+
+
+@pytest.mark.parametrize("capacity_factor", [8.0, 1.25])
+def test_granite_serving_path_fp32_matches_jax(capacity_factor):
+    """The MoE model's serving path: the smoke config's capacity factor 8
+    (no drop) and granite's own 1.25, at which a 32-token prefill group
+    has a capacity of 20 per expert and decode's 2-token group one of 4."""
+    jl, tl, jt, tt, jc, tc = _run_both("float32", own_greedy=True,
+                                       arch="granite-moe-3b-a800m",
+                                       capacity_factor=capacity_factor)
+    assert tl.shape == jl.shape == (STEPS + 1, B, 512)
+    np.testing.assert_allclose(tl, jl, rtol=1e-3, atol=1e-3)
+    np.testing.assert_array_equal(tt, jt)
+    for name in ("k", "v", "kv_pos", "hk", "hv", "h_pos"):
+        np.testing.assert_allclose(to_np(tc["slot0"][name]),
+                                   to_np(jc["slot0"][name]),
+                                   rtol=1e-3, atol=1e-3, err_msg=name)
+
+
+def test_granite_serving_path_bf16_matches_jax():
+    jl, tl, _, _, _, _ = _run_both("bfloat16", own_greedy=False,
+                                   arch="granite-moe-3b-a800m")
+    assert np.isfinite(tl).all()
+    np.testing.assert_allclose(tl, jl, rtol=0.15, atol=0.15)
+
+
+def test_granite_param_tree_and_count_match_jax():
+    """params_from_jax takes the MoE tree (``ln2`` and ``moe``: ``router``
+    over the logical experts, ``w_gate``/``w_up``/``w_down`` over the
+    physical slots, stacked over layers); the port's own draw has the same
+    tree and count, and a tree that lacks the MoE is refused."""
+    jcfg, tcfg = configs("granite-moe-3b-a800m")
+    jp, tp = params(jcfg, tcfg)
+    assert tlm.param_count(tp) == jlm.param_count(jp)
+    block = tp["slots"]["slot0"]
+    assert set(block) == {"ln1", "attn", "ln2", "moe"}
+    # the smoke config keeps the padding to 48 slots: 44 dead experts
+    assert tuple(block["moe"]["w_gate"].shape) == (2, 48, 64, 64)
+    assert tuple(block["moe"]["router"].shape) == (2, 64, 4)
+    np.testing.assert_array_equal(to_np(block["moe"]["w_down"]),
+                                  to_np(jp["slots"]["slot0"]["moe"]["w_down"]))
+    shapes = tlm.param_shapes(tcfg)
+    drawn = tlm.init_params(tcfg, torch.Generator().manual_seed(0))
+    assert tlm.param_count(drawn) == jlm.param_count(jp)
+    assert tlm.tree_map(lambda x: tuple(x.shape), drawn) == shapes
+    broken = jax.tree.map(np.asarray, jp)
+    del broken["slots"]["slot0"]["moe"]
+    with pytest.raises(ValueError):
+        params_from_jax(tcfg, broken)
+
+
+def test_granite_full_config_shapes_match_jax_without_memory():
+    """Full-width granite-moe-3b-a800m: the port's tree of shapes (meta
+    device) is JAX's (eval_shape), leaf for leaf, with the 8 dead expert
+    slots of ``moe_pad_experts_to=48``: 3,979,052,544 parameters, the
+    config's n_params() (3,979,051,008) and the final norm."""
+    import functools
+
+    from repro.configs import get_config as jax_get_config
+
+    jcfg = jax_get_config("granite-moe-3b-a800m")
+    want = jax.eval_shape(functools.partial(jlm.init_params, jcfg),
+                          jax.random.PRNGKey(0))
+    want = jax.tree.map(lambda x: tuple(x.shape), want)
+    tcfg = get_config("granite-moe-3b-a800m")
+    got = tlm.param_shapes(tcfg)
+    assert got == want
+    assert got["slots"]["slot0"]["moe"]["w_gate"] == (32, 48, 1536, 512)
+    assert got["slots"]["slot0"]["moe"]["router"] == (32, 1536, 40)
+    count = tlm.param_count(tlm.init_params(tcfg, None, device="meta"))
+    assert count == sum(math.prod(x) for x in jax.tree.leaves(
+        want, is_leaf=lambda x: isinstance(x, tuple))) == 3_979_052_544
+    assert count - tcfg.d_model == jcfg.n_params() == 3_979_051_008

@@ -3,11 +3,14 @@ the CPU against the JAX package on smoke_config("llama3.2-3b"), and on
 the SSM configs smoke_config("mamba2-130m") and smoke_config("zamba2-
 2.7b"), the same weights and batches in both: the loss and its
 gradients, remat, three train steps, the TALP-monitored trainer (the
-torch twin of tests/test_system.py::test_train_loss_decreases_with_talp)
-and what the trainer refuses."""
+torch twin of tests/test_system.py::test_train_loss_decreases_with_talp),
+what the trainer refuses, and checkpoint and restart: a run that fails
+and resumes ends bit-identical to one that did not, and a run resumes
+from a checkpoint the JAX trainer wrote."""
 
 import dataclasses
 import json
+import os
 
 import numpy as np
 import pytest
@@ -22,7 +25,7 @@ from repro.models import lm as jlm  # noqa: E402
 from repro.optim.adamw import AdamWConfig as JAdamWConfig  # noqa: E402
 from repro_torch.configs import smoke_config  # noqa: E402
 from repro_torch.launch import steps as tsteps  # noqa: E402
-from repro_torch.launch.train import UNPORTED_FLAGS, main, train  # noqa: E402
+from repro_torch.launch.train import main, train  # noqa: E402
 from repro_torch.models import lm as tlm  # noqa: E402
 from repro_torch.models.convert import train_state_from_jax  # noqa: E402
 from repro_torch.optim.adamw import AdamWConfig  # noqa: E402
@@ -79,6 +82,10 @@ def _loss_and_grads_match_jax(arch):
     loss, metrics, grads = _grads(tcfg, tparams, _torch_batch(batch))
     assert float(metrics["tokens"]) == float(jmet["tokens"]) == 4 * 93
     np.testing.assert_allclose(float(loss), float(jloss), **tp.tol("float32"))
+    assert set(metrics) == set(jmet)
+    for key in jmet:
+        np.testing.assert_allclose(float(metrics[key]), float(jmet[key]),
+                                   err_msg=key, **tp.tol("float32"))
     _assert_trees_close(grads, jgrads, what="grad")
 
 
@@ -95,15 +102,60 @@ def test_ssm_train_loss_and_grads_match_jax_fp32(arch):
     _loss_and_grads_match_jax(arch)
 
 
+@pytest.mark.parametrize("capacity_factor", [8.0, 1.25])
+def test_moe_train_loss_and_grads_match_jax_fp32(capacity_factor):
+    """The MoE model differentiates as the JAX package's: the loss with
+    MOE_AUX_WEIGHT times the aux loss added, metrics["loss"] (the
+    cross-entropy) and metrics["moe_aux"], and every gradient leaf, the
+    router's (through the renormalised top-k probabilities and the aux
+    loss) and the dead expert slots' (zero) included; at the smoke
+    config's capacity factor and at granite's own 1.25, which drops
+    tokens."""
+    jcfg, tcfg = tp.configs("granite-moe-3b-a800m", compute_dtype="float32")
+    change = dict(capacity_factor=capacity_factor)
+    jcfg = dataclasses.replace(jcfg, **change)
+    tcfg = dataclasses.replace(tcfg, **change)
+    jp, tparams = tp.params(jcfg, tcfg)
+    batch = _batches(jcfg, 1)[0]
+    (jloss, jmet), jgrads = jax.value_and_grad(
+        lambda p: jlm.train_loss(jcfg, p, batch), has_aux=True)(jp)
+    loss, metrics, grads = _grads(tcfg, tparams, _torch_batch(batch))
+    assert set(metrics) == set(jmet) == {"loss", "tokens", "moe_aux"}
+    np.testing.assert_allclose(float(loss), float(jloss), **tp.tol("float32"))
+    for key in jmet:
+        np.testing.assert_allclose(float(metrics[key]), float(jmet[key]),
+                                   err_msg=key, **tp.tol("float32"))
+    np.testing.assert_allclose(
+        float(loss), float(metrics["loss"]) + tlm.MOE_AUX_WEIGHT
+        * float(metrics["moe_aux"]), rtol=1e-6)
+    _assert_trees_close(grads, jgrads, what="grad")
+    dead = grads["slots"]["slot0"]["moe"]["w_up"][:, tcfg.num_experts:]
+    assert dead.shape[1] == 44 and torch.all(dead == 0)
+
+
 def test_remat_full_and_none_give_the_same_gradients():
-    jcfg, tcfg = tp.configs(compute_dtype="float32")
+    _remat_matches("llama3.2-3b")
+
+
+def test_moe_remat_full_and_none_give_the_same_gradients():
+    """The MoE model's aux loss goes through the checkpointed repeats, and
+    the recomputed forward routes as the first did."""
+    _remat_matches("granite-moe-3b-a800m")
+
+
+def _remat_matches(arch):
+    """remat "full" (each repeat under torch.utils.checkpoint) and "none"
+    give the same loss, metrics and gradients."""
+    jcfg, tcfg = tp.configs(arch, compute_dtype="float32")
     _, tparams = tp.params(jcfg, tcfg)
     batch = _torch_batch(_batches(jcfg, 1)[0])
     assert tcfg.remat == "full"
-    loss_full, _, g_full = _grads(tcfg, tparams, batch)
-    loss_none, _, g_none = _grads(dataclasses.replace(tcfg, remat="none"),
-                                  tparams, batch)
+    loss_full, m_full, g_full = _grads(tcfg, tparams, batch)
+    loss_none, m_none, g_none = _grads(dataclasses.replace(tcfg, remat="none"),
+                                       tparams, batch)
     assert float(loss_full) == float(loss_none)
+    assert {k: float(v) for k, v in m_full.items()} == {
+        k: float(v) for k, v in m_none.items()}
     _assert_trees_close(g_full, g_none, what="remat")
 
 
@@ -113,6 +165,12 @@ def test_three_train_steps_match_jax():
     fp32 _tol of the JAX package's; the loss, grad norm and lr of every
     step agree too."""
     _three_steps_match_jax("llama3.2-3b")
+
+
+def test_moe_three_train_steps_match_jax():
+    """test_three_train_steps_match_jax on the MoE model (its train step
+    minimises the loss with the aux term)."""
+    _three_steps_match_jax("granite-moe-3b-a800m")
 
 
 @pytest.mark.parametrize("arch", ["mamba2-130m", "zamba2-2.7b"])
@@ -256,22 +314,27 @@ def test_train_on_cuda_without_a_card_raises():
     ["--ckpt-every", "5"],
 ], ids=["ckpt_dir", "talp_spool", "talp_watchdog", "talp_trace_out",
         "multi_rank", "ckpt_every"])
-def test_cli_refuses_unported_flags(argv, capsys, tmp_path, monkeypatch):
-    """Only the checkpoint flags are refused (exit 2, "not ported yet");
-    the TALP flags and --rank/--world-size of the JAX trainer train."""
-    assert set(UNPORTED_FLAGS) == {"--ckpt-dir", "--ckpt-every"}
+def test_cli_takes_the_jax_trainer_flags(argv, capsys, tmp_path, monkeypatch):
+    """Every flag of the JAX trainer trains: the TALP flags,
+    --rank/--world-size, and the checkpoint flags, which write step_N (the
+    last step's checkpoint; --ckpt-every 1 with --ckpt-dir alone, so that
+    the loop's own save runs too; --ckpt-every alone writes nothing)."""
     monkeypatch.chdir(tmp_path)
     cmd = ["--arch", "llama3.2-3b", "--smoke", "--device", "cpu", "--steps",
-           "1", "--batch", "2", "--seq", "16", *argv]
-    if argv[0] not in UNPORTED_FLAGS:
-        main(cmd)
-        assert 'region "train_loop"' in capsys.readouterr().out
-        return
-    with pytest.raises(SystemExit) as exc:
-        main(cmd)
-    assert exc.value.code == 2
-    err = capsys.readouterr().err
-    assert "not ported yet" in err and argv[0] in err
+           "2", "--batch", "2", "--seq", "16", *argv]
+    if argv[0] == "--ckpt-dir":
+        cmd += ["--ckpt-every", "1"]
+    main(cmd)
+    assert 'region "train_loop"' in capsys.readouterr().out
+    if argv[0] == "--ckpt-dir":
+        assert sorted(os.listdir(tmp_path / "ckpt")) == ["step_0", "step_1"]
+        manifest = json.loads(
+            (tmp_path / "ckpt" / "step_1" / "manifest.json").read_text())
+        assert manifest["step"] == 1
+        assert {e["key"] for e in manifest["leaves"]} >= {"step",
+                                                          "opt__count"}
+    else:
+        assert not list(tmp_path.rglob("manifest.json"))
 
 
 def test_cli_trains_on_the_cpu(tmp_path, capsys):
@@ -283,3 +346,81 @@ def test_cli_trains_on_the_cpu(tmp_path, capsys):
     assert all(np.isfinite(h["loss"]) and h["grad_norm"] > 0
                for h in history)
     assert 'region "train_loop"' in capsys.readouterr().out
+
+
+def _state_leaves(state):
+    from repro_torch.checkpoint.checkpointer import flatten_with_keys
+
+    return dict(flatten_with_keys(state))
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "granite-moe-3b-a800m"])
+def test_resume_after_a_failure_is_bit_identical(arch, tmp_path):
+    """6 steps with a checkpoint every 3 (step_2, step_5) and a failure
+    injected before step 4, under run_with_restarts: the second attempt
+    restores step_2 and runs steps 3-5. Its history is those steps, and
+    they, the final parameters, moments and counts are bit-identical to an
+    uninterrupted run's; the directory then holds step_2 and step_5."""
+    from repro_torch.checkpoint.checkpointer import list_steps
+    from repro_torch.runtime import run_with_restarts
+
+    cfg = smoke_config(arch)
+    kw = dict(steps=6, global_batch=2, seq_len=32, verbose=False,
+              opt_cfg=AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=6),
+              device="cpu")
+    s_full, h_full, _ = train(cfg, **kw)
+    ck = str(tmp_path / "ck")
+    runs = []
+
+    def attempt(i):
+        runs.append(train(cfg, ckpt_dir=ck, ckpt_every=3,
+                          fail_at_step=4 if i == 0 else None, **kw))
+
+    errors = []
+    report = run_with_restarts(attempt, max_restarts=1,
+                               on_restart=lambda i, e: errors.append(e))
+    assert report.restarts == 1 and len(runs) == 1
+    assert "injected failure at step 4" in str(errors[0])
+    s_res, h_res, _ = runs[0]
+    assert [h["step"] for h in h_res] == [3, 4, 5]
+    drop_time = lambda h: {k: v for k, v in h.items() if k != "time_s"}  # noqa: E731
+    assert [drop_time(h) for h in h_res] == [drop_time(h) for h in h_full[3:]]
+    if cfg.is_moe:
+        assert all(h["moe_aux"] > 0 for h in h_res)
+    got, want = _state_leaves(s_res), _state_leaves(s_full)
+    assert got.keys() == want.keys()
+    for key in want:
+        assert torch.equal(got[key], want[key]), key
+    assert list_steps(ck) == [2, 5]
+
+
+def test_port_resumes_a_checkpoint_the_jax_trainer_wrote(tmp_path):
+    """The JAX trainer runs 6 steps with a checkpoint every 3 (step_2 and
+    step_5); step_5 is removed, and the port's trainer, given the same
+    directory, resumes from JAX's step_2 and runs steps 3-5. Its losses,
+    grad norms and final state agree with the JAX run's at fp32 _tol
+    (test_three_train_steps_match_jax's tolerance)."""
+    import shutil
+
+    from repro.launch.train import train as jax_train
+
+    jcfg, tcfg = tp.configs(compute_dtype="float32")
+    opt = dict(lr=1e-3, warmup_steps=2, total_steps=6)
+    kw = dict(steps=6, global_batch=2, seq_len=32, verbose=False)
+    ck = tmp_path / "ck"
+    jstate, jhist, _ = jax_train(jcfg, ckpt_dir=str(ck), ckpt_every=3,
+                                 opt_cfg=JAdamWConfig(**opt), **kw)
+    assert sorted(os.listdir(ck)) == ["step_2", "step_5"]
+    shutil.rmtree(ck / "step_5")
+    tstate, thist, _ = train(tcfg, ckpt_dir=str(ck), ckpt_every=3,
+                             opt_cfg=AdamWConfig(**opt), device="cpu", **kw)
+    assert [h["step"] for h in thist] == [3, 4, 5]
+    for got, want in zip(thist, jhist[3:]):
+        for key in ("loss", "grad_norm"):
+            np.testing.assert_allclose(got[key], want[key],
+                                       err_msg=f"step {got['step']} {key}",
+                                       **tp.tol("float32"))
+    assert int(tstate["step"]) == int(jstate["step"]) == 6
+    _assert_trees_close(tstate["params"], jstate["params"], what="params")
+    _assert_trees_close(tstate["opt"]["mu"], jstate["opt"]["mu"], what="mu")
+    _assert_trees_close(tstate["opt"]["nu"], jstate["opt"]["nu"], what="nu")
