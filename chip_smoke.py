@@ -29,17 +29,22 @@
      (fp32 and bf16 MHA, GQA, ragged, window and soft-cap) and the serving
      prefill shape of zamba2-2.7b (B 8, S 4096, H = K 32, D 80, bf16;
      its plain version one request at a time), then the serving prefill
-     shape of granite-moe-3b-a800m (B 8, S 1024, H 24, K 8, D 64, bf16). At
-     the three prefill shapes it times the plain version, then the kernel
-     and one PyTorch library call (``scaled_dot_product_attention``, a
-     yardstick only) in turns: library, kernel, kernel, library;
-   * the flash-attention backward over the same rows and the training
-     shapes of llama3.2-3b (B 2, S 2048, H 24, K 8, D 128, bf16) and of
-     granite-moe-3b-a800m (the same at D 64): dq, dk, dv against the plain
+     shape of granite-moe-3b-a800m (B 8, S 1024, H 24, K 8, D 64, bf16),
+     then the head layouts of musicgen-large (MHA, H = K = 32, D 64),
+     starcoder2-15b (GQA 48/4, D 128) and qwen2-vl-72b (64/8, D 128) and
+     their serving prefill shapes (B 8, S 1024, bf16). At the six prefill
+     shapes it times the plain version, then the kernel and one PyTorch
+     library call (``scaled_dot_product_attention``, a yardstick only) in
+     turns: library, kernel, kernel, library;
+   * the flash-attention backward over the same rows, the new head
+     layouts and the training shapes of llama3.2-3b (B 2, S 2048, H 24,
+     K 8, D 128, bf16), of granite-moe-3b-a800m (the same at D 64) and of
+     musicgen-large (H = K = 32, D 64): dq, dk, dv against the plain
      backward and against autograd through the plain forward, both in
-     fp32, and a second run bit-identical; at both training shapes and
-     llama's serving prefill shape it times the plain version, then the
-     kernels and the backward of ``scaled_dot_product_attention`` in turns;
+     fp32, and a second run bit-identical; at the three training shapes
+     and llama's serving prefill shape it times the plain version, then
+     the kernels and the backward of ``scaled_dot_product_attention`` in
+     turns;
    * the SSD chunked scan over the JAX package's SSD sweep, ragged L,
      initial state in and final state out, the edges of the bf16 kernels'
      chunk-parallel form, state size 64 and P = N = 128 on the bf16 path,
@@ -71,20 +76,30 @@
    write different KV rows; granite-moe-3b-a800m: its smoke config with
    head dim 64 and capacity factor 1.25, which drops tokens, in fp32 with
    every token's experts and capacity slots equal on both, and in bf16
-   with the share of equal routings printed); and one training step of
-   the llama3.2-3b smoke config (head_dim 32) and one of the mamba2-130m
-   smoke config, in fp32 and in bf16 compute, on the card against the CPU
-   from the same state.
+   with the share of equal routings printed; the embed frontend:
+   musicgen-large's smoke config at head dim 64 and qwen2-vl-72b's at head
+   dim 128 with M-RoPE sections (16, 24, 24), prefilled on random bf16
+   embeddings and decoded on embedded frames, and M-RoPE with three
+   distinct position streams); and one training step of the llama3.2-3b
+   smoke config (head_dim 32), one of the mamba2-130m smoke config and one
+   of the musicgen-large smoke config (head_dim 64, fp32 embeddings), in
+   fp32 and in bf16 compute, on the card against the CPU from the same
+   state.
 4. Serve phases: ``repro_torch.launch.serve.serve`` under the TALP monitor
    at full width, random weights from a seed: llama3.2-3b with 8 requests
    of 1024 prompt tokens and 64 generated tokens, then mamba2-130m (all
    24 layers) and zamba2-2.7b (all 54 layers) with 8 requests of 4096
    prompt tokens and 64 generated tokens, then granite-moe-3b-a800m (32
-   layers, 40 experts top-8, 3.98 B parameters) as llama. Every launch
-   counter is set to 0 just before each run and read just after: the
-   prefill must launch each kernel as often as SERVE says (llama: the flash
-   forward 28 times; mamba: the SSD scan 24 times; zamba2: 9 and 45;
-   granite: 32) and no other. Checks the tokens and the TALP hierarchies.
+   layers, 40 experts top-8, 3.98 B parameters), musicgen-large (48
+   layers, the embed frontend: random bf16 embedding prompts, zero decode
+   frames), starcoder2-15b (40 layers, 22.0 B parameters, 41 GiB of bf16
+   weights) and qwen2-vl-72b (M-RoPE, the embed frontend; its depth cut to
+   16 of 80 layers, which the output states: 133 GiB of weights fit no
+   one card) as llama. Every launch counter is set to 0 just before each
+   run and read just after: the prefill must launch each kernel as often
+   as SERVE says (llama: the flash forward 28 times; mamba: the SSD scan
+   24 times; zamba2: 9 and 45; granite: 32; musicgen: 48; starcoder2: 40;
+   qwen2-vl: 16) and no other. Checks the tokens and the TALP hierarchies.
 5. Profile phases: prefills and decode steps of each model at its serve
    phase's shapes, timed without the profiler and traced with
    ``torch.profiler`` (CUDA activity only): the card's kernel time per
@@ -97,12 +112,17 @@
 6. Train phases: ``repro_torch.launch.train.train`` under the TALP
    monitor at full width and depth, fp32 masters and AdamW moments on the
    card: llama3.2-3b (3.61 B parameters), 6 steps of 2 x 2048 tokens,
-   mamba2-130m (24 layers), 6 steps of 8 x 4096 tokens, and
-   granite-moe-3b-a800m, 6 steps of 2 x 2048. The launch counters are set
-   to 0 just before each run and read just after: per step, llama launches
-   the flash forward 56 times (28 layers, twice with remat) and its
-   backward 28 times; mamba the SSD forward 48 times and its backward 24
-   times; granite the flash forward 64 times and its backward 32. Prints
+   mamba2-130m (24 layers), 6 steps of 8 x 4096 tokens,
+   granite-moe-3b-a800m, 6 steps of 2 x 2048, and musicgen-large (3.23 B
+   parameters, fp32 embedding batches), 6 steps of 2 x 2048; first
+   ``train`` must refuse starcoder2-15b and qwen2-vl-72b, whose train
+   states (16 bytes a parameter) exceed the card, before allocating
+   anything (``torch.cuda.memory_allocated`` unchanged). The launch
+   counters are set to 0 just before each run and read just after: per
+   step, llama launches the flash forward 56 times (28 layers, twice with
+   remat) and its backward 28 times; mamba the SSD forward 48 times and
+   its backward 24 times; granite the flash forward 64 times and its
+   backward 32; musicgen 96 and 48. Prints
    each step's loss (all finite; granite's moe_aux too), step time,
    tokens/s, MFU, peak memory and TALP's train_loop numbers, then traces
    one more step with ``torch.profiler``: its kernel time over the
@@ -244,6 +264,21 @@ ZAMBA_PREFILL = (8, 4096, 4096, 32, 32, 80, None, None, torch.bfloat16)
 # granite-moe-3b-a800m (1536 / 24 heads, GQA 3:1) and, below, its training
 # shape.
 GRANITE_PREFILL = (8, 1024, 1024, 24, 8, 64, None, None, torch.bfloat16)
+# The head layouts of the embed-frontend and code models, checked after
+# every row above (whose seeds stay): musicgen-large's MHA with H = K = 32
+# at D 64, starcoder2-15b's GQA 48/4 (a ratio of 12) and qwen2-vl-72b's
+# 64/8 at D 128, fp32 and bf16, with S and T off the tile grid and S < T;
+# then the three models' serving prefill shapes (8 x 1024).
+NEW_HEADS = [
+    (1, 256, 256, 32, 32, 64, None, None, torch.bfloat16),
+    (1, 300, 428, 32, 32, 64, None, None, torch.float32),
+    (1, 300, 428, 48, 4, 128, None, None, torch.bfloat16),
+    (1, 256, 256, 48, 4, 128, None, None, torch.float32),
+    (1, 300, 428, 64, 8, 128, None, None, torch.bfloat16),
+]
+MUSICGEN_PREFILL = (8, 1024, 1024, 32, 32, 64, None, None, torch.bfloat16)
+STARCODER_PREFILL = (8, 1024, 1024, 48, 4, 128, None, None, torch.bfloat16)
+QWEN_PREFILL = (8, 1024, 1024, 64, 8, 128, None, None, torch.bfloat16)
 
 # (B, L, H, P, G, N, chunk, dtype, with_state): the rows of
 # tests/test_kernels.py::SSD_SWEEP (no initial state, as the TPU kernel),
@@ -547,7 +582,8 @@ def kernel_phase(device: torch.device) -> dict:
         return mk(b, s, h, d), mk(b, t, k, d), mk(b, t, k, d)
 
     errs = {}
-    rows = SWEEP + SWEEP_D80 + [PREFILL, ZAMBA_PREFILL, GRANITE_PREFILL]
+    rows = (SWEEP + SWEEP_D80 + [PREFILL, ZAMBA_PREFILL, GRANITE_PREFILL]
+            + NEW_HEADS + [MUSICGEN_PREFILL, STARCODER_PREFILL, QWEN_PREFILL])
     for i, row in enumerate(rows):
         b, s, t, h, k, d, window, softcap, dtype = row
         q, kk, vv = inputs(i, b, s, t, h, k, d, dtype)
@@ -581,6 +617,11 @@ def kernel_phase(device: torch.device) -> dict:
                          plain_by_request=True)
     granite = flash_timing(device, GRANITE_PREFILL, inputs,
                            plain_by_request=False)
+    new = {key: {**flash_timing(device, row, inputs, plain_by_request=False),
+                 "max_abs_err": errs[row]}
+           for key, row in (("musicgen_prefill_shape", MUSICGEN_PREFILL),
+                            ("starcoder2_prefill_shape", STARCODER_PREFILL),
+                            ("qwen2_vl_prefill_shape", QWEN_PREFILL))}
     return {
         "name": "flash_attention_fwd",
         "route": "cuda",
@@ -603,6 +644,7 @@ def kernel_phase(device: torch.device) -> dict:
                                  "plain": "one request at a time"},
         "granite_prefill_shape": {**granite,
                                   "max_abs_err": errs[GRANITE_PREFILL]},
+        **new,
         "note": "writes the row log-sum-exp, fp32 (B, H, S), when asked "
                 "(training); serving passes a null pointer, as timed here",
     }
@@ -613,6 +655,8 @@ def kernel_phase(device: torch.device) -> dict:
 TRAIN_ATTN = (2, 2048, 2048, 24, 8, 128, None, None, torch.bfloat16)
 # ... and of granite-moe-3b-a800m (head dim 64).
 GRANITE_TRAIN_ATTN = (2, 2048, 2048, 24, 8, 64, None, None, torch.bfloat16)
+# ... and of musicgen-large (MHA, H = K = 32, head dim 64).
+MUSICGEN_TRAIN_ATTN = (2, 2048, 2048, 32, 32, 64, None, None, torch.bfloat16)
 
 
 def attention_backward_work(b, s, t, h, k, d, window, dtype):
@@ -667,7 +711,9 @@ def backward_phase(device: torch.device) -> dict:
         return (got - want).abs().max().item()
 
     train_errs = {}
-    for i, row in enumerate(SWEEP + [TRAIN_ATTN, GRANITE_TRAIN_ATTN]):
+    train_rows = (TRAIN_ATTN, GRANITE_TRAIN_ATTN, MUSICGEN_TRAIN_ATTN)
+    rows = SWEEP + list(train_rows[:2]) + NEW_HEADS + [MUSICGEN_TRAIN_ATTN]
+    for i, row in enumerate(rows):
         b, s, t, h, k, d, window, softcap, dtype = row
         cfg = dict(causal=True, window=window, softcap=softcap)
         q, kk, vv, do = inputs(i, b, s, t, h, k, d, dtype)
@@ -699,13 +745,14 @@ def backward_phase(device: torch.device) -> dict:
               f"(tol {TOL[dtype]}); forward o max_abs_err {o_err:.3e} (tol "
               f"{TOL[dtype]}), lse {lse_err:.3e} (tol {TOL[torch.float32]}); "
               f"rerun bit-identical")
-        if row in (TRAIN_ATTN, GRANITE_TRAIN_ATTN):
+        if row in train_rows:
             train_errs[row] = (max(errs + errs_ag), o_err)
         del q, kk, vv, do, o, o_want, lse, got, again, plain, up, leaves
 
     timings = {}
     for label, row in (("train", TRAIN_ATTN), ("prefill", PREFILL),
-                       ("granite train", GRANITE_TRAIN_ATTN)):
+                       ("granite train", GRANITE_TRAIN_ATTN),
+                       ("musicgen train", MUSICGEN_TRAIN_ATTN)):
         b, s, t, h, k, d, window, softcap, dtype = row
         q, kk, vv, do = inputs(99, b, s, t, h, k, d, dtype)
         o, lse = kernel.flash_attention(q, kk, vv, return_lse=True)
@@ -756,6 +803,7 @@ def backward_phase(device: torch.device) -> dict:
     tr = timings["train"]
     train_err, train_o_err = train_errs[TRAIN_ATTN]
     granite_err, granite_o_err = train_errs[GRANITE_TRAIN_ATTN]
+    musicgen_err, musicgen_o_err = train_errs[MUSICGEN_TRAIN_ATTN]
     return {
         "name": "flash_attention_bwd",
         "route": "cuda",
@@ -784,6 +832,10 @@ def backward_phase(device: torch.device) -> dict:
             **timings["granite train"], "max_abs_err": granite_err,
             "forward_o_max_abs_err": granite_o_err,
             "shape": "B2 S2048 T2048 H24 K8 D64 bf16 causal"},
+        "musicgen_train_shape": {
+            **timings["musicgen train"], "max_abs_err": musicgen_err,
+            "forward_o_max_abs_err": musicgen_o_err,
+            "shape": "B2 S2048 T2048 H32 K32 D64 bf16 causal"},
     }
 
 
@@ -1316,6 +1368,75 @@ def granite_path_check(device: torch.device) -> None:
         torch.testing.assert_close(outs[1], outs[0], rtol=tol, atol=tol)
 
 
+def embed_path_check(device: torch.device) -> None:
+    """The ``embed`` frontend on the card against the same path on the CPU
+    (plain attention), on a small input: smoke_config("musicgen-large")
+    with its head dim 64 (MHA), and smoke_config("qwen2-vl-72b") with its
+    head dim 128 and M-RoPE sections (16, 24, 24) (the smoke head dim 16,
+    with sections (2, 3, 3), is none the kernels take), two layers each;
+    the same bf16 weights, a 2 x 300 prompt of random bf16 embeddings,
+    then 4 decode steps on embedded frames. The flash forward runs once a
+    layer in the prefill on the card and never on the CPU; rtol = atol =
+    0.15 on the fp32 logits, as the other path checks. With the stub
+    frontend's three equal position streams M-RoPE equals RoPE, so its
+    rotation at D 128 is also run with three distinct streams on both
+    devices, where a wrong band split would show."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import attention, common, lm
+
+    counters = launch_counters()
+    for arch, change in (("musicgen-large", dict(head_dim=64)),
+                         ("qwen2-vl-72b", dict(head_dim=128,
+                                               mrope_sections=(16, 24, 24)))):
+        cfg = dataclasses.replace(smoke_config(arch), **change)
+        gen = torch.Generator().manual_seed(14)
+        cpu_params = lm.init_params(cfg, gen, device="cpu",
+                                    dtype=torch.bfloat16)
+        emb = torch.randn((2, 304, cfg.d_model), generator=gen).to(
+            torch.bfloat16)
+        outs = []
+        for dev in (torch.device("cpu"), device):
+            params = lm.tree_map(lambda x: x.to(dev), cpu_params)
+            before = {n: w.launches for n, w in counters.items()}
+            with torch.inference_mode():
+                logits, caches, pos = lm.prefill(cfg, params,
+                                                 emb[:, :300].to(dev))
+                caches = lm.grow_caches(cfg, caches, 304)
+                seq = [logits]
+                for t in range(300, 304):
+                    logits, caches, pos = lm.decode_step(
+                        cfg, params, emb[:, t:t + 1].to(dev), pos, caches)
+                    seq.append(logits)
+            launches = {n: w.launches - before[n] for n, w in counters.items()}
+            want = {n: 0 for n in counters}
+            if dev.type == "cuda":
+                want["flash_attention_fwd"] = cfg.num_layers
+            assert launches == want, (arch, dev, launches, want)
+            outs.append(torch.stack(seq).float().cpu())
+        assert torch.isfinite(outs[1]).all(), "non-finite logits on the card"
+        err = (outs[0] - outs[1]).abs().max().item()
+        print(f"[path] {arch} smoke, embed frontend (D {cfg.resolved_head_dim}"
+              f", H {cfg.num_heads}, K {cfg.num_kv_heads}"
+              f"{', M-RoPE (16, 24, 24)' if cfg.mrope_sections else ''}), "
+              f"prefill 300 + 4 decode steps on bf16 embeddings: card vs CPU "
+              f"max_abs_err={err:.3e} (rtol=atol=0.15)")
+        torch.testing.assert_close(outs[1], outs[0], rtol=0.15, atol=0.15)
+    # M-RoPE with distinct streams, card against CPU, fp32 at TOL[fp32];
+    # cfg is the loop's last, qwen2-vl-72b's
+    gen = torch.Generator().manual_seed(15)
+    x = torch.randn((2, 300, cfg.num_heads, 128), generator=gen)
+    pos = torch.randint(0, 8192, (3, 2, 300), generator=gen,
+                        dtype=torch.int32)
+    want = common.apply_mrope(x, pos, cfg.mrope_sections, cfg.rope_theta)
+    got = attention._rope(cfg, x.to(device), pos.to(device)).cpu()
+    err = (got - want).abs().max().item()
+    print(f"[path] M-RoPE at D 128, sections (16, 24, 24), three distinct "
+          f"position streams: card vs CPU max_abs_err={err:.3e} "
+          f"(tol {TOL[torch.float32]})")
+    torch.testing.assert_close(got, want, rtol=TOL[torch.float32],
+                               atol=TOL[torch.float32])
+
+
 def talp_backend_check(device: torch.device) -> None:
     """TALP's device records on the card (CUPTI activity read by
     repro_torch.core.backends.cuda_runtime.CuptiActivity). The clock: a
@@ -1396,8 +1517,10 @@ def talp_backend_check(device: torch.device) -> None:
 def train_path_check(device: torch.device) -> None:
     """One ``make_train_step`` step of smoke_config("llama3.2-3b") with
     head_dim 32 (the smoke config's 16 is no head dim the kernels take),
-    and one of smoke_config("mamba2-130m") (P 16, N 16, chunk 32: the SSD
-    forward twice per layer with remat and its backward once), on
+    one of smoke_config("mamba2-130m") (P 16, N 16, chunk 32: the SSD
+    forward twice per layer with remat and its backward once), and one of
+    smoke_config("musicgen-large") with head_dim 64 (the ``embed``
+    frontend: fp32 (B, S, M) embeddings from the pipeline), on
     the card (the kernels) and on the CPU (the plain versions) from the
     same fp32 state and batch, in fp32 and in bf16 compute. Loss and grad
     norm within rtol = atol = TOL[compute dtype]. The gradient, leaf by
@@ -1418,7 +1541,9 @@ def train_path_check(device: torch.device) -> None:
     for base, per_layer in (
             (dataclasses.replace(smoke_config("llama3.2-3b"), head_dim=32),
              {"flash_attention_fwd": 2, "flash_attention_bwd": 1}),
-            (smoke_config("mamba2-130m"), {"ssd_fwd": 2, "ssd_bwd": 1})):
+            (smoke_config("mamba2-130m"), {"ssd_fwd": 2, "ssd_bwd": 1}),
+            (dataclasses.replace(smoke_config("musicgen-large"), head_dim=64),
+             {"flash_attention_fwd": 2, "flash_attention_bwd": 1})):
         train_step_check(device, base, per_layer, opt)
 
 
@@ -1439,8 +1564,10 @@ def train_step_check(device, base, per_layer: dict, opt) -> None:
         gpu_state = lm.tree_map(
             lambda x: x.to(device, copy=True) if x.dim() else x.clone(),
             cpu_state)
-        batch = SyntheticTokenPipeline(DataConfig(4, 64, cfg.vocab_size,
-                                                  seed=1)).batch_at(0)
+        batch = SyntheticTokenPipeline(DataConfig(
+            4, 64, cfg.vocab_size, seed=1,
+            embed_dim=cfg.d_model if cfg.frontend == "embed" else 0)
+        ).batch_at(0)
         out = []
         for state, dev in ((cpu_state, torch.device("cpu")),
                            (gpu_state, device)):
@@ -1545,26 +1672,56 @@ def launch_counters() -> dict:
 
 
 # (arch, requests, prompt tokens, generated tokens, the launches of each
-# kernel in one prefill; every other kernel launches none)
+# kernel in one prefill (every other kernel launches none), the depth: None
+# for the config's own, else the number of layers it is cut to). Every row
+# runs at full width; qwen2-vl-72b's 71.5 B parameters (133 GiB in bf16)
+# fit no one card, so it serves with 16 of its 80 layers (about 28 GiB of
+# weights), which still runs M-RoPE at its published D 128 and sections
+# through the flash forward; its full depth waits for multi-GPU.
 SERVE = [
-    ("llama3.2-3b", 8, 1024, 64, {"flash_attention_fwd": 28}),
-    ("mamba2-130m", 8, 4096, 64, {"ssd_fwd": 24}),
-    ("zamba2-2.7b", 8, 4096, 64, {"flash_attention_fwd": 9, "ssd_fwd": 45}),
-    ("granite-moe-3b-a800m", 8, 1024, 64, {"flash_attention_fwd": 32}),
+    ("llama3.2-3b", 8, 1024, 64, {"flash_attention_fwd": 28}, None),
+    ("mamba2-130m", 8, 4096, 64, {"ssd_fwd": 24}, None),
+    ("zamba2-2.7b", 8, 4096, 64, {"flash_attention_fwd": 9, "ssd_fwd": 45},
+     None),
+    ("granite-moe-3b-a800m", 8, 1024, 64, {"flash_attention_fwd": 32}, None),
+    ("musicgen-large", 8, 1024, 64, {"flash_attention_fwd": 48}, None),
+    ("starcoder2-15b", 8, 1024, 64, {"flash_attention_fwd": 40}, None),
+    ("qwen2-vl-72b", 8, 1024, 64, {"flash_attention_fwd": 16}, 16),
 ]
 
 
-def serve_phase(device: torch.device, arch: str, requests: int,
-                prompt_len: int, gen_len: int, expected: dict,
-                records: dict) -> dict:
-    """Full-width serving of ``arch`` through the port's entry point.
-    Returns TALP's device PE of the prefill and decode regions, each with
-    the region's wall per call (the prefill; one decode step)."""
+def phase_config(arch: str, layers=None):
+    """(the registered config of ``arch`` at full width, a note of its
+    depth): with ``layers`` its depth is cut to that many layers here, and
+    the note says so wherever the row is printed."""
     from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    if layers is None:
+        return cfg, f"{cfg.num_layers} layers"
+    cut = dataclasses.replace(cfg, num_layers=layers)
+    return cut, (f"{layers} of {cfg.num_layers} layers (depth cut: "
+                 f"{lm_params(cut) / 1e9:.2f} B of "
+                 f"{lm_params(cfg) / 1e9:.2f} B parameters on one card)")
+
+
+def lm_params(cfg) -> int:
+    from repro_torch.models import lm
+
+    return lm.param_count(lm.init_params(cfg, None, device="meta"))
+
+
+def serve_phase(device: torch.device, arch: str, requests: int,
+                prompt_len: int, gen_len: int, expected: dict, layers,
+                records: dict) -> dict:
+    """Full-width serving of ``arch`` (at ``layers`` layers where that is
+    not None) through the port's entry point. Returns TALP's device PE of
+    the prefill and decode regions, each with the region's wall per call
+    (the prefill; one decode step)."""
     from repro_torch.core.report import render_tables
     from repro_torch.launch.serve import serve
 
-    cfg = get_config(arch)
+    cfg, depth = phase_config(arch, layers)
     # decode writes only the hot ring of an attention cache; past it the
     # oldest generated context is overwritten, as in the JAX serve loop
     assert gen_len <= cfg.decode_hot_len
@@ -1592,7 +1749,7 @@ def serve_phase(device: torch.device, arch: str, requests: int,
     print(render_tables(result))
     prefill_ms = result.regions["prefill"].elapsed * 1e3
     tok_s = requests * gen_len / dec.elapsed
-    print(f"[serve] {arch} full width, {cfg.num_layers} layers, {requests} "
+    print(f"[serve] {arch} full width, {depth}, {requests} "
           f"requests x {prompt_len} prompt + {gen_len} generated: prefill "
           f"{prefill_ms:.3f} ms, decode {tok_s:.1f} tok/s "
           f"({dec.elapsed * 1e3 / gen_len:.3f} ms/step), wall {wall:.2f} s, "
@@ -1605,7 +1762,9 @@ def serve_phase(device: torch.device, arch: str, requests: int,
               f"s, offload {hs['offload']:.6f} s) | Device PE "
               f"{r.device.parallel_efficiency:.4f} (kernel "
               f"{ds['kernel']:.6f} s, idle {ds['idle']:.6f} s)")
-    add_path_launches(records, f"serve {arch} (one prefill)", launches)
+    add_path_launches(records, f"serve {arch} (one prefill"
+                      f"{'' if layers is None else f', {layers} layers'})",
+                      launches)
     pre = result.regions["prefill"]
     return {"prefill": (pre.device.parallel_efficiency, pre.elapsed),
             "decode": (dec.device.parallel_efficiency, dec.elapsed / gen_len)}
@@ -1633,7 +1792,12 @@ TRAIN = [
     ("mamba2-130m", 6, 8, 4096, 3e-4, 2, {"ssd_fwd": 48, "ssd_bwd": 24}),
     ("granite-moe-3b-a800m", 6, 2, 2048, 3e-4, 2,
      {"flash_attention_fwd": 64, "flash_attention_bwd": 32}),
+    ("musicgen-large", 6, 2, 2048, 3e-4, 2,
+     {"flash_attention_fwd": 96, "flash_attention_bwd": 48}),
 ]
+# Configs whose train state (16 bytes a parameter) no one card holds:
+# ``train`` must refuse them before it allocates anything.
+TRAIN_REFUSED = ("starcoder2-15b", "qwen2-vl-72b")
 
 
 def train_phase(device: torch.device, arch: str, steps: int, batch: int,
@@ -1707,7 +1871,9 @@ def train_phase(device: torch.device, arch: str, steps: int, batch: int,
     add_path_launches(records, f"train {arch} ({steps} steps)", launches)
 
     step_fn = make_train_step(cfg, opt)
-    data = SyntheticTokenPipeline(DataConfig(batch, seq, cfg.vocab_size))
+    data = SyntheticTokenPipeline(DataConfig(
+        batch, seq, cfg.vocab_size,
+        embed_dim=cfg.d_model if cfg.frontend == "embed" else 0))
     b = {k: torch.from_numpy(v).to(device)
          for k, v in data.batch_at(steps).items()}
     prof, traced_wall, union, (state, _) = traced(lambda: step_fn(state, b))
@@ -1760,6 +1926,37 @@ def train_phase(device: torch.device, arch: str, steps: int, batch: int,
     print(f"[train] AdamW update alone: {statistics.median(times):.3f} ms "
           f"(median of 3, CUDA events) of the {step_s * 1e3:.3f} ms step")
     del state, b, grads
+
+
+def train_refusal_check(device: torch.device) -> None:
+    """``train`` refuses each TRAIN_REFUSED config on the card with the
+    memory check's ValueError (its train state against the card's total
+    memory, ``torch.cuda.mem_get_info``) before it draws a weight:
+    ``torch.cuda.memory_allocated`` and every launch counter unchanged."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import train
+
+    counters = launch_counters()
+    total = torch.cuda.mem_get_info(device)[1]
+    for arch in TRAIN_REFUSED:
+        torch.cuda.synchronize(device)
+        before = torch.cuda.memory_allocated(device)
+        launched = {n: w.launches for n, w in counters.items()}
+        try:
+            train(get_config(arch), steps=6, global_batch=2, seq_len=2048,
+                  verbose=False, device=device)
+        except ValueError as e:
+            msg = str(e)
+        else:
+            raise AssertionError(f"{arch}: train did not refuse the card")
+        torch.cuda.synchronize(device)
+        after = torch.cuda.memory_allocated(device)
+        assert "train state" in msg, msg
+        assert after == before, (arch, before, after)
+        assert launched == {n: w.launches for n, w in counters.items()}
+        print(f"[train] {arch} refused on the card before allocating "
+              f"(memory_allocated {before} -> {after} bytes; card total "
+              f"{total / 2**30:.1f} GiB): {msg}")
 
 
 # The MoE's parts, by the functions of repro_torch.models.moe a traced step
@@ -1870,7 +2067,7 @@ KERNEL_GROUPS = (
 
 
 def profile_phase(device: torch.device, arch: str, batch: int,
-                  prompt_len: int, gen_len: int) -> dict:
+                  prompt_len: int, gen_len: int, layers=None) -> dict:
     """Where the serving time goes on the card: the prefill and the decode
     step of full-width ``arch`` (its serve phase's shapes), each timed on
     the host clock without the profiler (median of 5), then traced by
@@ -1884,20 +2081,22 @@ def profile_phase(device: torch.device, arch: str, batch: int,
     profile from a session of its own. The decode step is then timed again
     with TALP's collection open: the difference is the collection's cost
     per step."""
-    from repro_torch.configs import get_config
     from repro_torch.core.backends import CudaRuntimeBackend
+    from repro_torch.launch.serve import make_prompts
     from repro_torch.models import lm
 
-    cfg = get_config(arch)
+    cfg, _ = phase_config(arch, layers)
     gen = torch.Generator(device=device).manual_seed(1)
     with torch.inference_mode():
         params = lm.init_params(cfg, gen, device=device, dtype=torch.bfloat16)
-        prompts = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
-                                generator=gen, device=device,
-                                dtype=torch.int32)
+        prompts = make_prompts(cfg, batch, prompt_len, gen, device)
         logits, caches, pos = lm.prefill(cfg, params, prompts)
         caches = lm.grow_caches(cfg, caches, prompt_len + gen_len)
-        tok = logits.argmax(-1).to(torch.int32)[:, None]
+        # the serve driver's decode input: the argmax token, or a zero frame
+        tok = (logits.argmax(-1).to(torch.int32)[:, None]
+               if cfg.frontend == "token" else
+               torch.zeros((batch, 1, cfg.d_model), device=device,
+                           dtype=torch.bfloat16))
         steps = {
             "prefill": lambda: lm.prefill(cfg, params, prompts),
             # rewrites the same hot-ring slot (attention) or advances the
@@ -2518,19 +2717,21 @@ def main() -> int:
     mamba_path_check(device)
     zamba_path_check(device)
     granite_path_check(device)
+    embed_path_check(device)
     train_path_check(device)
     mark("path checks")
     busy_by_arch = {}
-    for arch, requests, prompt_len, gen_len, expected in SERVE:
+    for arch, requests, prompt_len, gen_len, expected, layers in SERVE:
         talp = serve_phase(device, arch, requests, prompt_len, gen_len,
-                           expected, records)
+                           expected, layers, records)
         torch.cuda.empty_cache()
         busy = busy_by_arch[arch] = profile_phase(device, arch, requests,
-                                                  prompt_len, gen_len)
+                                                  prompt_len, gen_len, layers)
         for region, step in (("prefill", "prefill"), ("decode", "decode_step")):
             compare_pe(f"{arch} {region}", *talp[region], busy.get(step))
         torch.cuda.empty_cache()
     mark("serve and profile")
+    train_refusal_check(device)
     for row in TRAIN:
         train_phase(device, *row, records)
         torch.cuda.empty_cache()

@@ -10,8 +10,12 @@ Layout (one checkpoint):
 
 Leaves are taken in JAX's flatten order (dict keys sorted) and named by
 their path joined with ``__``. bfloat16 leaves are stored as ``uint16``
-views, with ``"bfloat16"`` in the manifest (NumPy has no bfloat16; the
-port goes through ``torch.int16`` views of the same bits). Writes are
+views and ``float8_e4m3fn`` and ``float8_e5m2`` leaves as ``uint8`` views,
+with the true dtype's name in the manifest, as the JAX package's
+``_EXOTIC_STORE`` does (NumPy has none of the three; the port goes through
+``torch.int16`` and ``torch.uint8`` views of the same bits) and restore
+views them back before any cast. A stored dtype name the port does not
+know is refused with ``ValueError``. Writes are
 crash-safe: everything lands in ``step_<N>.tmp`` and is renamed once the
 manifest is fsynced, so a half-written checkpoint is never visible to
 ``latest_step``. Restore places each leaf on the device its ``devices``
@@ -56,17 +60,39 @@ def _unflatten_like(tree: Any, by_key: Dict[str, Any],
     return by_key["__".join(prefix) or "root"]
 
 
+# The dtypes NumPy cannot hold, by their manifest name: the torch dtype and
+# the same-width integer view that torch and NumPy share (NumPy's uint16 is
+# read through torch.int16, which holds the same bits).
+_EXOTIC_STORE = {
+    "bfloat16": (torch.bfloat16, torch.int16, np.int16, np.uint16),
+    "float8_e4m3fn": (torch.float8_e4m3fn, torch.uint8, np.uint8, np.uint8),
+    "float8_e5m2": (torch.float8_e5m2, torch.uint8, np.uint8, np.uint8),
+}
+_BY_DTYPE = {dtype: name for name, (dtype, *_) in _EXOTIC_STORE.items()}
+# The NumPy dtype names stored as they are.
+_PLAIN_STORE = ("bool", "uint8", "uint16", "uint32", "uint64", "int8",
+                "int16", "int32", "int64", "float16", "float32", "float64",
+                "complex64", "complex128")
+
+
 def _to_storable(t: torch.Tensor) -> Tuple[np.ndarray, str]:
     t = t.detach().cpu().contiguous()
-    if t.dtype == torch.bfloat16:
-        return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
+    name = _BY_DTYPE.get(t.dtype)
+    if name is not None:
+        _, view, _, stored = _EXOTIC_STORE[name]
+        return t.view(view).numpy().view(stored), name
     arr = t.numpy()
     return arr, arr.dtype.name
 
 
 def _from_storable(arr: np.ndarray, dtype_name: str) -> torch.Tensor:
-    if dtype_name == "bfloat16":
-        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    if dtype_name in _EXOTIC_STORE:
+        dtype, _, np_view, _ = _EXOTIC_STORE[dtype_name]
+        return torch.from_numpy(arr.view(np_view)).view(dtype)
+    if dtype_name not in _PLAIN_STORE or arr.dtype.name != dtype_name:
+        raise ValueError(
+            f"stored dtype {dtype_name!r} (file dtype {arr.dtype.name}) is "
+            "not one the port restores")
     return torch.from_numpy(arr)
 
 

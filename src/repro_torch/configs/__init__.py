@@ -1,8 +1,10 @@
 """Architecture registry of the port, copied from ``repro.configs``.
 
-Four architectures are registered: ``llama3.2-3b``, ``mamba2-130m``,
-``zamba2-2.7b`` and ``granite-moe-3b-a800m``. The others come with the
-slices that port their blocks."""
+Seven architectures are registered: ``llama3.2-3b``, ``mamba2-130m``,
+``zamba2-2.7b``, ``granite-moe-3b-a800m``, ``musicgen-large``,
+``starcoder2-15b`` and ``qwen2-vl-72b``. The others (``gemma2-2b`` and
+``h2o-danube-3-4b``, whose head dims the flash kernels do not take yet,
+and ``qwen3-moe-235b-a22b``) come with the slices that port them."""
 
 from .base import (
     ModelConfig,
@@ -19,6 +21,9 @@ from . import (  # noqa: F401
     granite_moe_3b_a800m,
     llama3_2_3b,
     mamba2_130m,
+    musicgen_large,
+    qwen2_vl_72b,
+    starcoder2_15b,
     zamba2_2_7b,
 )
 

@@ -28,6 +28,7 @@ class DataConfig:
     seq_len: int
     vocab_size: int
     seed: int = 0
+    embed_dim: int = 0        # >0 → embedding frontend (VLM/audio stub)
     prefetch: int = 2
 
 
@@ -65,8 +66,14 @@ class SyntheticTokenPipeline:
         labels = rng.integers(
             0, c.vocab_size, (self.local_batch, c.seq_len), dtype=np.int32
         )
-        inputs = np.roll(labels, 1, axis=1)   # next-token structure
-        inputs[:, 0] = 0
+        if c.embed_dim:
+            # (B, S, M) fp32 frame or patch embeddings, drawn after the labels
+            inputs = rng.standard_normal(
+                (self.local_batch, c.seq_len, c.embed_dim), dtype=np.float32
+            )
+        else:
+            inputs = np.roll(labels, 1, axis=1)   # next-token structure
+            inputs[:, 0] = 0
         return {"inputs": inputs, "labels": labels}
 
     # -- prefetch loop -----------------------------------------------------

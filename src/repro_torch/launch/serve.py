@@ -23,11 +23,19 @@ Efficiency when a step series is on.
 Runs on ``cuda`` unless ``device="cpu"`` is asked for; without a card it
 raises instead of running on the CPU.
 
+An ``embed``-frontend model (musicgen-large, qwen2-vl-72b) is served as
+``repro.launch.serve`` serves it: its prompts are random bf16 (requests,
+prompt_len, d_model) embeddings from the run's generator, and each decode
+step feeds a zero frame of (requests, 1, d_model), whatever the last
+token was (the JAX stub's behaviour, reproduced).
+
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-3b \
       --requests 8 --prompt-len 1024 --gen-len 64
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-3b \
       --smoke --device cpu --requests 2 --prompt-len 16 --gen-len 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch musicgen-large \
+      --requests 8 --prompt-len 1024 --gen-len 64
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-3b \
       --requests 8 --prompt-len 1024 --gen-len 64 --talp-step-series 64 \
       --talp-watchdog --talp-sample-every 16 --talp-spool /tmp/spool \
@@ -49,7 +57,7 @@ from ..models import lm
 from .steps import make_prefill_step, make_serve_step, model_flops
 from .talp_outputs import TalpOutputs, add_talp_arguments, talp_kwargs
 
-__all__ = ["resolve_device", "serve", "main"]
+__all__ = ["resolve_device", "make_prompts", "serve", "main"]
 
 
 def resolve_device(device) -> torch.device:
@@ -62,6 +70,20 @@ def resolve_device(device) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {device!r}: want cuda or cpu")
     return dev
+
+
+def make_prompts(cfg, requests: int, prompt_len: int, generator,
+                 device) -> torch.Tensor:
+    """What ``serve`` prefills: random int32 (requests, prompt_len) tokens,
+    or for the ``embed`` frontend random bf16 (requests, prompt_len,
+    d_model) frame or patch embeddings, drawn from ``generator``."""
+    if cfg.frontend == "token":
+        return torch.randint(0, cfg.vocab_size, (requests, prompt_len),
+                             generator=generator, device=device,
+                             dtype=torch.int32)
+    return torch.randn((requests, prompt_len, cfg.d_model),
+                       generator=generator, device=device,
+                       dtype=torch.bfloat16)
 
 
 def serve(
@@ -126,8 +148,11 @@ def serve(
 
         prefill_fn = make_prefill_step(cfg)
         decode_fn = make_serve_step(cfg)
-        prompts = torch.randint(0, cfg.vocab_size, (requests, prompt_len),
-                                generator=gen, device=dev, dtype=torch.int32)
+        prompts = make_prompts(cfg, requests, prompt_len, gen, dev)
+        # the embed frontend's stub decodes on zero frames
+        frame = (None if cfg.frontend == "token" else
+                 torch.zeros((requests, 1, cfg.d_model), device=dev,
+                             dtype=torch.bfloat16))
 
         tokens_out = []
         with mon.region("prefill"):
@@ -142,8 +167,9 @@ def serve(
             for t in range(gen_len):
                 with talp.step():
                     tokens_out.append(tok.cpu().numpy())
-                    h = backend.launch(decode_fn, params, tok[:, None], pos,
-                                       caches, name=f"decode_{t}")
+                    inp = tok[:, None] if cfg.frontend == "token" else frame
+                    h = backend.launch(decode_fn, params, inp, pos, caches,
+                                       name=f"decode_{t}")
                     with mon.offload():
                         logits, caches, pos = backend.wait(h)
                     tok = logits[:, : cfg.vocab_size].argmax(-1).to(

@@ -19,9 +19,14 @@ collection and the next step opens a new one.
 Runs on ``cuda`` unless ``device="cpu"`` is asked for; without a card it
 raises instead of running on the CPU. On the card, attention trains only
 at a head dim the flash backward takes (``BWD_HEAD_DIMS``: zamba2-2.7b's
-80 is refused with ``ValueError`` before anything is allocated); the CPU
-trains every supported config through the plain versions. SSM blocks
-train through the CUDA SSD backward on the card.
+80 is refused with ``ValueError`` before anything is allocated), and
+only a model whose train state, 16 bytes a parameter, fits the card's
+memory (starcoder2-15b's 328 GiB and qwen2-vl-72b's are refused the same
+way: sharding over several cards is not ported); the CPU trains every
+supported config through the plain versions. SSM blocks train through
+the CUDA SSD backward on the card. An ``embed``-frontend model (musicgen-
+large, qwen2-vl-72b) trains on the pipeline's (B, S, d_model) fp32
+embeddings in place of tokens, as the JAX trainer does.
 
 TALP's runtime outputs are those of ``repro.launch.train``: the
 ``--talp-*`` flags (step series and watchdog in a nested ``step``
@@ -52,6 +57,8 @@ Usage:
       --smoke --device cpu --steps 4 --batch 2 --seq 64
   PYTHONPATH=src python -m repro_torch.launch.train \
       --arch granite-moe-3b-a800m --steps 6 --batch 2 --seq 2048
+  PYTHONPATH=src python -m repro_torch.launch.train --arch musicgen-large \
+      --steps 6 --batch 2 --seq 2048
   PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-130m \
       --steps 6 --batch 8 --seq 4096 --ckpt-dir /tmp/ckpt --ckpt-every 3
   # two ranks of one job, each on half the global batch, one spool
@@ -89,7 +96,12 @@ from .steps import (
 )
 from .talp_outputs import TalpOutputs, add_talp_arguments, talp_kwargs
 
-__all__ = ["check_trainable_on_card", "train", "main"]
+__all__ = ["TRAIN_STATE_BYTES_PER_PARAM", "check_trainable_on_card",
+           "check_train_state_fits", "train", "main"]
+
+# fp32 masters and both AdamW moments (12 bytes), then the bf16 cast leaves
+# and their bf16 gradients (4 bytes)
+TRAIN_STATE_BYTES_PER_PARAM = 16
 
 
 def check_trainable_on_card(cfg) -> None:
@@ -102,6 +114,22 @@ def check_trainable_on_card(cfg) -> None:
             f"{cfg.name}: attention head_dim {cfg.resolved_head_dim} is not "
             f"one the flash backward takes ({BWD_HEAD_DIMS}); it trains on "
             "the CPU (device='cpu') through the plain versions")
+
+
+def check_train_state_fits(cfg, total_bytes: int) -> None:
+    """Raise ``ValueError`` if ``cfg``'s train state, 16 bytes a parameter
+    of its tree, is larger than ``total_bytes`` (a card's total memory,
+    ``torch.cuda.mem_get_info``). ``train`` calls it before any weight is
+    drawn: the card would otherwise fail only after filling itself."""
+    n = lm.param_count(lm.init_params(cfg, None, device="meta"))
+    need = TRAIN_STATE_BYTES_PER_PARAM * n
+    if need > total_bytes:
+        raise ValueError(
+            f"{cfg.name}: the train state of {n / 1e9:.2f} B parameters "
+            f"takes {need / 2**30:.1f} GiB at {TRAIN_STATE_BYTES_PER_PARAM} "
+            f"bytes a parameter, more than the card's {total_bytes / 2**30:.1f}"
+            " GiB; it trains only sharded over several cards (not ported) or "
+            "on the CPU (device='cpu')")
 
 
 def train(
@@ -147,6 +175,8 @@ def train(
     if torch.device(device).type == "cuda":
         check_trainable_on_card(cfg)
     dev = resolve_device(device)
+    if dev.type == "cuda":
+        check_train_state_fits(cfg, torch.cuda.mem_get_info(dev)[1])
     opt_cfg = opt_cfg or AdamWConfig(warmup_steps=10, total_steps=steps)
     backend = CudaRuntimeBackend(dev)
     shape = ShapeConfig(name="train", seq_len=seq_len,
@@ -163,7 +193,8 @@ def train(
     mon = talp.mon
     data = SyntheticTokenPipeline(
         DataConfig(global_batch=global_batch, seq_len=seq_len,
-                   vocab_size=cfg.vocab_size, seed=seed),
+                   vocab_size=cfg.vocab_size, seed=seed,
+                   embed_dim=cfg.d_model if cfg.frontend == "embed" else 0),
         process_index=rank, process_count=world_size,
     )
     step_fn = make_train_step(cfg, opt_cfg)
@@ -191,6 +222,7 @@ def train(
                     raise RuntimeError(f"injected failure at step {step}")
                 with talp.step():
                     # host Useful: data synthesis and the copy to the card
+                    # (tokens, or the embed frontend's fp32 embeddings)
                     batch = {k: torch.from_numpy(v).to(dev)
                              for k, v in data.batch_at(step).items()}
                     # host Useful: enqueueing the step; Offload: the wait

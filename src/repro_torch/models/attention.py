@@ -22,7 +22,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..kernels.flash_attention import ops as flash_ops
-from .common import apply_rope, truncated_normal
+from .common import apply_mrope, apply_rope, truncated_normal
 
 __all__ = [
     "init_attn_params",
@@ -63,8 +63,13 @@ def _project_qkv(cfg, p, h):
 
 def _rope(cfg, x, positions):
     if cfg.mrope_sections is not None:
-        raise NotImplementedError("M-RoPE (qwen2-vl) is not ported yet")
+        return apply_mrope(x, positions, cfg.mrope_sections, cfg.rope_theta)
     return apply_rope(x, positions, cfg.rope_theta)
+
+
+def _pos_1d(positions):
+    """positions may be (B,S) or (3,B,S) (M-RoPE); masks use stream 0."""
+    return positions[0] if positions.dim() == 3 else positions
 
 
 def _window(cfg, kind: str) -> Optional[int]:
@@ -166,15 +171,17 @@ def attn_forward(
     cfg,
     p: Dict[str, torch.Tensor],
     x: torch.Tensor,            # (B, S, M) — post-norm input
-    positions: torch.Tensor,    # (B, S): arange(S) in every row
+    positions: torch.Tensor,    # (B, S) or (3, B, S): arange(S) in every row
     kind: str = "attn",
     build_cache: bool = False,
 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     """Prefill attention over a full sequence.
 
     ``positions`` must be ``arange(S)`` in every row, as
-    :func:`repro_torch.models.lm._positions` gives them: with those, the
-    JAX version's ``chunked_attention(q, k, v, pos, pos)`` is exactly the
+    :func:`repro_torch.models.lm._positions` gives them; with M-RoPE they
+    are (3, B, S), each stream rotating its own frequency bands, and the
+    masks read stream 0, which is that ``arange``. With it the JAX
+    version's ``chunked_attention(q, k, v, pos1, pos1)`` is exactly the
     flash kernel's aligned-end causal mask with T = S, which is what this
     function computes.
     """
@@ -192,7 +199,8 @@ def attn_forward(
         cache = {
             "k": k,
             "v": v,
-            "kv_pos": positions.expand(b, s).to(torch.int32, copy=True),
+            "kv_pos": _pos_1d(positions).expand(b, s).to(torch.int32,
+                                                         copy=True),
             # empty hot ring, filled during decode
             "hk": k.new_zeros((b, hot, nk, hd)),
             "hv": v.new_zeros((b, hot, nk, hd)),
@@ -253,9 +261,12 @@ def attn_decode(
     cache; the returned dict is ``cache`` itself."""
     b = x.shape[0]
     positions = pos[:, None]
+    # M-RoPE: the three position streams of a decoded token are its pos
+    rot_pos = (positions.expand(3, b, 1) if cfg.mrope_sections is not None
+               else positions)
     q, k_new, v_new = _project_qkv(cfg, p, x)
-    q = _rope(cfg, q, positions)
-    k_new = _rope(cfg, k_new, positions)
+    q = _rope(cfg, q, rot_pos)
+    k_new = _rope(cfg, k_new, rot_pos)
     hot = cache["hk"].shape[1]
     slot = (pos % hot).long()
     _ring_write(cache["hk"], k_new.to(cache["hk"].dtype), slot)

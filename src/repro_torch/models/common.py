@@ -5,7 +5,6 @@ embeddings, logit soft-capping, chunked cross-entropy. Port of
 Parameters are plain tensors in nested dicts with the JAX package's
 layouts (weights ``(in, out)``, used as ``x @ w``), stored in
 ``param_dtype`` and cast to the compute dtype at use.
-``apply_mrope`` comes with the slice that needs it (Qwen2-VL).
 """
 
 from __future__ import annotations
@@ -22,6 +21,7 @@ __all__ = [
     "soft_cap",
     "rope_frequencies",
     "apply_rope",
+    "apply_mrope",
     "chunked_softmax_xent",
 ]
 
@@ -82,6 +82,30 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     """Standard RoPE. x: (B, S, H, D); positions: (B, S) int."""
     freqs = rope_frequencies(x.shape[-1], theta, device=x.device)
     angles = positions[..., None, None].float() * freqs      # (B,S,1,D/2)
+    return _rotate(x, angles)
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor,
+                sections: Sequence[int],
+                theta: float = 10000.0) -> torch.Tensor:
+    """Qwen2-VL multimodal rotary embedding (M-RoPE).
+
+    The half-dim frequency bands are split into ``sections`` (e.g.
+    (16, 24, 24) = temporal/height/width for D=128) and each section
+    rotates by its own position stream. x: (B, S, H, D); positions:
+    (3, B, S) int. With the stub frontend all three streams are the same
+    ``arange``, and M-RoPE equals RoPE.
+    """
+    half = x.shape[-1] // 2
+    if sum(sections) != half:
+        raise ValueError(f"mrope sections {sections} must sum to {half}")
+    freqs = rope_frequencies(x.shape[-1], theta, device=x.device)
+    # band i takes the position stream its section names
+    stream_idx = torch.repeat_interleave(
+        torch.arange(len(sections), device=x.device),
+        torch.tensor(list(sections), device=x.device))          # (half,)
+    pos_per_band = positions.float()[stream_idx]              # (half, B, S)
+    angles = pos_per_band.movedim(0, -1)[..., None, :] * freqs  # (B,S,1,half)
     return _rotate(x, angles)
 
 

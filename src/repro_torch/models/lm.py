@@ -1,10 +1,13 @@
 """Decoder-only LM assembled from config-driven block patterns. Port of
 ``repro.models.lm`` for the dense attention kinds (``attn``,
 ``attn_local``, ``attn_global``), the shared attention block
-(``shared_attn``, Zamba-2) and Mamba-2 blocks (``ssm``) with the token
-frontend, each attention block's feed-forward a dense SwiGLU or a top-k
-MoE (``models.moe``), whose load-balancing loss ``train_loss`` adds
-(``MOE_AUX_WEIGHT``).
+(``shared_attn``, Zamba-2) and Mamba-2 blocks (``ssm``), each attention
+block's feed-forward a dense SwiGLU or a top-k MoE (``models.moe``), whose
+load-balancing loss ``train_loss`` adds (``MOE_AUX_WEIGHT``). Both
+frontends: ``token`` (an embedding table) and ``embed`` (precomputed
+(B, S, M) frame or patch embeddings, the VLM/audio stub, with no input
+table); RoPE, or M-RoPE where ``cfg.mrope_sections`` is set, whose
+positions are (3, B, S).
 
 Parameters keep the JAX package's tree and layouts: ``slots/slot<i>``
 holds each pattern slot's block parameters stacked over repeats
@@ -19,9 +22,6 @@ blocks). The JAX
 when gradients are taken, as the JAX scan body runs under
 ``jax.checkpoint``: the recomputed forward is the same computation on
 the same inputs, so an MoE layer routes as it did the first time.
-
-The precomputed-embedding frontend and M-RoPE raise
-``NotImplementedError``; they come with later slices.
 """
 
 from __future__ import annotations
@@ -52,22 +52,22 @@ __all__ = [
 MOE_AUX_WEIGHT = 0.01
 
 _KINDS = ("attn", "attn_local", "attn_global", "shared_attn", "ssm")
+_FRONTENDS = ("token", "embed")
 
 
 def check_supported(cfg) -> None:
-    """Raise ``NotImplementedError`` for what the port does not have yet.
-    Every supported block kind also trains (the flash backward's head-dim
-    limit on the card is checked by ``launch.train.train``, which knows the
-    device)."""
+    """Raise ``NotImplementedError`` for a block kind or frontend the port
+    does not have (every one the JAX package has is ported). Every
+    supported config also trains (the flash backward's head-dim limit and
+    the train state's size on the card are checked by
+    ``launch.train.train``, which knows the device)."""
     for kind in cfg.pattern:
         if kind not in _KINDS:
             raise NotImplementedError(
-                f"{cfg.name}: block kind {kind!r} is not ported yet")
-    if cfg.frontend != "token":
+                f"{cfg.name}: block kind {kind!r} is not ported")
+    if cfg.frontend not in _FRONTENDS:
         raise NotImplementedError(
-            f"{cfg.name}: the {cfg.frontend!r} frontend is not ported yet")
-    if cfg.mrope_sections is not None:
-        raise NotImplementedError(f"{cfg.name}: M-RoPE is not ported yet")
+            f"{cfg.name}: the {cfg.frontend!r} frontend is not ported")
 
 
 def tree_map(fn, tree):
@@ -124,10 +124,10 @@ def init_params(cfg, generator, device=None, dtype=None) -> Dict[str, Any]:
     over with :func:`repro_torch.models.convert.params_from_jax`."""
     check_supported(cfg)
     dtype = dtype or getattr(torch, cfg.param_dtype)
-    params: Dict[str, Any] = {
-        "embed": truncated_normal(generator, (cfg.padded_vocab, cfg.d_model),
-                                  1.0, dtype, device),
-    }
+    params: Dict[str, Any] = {}
+    if cfg.frontend == "token":   # the embed frontend has no input table
+        params["embed"] = truncated_normal(
+            generator, (cfg.padded_vocab, cfg.d_model), 1.0, dtype, device)
     slots: Dict[str, Any] = {}
     for i, kind in enumerate(cfg.pattern):
         if kind == "shared_attn":
@@ -290,15 +290,22 @@ def _stack_decode(cfg, params, x, pos, caches):
 # frontend / positions
 # ---------------------------------------------------------------------------
 def _embed(cfg, params, inputs):
-    """Token embedding by gather. The JAX package's one-hot matmul option
-    (``embed_onehot``) gives the same values exactly, so it is not a
-    separate path here."""
-    table = params["embed"].to(getattr(torch, cfg.compute_dtype))
-    return torch.nn.functional.embedding(inputs, table)
+    """Token embedding by gather, or the precomputed (B, S, M) embeddings
+    cast to the compute dtype (the ``embed`` frontend). The JAX package's
+    one-hot matmul option (``embed_onehot``) gives the same values
+    exactly, so it is not a separate path here."""
+    cdt = getattr(torch, cfg.compute_dtype)
+    if cfg.frontend == "token":
+        return torch.nn.functional.embedding(inputs, params["embed"].to(cdt))
+    return inputs.to(cdt)   # precomputed embeddings (VLM/audio stub)
 
 
 def _positions(cfg, batch: int, seq: int, device=None):
+    """(B, S) ``arange`` rows; (3, B, S) with M-RoPE, every stream that
+    ``arange`` (the stub frontend has no image grid)."""
     pos = torch.arange(seq, dtype=torch.int32, device=device)
+    if cfg.mrope_sections is not None:
+        return pos.expand(3, batch, seq)
     return pos.expand(batch, seq)
 
 
@@ -311,8 +318,8 @@ def _logits(cfg, params, h):
 
 
 def train_loss(cfg, params, batch) -> Tuple[torch.Tensor, Dict[str, Any]]:
-    """batch: {"inputs": (B, S) int tokens, "labels": (B, S) int, -1 =
-    masked}. Returns (mean loss over unmasked labels, {"loss": the same,
+    """batch: {"inputs": (B, S) int tokens or (B, S, M) embeddings,
+    "labels": (B, S) int, -1 = masked}. Returns (mean loss over unmasked labels, {"loss": the same,
     detached, "tokens": their count}), both fp32. An MoE model adds
     ``MOE_AUX_WEIGHT`` times its load-balancing loss to the loss it returns
     and reports that loss as ``metrics["moe_aux"]``; ``metrics["loss"]``
@@ -340,9 +347,10 @@ def train_loss(cfg, params, batch) -> Tuple[torch.Tensor, Dict[str, Any]]:
 
 
 def prefill(cfg, params, inputs) -> Tuple[torch.Tensor, Any, torch.Tensor]:
-    """Full-sequence prefill of (B, S) int tokens; returns (last-token
-    logits (B, V) fp32, stacked caches, pos (B,) = S)."""
-    b, s = inputs.shape
+    """Full-sequence prefill of (B, S) int tokens or (B, S, M)
+    embeddings; returns (last-token logits (B, V) fp32, stacked caches,
+    pos (B,) = S)."""
+    b, s = inputs.shape[:2]
     x = _embed(cfg, params, inputs)
     x, _, caches = _stack_fwd(cfg, params, x,
                               _positions(cfg, b, s, inputs.device),
@@ -398,7 +406,8 @@ def grow_caches(cfg, caches, new_len: int):
 
 
 def decode_step(cfg, params, token, pos, caches):
-    """One-token serve step. token: (B, 1) int; pos: (B,) tokens so far.
+    """One-token serve step. token: (B, 1) int (or (B, 1, M) embeddings);
+    pos: (B,) tokens so far.
     Returns (logits (B, V) fp32, caches, pos + 1). ``caches`` is updated
     in place (repro.launch.serve donates the cache): attention's hot rings,
     SSM states and conv tails; the returned caches are the same tensors."""

@@ -1,7 +1,7 @@
 """Checkpoints of the port (repro_torch.checkpoint) against the JAX
 package's (repro.checkpoint): the same state written by both gives the
-same files byte for byte, bf16 leaves included; each restores what the
-other wrote; and the behaviours of tests/test_substrate.py (atomic
+same files byte for byte, bf16 and float8 leaves included; each restores
+what the other wrote; and the behaviours of tests/test_substrate.py (atomic
 ``.tmp``, shape mismatch, rotation, async saves, empty directory, the
 restart loop) hold on the port. The JAX side runs on the CPU."""
 
@@ -63,16 +63,22 @@ def _files(path):
     return {p.name: p.read_bytes() for p in sorted(path.iterdir())}
 
 
-@pytest.mark.parametrize("which", ["mixed", "train_state", "bf16_params"])
+@pytest.mark.parametrize("which", ["mixed", "train_state", "bf16_params",
+                                   "embed_train_state"])
 def test_files_are_byte_identical_to_jax(which, tmp_path):
     """manifest.json and every .npy file the port writes equal, byte for
     byte, what repro.checkpoint writes for the same state: a small tree of
     fp32, bf16 and int32 leaves; the smoke llama train state (params, both
-    moments, counts); and the smoke granite parameters cast to bf16."""
+    moments, counts); the smoke granite parameters cast to bf16; and the
+    smoke musicgen-large train state (the ``embed`` frontend: no input
+    table in either tree)."""
     if which == "mixed":
         jstate, tstate = _mixed_state()
     elif which == "train_state":
         _, _, jstate, tstate = _jax_state()
+    elif which == "embed_train_state":
+        _, _, jstate, tstate = _jax_state("musicgen-large")
+        assert "embed" not in tstate["params"]
     else:
         _, _, jstate, tstate = _jax_state("granite-moe-3b-a800m")
         jstate = jax.tree.map(lambda x: x.astype(jnp.bfloat16),
@@ -89,7 +95,7 @@ def test_files_are_byte_identical_to_jax(which, tmp_path):
         assert tfiles[name] == jfiles[name], name
     manifest = json.loads(tfiles["manifest.json"])
     dtypes = {e["dtype"] for e in manifest["leaves"]}
-    if which != "train_state":
+    if which not in ("train_state", "embed_train_state"):
         assert "bfloat16" in dtypes
     if which == "mixed":   # JAX's flatten order: keys sorted, level by level
         assert [e["key"] for e in manifest["leaves"]] == [
@@ -137,6 +143,86 @@ def test_jax_restores_a_port_checkpoint(tmp_path):
     assert got["zeta"]["h"].dtype == jnp.bfloat16
     jax.tree.map(lambda a, b: np.testing.assert_array_equal(
         np.asarray(a, np.float32), np.asarray(b, np.float32)), got, jmixed)
+
+
+FLOAT8 = ("float8_e4m3fn", "float8_e5m2")
+FLOAT8_VALUES = [0.5, 1.5, -2.0, 3.0, -0.0, 448.0 / 4]
+
+
+def _float8_state():
+    """One leaf of each float8 dtype (and an fp32 one beside them), in both
+    packages."""
+    vals = np.asarray(FLOAT8_VALUES, np.float32)
+    jstate = {name: jnp.asarray(vals).astype(getattr(jnp, name))
+              for name in FLOAT8}
+    jstate["w"] = jnp.asarray(vals)
+    tstate = {name: torch.tensor(FLOAT8_VALUES).to(getattr(torch, name))
+              for name in FLOAT8}
+    tstate["w"] = torch.tensor(FLOAT8_VALUES)
+    return jstate, tstate
+
+
+def test_port_restores_jax_float8_leaves_as_their_values(tmp_path):
+    """float8_e4m3fn and float8_e5m2 leaves written by repro.checkpoint
+    (uint8 views, the dtype's name in the manifest) restore to equal values:
+    into float8 targets bit for bit, and into fp32 targets as the numbers
+    they hold, not as their raw codes."""
+    jstate, _ = _float8_state()
+    jckpt.save_checkpoint(str(tmp_path), 1, jstate)
+    f8 = {name: torch.empty(len(FLOAT8_VALUES), dtype=getattr(torch, name),
+                            device="meta") for name in FLOAT8}
+    f8["w"] = torch.empty(len(FLOAT8_VALUES), device="meta")
+    got = tckpt.restore_checkpoint(str(tmp_path), 1, f8)
+    for name in FLOAT8:
+        assert got[name].dtype == getattr(torch, name)
+        want = np.asarray(jstate[name]).view(np.uint8)
+        np.testing.assert_array_equal(got[name].view(torch.uint8).numpy(),
+                                      want)
+        np.testing.assert_array_equal(got[name].float().numpy(),
+                                      np.asarray(FLOAT8_VALUES, np.float32))
+    as_fp32 = tckpt.restore_checkpoint(
+        str(tmp_path), 1, {k: torch.empty(len(FLOAT8_VALUES), device="meta")
+                           for k in f8})
+    for name in f8:
+        np.testing.assert_array_equal(as_fp32[name].numpy(),
+                                      np.asarray(FLOAT8_VALUES, np.float32))
+
+
+def test_float8_files_are_byte_identical_to_jax(tmp_path):
+    """The port saves float8 leaves (a TypeError before) as the JAX package
+    does, byte for byte, and repro.checkpoint restores them."""
+    jstate, tstate = _float8_state()
+    jckpt.save_checkpoint(str(tmp_path / "jax"), 2, jstate)
+    tckpt.save_checkpoint(str(tmp_path / "torch"), 2, tstate)
+    jfiles, tfiles = _files(tmp_path / "jax" / "step_2"), _files(
+        tmp_path / "torch" / "step_2")
+    assert jfiles.keys() == tfiles.keys()
+    for name in jfiles:
+        assert tfiles[name] == jfiles[name], name
+    manifest = json.loads(tfiles["manifest.json"])
+    assert {e["key"]: e["dtype"] for e in manifest["leaves"]} == {
+        "float8_e4m3fn": "float8_e4m3fn", "float8_e5m2": "float8_e5m2",
+        "w": "float32"}
+    got = jckpt.restore_checkpoint(str(tmp_path / "torch"), 2,
+                                   jax.eval_shape(lambda: jstate))
+    for name in FLOAT8:
+        assert got[name].dtype == jstate[name].dtype
+        np.testing.assert_array_equal(np.asarray(got[name], np.float32),
+                                      np.asarray(FLOAT8_VALUES, np.float32))
+
+
+def test_unknown_stored_dtype_name_is_refused(tmp_path):
+    """A manifest dtype the port does not know is a ValueError, not the raw
+    array passed on and cast as numbers."""
+    tckpt.save_checkpoint(str(tmp_path), 0, {"w": torch.ones(4,
+                                                             dtype=torch.uint8)})
+    mpath = tmp_path / "step_0" / "manifest.json"
+    manifest = json.loads(mpath.read_text())
+    manifest["leaves"][0]["dtype"] = "float8_e4m3b11fnuz"
+    mpath.write_text(json.dumps(manifest))
+    with pytest.raises(ValueError, match="float8_e4m3b11fnuz"):
+        tckpt.restore_checkpoint(str(tmp_path), 0,
+                                 {"w": torch.empty(4, device="meta")})
 
 
 def test_tmp_directory_is_invisible(tmp_path):

@@ -1,7 +1,8 @@
 """The port's synthetic data pipeline (repro_torch.data.pipeline) gives
 the JAX package's batches bit for bit: several seeds and steps, the two
-ranks of a two-process job, and the prefetching iterator's stream, from
-step 0 and after a restart at a later step."""
+ranks of a two-process job, the embedding frontend's (B, S, M) fp32
+inputs, and the prefetching iterator's stream, from step 0 and after a
+restart at a later step."""
 
 import itertools
 
@@ -64,3 +65,25 @@ def test_process_index_defaults_without_torch_distributed():
     assert (tp.pidx, tp.pcount, tp.local_batch) == (0, 1, 4)
     with pytest.raises(ValueError):
         tdata.SyntheticTokenPipeline(tdata.DataConfig(3, 8, 32), 0, 2)
+
+
+@pytest.mark.parametrize("embed_dim", [16, 64])
+@pytest.mark.parametrize("pidx,pcount", [(0, 1), (1, 2)],
+                         ids=["single", "rank1of2"])
+def test_embedding_batches_are_bit_identical(embed_dim, pidx, pcount):
+    """embed_dim > 0: standard-normal (local batch, S, M) fp32 inputs drawn
+    after the labels from the same generator, and the same labels as
+    without them."""
+    jp, tp = _both(pidx, pcount, global_batch=4, seq_len=32, vocab_size=512,
+                   seed=3, embed_dim=embed_dim)
+    tokens = tdata.SyntheticTokenPipeline(
+        tdata.DataConfig(4, 32, 512, seed=3), pidx, pcount)
+    for step in (0, 5):
+        want, got = jp.batch_at(step), tp.batch_at(step)
+        assert got["inputs"].shape == (4 // pcount, 32, embed_dim)
+        for key in want:
+            assert got[key].dtype == want[key].dtype
+            np.testing.assert_array_equal(got[key], want[key])
+        assert got["inputs"].dtype == np.float32
+        np.testing.assert_array_equal(got["labels"],
+                                      tokens.batch_at(step)["labels"])

@@ -962,3 +962,87 @@ def test_cuda_resume_after_a_failure_is_bit_identical(cuda, tmp_path):
         assert leaf.device.type == ("cuda" if leaf.is_floating_point()
                                     else "cpu"), key
         assert torch.equal(leaf, got[key]), key
+
+
+# ---------------------------------------------------------------------------
+# The embed frontend, M-RoPE and the new model heads on the card
+# ---------------------------------------------------------------------------
+# The flash kernels at this slice's head layouts: musicgen-large's MHA with
+# H = K = 32 at D 64, starcoder2-15b's GQA 48/4 (ratio 12) and qwen2-vl-72b's
+# 64/8 at D 128; fp32 and bf16, one ragged S < T row each.
+NEW_HEADS = [
+    (1, 512, 512, 32, 32, 64, None, None, torch.bfloat16),
+    (1, 300, 428, 32, 32, 64, None, None, torch.float32),
+    (1, 512, 512, 48, 4, 128, None, None, torch.bfloat16),
+    (1, 300, 428, 48, 4, 128, None, None, torch.float32),
+    (1, 512, 512, 64, 8, 128, None, None, torch.bfloat16),
+]
+
+
+@pytest.mark.parametrize("row", NEW_HEADS,
+                         ids=[f"heads{i}" for i in range(len(NEW_HEADS))])
+def test_cuda_kernel_vs_plain_at_new_model_heads(cuda, row):
+    test_cuda_kernel_vs_plain(cuda, row)
+
+
+@pytest.mark.parametrize("row", NEW_HEADS[:2],
+                         ids=["mha32_d64_bf16", "mha32_d64_f32"])
+def test_cuda_backward_vs_plain_at_musicgen_heads(cuda, row):
+    """The flash backward at musicgen-large's H = K = 32, D 64."""
+    test_cuda_backward_vs_plain(cuda, row)
+
+
+def test_cuda_mrope_matches_cpu_at_d128(cuda):
+    """apply_mrope on the card against the CPU at qwen2-vl-72b's D 128,
+    sections (16, 24, 24) and rope theta, three distinct position streams;
+    fp32 within _tol."""
+    from repro_torch.models.common import apply_mrope
+
+    gen = torch.Generator().manual_seed(12)
+    x = torch.randn((2, 64, 8, 128), generator=gen)
+    pos = torch.randint(0, 8192, (3, 2, 64), generator=gen, dtype=torch.int32)
+    want = apply_mrope(x, pos, (16, 24, 24), 1e6)
+    got = apply_mrope(x.to(cuda), pos.to(cuda), (16, 24, 24), 1e6)
+    assert got.device.type == "cuda"
+    torch.testing.assert_close(got.cpu(), want, **_tol(torch.float32))
+
+
+@pytest.mark.parametrize("arch,head_dim", [("musicgen-large", 64),
+                                           ("qwen2-vl-72b", 128)])
+def test_cuda_embed_smoke_decode_matches_cpu(cuda, arch, head_dim):
+    """The ``embed`` frontend on the card: the smoke config with a head dim
+    the flash kernels take (musicgen-large at its D 64; qwen2-vl-72b at its
+    D 128 with its published M-RoPE sections (16, 24, 24)), prefill of 2 x
+    72 bf16 embeddings and 4 decode steps on embedded frames against the
+    CPU (plain attention), the same bf16 weights, rtol = atol = 0.15 as
+    tests/test_torch_lm.py's bf16 parity; the flash forward runs once a
+    layer in the prefill on the card, never on the CPU."""
+    import dataclasses
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import lm
+
+    change = dict(head_dim=head_dim)
+    if arch == "qwen2-vl-72b":
+        change["mrope_sections"] = (16, 24, 24)
+    cfg = dataclasses.replace(smoke_config(arch), **change)
+    gen = torch.Generator().manual_seed(13)
+    cpu_params = lm.init_params(cfg, gen, device="cpu", dtype=torch.bfloat16)
+    emb = torch.randn((2, 76, cfg.d_model), generator=gen).to(torch.bfloat16)
+    outs = []
+    for dev in (torch.device("cpu"), cuda):
+        params = lm.tree_map(lambda x: x.to(dev), cpu_params)
+        fwd = kernel.flash_attention.launches
+        with torch.inference_mode():
+            logits, caches, pos = lm.prefill(cfg, params, emb[:, :72].to(dev))
+            caches = lm.grow_caches(cfg, caches, 76)
+            seq = [logits]
+            for t in range(72, 76):
+                logits, caches, pos = lm.decode_step(
+                    cfg, params, emb[:, t:t + 1].to(dev), pos, caches)
+                seq.append(logits)
+        assert kernel.flash_attention.launches - fwd == (
+            cfg.num_layers if dev.type == "cuda" else 0)
+        outs.append(torch.stack(seq).float().cpu())
+    assert torch.isfinite(outs[1]).all()
+    torch.testing.assert_close(outs[1], outs[0], rtol=0.15, atol=0.15)

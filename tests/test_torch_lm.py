@@ -1,8 +1,11 @@
 """Slice parity: the port's serving path (prefill → grow_caches → greedy
 decode) against the JAX package's on smoke_config("llama3.2-3b"),
-smoke_config("mamba2-130m"), smoke_config("zamba2-2.7b") and
-smoke_config("granite-moe-3b-a800m"), with the JAX-initialised weights
-carried over by ``params_from_jax``. The mamba
+smoke_config("mamba2-130m"), smoke_config("zamba2-2.7b"),
+smoke_config("granite-moe-3b-a800m"), and the ``embed``-frontend configs
+smoke_config("musicgen-large") and smoke_config("qwen2-vl-72b") (M-RoPE,
+(3, B, S) positions), fed the same (B, S, M) prompt and (B, 1, M) decode
+embeddings, with the JAX-initialised weights carried over by
+``params_from_jax``. The mamba
 and zamba2 prompts (16 tokens) are shorter than their ssm_chunk (32), so
 the SSD's ragged path runs; six decode steps, so a decode that dropped
 the SSM state it returns would show. zamba2's smoke config applies its
@@ -33,32 +36,45 @@ from repro.models import lm as jlm  # noqa: E402
 from repro_torch.configs import get_config, smoke_config  # noqa: E402
 from repro_torch.models import lm as tlm  # noqa: E402
 from repro_torch.models.convert import params_from_jax  # noqa: E402
-from torch_parity import configs, params, to_np, to_torch  # noqa: E402
+from torch_parity import configs, params, to_np, to_torch, tol  # noqa: E402
 
 B, S, STEPS = 2, 16, 6
 
 
 def _run_both(dtype, own_greedy, arch="llama3.2-3b", **change):
+    """Prefill, grow and STEPS decode steps in both packages. Token models
+    decode greedily (the port on its own tokens with ``own_greedy``, else
+    on JAX's); an ``embed``-frontend model is fed the same random fp32
+    embeddings in both, (B, S, M) for the prompt and (B, 1, M) a step."""
     jcfg, tcfg = configs(arch, compute_dtype=dtype)
     jcfg = dataclasses.replace(jcfg, **change)
     tcfg = dataclasses.replace(tcfg, **change)
     jp, tp = params(jcfg, tcfg, dtype=dtype)
-    prompts = np.random.default_rng(0).integers(
-        0, jcfg.vocab_size, (B, S)).astype(np.int32)
+    rng = np.random.default_rng(0)
+    embed = jcfg.frontend == "embed"
+    if embed:
+        prompts = rng.standard_normal((B, S, jcfg.d_model)).astype(np.float32)
+        frames = rng.standard_normal(
+            (STEPS, B, 1, jcfg.d_model)).astype(np.float32)
+    else:
+        prompts = rng.integers(0, jcfg.vocab_size, (B, S)).astype(np.int32)
     jlog, jc, jpos = jlm.prefill(jcfg, jp, jnp.asarray(prompts))
     tlog, tc, tpos = tlm.prefill(tcfg, tp, to_torch(prompts))
     jc = jlm.grow_caches(jcfg, jc, S + STEPS)
     tc = tlm.grow_caches(tcfg, tc, S + STEPS)
     jlogits, tlogits, jtoks, ttoks = [jlog], [tlog], [], []
-    for _ in range(STEPS):
+    for i in range(STEPS):
         jt = np.argmax(to_np(jlog)[:, : jcfg.vocab_size], -1).astype(np.int32)
         tt = tlog[:, : tcfg.vocab_size].argmax(-1).to(torch.int32)
         jtoks.append(jt)
         ttoks.append(tt.numpy())
-        feed = tt if own_greedy else torch.from_numpy(jt)
-        jlog, jc, jpos = jlm.decode_step(jcfg, jp, jnp.asarray(jt)[:, None],
-                                         jpos, jc)
-        tlog, tc, tpos = tlm.decode_step(tcfg, tp, feed[:, None], tpos, tc)
+        if embed:
+            jfeed, feed = jnp.asarray(frames[i]), torch.from_numpy(frames[i])
+        else:
+            jfeed = jnp.asarray(jt)[:, None]
+            feed = (tt if own_greedy else torch.from_numpy(jt))[:, None]
+        jlog, jc, jpos = jlm.decode_step(jcfg, jp, jfeed, jpos, jc)
+        tlog, tc, tpos = tlm.decode_step(tcfg, tp, feed, tpos, tc)
         jlogits.append(jlog)
         tlogits.append(tlog)
     np.testing.assert_array_equal(to_np(tpos), to_np(jpos))
@@ -115,10 +131,13 @@ def test_full_config_shapes_match_jax_without_memory():
 
 @pytest.mark.parametrize("change", [
     dict(pattern=("attn", "cross_attn")),
-    dict(frontend="embed"),
-    dict(mrope_sections=(2, 3, 3)),
+    dict(frontend="pixels"),
+    dict(pattern=("mlstm",)),
 ])
 def test_unported_features_raise(change):
+    """A block kind or frontend neither package has is refused (the
+    ``embed`` frontend and M-RoPE, once refused here, are ported and
+    tested below)."""
     cfg = dataclasses.replace(smoke_config("llama3.2-3b"), **change)
     with pytest.raises(NotImplementedError):
         tlm.init_params(cfg, torch.Generator().manual_seed(0))
@@ -371,3 +390,94 @@ def test_granite_full_config_shapes_match_jax_without_memory():
     assert count == sum(math.prod(x) for x in jax.tree.leaves(
         want, is_leaf=lambda x: isinstance(x, tuple))) == 3_979_052_544
     assert count - tcfg.d_model == jcfg.n_params() == 3_979_051_008
+
+
+EMBED_ARCHS = ["musicgen-large", "qwen2-vl-72b"]
+
+
+@pytest.mark.parametrize("arch", EMBED_ARCHS)
+def test_embed_serving_path_fp32_matches_jax(arch):
+    """The ``embed`` frontend's serving path (musicgen-large: MHA; qwen2-vl-
+    72b: GQA and M-RoPE, sections (2, 3, 3) at the smoke head dim 16) on
+    the same embeddings: logits of the prefill and 6 decode steps within
+    fp32 _tol, the same greedy tokens, and every cache leaf within _tol
+    (the hot ring's h_pos, written from stream 0 of the (3, B, 1) decode
+    positions, included)."""
+    jl, tl, jt, tt, jc, tc = _run_both("float32", own_greedy=True, arch=arch)
+    assert tl.shape == jl.shape == (STEPS + 1, B, 512)
+    np.testing.assert_allclose(tl, jl, **tol("float32"))
+    np.testing.assert_array_equal(tt, jt)
+    assert set(tc) == set(jc) == {"slot0"}
+    for name in ("k", "v", "kv_pos", "hk", "hv", "h_pos"):
+        assert tuple(tc["slot0"][name].shape) == jc["slot0"][name].shape
+        np.testing.assert_allclose(to_np(tc["slot0"][name]),
+                                   to_np(jc["slot0"][name]),
+                                   err_msg=name, **tol("float32"))
+
+
+@pytest.mark.parametrize("arch", EMBED_ARCHS)
+def test_embed_serving_path_bf16_matches_jax(arch):
+    """The same in bf16 weights and compute, logits within bf16 _tol."""
+    jl, tl, _, _, jc, tc = _run_both("bfloat16", own_greedy=False, arch=arch)
+    assert np.isfinite(tl).all()
+    np.testing.assert_allclose(tl, jl, **tol("bfloat16"))
+    for name in ("k", "v", "hk", "hv"):
+        np.testing.assert_allclose(to_np(tc["slot0"][name]),
+                                   to_np(jc["slot0"][name]),
+                                   err_msg=name, **tol("bfloat16"))
+
+
+def test_mrope_positions_are_three_streams_of_arange():
+    """_positions gives (3, B, S) under M-RoPE, (B, S) otherwise, each row
+    the arange of JAX's _positions."""
+    for arch, lead in (("qwen2-vl-72b", (3,)), ("musicgen-large", ())):
+        jcfg, tcfg = configs(arch)
+        got = tlm._positions(tcfg, 2, 5)
+        want = jlm._positions(jcfg, 2, 5)
+        assert tuple(got.shape) == want.shape == lead + (2, 5)
+        np.testing.assert_array_equal(to_np(got), np.asarray(want))
+
+
+@pytest.mark.parametrize("arch", EMBED_ARCHS)
+def test_embed_frontend_param_tree_has_no_input_table(arch):
+    """Under the ``embed`` frontend the tree has no ``embed`` leaf, as JAX's;
+    params_from_jax takes JAX's tree and refuses one with an ``embed``
+    leaf added; the port's own draw has the same tree; and the count is
+    the config's n_params() and the final norm (which n_params leaves
+    out), as for every other config."""
+    jcfg, tcfg = configs(arch)
+    jp, tp = params(jcfg, tcfg)
+    assert "embed" not in tp and "embed" not in jp
+    assert set(tp) == {"slots", "final_norm", "unembed"}
+    assert tlm.param_count(tp) == jlm.param_count(jp)
+    drawn = tlm.init_params(tcfg, torch.Generator().manual_seed(0))
+    assert tlm.tree_map(lambda x: tuple(x.shape), drawn) == \
+        tlm.param_shapes(tcfg)
+    assert tlm.param_count(drawn) - tcfg.d_model == tcfg.n_params()
+    broken = dict(jax.tree.map(np.asarray, jp))
+    broken["embed"] = np.zeros((tcfg.padded_vocab, tcfg.d_model), np.float32)
+    with pytest.raises(ValueError):
+        params_from_jax(tcfg, broken)
+
+
+@pytest.mark.parametrize("arch,count", [
+    ("musicgen-large", 3_225_618_432),
+    ("starcoder2-15b", 21_995_427_840),
+    ("qwen2-vl-72b", 71_459_676_160),
+])
+def test_new_full_config_shapes_match_jax_without_memory(arch, count):
+    """The three configs of this slice at full width: the port's tree of
+    shapes (meta device) is JAX's (eval_shape), leaf for leaf, and its
+    count the config's n_params() and the final norm."""
+    import functools
+
+    from repro.configs import get_config as jax_get_config
+
+    jcfg = jax_get_config(arch)
+    want = jax.eval_shape(functools.partial(jlm.init_params, jcfg),
+                          jax.random.PRNGKey(0))
+    want = jax.tree.map(lambda x: tuple(x.shape), want)
+    tcfg = get_config(arch)
+    assert tlm.param_shapes(tcfg) == want
+    n = tlm.param_count(tlm.init_params(tcfg, None, device="meta"))
+    assert n == count and n - tcfg.d_model == jcfg.n_params()

@@ -132,3 +132,54 @@ def test_init_kv_cache_matches_jax():
     assert set(got) == set(want)
     for name in want:
         np.testing.assert_array_equal(to_np(got[name]), to_np(want[name]))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d,sections", [(16, (2, 3, 3)), (128, (16, 24, 24))],
+                         ids=["smoke_d16", "qwen2_vl_d128"])
+def test_apply_mrope_with_distinct_streams(dtype, d, sections):
+    """M-RoPE against repro.models.common.apply_mrope with three different
+    random position streams (temporal, height, width): only then does a
+    wrong band-to-stream split show, since with equal streams M-RoPE is
+    RoPE. fp32 within 1e-6, bf16 within _tol; at the smoke head dim and at
+    qwen2-vl-72b's D 128 with its published sections and rope theta."""
+    rng = np.random.default_rng(5)
+    jx, tx = normal(rng, (2, 8, 4, d), dtype)
+    pos = rng.integers(0, 4096, (3, 2, 8)).astype(np.int32)
+    assert all(not np.array_equal(pos[i], pos[j])
+               for i, j in ((0, 1), (0, 2), (1, 2)))
+    got = tcommon.apply_mrope(tx, torch.from_numpy(pos), sections, 1e6)
+    want = jcommon.apply_mrope(jx, jnp.asarray(pos), sections, 1e6)
+    assert got.dtype == tx.dtype
+    t = dict(rtol=1e-6, atol=1e-6) if dtype == "float32" else tol(dtype)
+    np.testing.assert_allclose(to_np(got), to_np(want), **t)
+    # each stream moves only its own bands: shifting the width stream
+    # leaves the temporal and height bands as they were
+    moved = pos.copy()
+    moved[2] += 7
+    other = tcommon.apply_mrope(tx, torch.from_numpy(moved), sections, 1e6)
+    half, cut = d // 2, sections[0] + sections[1]
+    for lo in (0, half):
+        np.testing.assert_array_equal(to_np(other)[..., lo:lo + cut],
+                                      to_np(got)[..., lo:lo + cut])
+        assert not np.array_equal(to_np(other)[..., lo + cut:lo + half],
+                                  to_np(got)[..., lo + cut:lo + half])
+
+
+def test_apply_mrope_equals_rope_when_streams_coincide():
+    rng = np.random.default_rng(6)
+    _, tx = normal(rng, (2, 8, 4, 16))
+    pos = torch.from_numpy(rng.integers(0, 100, (2, 8)).astype(np.int32))
+    torch.testing.assert_close(
+        tcommon.apply_mrope(tx, pos.expand(3, 2, 8), (2, 3, 3)),
+        tcommon.apply_rope(tx, pos), rtol=0, atol=0)
+
+
+def test_apply_mrope_refuses_sections_that_miss_half_the_head_dim():
+    _, tx = normal(np.random.default_rng(7), (1, 4, 2, 16))
+    pos = torch.zeros((3, 1, 4), dtype=torch.int32)
+    with pytest.raises(ValueError, match="sum to 8"):
+        tcommon.apply_mrope(tx, pos, (2, 3, 2))
+    with pytest.raises(ValueError, match="sum to 8"):
+        jcommon.apply_mrope(jnp.asarray(to_np(tx)), jnp.asarray(pos.numpy()),
+                            (2, 3, 2))

@@ -1,7 +1,9 @@
 """The port's serving entry point (repro_torch.launch.serve) on the CPU: the
 torch twin of tests/test_system.py::test_serve_generates_and_reports, on
-the llama3.2-3b and mamba2-130m smoke configs. A CUDA request without a
-card must fail, not run on the CPU."""
+the llama3.2-3b and mamba2-130m smoke configs; both CLIs (serve and train)
+on the smoke configs of this slice's archs, musicgen-large and
+qwen2-vl-72b (the ``embed`` frontend) and starcoder2-15b. A CUDA request
+without a card must fail, not run on the CPU."""
 
 import json
 
@@ -97,3 +99,69 @@ def test_main_cli_zamba_on_cpu(monkeypatch, capsys):
     serve_mod.main()
     last = capsys.readouterr().out.strip().splitlines()[-1]
     assert last.startswith("generated 8 tokens in ")
+
+
+NEW_ARCHS = ["musicgen-large", "starcoder2-15b", "qwen2-vl-72b"]
+
+
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_main_cli_new_archs_on_cpu(arch, monkeypatch, capsys):
+    monkeypatch.setattr("sys.argv", [
+        "serve", "--arch", arch, "--smoke", "--device", "cpu",
+        "--requests", "2", "--prompt-len", "16", "--gen-len", "4"])
+    serve_mod.main()
+    last = capsys.readouterr().out.strip().splitlines()[-1]
+    assert last.startswith("generated 8 tokens in ")
+
+
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_train_cli_new_archs_on_cpu(arch, tmp_path, capsys):
+    from repro_torch.launch.train import main as train_main
+
+    hist = tmp_path / "history.json"
+    train_main(["--arch", arch, "--smoke", "--device", "cpu", "--steps", "2",
+                "--batch", "2", "--seq", "32", "--history-json", str(hist)])
+    history = json.loads(hist.read_text())
+    assert [h["step"] for h in history] == [0, 1]
+    assert all(np.isfinite(h["loss"]) and h["grad_norm"] > 0
+               for h in history)
+    assert 'region "train_loop"' in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("arch", ["musicgen-large", "qwen2-vl-72b"])
+def test_embed_serve_feeds_embeddings_and_zero_frames(arch, monkeypatch):
+    """An ``embed``-frontend model is prefilled on random bf16 (requests,
+    prompt_len, d_model) embeddings from the run's generator and decoded on
+    zero (requests, 1, d_model) bf16 frames, as repro.launch.serve does;
+    the run is deterministic in its seed."""
+    from repro_torch.models import lm
+
+    cfg = smoke_config(arch)
+    seen = []
+    real_prefill, real_decode = lm.prefill, lm.decode_step
+
+    def prefill(cfg_, params, inputs):
+        seen.append(("prefill", inputs.clone()))
+        return real_prefill(cfg_, params, inputs)
+
+    def decode_step(cfg_, params, inputs, pos, caches):
+        seen.append(("decode", inputs.clone()))
+        return real_decode(cfg_, params, inputs, pos, caches)
+
+    monkeypatch.setattr(lm, "prefill", prefill)
+    monkeypatch.setattr(lm, "decode_step", decode_step)
+    tokens, _ = serve_mod.serve(cfg, requests=2, prompt_len=8, gen_len=3,
+                                seed=4, verbose=False, device="cpu")
+    assert tokens.shape == (2, 3)
+    (kind, prompt), *steps = seen
+    assert kind == "prefill" and prompt.shape == (2, 8, cfg.d_model)
+    assert prompt.dtype == torch.bfloat16 and prompt.std() > 0.5
+    assert [k for k, _ in steps] == ["decode"] * 3
+    for _, frame in steps:
+        assert frame.shape == (2, 1, cfg.d_model)
+        assert frame.dtype == torch.bfloat16 and not frame.any()
+    seen.clear()
+    again, _ = serve_mod.serve(cfg, requests=2, prompt_len=8, gen_len=3,
+                               seed=4, verbose=False, device="cpu")
+    np.testing.assert_array_equal(again, tokens)
+    assert torch.equal(seen[0][1], prompt)

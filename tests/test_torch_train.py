@@ -1,10 +1,13 @@
 """The port's training path (repro_torch.launch.train and what it runs) on
-the CPU against the JAX package on smoke_config("llama3.2-3b"), and on
+the CPU against the JAX package on smoke_config("llama3.2-3b"), on
 the SSM configs smoke_config("mamba2-130m") and smoke_config("zamba2-
-2.7b"), the same weights and batches in both: the loss and its
+2.7b"), and on the ``embed``-frontend configs smoke_config("musicgen-
+large") and smoke_config("qwen2-vl-72b") (M-RoPE), the same weights and
+batches in both: the loss and its
 gradients, remat, three train steps, the TALP-monitored trainer (the
 torch twin of tests/test_system.py::test_train_loss_decreases_with_talp),
-what the trainer refuses, and checkpoint and restart: a run that fails
+what the trainer refuses (on the card: a head dim the flash backward
+lacks, a train state larger than the card), and checkpoint and restart: a run that fails
 and resumes ends bit-identical to one that did not, and a run resumes
 from a checkpoint the JAX trainer wrote."""
 
@@ -35,9 +38,12 @@ import torch_parity as tp  # noqa: E402
 def _batches(cfg, n, batch=4, seq=96, seed=3):
     """JAX pipeline batches (4 x 96 = 384 tokens: two loss chunks of the
     smoke config's 256, the second ragged), the first 3 labels of every
-    row masked (-1)."""
+    row masked (-1); (B, S, d_model) fp32 inputs for an ``embed``-frontend
+    config, as the JAX trainer asks for."""
+    embed_dim = cfg.d_model if cfg.frontend == "embed" else 0
     data = SyntheticTokenPipeline(DataConfig(batch, seq, cfg.vocab_size,
-                                             seed=seed), 0, 1)
+                                             seed=seed, embed_dim=embed_dim),
+                                  0, 1)
     out = []
     for step in range(n):
         b = data.batch_at(step)
@@ -424,3 +430,122 @@ def test_port_resumes_a_checkpoint_the_jax_trainer_wrote(tmp_path):
     _assert_trees_close(tstate["params"], jstate["params"], what="params")
     _assert_trees_close(tstate["opt"]["mu"], jstate["opt"]["mu"], what="mu")
     _assert_trees_close(tstate["opt"]["nu"], jstate["opt"]["nu"], what="nu")
+
+
+EMBED_ARCHS = ["musicgen-large", "qwen2-vl-72b"]
+
+
+@pytest.mark.parametrize("arch", EMBED_ARCHS)
+def test_embed_train_loss_and_grads_match_jax_fp32(arch):
+    """The ``embed`` frontend differentiates as the JAX package's on the
+    pipeline's (B, S, M) embeddings: the loss, its token count and every
+    gradient leaf (no input table; qwen2-vl-72b's through M-RoPE) at fp32
+    _tol."""
+    _loss_and_grads_match_jax(arch)
+
+
+@pytest.mark.parametrize("arch", EMBED_ARCHS)
+def test_embed_train_loss_matches_jax_in_bf16_compute(arch):
+    jcfg, tcfg = tp.configs(arch, compute_dtype="bfloat16")
+    jp, tparams = tp.params(jcfg, tcfg)
+    batch = _batches(jcfg, 1)[0]
+    assert batch["inputs"].shape == (4, 96, jcfg.d_model)
+    jloss, _ = jlm.train_loss(jcfg, jax.tree.map(
+        lambda x: x.astype(jax.numpy.bfloat16), jp), batch)
+    leaves = tlm.tree_map(lambda x: x.to(torch.bfloat16), tparams)
+    loss, _ = tlm.train_loss(tcfg, leaves, _torch_batch(batch))
+    assert loss.dtype == torch.float32
+    np.testing.assert_allclose(float(loss), float(jloss), **tp.tol("bfloat16"))
+
+
+@pytest.mark.parametrize("arch", EMBED_ARCHS)
+def test_embed_three_train_steps_match_jax(arch):
+    """test_three_train_steps_match_jax on the embed-frontend configs: the
+    loss, grad norm and lr of every step, then params and moments."""
+    _three_steps_match_jax(arch)
+
+
+@pytest.mark.parametrize("arch", EMBED_ARCHS)
+def test_embed_trainer_matches_the_jax_trainer(arch, tmp_path):
+    """repro.launch.train runs 2 steps with a checkpoint after each;
+    step_1 is removed and the port's trainer, given the directory,
+    resumes from JAX's step_0 and runs step 1 on the embeddings its own
+    pipeline draws (embed_dim = d_model). Its loss and grad norm agree with
+    the JAX trainer's step 1 at fp32 _tol, and so do the final params."""
+    import shutil
+
+    from repro.launch.train import train as jax_train
+
+    jcfg, tcfg = tp.configs(arch, compute_dtype="float32")
+    opt = dict(lr=1e-3, warmup_steps=1, total_steps=2)
+    kw = dict(steps=2, global_batch=2, seq_len=32, verbose=False)
+    ck = tmp_path / "ck"
+    jstate, jhist, _ = jax_train(jcfg, ckpt_dir=str(ck), ckpt_every=1,
+                                 opt_cfg=JAdamWConfig(**opt), **kw)
+    shutil.rmtree(ck / "step_1")
+    tstate, thist, _ = train(tcfg, ckpt_dir=str(ck), ckpt_every=1,
+                             opt_cfg=AdamWConfig(**opt), device="cpu", **kw)
+    assert [h["step"] for h in thist] == [1]
+    for key in ("loss", "grad_norm"):
+        np.testing.assert_allclose(thist[0][key], jhist[1][key], err_msg=key,
+                                   **tp.tol("float32"))
+    assert "embed" not in tstate["params"]
+    _assert_trees_close(tstate["params"], jstate["params"], what="params")
+
+
+@pytest.mark.parametrize("arch,fits", [
+    ("llama3.2-3b", True), ("granite-moe-3b-a800m", True),
+    ("musicgen-large", True), ("starcoder2-15b", False),
+    ("qwen2-vl-72b", False),
+])
+def test_train_state_memory_check_at_80_gib(arch, fits):
+    """check_train_state_fits at a stated 80 GiB card: 16 bytes a parameter
+    (fp32 masters and both moments, bf16 cast leaves and gradients) is
+    53.7 GiB for llama3.2-3b, 59.3 for granite and 48.1 for musicgen-large,
+    which pass; starcoder2-15b's 327.8 GiB and qwen2-vl-72b's 1064.8 GiB are
+    refused with ValueError."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import (
+        TRAIN_STATE_BYTES_PER_PARAM, check_train_state_fits,
+    )
+
+    cfg = get_config(arch)
+    card = 80 * 2**30
+    need = TRAIN_STATE_BYTES_PER_PARAM * tlm.param_count(
+        tlm.init_params(cfg, None, device="meta"))
+    assert (need <= card) == fits
+    if fits:
+        check_train_state_fits(cfg, card)
+    else:
+        with pytest.raises(ValueError, match="train state"):
+            check_train_state_fits(cfg, card)
+    # the boundary is the stated total, byte for byte
+    check_train_state_fits(cfg, need)
+    with pytest.raises(ValueError):
+        check_train_state_fits(cfg, need - 1)
+
+
+def test_train_on_cuda_refuses_a_train_state_larger_than_the_card(
+        monkeypatch):
+    """train() on the card asks torch.cuda.mem_get_info for the card's total
+    and refuses starcoder2-15b before it draws a weight (here a stated
+    80 GiB card: the refusal comes before any CUDA allocation, so no card
+    is needed to show it); the CPU trains its smoke config."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as train_mod
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "mem_get_info",
+                        lambda *a: (80 * 2**30, 80 * 2**30))
+    drawn = []
+    monkeypatch.setattr(train_mod, "init_train_state",
+                        lambda *a, **k: drawn.append(1))
+    with pytest.raises(ValueError, match="327.8 GiB"):
+        train(get_config("starcoder2-15b"), steps=1, verbose=False,
+              device="cuda")
+    assert not drawn
+    monkeypatch.undo()
+    _, history, _ = train(smoke_config("starcoder2-15b"), steps=1,
+                          global_batch=2, seq_len=32, verbose=False,
+                          device="cpu")
+    assert np.isfinite(history[0]["loss"])
