@@ -12,8 +12,9 @@
    unless both flash libraries have HGMMA and UTMALDG and no HMMA and the
    SSD forward and backward have HMMA; fails if any ``ptxas`` log says it
    serialises wgmma (warning C7520, a wgmma under a branch; C7512, too few
-   registers), if a forward kernel (D 32, 64, 80, 128), a bf16 kernel of
-   the flash backward or a kernel of the SSD backward's bf16 path spills.
+   registers), if a forward kernel (D 32, 64, 80, 120, 128, 256), a bf16
+   kernel of the flash backward (both passes at D 32, 64, 120, 128 and 256)
+   or a kernel of the SSD backward's bf16 path spills.
    Then TALP's device records, which come from CUPTI's activity API
    (read by a host library built here at first use): a sleep kernel's
    record against the CUDA events
@@ -32,19 +33,38 @@
      shape of granite-moe-3b-a800m (B 8, S 1024, H 24, K 8, D 64, bf16),
      then the head layouts of musicgen-large (MHA, H = K = 32, D 64),
      starcoder2-15b (GQA 48/4, D 128) and qwen2-vl-72b (64/8, D 128) and
-     their serving prefill shapes (B 8, S 1024, bf16). At the six prefill
-     shapes it times the plain version, then the kernel and one PyTorch
-     library call (``scaled_dot_product_attention``, a yardstick only) in
-     turns: library, kernel, kernel, library;
+     their serving prefill shapes (B 8, S 1024, bf16); then head dims 120
+     and 256 (NEW_DIMS: fp32 and bf16 MHA, GQA 4:1 and 2:1, ragged S < T,
+     window with soft-cap, S below one query tile, a window narrower than
+     T - S) and the serving prefills of gemma2-2b (B 4, S 8192, H 8, K 4,
+     D 256, soft-cap 50; global layers, and local ones with window 4096)
+     and h2o-danube-3-4b (B 4, S 8192, H 32, K 8, D 120, window 4096),
+     whose plain version runs one KV group of one request at a time. Each
+     row is also held per row (row_rel_err: each output row's error over
+     that row's size, at the row's tolerance), and at bf16 with T of 4096
+     and more two planted faults must fail that check (the output's columns
+     D/2 and up zeroed; every element off by half the raw limit). At the
+     nine prefill shapes it times the plain version, then the kernel and
+     one PyTorch library call (a yardstick only) in turns: library, kernel,
+     kernel, library. The call is ``scaled_dot_product_attention``, or with
+     a window or a soft-cap ``flex_attention``, compiled, with the soft-cap
+     as its score_mod and the window as a BlockMask (its output held to the
+     kernel's per row); SDPA is then timed in the same turns as a side note
+     (without the cap; with a window, an explicit boolean mask);
    * the flash-attention backward over the same rows, the new head
      layouts and the training shapes of llama3.2-3b (B 2, S 2048, H 24,
      K 8, D 128, bf16), of granite-moe-3b-a800m (the same at D 64) and of
-     musicgen-large (H = K = 32, D 64): dq, dk, dv against the plain
-     backward and against autograd through the plain forward, both in
-     fp32, and a second run bit-identical; at the three training shapes
-     and llama's serving prefill shape it times the plain version, then
-     the kernels and the backward of ``scaled_dot_product_attention`` in
-     turns;
+     musicgen-large (H = K = 32, D 64), then NEW_DIMS and the training
+     shapes of gemma2-2b (B 1, S 8192, D 256; global and local) and
+     h2o-danube-3-4b (B 1, S 8192, D 120, window 4096): dq, dk, dv against
+     the plain backward and against autograd through the plain forward,
+     both in fp32 (one KV group at a time where a request's fp32 scores
+     exceed 2 GiB), bf16 rows also per row against the plain backward,
+     with the planted faults at the 8192-token shapes, and a second run
+     bit-identical; at the six training shapes and llama's serving prefill
+     shape it times the plain version, then the kernels and the backward
+     of ``scaled_dot_product_attention`` in turns (of ``flex_attention``
+     for windows and soft-caps, SDPA's as a side note, as in the forward);
    * the SSD chunked scan over the JAX package's SSD sweep, ragged L,
      initial state in and final state out, the edges of the bf16 kernels'
      chunk-parallel form, state size 64 and P = N = 128 on the bf16 path,
@@ -80,11 +100,13 @@
    musicgen-large's smoke config at head dim 64 and qwen2-vl-72b's at head
    dim 128 with M-RoPE sections (16, 24, 24), prefilled on random bf16
    embeddings and decoded on embedded frames, and M-RoPE with three
-   distinct position streams); and one training step of the llama3.2-3b
-   smoke config (head_dim 32), one of the mamba2-130m smoke config and one
-   of the musicgen-large smoke config (head_dim 64, fp32 embeddings), in
-   fp32 and in bf16 compute, on the card against the CPU from the same
-   state.
+   distinct position streams; gemma2-2b at head dim 256 and
+   h2o-danube-3-4b at head dim 120, a 300-token prompt past their smoke
+   window of 64); and one training step of the llama3.2-3b smoke config
+   (head_dim 32), one of the mamba2-130m smoke config, one of the
+   musicgen-large smoke config (head_dim 64, fp32 embeddings) and one each
+   of gemma2-2b (head_dim 256) and h2o-danube-3-4b (head_dim 120), in fp32
+   and in bf16 compute, on the card against the CPU from the same state.
 4. Serve phases: ``repro_torch.launch.serve.serve`` under the TALP monitor
    at full width, random weights from a seed: llama3.2-3b with 8 requests
    of 1024 prompt tokens and 64 generated tokens, then mamba2-130m (all
@@ -95,11 +117,15 @@
    frames), starcoder2-15b (40 layers, 22.0 B parameters, 41 GiB of bf16
    weights) and qwen2-vl-72b (M-RoPE, the embed frontend; its depth cut to
    16 of 80 layers, which the output states: 133 GiB of weights fit no
-   one card) as llama. Every launch counter is set to 0 just before each
-   run and read just after: the prefill must launch each kernel as often
-   as SERVE says (llama: the flash forward 28 times; mamba: the SSD scan
-   24 times; zamba2: 9 and 45; granite: 32; musicgen: 48; starcoder2: 40;
-   qwen2-vl: 16) and no other. Checks the tokens and the TALP hierarchies.
+   one card) as llama; then h2o-danube-3-4b (24 layers, a window of 4096
+   at each, D 120) and gemma2-2b (26 layers, local and global in turn,
+   D 256, soft-caps 50 and 30) with 4 requests of 8192 prompt tokens (each
+   model's context, past the window) and 64 generated tokens. Every launch
+   counter is set to 0 just before each run and read just after: the
+   prefill must launch each kernel as often as SERVE says (llama: the
+   flash forward 28 times; mamba: the SSD scan 24 times; zamba2: 9 and 45;
+   granite: 32; musicgen: 48; starcoder2: 40; qwen2-vl: 16; danube: 24;
+   gemma2: 26) and no other. Checks the tokens and the TALP hierarchies.
 5. Profile phases: prefills and decode steps of each model at its serve
    phase's shapes, timed without the profiler and traced with
    ``torch.profiler`` (CUDA activity only): the card's kernel time per
@@ -113,8 +139,10 @@
    monitor at full width and depth, fp32 masters and AdamW moments on the
    card: llama3.2-3b (3.61 B parameters), 6 steps of 2 x 2048 tokens,
    mamba2-130m (24 layers), 6 steps of 8 x 4096 tokens,
-   granite-moe-3b-a800m, 6 steps of 2 x 2048, and musicgen-large (3.23 B
-   parameters, fp32 embedding batches), 6 steps of 2 x 2048; first
+   granite-moe-3b-a800m, 6 steps of 2 x 2048, musicgen-large (3.23 B
+   parameters, fp32 embedding batches), 6 steps of 2 x 2048, and
+   h2o-danube-3-4b (3.96 B) and gemma2-2b (3.20 B), 6 steps of 1 x 8192;
+   first
    ``train`` must refuse starcoder2-15b and qwen2-vl-72b, whose train
    states (16 bytes a parameter) exceed the card, before allocating
    anything (``torch.cuda.memory_allocated`` unchanged). The launch
@@ -122,7 +150,8 @@
    step, llama launches the flash forward 56 times (28 layers, twice with
    remat) and its backward 28 times; mamba the SSD forward 48 times and
    its backward 24 times; granite the flash forward 64 times and its
-   backward 32; musicgen 96 and 48. Prints
+   backward 32; musicgen 96 and 48; danube 48 and 24; gemma2 52 and 26.
+   Prints
    each step's loss (all finite; granite's moe_aux too), step time,
    tokens/s, MFU, peak memory and TALP's train_loop numbers, then traces
    one more step with ``torch.profiler``: its kernel time over the
@@ -279,6 +308,39 @@ NEW_HEADS = [
 MUSICGEN_PREFILL = (8, 1024, 1024, 32, 32, 64, None, None, torch.bfloat16)
 STARCODER_PREFILL = (8, 1024, 1024, 48, 4, 128, None, None, torch.bfloat16)
 QWEN_PREFILL = (8, 1024, 1024, 64, 8, 128, None, None, torch.bfloat16)
+# Head dims 120 (h2o-danube-3-4b: 3840 / 32, GQA 4:1; the D-128 tiles over
+# TMA's zero columns) and 256 (gemma2-2b, GQA 2:1; 64-key forward tiles, a
+# dK/dV pass split over D, 32-key dQ tiles), forward and backward, checked
+# after every row above (whose seeds stay): fp32 and bf16 MHA, the model's
+# GQA, S and T off the tile grid with S < T, a window with a soft-cap in
+# both dtypes, S below one query tile, and S < T with a window narrower
+# than T - S (a key block no query row sees). tests/test_torch_gpu.py::D120
+# and D256 hold the same rows.
+NEW_DIMS = [
+    (1, 256, 256, 4, 4, 120, None, None, torch.float32),
+    (2, 256, 256, 4, 4, 120, None, None, torch.bfloat16),
+    (1, 256, 256, 8, 2, 120, None, None, torch.bfloat16),
+    (1, 200, 328, 8, 2, 120, None, None, torch.bfloat16),
+    (1, 256, 256, 4, 1, 120, 64, 30.0, torch.float32),
+    (1, 384, 384, 8, 2, 120, 100, 50.0, torch.bfloat16),
+    (1, 40, 300, 4, 1, 120, None, None, torch.bfloat16),
+    (1, 100, 400, 8, 2, 120, 64, 50.0, torch.bfloat16),
+    (1, 256, 256, 4, 4, 256, None, None, torch.float32),
+    (2, 256, 256, 4, 4, 256, None, None, torch.bfloat16),
+    (1, 256, 256, 8, 4, 256, None, None, torch.bfloat16),
+    (1, 200, 328, 8, 4, 256, None, None, torch.bfloat16),
+    (1, 256, 256, 4, 2, 256, 64, 30.0, torch.float32),
+    (1, 384, 384, 8, 4, 256, 100, 50.0, torch.bfloat16),
+    (1, 40, 300, 4, 2, 256, None, None, torch.bfloat16),
+    (1, 100, 400, 8, 4, 256, 64, 50.0, torch.bfloat16),
+]
+# The two models' serving prefills (4 x 8192, each model's context, past
+# its window of 4096): gemma2-2b's global layers (no window) and local
+# layers (window 4096), both soft-capped at 50; h2o-danube-3-4b's layers,
+# all windowed.
+GEMMA_GLOBAL_PREFILL = (4, 8192, 8192, 8, 4, 256, None, 50.0, torch.bfloat16)
+GEMMA_LOCAL_PREFILL = (4, 8192, 8192, 8, 4, 256, 4096, 50.0, torch.bfloat16)
+DANUBE_PREFILL = (4, 8192, 8192, 32, 8, 120, 4096, None, torch.bfloat16)
 
 # (B, L, H, P, G, N, chunk, dtype, with_state): the rows of
 # tests/test_kernels.py::SSD_SWEEP (no initial state, as the TPU kernel),
@@ -385,7 +447,7 @@ def attention_work(b, s, t, h, k, d, window, dtype):
 
 KERNEL_NAMES = ("flash_fwd_wgmma", "flash_fwd_f32", "flash_bwd_preprocess",
                 "flash_bwd_dkdv_f32", "flash_bwd_dq_f32", "flash_bwd_dkdv_wgmma",
-                "flash_bwd_dq_wgmma", "ssd_chunk_state", "ssd_state_pass",
+                "flash_bwd_dkdv_split_wgmma", "flash_bwd_dq_wgmma", "ssd_chunk_state", "ssd_state_pass",
                 "ssd_chunk_output", "ssd_fwd_f32", "ssd_bwd_outer",
                 "ssd_bwd_tc_query", "ssd_bwd_tc_key", "ssd_bwd_query",
                 "ssd_bwd_key", "ssd_bwd_chunk", "ssd_bwd_group_sum",
@@ -454,8 +516,9 @@ def build_kernels() -> dict:
     forward and the flash backward run wgmma and TMA and no mma.sync and
     the SSD forward's and backward's kernels run mma.sync; that no
     ``ptxas`` log warns of serialised wgmma (C7520 or C7512); and that no
-    flash forward kernel (D 32, 64, 80 and 128, bf16 and fp32), no bf16
-    kernel of the flash backward and no kernel of the SSD backward's bf16
+    flash forward kernel (D 32, 64, 80, 120, 128 and 256, bf16 and fp32),
+    no bf16 kernel of the flash backward (its two passes at D 32, 64, 120,
+    128 and 256) and no kernel of the SSD backward's bf16
     path spills. Returns each kernel record's SASS counts."""
     from repro_torch.kernels import cuda_build
     from repro_torch.kernels.flash_attention import kernel as flash
@@ -485,12 +548,18 @@ def build_kernels() -> dict:
     fwd = [(label, spill) for label, _, spill in ptxas_kernels(fwd_log)]
     assert sorted(label for label, _ in fwd) == sorted(
         f"flash_fwd_{kind}<{d}>" for kind in ("wgmma", "f32")
-        for d in (32, 64, 80, 128)), fwd
+        for d in (32, 64, 80, 120, 128, 256)), fwd
     assert not any(spilled(s) for _, s in fwd), fwd
     bwd_log = built[1][0].with_suffix(".log")
     spills = [(label, spill) for label, _, spill in ptxas_kernels(bwd_log)
-              if label.startswith(("flash_bwd_dkdv_wgmma", "flash_bwd_dq_wgmma"))]
-    assert len(spills) == 6, spills      # two passes at D 32, 64 and 128
+              if label.startswith(("flash_bwd_dkdv_wgmma", "flash_bwd_dq_wgmma",
+                                   "flash_bwd_dkdv_split_wgmma"))]
+    # two passes at D 32, 64, 120, 128 and 256 (the dK/dV pass's split
+    # kernel at 256)
+    assert sorted(label for label, _ in spills) == sorted(
+        [f"flash_bwd_dq_wgmma<{d}>" for d in (32, 64, 120, 128, 256)]
+        + [f"flash_bwd_dkdv_wgmma<{d}>" for d in (32, 64, 120, 128)]
+        + ["flash_bwd_dkdv_split_wgmma<256>"]), spills
     assert not any(spilled(s) for _, s in spills), spills
     # every kernel the SSD backward's bf16 path launches: four templated
     # tensor-core kernels (the two chunk-state modes, query, key) at each of
@@ -523,53 +592,214 @@ def build_kernels() -> dict:
     return counts
 
 
-def by_request(fn, *tensors, **kw):
-    """``fn`` on each request (batch row) of ``tensors`` in turn, the
-    outputs joined along the batch: the same function on the same inputs
-    where the whole batch's fp32 score matrix would not fit the card
-    (17 GB at zamba2-2.7b's prefill shape, about 52 GB at the plain
-    version's peak)."""
-    outs = [fn(*(x[i:i + 1] for x in tensors), **kw)
-            for i in range(tensors[0].shape[0])]
-    if isinstance(outs[0], tuple):
-        return tuple(torch.cat(parts) for parts in zip(*outs))
-    return torch.cat(outs)
+# The plain version makes fp32 score tensors of B·H·S·T·4 bytes, several
+# at once, and autograd saves more: plain_split runs it on pieces whose
+# score tensor stays within this many bytes.
+PLAIN_SCORE_BYTES = 2 ** 31
 
 
-def flash_timing(device, row, inputs, plain_by_request: bool) -> dict:
-    """Times at one shape: the plain version, then the kernel and the
-    library yardstick (``scaled_dot_product_attention``) in turns: library,
-    kernel, kernel, library; and the bound from this shape's work."""
+def plain_pieces(q, k) -> str:
+    """How plain_split cuts (B, S, H, D) queries and (B, T, K, D) keys, in
+    words for the output."""
+    b, s, h, _ = q.shape
+    t = k.shape[1]
+    if b * h * s * t * 4 <= PLAIN_SCORE_BYTES:
+        return ""
+    if h * s * t * 4 <= PLAIN_SCORE_BYTES:
+        return " (one request at a time)"
+    return " (one KV group of one request at a time)"
+
+
+def plain_split(fn, q, k, v, *extra, cat, **kw):
+    """``fn`` (a plain version) on pieces of its inputs whose fp32 score
+    tensor fits PLAIN_SCORE_BYTES, the outputs joined: the whole batch, else
+    each request (batch row) in turn, else, within a request, each KV head
+    with the query heads that read it. The same function on the same
+    inputs, since attention is independent across requests and KV groups
+    (zamba2-2.7b's prefill scores alone take 17 GB, one request of
+    h2o-danube-3-4b's at 8192 tokens 8.6 GB). ``extra`` tensors are cut
+    along their head dim, 2 for (B, S, H, D) and 1 for an LSE (B, H, S);
+    ``cat`` names each output's head dim likewise."""
+    b, s, h, _ = q.shape
+    t, nk = k.shape[1], k.shape[2]
+    if b * h * s * t * 4 <= PLAIN_SCORE_BYTES:
+        return fn(q, k, v, *extra, **kw)
+    if b > 1:
+        parts = [plain_split(fn, *(x[i:i + 1] for x in (q, k, v, *extra)),
+                             cat=cat, **kw) for i in range(b)]
+        dims = [0] * len(cat)
+    else:
+        g, parts, dims = h // nk, [], cat
+        for j in range(nk):
+            hs, ks = slice(j * g, (j + 1) * g), slice(j, j + 1)
+            cut = [x[:, :, hs] if x.dim() == 4 else x[:, hs] for x in extra]
+            parts.append(fn(*(x.contiguous() for x in (
+                q[:, :, hs], k[:, :, ks], v[:, :, ks], *cut)), **kw))
+    parts = [p if isinstance(p, tuple) else (p,) for p in parts]
+    joined = tuple(torch.cat(ps, dim=dim) for ps, dim in zip(zip(*parts), dims))
+    return joined if len(joined) > 1 else joined[0]
+
+
+# row_rel_err holds a row far below the typical row's size against this
+# share of the rms row size instead: a causal first query's dq is zero in
+# exact arithmetic and rounding noise in each computation of it.
+ROW_FLOOR = 0.05
+
+
+def row_rel_err(got, want) -> float:
+    """Largest over rows (vectors along the last dim: one query's output,
+    or one token's gradient, at one head) of ||got - want|| / ||want||,
+    ||want|| at least ROW_FLOOR of its rms over the rows. An output row
+    averages V over up to 8192 keys, so its values are about sqrt(e / n)
+    (0.018 at 8192), as small as TOL[bf16] on the raw difference; this
+    holds each row's error to that row's own size."""
+    got, want = got.float(), want.float()
+    size = want.norm(dim=-1)
+    floor = ROW_FLOOR * size.square().mean().sqrt()
+    num = (got - want).norm(dim=-1)
+    return (num / torch.maximum(size, floor).clamp_min(1e-30)).max().item()
+
+
+def scale_note(want) -> dict:
+    """The size of a reference: its rms and median |value|."""
+    w = want.float()
+    return dict(ref_rms=w.square().mean().sqrt().item(),
+                ref_median_abs=w.abs().median().item())
+
+
+def planted_faults(got, want, limit, raw) -> dict:
+    """row_rel_err of two planted faults, each of which must exceed
+    ``limit``: ``got`` with its columns D/2 and up zeroed (what a kernel
+    that dropped the product over V's second half of columns writes), and
+    ``got`` off by half the raw limit ``raw`` at every element (which an
+    elementwise check at ``raw`` lets through)."""
+    d = got.shape[-1]
+    dropped = got.float().clone()
+    dropped[..., d // 2:] = 0
+    found = {"columns D/2 and up zeroed": row_rel_err(dropped, want),
+             "every element off by raw/2": row_rel_err(got.float() + raw / 2,
+                                                        want)}
+    assert all(r > limit for r in found.values()), found
+    return found
+
+
+def window_mask(s, t, window, device):
+    """The (S, T) boolean mask of the aligned-end causal window: True where
+    query row r sees key c (c <= r + T - S and c > r + T - S - window)."""
+    rows = torch.arange(s, device=device)[:, None] + (t - s)
+    cols = torch.arange(t, device=device)[None, :]
+    return (cols <= rows) & (cols > rows - window)
+
+
+def sdpa_yardstick(qt, kt, vt, window):
+    """One ``scaled_dot_product_attention`` call on (B, H, S, D) tensors:
+    causal, or with a window an explicit boolean mask over all T keys."""
+    if window is None:
+        return lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True)
+    mask = window_mask(qt.shape[2], kt.shape[2], window, qt.device)
+    return lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, enable_gqa=True)
+
+
+_FLEX = []
+
+
+def flex_yardstick(s, t, d, window, softcap, device):
+    """``flex_attention`` (compiled) as a function of (B, H, S, D) q, k, v,
+    computing the kernel's function where SDPA cannot: the soft-cap as its
+    score_mod, the aligned-end causal window as a BlockMask (whose blocks
+    no query sees it skips, as the kernel does), GQA by ``enable_gqa``,
+    scale D^-1/2. A yardstick only: the port never calls it."""
+    from torch.nn.attention.flex_attention import (create_block_mask,
+                                                   flex_attention)
+
+    if not _FLEX:
+        from repro_torch.kernels.cuda_build import BUILD_DIR
+
+        # the compiler's caches in the checkout's build directory; one
+        # compile per shape and function, forward and backward
+        for var, sub in (("TORCHINDUCTOR_CACHE_DIR", "inductor"),
+                         ("TRITON_CACHE_DIR", "triton")):
+            os.environ.setdefault(var, str(BUILD_DIR / sub))
+        torch._dynamo.config.recompile_limit = 64
+        _FLEX.append(torch.compile(flex_attention, dynamic=False))
+
+    def visible(b, h, qi, ki):
+        seen = ki <= qi + (t - s)
+        if window is not None:
+            seen = seen & (ki > qi + (t - s) - window)
+        return seen
+
+    def capped(score, b, h, qi, ki):
+        return softcap * torch.tanh(score / softcap)
+
+    mask = create_block_mask(visible, None, None, s, t, device=device)
+    kw = dict(score_mod=capped if softcap else None, block_mask=mask,
+              scale=d ** -0.5, enable_gqa=True)
+    return lambda q, k, v: _FLEX[0](q, k, v, **kw)
+
+
+def flash_timing(device, row, inputs) -> dict:
+    """Times at one shape: the plain version, then the kernel and one
+    PyTorch library call in turns, and the bound from this shape's work.
+    The library call is ``scaled_dot_product_attention``; with a window or
+    a soft-cap, ``flex_attention`` (flex_yardstick; its output held to the
+    kernel's at TOL[bf16] per row), and SDPA is timed in the same turns as
+    a side note: without the cap, a different function; with a window, an
+    explicit boolean mask, which computes every score."""
     from repro_torch.kernels.flash_attention import kernel, ref
 
     b, s, t, h, k, d, window, softcap, dtype = row
+    cfg = dict(causal=True, window=window, softcap=softcap)
     q, kk, vv = inputs(99, b, s, t, h, k, d, dtype)
-    plain = ((lambda: by_request(ref.attention_reference, q, kk, vv))
-             if plain_by_request else
-             (lambda: ref.attention_reference(q, kk, vv)))
-    plain_ms = statistics.median(time_samples(plain, reps=5 if
-                                              plain_by_request else 10,
-                                              inner=2))
-    # The library yardstick takes (B, H, S, D); the layout change is made
-    # once, outside the timing. Library and kernel are timed in turns.
+    how = plain_pieces(q, kk)
+    plain_ms = statistics.median(time_samples(
+        lambda: plain_split(ref.attention_reference, q, kk, vv, cat=(2,),
+                            **cfg),
+        reps=5 if how else 10, inner=2))
+    # The library calls take (B, H, S, D); the layout change is made once,
+    # outside the timing.
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, kk, vv))
-    library_ms, kernel_ms = time_turns(
-        lambda: torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True),
-        lambda: kernel.flash_attention(q, kk, vv))
+    sdpa = sdpa_yardstick(qt, kt, vt, window)
+    run = lambda: kernel.flash_attention(q, kk, vv, **cfg)  # noqa: E731
     flops, nbytes = attention_work(b, s, t, h, k, d, window, dtype)
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
-    shape = f"B{b} S{s} T{t} H{h} K{k} D{d} {str(dtype)[6:]} causal"
+    shape = (f"B{b} S{s} T{t} H{h} K{k} D{d} {str(dtype)[6:]} causal"
+             + (f" window {window}" if window else "")
+             + (f" softcap {softcap}" if softcap else ""))
+    out = dict(shape=shape, plain_ms=plain_ms, bound_ms=max(t_ops, t_bytes),
+               bound_by="operations" if t_ops >= t_bytes else "bytes")
+    if window is None and softcap is None:
+        lib_ms, kernel_ms = time_turns(sdpa, run)
+        lib_note = (f"sdpa {lib_ms:.4f} ms (in turns: sdpa, kernel, kernel, "
+                    f"sdpa), kernel/sdpa {kernel_ms / lib_ms:.3f}")
+    else:
+        flex = flex_yardstick(s, t, d, window, softcap, device)
+        same = row_rel_err(flex(qt, kt, vt).transpose(1, 2), run())
+        assert same <= TOL[dtype], (shape, "flex_attention vs kernel", same)
+        lib_ms, kernel_ms, sdpa_ms = time_turns(
+            lambda: flex(qt, kt, vt), run, sdpa)
+        backend = _sdpa_backend(sdpa)
+        side = ("without the soft-cap, a different function" if softcap else
+                "with a boolean window mask over all T keys")
+        lib_note = (f"flex_attention {lib_ms:.4f} ms (compiled; per-row "
+                    f"error against the kernel {same:.3e}), kernel/flex "
+                    f"{kernel_ms / lib_ms:.3f}; side note: sdpa {side} "
+                    f"{sdpa_ms:.4f} ms, kernel/sdpa {kernel_ms / sdpa_ms:.3f} "
+                    f"(in turns: flex, kernel, sdpa, sdpa, kernel, flex)")
+        print(f"[kernel] sdpa kernels at {shape}: {backend}")
+        out.update(library="flex_attention (compiled): score_mod soft-cap, "
+                           "BlockMask window, enable_gqa",
+                   flex_vs_kernel_row_rel_err=same, sdpa_ms=sdpa_ms,
+                   sdpa_note=side, sdpa_backend=backend)
     print(f"[kernel] {shape}: kernel {kernel_ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms{' (one request at a time)' if plain_by_request else ''}"
-          f", sdpa {library_ms:.4f} ms (in turns: sdpa, kernel, kernel, sdpa),"
-          f" kernel/sdpa {kernel_ms / library_ms:.3f}, bound "
+          f"{plain_ms:.4f} ms{how}, {lib_note}, bound "
           f"{max(t_ops, t_bytes):.4f} ms ({flops / 1e9:.2f} GFLOP is "
           f"{t_ops:.4f} ms, {nbytes / 1e6:.1f} MB is {t_bytes:.4f} ms)")
-    return dict(shape=shape, ms=kernel_ms, plain_ms=plain_ms,
-                library_ms=library_ms, bound_ms=max(t_ops, t_bytes),
-                bound_by="operations" if t_ops >= t_bytes else "bytes")
+    out.update(ms=kernel_ms, library_ms=lib_ms)
+    return out
 
 
 def kernel_phase(device: torch.device) -> dict:
@@ -583,7 +813,9 @@ def kernel_phase(device: torch.device) -> dict:
 
     errs = {}
     rows = (SWEEP + SWEEP_D80 + [PREFILL, ZAMBA_PREFILL, GRANITE_PREFILL]
-            + NEW_HEADS + [MUSICGEN_PREFILL, STARCODER_PREFILL, QWEN_PREFILL])
+            + NEW_HEADS + [MUSICGEN_PREFILL, STARCODER_PREFILL, QWEN_PREFILL]
+            + NEW_DIMS + [GEMMA_GLOBAL_PREFILL, GEMMA_LOCAL_PREFILL,
+                          DANUBE_PREFILL])
     for i, row in enumerate(rows):
         b, s, t, h, k, d, window, softcap, dtype = row
         q, kk, vv = inputs(i, b, s, t, h, k, d, dtype)
@@ -592,36 +824,50 @@ def kernel_phase(device: torch.device) -> dict:
         out2, lse = kernel.flash_attention(q, kk, vv, causal=True,
                                            window=window, softcap=softcap,
                                            return_lse=True)
-        want, lse_want = by_request(
-            ref.attention_reference_lse, q, kk, vv, causal=True,
-            window=window, softcap=softcap)
+        cfg = dict(causal=True, window=window, softcap=softcap)
+        want, lse_want = plain_split(ref.attention_reference_lse, q, kk, vv,
+                                     cat=(2, 1), **cfg)
         lse_want = lse_want.contiguous()
         torch.cuda.synchronize()
         err = (out.float() - want.float()).abs().max().item()
+        rel = row_rel_err(out, want)
         lse_err = (lse - lse_want).abs().max().item()
+        scale = scale_note(want)
         print(f"[kernel] B{b} S{s} T{t} H{h} K{k} D{d} window={window} "
               f"softcap={softcap} {str(dtype)[6:]}: max_abs_err={err:.3e} "
-              f"tol={TOL[dtype]}; lse max_abs_err={lse_err:.3e} "
-              f"tol={TOL[torch.float32]}")
+              f"tol={TOL[dtype]}; per-row error {rel:.3e} tol={TOL[dtype]} "
+              f"(reference rms {scale['ref_rms']:.3e}, median |o| "
+              f"{scale['ref_median_abs']:.3e}); lse max_abs_err="
+              f"{lse_err:.3e} tol={TOL[torch.float32]}")
         torch.testing.assert_close(out.float(), want.float(),
                                    rtol=TOL[dtype], atol=TOL[dtype])
+        assert rel <= TOL[dtype], (row, rel)
         # asking for the LSE leaves the output as it was
         assert torch.equal(out, out2)
         torch.testing.assert_close(lse, lse_want, rtol=TOL[torch.float32],
                                    atol=TOL[torch.float32])
-        errs[row] = err
+        errs[row] = dict(max_abs_err=err, row_rel_err=rel, **scale)
+        if dtype == torch.bfloat16 and t >= 4096:
+            # where |o| is as small as the raw limit, the per-row check is
+            # the one that sees a fault
+            found = planted_faults(out, want, TOL[dtype], TOL[dtype])
+            errs[row]["planted_faults_row_rel_err"] = found
+            print(f"[kernel] planted faults, per-row error: " + ", ".join(
+                f"{name} {r:.3e}" for name, r in found.items()))
         del q, kk, vv, out, out2, lse, want, lse_want
 
-    llama = flash_timing(device, PREFILL, inputs, plain_by_request=False)
-    zamba = flash_timing(device, ZAMBA_PREFILL, inputs,
-                         plain_by_request=True)
-    granite = flash_timing(device, GRANITE_PREFILL, inputs,
-                           plain_by_request=False)
-    new = {key: {**flash_timing(device, row, inputs, plain_by_request=False),
-                 "max_abs_err": errs[row]}
+    llama = flash_timing(device, PREFILL, inputs)
+    zamba = flash_timing(device, ZAMBA_PREFILL, inputs)
+    granite = flash_timing(device, GRANITE_PREFILL, inputs)
+    new = {key: {**flash_timing(device, row, inputs), **errs[row]}
            for key, row in (("musicgen_prefill_shape", MUSICGEN_PREFILL),
                             ("starcoder2_prefill_shape", STARCODER_PREFILL),
-                            ("qwen2_vl_prefill_shape", QWEN_PREFILL))}
+                            ("qwen2_vl_prefill_shape", QWEN_PREFILL),
+                            ("gemma2_prefill_global_shape",
+                             GEMMA_GLOBAL_PREFILL),
+                            ("gemma2_prefill_local_shape",
+                             GEMMA_LOCAL_PREFILL),
+                            ("danube_prefill_shape", DANUBE_PREFILL))}
     return {
         "name": "flash_attention_fwd",
         "route": "cuda",
@@ -630,7 +876,8 @@ def kernel_phase(device: torch.device) -> dict:
         "replaces_fn": "_flash_kernel",
         "launches": None,
         "launches_on_path": None,
-        "max_abs_err": errs[PREFILL],
+        "max_abs_err": errs[PREFILL]["max_abs_err"],
+        "row_rel_err": errs[PREFILL]["row_rel_err"],
         "tol": TOL[PREFILL[-1]],
         "ms": llama["ms"],
         "kernel_ms": llama["ms"],
@@ -639,11 +886,9 @@ def kernel_phase(device: torch.device) -> dict:
         "bound_by": llama["bound_by"],
         "library_ms": llama["library_ms"],
         "shape": llama["shape"],
-        "zamba2_prefill_shape": {**zamba,
-                                 "max_abs_err": errs[ZAMBA_PREFILL],
+        "zamba2_prefill_shape": {**zamba, **errs[ZAMBA_PREFILL],
                                  "plain": "one request at a time"},
-        "granite_prefill_shape": {**granite,
-                                  "max_abs_err": errs[GRANITE_PREFILL]},
+        "granite_prefill_shape": {**granite, **errs[GRANITE_PREFILL]},
         **new,
         "note": "writes the row log-sum-exp, fp32 (B, H, S), when asked "
                 "(training); serving passes a null pointer, as timed here",
@@ -657,6 +902,11 @@ TRAIN_ATTN = (2, 2048, 2048, 24, 8, 128, None, None, torch.bfloat16)
 GRANITE_TRAIN_ATTN = (2, 2048, 2048, 24, 8, 64, None, None, torch.bfloat16)
 # ... and of musicgen-large (MHA, H = K = 32, head dim 64).
 MUSICGEN_TRAIN_ATTN = (2, 2048, 2048, 32, 32, 64, None, None, torch.bfloat16)
+# ... and of gemma2-2b (global and local layers, soft-cap 50, D 256) and
+# h2o-danube-3-4b (window 4096, D 120), 1 x 8192 tokens.
+GEMMA_TRAIN_GLOBAL = (1, 8192, 8192, 8, 4, 256, None, 50.0, torch.bfloat16)
+GEMMA_TRAIN_LOCAL = (1, 8192, 8192, 8, 4, 256, 4096, 50.0, torch.bfloat16)
+DANUBE_TRAIN = (1, 8192, 8192, 32, 8, 120, 4096, None, torch.bfloat16)
 
 
 def attention_backward_work(b, s, t, h, k, d, window, dtype):
@@ -672,13 +922,21 @@ def attention_backward_work(b, s, t, h, k, d, window, dtype):
 
 
 def _sdpa_backend(fn) -> str:
-    """Names of the CUDA kernels one call of ``fn`` runs (profiler)."""
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    names = {e.key for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA}
+    """Names of the CUDA kernels one call of ``fn`` runs (profiler). A
+    session can come back with no device event at all (on the card, now
+    and then; the first sessions after TALP's CUPTI collection stayed
+    empty through three tries), so up to three are tried and an empty
+    string means none saw a kernel."""
+    names = set()
+    for _ in range(3):
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = {e.key for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA}
+        if names:
+            break
     return "; ".join(sorted(n[:80] for n in names))
 
 
@@ -690,10 +948,15 @@ def backward_phase(device: torch.device) -> dict:
     and against autograd through ref.attention_reference, both evaluated
     in fp32. fp32 rows elementwise at TOL[fp32]; bf16 rows at
     TOL[bf16] on each gradient divided by the reference gradient's
-    max-abs. A second backward run must be bit-identical. Times (kernel vs
-    the backward of scaled_dot_product_attention, in turns) at the
-    training shape, at the serving prefill shape and at granite's training
-    shape (head dim 64)."""
+    max-abs, and every row per row against the plain backward
+    (row_rel_err). A second backward run must be bit-identical. The same
+    at head dims 120 and 256 (NEW_DIMS) and at gemma2-2b's and
+    h2o-danube-3-4b's training shapes (the plain versions on pieces,
+    plain_split). Times (kernel vs the backward of
+    scaled_dot_product_attention, in turns) at the training shape, at the
+    serving prefill shape, at granite's and musicgen's training shapes
+    (head dim 64) and at the two new models' (with a window or a
+    soft-cap, flex_attention's backward, and SDPA's as a side note)."""
     from repro_torch.kernels.flash_attention import kernel, ref
 
     def inputs(i, b, s, t, h, k, d, dtype):
@@ -710,21 +973,30 @@ def backward_phase(device: torch.device) -> dict:
         torch.testing.assert_close(got, want, rtol=TOL[dtype], atol=TOL[dtype])
         return (got - want).abs().max().item()
 
+    def autograd_grads(q, k, v, do, **cfg):
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        ref.attention_reference(*leaves, **cfg).backward(do)
+        return tuple(x.grad for x in leaves)
+
     train_errs = {}
-    train_rows = (TRAIN_ATTN, GRANITE_TRAIN_ATTN, MUSICGEN_TRAIN_ATTN)
-    rows = SWEEP + list(train_rows[:2]) + NEW_HEADS + [MUSICGEN_TRAIN_ATTN]
+    train_rows = (TRAIN_ATTN, GRANITE_TRAIN_ATTN, MUSICGEN_TRAIN_ATTN,
+                  GEMMA_TRAIN_GLOBAL, GEMMA_TRAIN_LOCAL, DANUBE_TRAIN)
+    rows = (SWEEP + list(train_rows[:2]) + NEW_HEADS + [MUSICGEN_TRAIN_ATTN]
+            + NEW_DIMS + list(train_rows[3:]))
     for i, row in enumerate(rows):
         b, s, t, h, k, d, window, softcap, dtype = row
         cfg = dict(causal=True, window=window, softcap=softcap)
         q, kk, vv, do = inputs(i, b, s, t, h, k, d, dtype)
         o, lse = kernel.flash_attention(q, kk, vv, return_lse=True, **cfg)
-        o_want, lse_want = ref.attention_reference_lse(q, kk, vv, **cfg)
         got = kernel.flash_attention_backward(q, kk, vv, o, lse, do, **cfg)
         again = kernel.flash_attention_backward(q, kk, vv, o, lse, do, **cfg)
         up = [x.float() for x in (q, kk, vv, o, do)]
-        plain = ref.attention_backward_reference(*up[:4], lse, up[4], **cfg)
-        leaves = [x.requires_grad_() for x in up[:3]]
-        ref.attention_reference(*leaves, **cfg).backward(up[4])
+        o_want, lse_want = plain_split(ref.attention_reference_lse, q, kk, vv,
+                                       cat=(2, 1), **cfg)
+        plain = plain_split(ref.attention_backward_reference, *up[:4], lse,
+                            up[4], cat=(2, 2, 2), **cfg)
+        grads = plain_split(autograd_grads, *up[:3], up[4], cat=(2, 2, 2),
+                            **cfg)
         torch.cuda.synchronize()
         o_err = (o.float() - o_want.float()).abs().max().item()
         lse_err = (lse - lse_want).abs().max().item()
@@ -733,7 +1005,14 @@ def backward_phase(device: torch.device) -> dict:
         torch.testing.assert_close(lse, lse_want, rtol=TOL[torch.float32],
                                    atol=TOL[torch.float32])
         errs = [rel_err(g, w, dtype) for g, w in zip(got, plain)]
-        errs_ag = [rel_err(g, x.grad, dtype) for g, x in zip(got, leaves)]
+        errs_ag = [rel_err(g, w, dtype) for g, w in zip(got, grads)]
+        # each gradient row (one token at one head) against its own size
+        # (late keys' dK and dV rows are far below the largest gradient),
+        # against the plain backward, which takes the kernel's bf16 o into
+        # Delta as the kernel does (autograd's fp32 o differs there by o's
+        # rounding, which early queries' dq rows magnify)
+        rows_err = [row_rel_err(g, w) for g, w in zip(got, plain)]
+        assert max(rows_err) <= TOL[dtype], (row, rows_err)
         same = all(torch.equal(x, y) for x, y in zip(got, again))
         assert same, "two backward runs differ"
         kind = "max_abs_err / max|ref|" if dtype == torch.bfloat16 else \
@@ -742,31 +1021,69 @@ def backward_phase(device: torch.device) -> dict:
               f"softcap={softcap} {str(dtype)[6:]}: dq/dk/dv {kind} vs plain "
               f"{errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e}, vs autograd "
               f"{errs_ag[0]:.3e}/{errs_ag[1]:.3e}/{errs_ag[2]:.3e} "
-              f"(tol {TOL[dtype]}); forward o max_abs_err {o_err:.3e} (tol "
-              f"{TOL[dtype]}), lse {lse_err:.3e} (tol {TOL[torch.float32]}); "
-              f"rerun bit-identical")
+              f"(tol {TOL[dtype]}); per-row error vs plain {rows_err[0]:.3e}/"
+              f"{rows_err[1]:.3e}/{rows_err[2]:.3e} (tol {TOL[dtype]}); "
+              f"forward o max_abs_err {o_err:.3e} (tol {TOL[dtype]}), per-row "
+              f"{row_rel_err(o, o_want):.3e}, lse {lse_err:.3e} (tol "
+              f"{TOL[torch.float32]}); rerun bit-identical")
         if row in train_rows:
-            train_errs[row] = (max(errs + errs_ag), o_err)
-        del q, kk, vv, do, o, o_want, lse, got, again, plain, up, leaves
+            scales = [scale_note(w) for w in plain]
+            train_errs[row] = dict(
+                max_abs_err=max(errs + errs_ag), row_rel_err=max(rows_err),
+                forward_o_max_abs_err=o_err,
+                ref_rms=[x["ref_rms"] for x in scales],
+                ref_median_abs=[x["ref_median_abs"] for x in scales],
+                ref_max_abs=[w.abs().max().item() for w in plain])
+            print(f"[backward] dq/dk/dv reference rms " + "/".join(
+                f"{x:.3e}" for x in train_errs[row]["ref_rms"])
+                + ", median |.| " + "/".join(
+                f"{x:.3e}" for x in train_errs[row]["ref_median_abs"])
+                + ", max |.| " + "/".join(
+                f"{x:.3e}" for x in train_errs[row]["ref_max_abs"]))
+            if t >= 4096:
+                found = {f"{name} {key}": r for name, g, w in zip(
+                    ("dq", "dk", "dv"), got, plain)
+                    for key, r in planted_faults(
+                        g, w, TOL[dtype],
+                        TOL[dtype] * w.abs().max().item()).items()}
+                train_errs[row]["planted_faults_row_rel_err"] = found
+                print(f"[backward] planted faults, per-row error: "
+                      + ", ".join(f"{n} {r:.3e}" for n, r in found.items()))
+        del q, kk, vv, do, o, o_want, lse, got, again, plain, up, grads
 
     timings = {}
     for label, row in (("train", TRAIN_ATTN), ("prefill", PREFILL),
                        ("granite train", GRANITE_TRAIN_ATTN),
-                       ("musicgen train", MUSICGEN_TRAIN_ATTN)):
+                       ("musicgen train", MUSICGEN_TRAIN_ATTN),
+                       ("gemma2 train global", GEMMA_TRAIN_GLOBAL),
+                       ("gemma2 train local", GEMMA_TRAIN_LOCAL),
+                       ("danube train", DANUBE_TRAIN)):
         b, s, t, h, k, d, window, softcap, dtype = row
+        cfg = dict(causal=True, window=window, softcap=softcap)
         q, kk, vv, do = inputs(99, b, s, t, h, k, d, dtype)
-        o, lse = kernel.flash_attention(q, kk, vv, return_lse=True)
+        o, lse = kernel.flash_attention(q, kk, vv, return_lse=True, **cfg)
         plain_ms = statistics.median(time_samples(
-            lambda: ref.attention_backward_reference(q, kk, vv, o, lse, do),
+            lambda: plain_split(ref.attention_backward_reference, q, kk, vv,
+                                o, lse, do, cat=(2, 2, 2), **cfg),
             reps=5, warmup=1, inner=1))
         # the library yardstick: SDPA's backward on its own graph, (B, H,
-        # S, D) layout made once outside the timing
+        # S, D) layout made once outside the timing; with a window or a
+        # soft-cap, flex_attention's, and SDPA's as a side note (with a
+        # window, an explicit boolean mask; without the cap)
         qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
                       for x in (q, kk, vv))
         dot = do.transpose(1, 2).contiguous()
+        mask = None if window is None else window_mask(s, t, window, device)
+
+        def forward(kt, vt):
+            if mask is None:
+                return torch.nn.functional.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True)
+            return torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, enable_gqa=True)
+
         gqa_note = "enable_gqa"
-        out = torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True)
+        out = forward(kt, vt)
         sdpa_bwd = lambda: torch.autograd.grad(  # noqa: E731
             out, (qt, kt, vt), dot, retain_graph=True)
         backend = _sdpa_backend(sdpa_bwd)
@@ -774,36 +1091,70 @@ def backward_phase(device: torch.device) -> dict:
             # enable_gqa left the fused kernels: K/V expanded to H heads
             kt, vt = (x.detach().repeat_interleave(h // k, dim=1)
                       .requires_grad_() for x in (kt, vt))
-            out = torch.nn.functional.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True)
+            out = forward(kt, vt)
             backend = _sdpa_backend(sdpa_bwd)
             gqa_note = "K/V expanded to H heads (enable_gqa ran no fused kernel)"
-        library_ms, kernel_ms = time_turns(
-            sdpa_bwd,
-            lambda: kernel.flash_attention_backward(q, kk, vv, o, lse, do))
+        if mask is not None:
+            gqa_note += ", boolean window mask"
+        run = lambda: kernel.flash_attention_backward(  # noqa: E731
+            q, kk, vv, o, lse, do, **cfg)
         flops, nbytes = attention_backward_work(b, s, t, h, k, d, window,
                                                 dtype)
         t_ops = flops / PEAK_FLOPS[dtype] * 1e3
         t_bytes = nbytes / PEAK_BYTES * 1e3
         bound = max(t_ops, t_bytes)
-        print(f"[backward] {label} shape B{b} S{s} H{h} K{k} D{d}: kernel "
-              f"{kernel_ms:.4f} ms (3 launches), plain {plain_ms:.4f} ms, sdpa"
-              f" backward {library_ms:.4f} ms ({gqa_note}; in turns: sdpa, "
-              f"kernel, kernel, sdpa), kernel/sdpa "
-              f"{kernel_ms / library_ms:.3f}, bound {bound:.4f} ms "
+        timings[label] = dict(plain_ms=plain_ms, bound_ms=bound,
+                              bound_by="operations" if t_ops >= t_bytes
+                              else "bytes")
+        if window is None and softcap is None:
+            lib_ms, kernel_ms = time_turns(sdpa_bwd, run)
+            lib = (f"sdpa backward {lib_ms:.4f} ms ({gqa_note}; in turns: "
+                   f"sdpa, kernel, kernel, sdpa), kernel/sdpa "
+                   f"{kernel_ms / lib_ms:.3f}")
+            timings[label]["library_note"] = gqa_note
+        else:
+            flex = flex_yardstick(s, t, d, window, softcap, device)
+            qf, kf, vf = (x.detach().transpose(1, 2).contiguous()
+                          .requires_grad_() for x in (q, kk, vv))
+            outf = flex(qf, kf, vf)
+            same = row_rel_err(outf.transpose(1, 2), o)
+            assert same <= TOL[dtype], (label, "flex_attention vs kernel",
+                                        same)
+            flex_bwd = lambda: torch.autograd.grad(  # noqa: E731
+                outf, (qf, kf, vf), dot, retain_graph=True)
+            grads_diff = [row_rel_err(g.transpose(1, 2), w) for g, w in zip(
+                flex_bwd(), run())]
+            lib_ms, kernel_ms, sdpa_ms = time_turns(flex_bwd, run, sdpa_bwd)
+            side = ("sdpa backward without the soft-cap, a different "
+                    f"function ({gqa_note})" if softcap else
+                    f"sdpa backward ({gqa_note}), which computes every score")
+            lib = (f"flex_attention backward {lib_ms:.4f} ms (compiled; its "
+                   f"forward's per-row error against the kernel {same:.3e}, "
+                   f"dq/dk/dv per-row difference "
+                   + "/".join(f"{x:.3e}" for x in grads_diff)
+                   + f"), kernel/flex {kernel_ms / lib_ms:.3f}; side note: "
+                   f"{side} {sdpa_ms:.4f} ms, kernel/sdpa "
+                   f"{kernel_ms / sdpa_ms:.3f} (in turns: flex, kernel, sdpa, "
+                   f"sdpa, kernel, flex)")
+            timings[label].update(
+                library_note="flex_attention backward (compiled): score_mod "
+                             "soft-cap, BlockMask window, enable_gqa",
+                flex_vs_kernel_row_rel_err=same,
+                flex_vs_kernel_grads_row_rel_diff=grads_diff,
+                sdpa_ms=sdpa_ms, sdpa_note=side)
+            del qf, kf, vf, outf
+        timings[label].update(ms=kernel_ms, library_ms=lib_ms)
+        print(f"[backward] {label} shape B{b} S{s} H{h} K{k} D{d}"
+              f"{f' window {window}' if window else ''}"
+              f"{f' softcap {softcap}' if softcap else ''}: kernel "
+              f"{kernel_ms:.4f} ms (3 launches), plain {plain_ms:.4f} ms"
+              f"{plain_pieces(q, kk)}, {lib}, bound {bound:.4f} ms "
               f"({flops / 1e9:.2f} GFLOP is {t_ops:.4f} ms, {nbytes / 1e6:.1f}"
               f" MB is {t_bytes:.4f} ms), kernel/bound {kernel_ms / bound:.2f}")
         print(f"[backward] sdpa backward kernels: {backend}")
-        timings[label] = dict(ms=kernel_ms, plain_ms=plain_ms,
-                              library_ms=library_ms, bound_ms=bound,
-                              bound_by="operations" if t_ops >= t_bytes
-                              else "bytes", library_note=gqa_note)
         del q, kk, vv, do, o, lse, qt, kt, vt, dot, out
 
     tr = timings["train"]
-    train_err, train_o_err = train_errs[TRAIN_ATTN]
-    granite_err, granite_o_err = train_errs[GRANITE_TRAIN_ATTN]
-    musicgen_err, musicgen_o_err = train_errs[MUSICGEN_TRAIN_ATTN]
     return {
         "name": "flash_attention_bwd",
         "route": "cuda",
@@ -814,9 +1165,8 @@ def backward_phase(device: torch.device) -> dict:
         "replaces_fn": None,
         "launches": None,
         "launches_on_path": None,
-        "max_abs_err": train_err,
+        **train_errs[TRAIN_ATTN],
         "tol": TOL[torch.bfloat16],
-        "forward_o_max_abs_err": train_o_err,
         "ms": tr["ms"],
         "kernel_ms": tr["ms"],
         "plain_ms": tr["plain_ms"],
@@ -828,14 +1178,21 @@ def backward_phase(device: torch.device) -> dict:
         "shape": "B2 S2048 T2048 H24 K8 D128 bf16 causal (three launches: "
                  "Delta, dK/dV and dQ, both on wgmma fed by TMA)",
         "prefill_shape_ms": timings["prefill"],
-        "granite_train_shape": {
-            **timings["granite train"], "max_abs_err": granite_err,
-            "forward_o_max_abs_err": granite_o_err,
-            "shape": "B2 S2048 T2048 H24 K8 D64 bf16 causal"},
-        "musicgen_train_shape": {
-            **timings["musicgen train"], "max_abs_err": musicgen_err,
-            "forward_o_max_abs_err": musicgen_o_err,
-            "shape": "B2 S2048 T2048 H32 K32 D64 bf16 causal"},
+        **{key: {**timings[label], **train_errs[row], "shape": shape}
+           for key, label, row, shape in (
+               ("granite_train_shape", "granite train", GRANITE_TRAIN_ATTN,
+                "B2 S2048 T2048 H24 K8 D64 bf16 causal"),
+               ("musicgen_train_shape", "musicgen train", MUSICGEN_TRAIN_ATTN,
+                "B2 S2048 T2048 H32 K32 D64 bf16 causal"),
+               ("gemma2_train_global_shape", "gemma2 train global",
+                GEMMA_TRAIN_GLOBAL,
+                "B1 S8192 T8192 H8 K4 D256 bf16 causal softcap 50"),
+               ("gemma2_train_local_shape", "gemma2 train local",
+                GEMMA_TRAIN_LOCAL,
+                "B1 S8192 T8192 H8 K4 D256 bf16 causal window 4096 "
+                "softcap 50"),
+               ("danube_train_shape", "danube train", DANUBE_TRAIN,
+                "B1 S8192 T8192 H32 K8 D120 bf16 causal window 4096"))},
     }
 
 
@@ -1437,6 +1794,58 @@ def embed_path_check(device: torch.device) -> None:
                                atol=TOL[torch.float32])
 
 
+def windowed_path_check(device: torch.device) -> None:
+    """The windowed models on the card against the same path on the CPU
+    (plain attention): smoke_config("gemma2-2b") (local and global layers
+    in turn, attention soft-cap 50, final soft-cap 30) at its head dim 256
+    and smoke_config("h2o-danube-3-4b") (a window at every layer) at its
+    head dim 120 (the smoke head dim 16 is none the kernels take), two
+    repeats each; the same bf16 weights, a 2 x 300 prompt, past the smoke
+    window of 64, so the kernels mask keys by the window and the windowed
+    caches wrap, then 4 decode steps. The flash forward runs once a layer
+    in the prefill on the card and never on the CPU; rtol = atol = 0.15 on
+    the fp32 logits, as the other path checks."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import lm
+
+    counters = launch_counters()
+    for arch, head_dim in (("gemma2-2b", 256), ("h2o-danube-3-4b", 120)):
+        cfg = dataclasses.replace(smoke_config(arch), head_dim=head_dim)
+        assert cfg.window is not None and cfg.window < 300
+        gen = torch.Generator().manual_seed(16)
+        cpu_params = lm.init_params(cfg, gen, device="cpu",
+                                    dtype=torch.bfloat16)
+        toks = torch.randint(0, cfg.vocab_size, (2, 304), generator=gen,
+                             dtype=torch.int32)
+        outs = []
+        for dev in (torch.device("cpu"), device):
+            params = lm.tree_map(lambda x: x.to(dev), cpu_params)
+            before = {n: w.launches for n, w in counters.items()}
+            with torch.inference_mode():
+                logits, caches, pos = lm.prefill(cfg, params,
+                                                 toks[:, :300].to(dev))
+                caches = lm.grow_caches(cfg, caches, 304)
+                seq = [logits]
+                for t in range(300, 304):
+                    logits, caches, pos = lm.decode_step(
+                        cfg, params, toks[:, t:t + 1].to(dev), pos, caches)
+                    seq.append(logits)
+            launches = {n: w.launches - before[n] for n, w in counters.items()}
+            want = {n: 0 for n in counters}
+            if dev.type == "cuda":
+                want["flash_attention_fwd"] = cfg.num_layers
+            assert launches == want, (arch, dev, launches, want)
+            outs.append(torch.stack(seq).float().cpu())
+        assert torch.isfinite(outs[1]).all(), "non-finite logits on the card"
+        err = (outs[0] - outs[1]).abs().max().item()
+        print(f"[path] {arch} smoke (D {head_dim}, H {cfg.num_heads}, K "
+              f"{cfg.num_kv_heads}, pattern {cfg.pattern}, window "
+              f"{cfg.window}, soft-caps {cfg.attn_logit_softcap}/"
+              f"{cfg.final_logit_softcap}), prefill 300 + 4 decode steps: "
+              f"card vs CPU max_abs_err={err:.3e} (rtol=atol=0.15)")
+        torch.testing.assert_close(outs[1], outs[0], rtol=0.15, atol=0.15)
+
+
 def talp_backend_check(device: torch.device) -> None:
     """TALP's device records on the card (CUPTI activity read by
     repro_torch.core.backends.cuda_runtime.CuptiActivity). The clock: a
@@ -1520,7 +1929,9 @@ def train_path_check(device: torch.device) -> None:
     one of smoke_config("mamba2-130m") (P 16, N 16, chunk 32: the SSD
     forward twice per layer with remat and its backward once), and one of
     smoke_config("musicgen-large") with head_dim 64 (the ``embed``
-    frontend: fp32 (B, S, M) embeddings from the pipeline), on
+    frontend: fp32 (B, S, M) embeddings from the pipeline), and one each
+    of smoke_config("gemma2-2b") at head_dim 256 and
+    smoke_config("h2o-danube-3-4b") at head_dim 120, on
     the card (the kernels) and on the CPU (the plain versions) from the
     same fp32 state and batch, in fp32 and in bf16 compute. Loss and grad
     norm within rtol = atol = TOL[compute dtype]. The gradient, leaf by
@@ -1543,6 +1954,11 @@ def train_path_check(device: torch.device) -> None:
              {"flash_attention_fwd": 2, "flash_attention_bwd": 1}),
             (smoke_config("mamba2-130m"), {"ssd_fwd": 2, "ssd_bwd": 1}),
             (dataclasses.replace(smoke_config("musicgen-large"), head_dim=64),
+             {"flash_attention_fwd": 2, "flash_attention_bwd": 1}),
+            (dataclasses.replace(smoke_config("gemma2-2b"), head_dim=256),
+             {"flash_attention_fwd": 2, "flash_attention_bwd": 1}),
+            (dataclasses.replace(smoke_config("h2o-danube-3-4b"),
+                                 head_dim=120),
              {"flash_attention_fwd": 2, "flash_attention_bwd": 1})):
         train_step_check(device, base, per_layer, opt)
 
@@ -1687,6 +2103,10 @@ SERVE = [
     ("musicgen-large", 8, 1024, 64, {"flash_attention_fwd": 48}, None),
     ("starcoder2-15b", 8, 1024, 64, {"flash_attention_fwd": 40}, None),
     ("qwen2-vl-72b", 8, 1024, 64, {"flash_attention_fwd": 16}, 16),
+    # 4 x 8192, each model's published context, past its window of 4096:
+    # the kernel masks keys by the window and the windowed caches wrap
+    ("h2o-danube-3-4b", 4, 8192, 64, {"flash_attention_fwd": 24}, None),
+    ("gemma2-2b", 4, 8192, 64, {"flash_attention_fwd": 26}, None),
 ]
 
 
@@ -1794,6 +2214,10 @@ TRAIN = [
      {"flash_attention_fwd": 64, "flash_attention_bwd": 32}),
     ("musicgen-large", 6, 2, 2048, 3e-4, 2,
      {"flash_attention_fwd": 96, "flash_attention_bwd": 48}),
+    ("h2o-danube-3-4b", 6, 1, 8192, 3e-4, 2,
+     {"flash_attention_fwd": 48, "flash_attention_bwd": 24}),
+    ("gemma2-2b", 6, 1, 8192, 3e-4, 2,
+     {"flash_attention_fwd": 52, "flash_attention_bwd": 26}),
 ]
 # Configs whose train state (16 bytes a parameter) no one card holds:
 # ``train`` must refuse them before it allocates anything.
@@ -2718,6 +3142,7 @@ def main() -> int:
     zamba_path_check(device)
     granite_path_check(device)
     embed_path_check(device)
+    windowed_path_check(device)
     train_path_check(device)
     mark("path checks")
     busy_by_arch = {}

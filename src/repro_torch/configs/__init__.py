@@ -1,10 +1,10 @@
 """Architecture registry of the port, copied from ``repro.configs``.
 
-Seven architectures are registered: ``llama3.2-3b``, ``mamba2-130m``,
+Nine architectures are registered: ``llama3.2-3b``, ``mamba2-130m``,
 ``zamba2-2.7b``, ``granite-moe-3b-a800m``, ``musicgen-large``,
-``starcoder2-15b`` and ``qwen2-vl-72b``. The others (``gemma2-2b`` and
-``h2o-danube-3-4b``, whose head dims the flash kernels do not take yet,
-and ``qwen3-moe-235b-a22b``) come with the slices that port them."""
+``starcoder2-15b``, ``qwen2-vl-72b``, ``gemma2-2b`` (head dim 256) and
+``h2o-danube-3-4b`` (head dim 120). ``qwen3-moe-235b-a22b`` stays out: the
+JAX package only dry-runs it."""
 
 from .base import (
     ModelConfig,
@@ -18,7 +18,9 @@ from .base import (
 
 # importing registers each config
 from . import (  # noqa: F401
+    gemma2_2b,
     granite_moe_3b_a800m,
+    h2o_danube_3_4b,
     llama3_2_3b,
     mamba2_130m,
     musicgen_large,

@@ -181,6 +181,20 @@ struct Wgmma {
 };
 
 template <>
+__device__ __forceinline__ void Wgmma<32>::ss(float (&d)[16], uint64_t desc_a,
+                                           uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+template <>
 __device__ __forceinline__ void Wgmma<64>::ss(float (&d)[32], uint64_t desc_a,
                                            uint64_t desc_b, int accumulate) {
   asm volatile(
@@ -278,6 +292,26 @@ __device__ __forceinline__ void Wgmma<128>::rs_trans_b(float (&d)[64], const uin
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+
+// N 256 (head dim 256) as two m64n128k16 products, on d's columns 0-127 and
+// 128-255. B is MN-major in 64-column panels whose stride is the
+// descriptor's leading byte offset, so the second half's B starts two
+// panels on: the start address (in 16-byte units, bits 0-13) plus twice
+// the LBO field (bits 16-29).
+template <>
+__device__ __forceinline__ void Wgmma<256>::rs_trans_b(float (&d)[128], const uint32_t (&a)[4],
+                                                     uint64_t desc_b, int accumulate) {
+  const uint64_t lbo = (desc_b >> 16) & 0x3FFFu;
+  Wgmma<128>::rs_trans_b(*reinterpret_cast<float(*)[64]>(&d[0]), a, desc_b, accumulate);
+  Wgmma<128>::rs_trans_b(*reinterpret_cast<float(*)[64]>(&d[64]), a, desc_b + 2 * lbo,
+                         accumulate);
+}
+
+// Barrier `id` (1-15; 0 is __syncthreads') over `threads` threads, a
+// multiple of 32: the consumer warpgroups of a block without its producer.
+__device__ __forceinline__ void named_barrier_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // ---- Ampere-style building blocks -----------------------------------------

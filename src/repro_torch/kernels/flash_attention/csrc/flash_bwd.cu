@@ -7,7 +7,8 @@
 // on the card, so its gradient is a hand-written kernel too. It takes what
 // the forward takes: causal GQA attention with aligned ends (query r sees
 // keys <= r + (T - S)), an optional sliding window and an optional logit
-// soft-cap softcap * tanh(s / softcap), D in {32, 64, 128}, bf16 or fp32.
+// soft-cap softcap * tanh(s / softcap), D in {32, 64, 120, 128, 256}, bf16
+// or fp32 (not D 80: the wrapper refuses it).
 //
 // Inputs q, o, dO (B, S, H, D); k, v (B, T, K, D); lse (B, H, S) fp32, the
 // natural-log log-sum-exp of each row's scaled, soft-capped and masked
@@ -66,10 +67,33 @@
 // so each pays its own prologue; outputs are stored from registers, not
 // by TMA.
 //
-// The fp32 path runs on the CUDA cores (never TF32), off the training path.
+// D 120 (h2o-danube-3-4b) runs the D-128 design on tiles padded to 128
+// columns (Panels::DP): TMA fills columns 120-127 with zeros, the products
+// over D take 8 k-steps, the accumulators span 128 columns whose last 8
+// stay 0, and the stores write the 120 real ones. So the padding costs
+// 1.07 times the products, as in the forward.
+//
+// D 256 (gemma2-2b) does not fit the D-128 split. In dK/dV a warpgroup
+// owning 64 keys would hold dK and dV of 64 x 256 each, 256 fp32 registers
+// a thread, over the 240 a consumer gets; and 128 keys of K and V (128 KB)
+// beside three (Q, dO) stages (192 KB) are over 227 KB. So
+// flash_bwd_dkdv_split_wgmma takes blocks of 64 keys whose two warpgroups
+// split D (128 columns of dK and dV each, 128 registers) and compute S^T
+// and dP^T once, one each, exchanged through shared memory (fp32 dP^T -
+// Delta one way, bf16 P^T and dS^T back), two stages: 226 KB. The dQ pass
+// keeps 128 query rows (Q and dO 64 KB each) and streams 32-key tiles of K
+// and V through its two stages (S and dP m64n32k16; dQ += dS K two
+// m64n128k16 a k-step): 192 KB. What bounds these: the exchange serialises
+// the warpgroups' elementwise work with each other's products, and 32-key
+// products run the tensor cores at a quarter of their width.
+//
+// The fp32 path runs on the CUDA cores (never TF32), off the training path;
+// at D 120 a lane's columns i, i + 32, ... stop at D.
 
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "flash_mask.cuh"
 #include "hopper.cuh"
@@ -153,21 +177,36 @@ constexpr int kDkdvProducerRegs = 24;
 constexpr int kDkdvConsumerRegs = 240;
 constexpr int kDqProducerRegs = 40;
 constexpr int kDqConsumerRegs = 232;
-constexpr int kKeys = 128;         // dkdv: keys per block, 64 per warpgroup
 constexpr int kQTile = 64;         // dkdv: query rows per step
-constexpr int kDkdvStages = 3;     // dkdv: (Q, dO, LSE, Delta) ring depth
 constexpr int kRows = 128;         // dq: query rows per block, 64 per warpgroup
-constexpr int kKTile = 128;        // dq: keys per step
 constexpr int kDqStages = 2;       // dq: (K, V) ring depth
-static_assert(kKeys == kKTile, "both passes read K and V through one tensor map");
 
-// A tile of `rows` rows of D bf16 is stored as D / PANEL panels of `rows`
-// rows of PANEL elements, one swizzle row each (128 bytes, or 64 at D 32).
+// A tile of `rows` rows of D bf16 is stored as PANELS panels of `rows` rows
+// of PANEL elements, one swizzle row each (128 bytes, or 64 at D 32). DP is
+// D rounded up to whole panels: at D 120 a tile is two panels, and TMA
+// fills columns 120-127 with zeros (the tensor maps' D extent is 120), so
+// every product over D runs on the D-128 tiles and the zeros add nothing;
+// stores write the real columns only. KSTEPS is the k-steps of 16 columns
+// that hold real columns ((D + 15) / 16: D / 16 would drop 112-119).
 template <int D>
 struct Panels {
   static constexpr int PANEL = D < 64 ? D : 64;
+  static constexpr int DP = (D + PANEL - 1) / PANEL * PANEL;
+  static constexpr int PANELS = DP / PANEL;
+  static constexpr int KSTEPS = (D + 15) / 16;
   static constexpr int SWIZZLE = PANEL == 64 ? 1 : 2;   // wgmma code: 128 B, 64 B
   static constexpr int ROW = PANEL * 2;                 // bytes
+  static_assert(D % 8 == 0 && (DP == D || DP == 128), "a head dim wgmma takes");
+};
+
+// Keys per dK/dV block and per dQ step. D <= 128: 128 and 128. D 256: the
+// dK/dV block takes 64 keys (flash_bwd_dkdv_split_wgmma) and the dQ pass
+// 32-key tiles, so that two stages of K and V fit beside its 128-row Q and
+// dO (64 KB each at D 256).
+template <int D>
+struct Tiles {
+  static constexpr int KEYS = D > 128 ? 64 : 128;
+  static constexpr int KT = D > 128 ? 32 : 128;
 };
 
 // wgmma descriptor of a K-major operand: rows row0.. of a tile of `rows`
@@ -195,7 +234,7 @@ __device__ __forceinline__ void load_tile(unsigned char* dst, const CUtensorMap*
                                           uint64_t* bar, int rows, int head, int row0, int b) {
   using L = Panels<D>;
 #pragma unroll
-  for (int pn = 0; pn < D / L::PANEL; ++pn)
+  for (int pn = 0; pn < L::PANELS; ++pn)
     tma_load_4d(dst + pn * rows * L::ROW, map, bar, pn * L::PANEL, head, row0, b);
 }
 
@@ -236,24 +275,41 @@ __device__ __forceinline__ bool edge_tile(const Params& p, int r0, int nr, int t
 
 // ---- 2. dK, dV ----------------------------------------------------------------
 
-template <int D>
+// Shared memory of a dK/dV block: its KEYS keys of K and V, a ring of STAGES
+// (Q, dO, LSE log2(e), Delta) steps of kQTile query rows, then (split only)
+// the exchange between the two warpgroups, then the barriers.
+template <int D, int KEYS, int STAGES, bool SPLIT>
 struct DkdvLayout {
-  static constexpr int KV_BYTES = kKeys * D * 2;
-  static constexpr int QT_BYTES = kQTile * D * 2;
+  using L = Panels<D>;
+  static constexpr int kKeys = KEYS, kStages = STAGES;
+  static constexpr int KV_BYTES = KEYS * L::DP * 2;
+  static constexpr int QT_BYTES = kQTile * L::DP * 2;
   static constexpr int K_OFF = 0;
   static constexpr int V_OFF = KV_BYTES;
-  static constexpr int Q_OFF = 2 * KV_BYTES;                         // [stage] Q tile
-  static constexpr int DO_OFF = Q_OFF + kDkdvStages * QT_BYTES;      // [stage] dO tile
-  static constexpr int LSE_OFF = DO_OFF + kDkdvStages * QT_BYTES;    // [stage][kQTile] lse log2(e)
-  static constexpr int DL_OFF = LSE_OFF + kDkdvStages * kQTile * 4;  // [stage][kQTile] Delta
-  static constexpr int BAR_OFF = DL_OFF + kDkdvStages * kQTile * 4;
-  static constexpr int BYTES = BAR_OFF + (1 + 2 * kDkdvStages) * 8;
+  static constexpr int Q_OFF = 2 * KV_BYTES;                       // [stage] Q tile
+  static constexpr int DO_OFF = Q_OFF + STAGES * QT_BYTES;         // [stage] dO tile
+  static constexpr int LSE_OFF = DO_OFF + STAGES * QT_BYTES;       // [stage][kQTile] lse log2(e)
+  static constexpr int DL_OFF = LSE_OFF + STAGES * kQTile * 4;     // [stage][kQTile] Delta
+  // split: [32][128] fp32, dP^T - Delta by fragment element and thread;
+  // then [32][128] u32, the bf16 A fragments of P^T (16) and dS^T (16)
+  static constexpr int X_OFF = DL_OFF + STAGES * kQTile * 4;
+  static constexpr int PD_OFF = X_OFF + (SPLIT ? 32 * 128 * 4 : 0);
+  static constexpr int BAR_OFF = PD_OFF + (SPLIT ? 32 * 128 * 4 : 0);
+  static constexpr int BYTES = BAR_OFF + (1 + 2 * STAGES) * 8;
   static constexpr int LAUNCH_BYTES = BYTES + 1024;   // room to align the base
   static_assert(LAUNCH_BYTES <= 232448, "over the 227 KB a block may use");
 };
 
-// One block's work: 128 keys of one (b, kv head). Blocks are numbered
+// D <= 128: 128 keys a block, 64 per warpgroup, three stages.
+template <int D>
+using DkdvPairLayout = DkdvLayout<D, Tiles<D>::KEYS, 3, false>;
+// D 256: 64 keys a block shared by both warpgroups, two stages.
+template <int D>
+using DkdvSplitLayout = DkdvLayout<D, Tiles<D>::KEYS, 2, true>;
+
+// One block's work: kKeys keys of one (b, kv head). Blocks are numbered
 // heaviest first: key tile 0 of every (b, kv head), then tile 1, ...
+template <int kKeys>
 struct DkdvWork {
   int t0, kh, b, r_begin, n_q, n_steps;
   __device__ explicit DkdvWork(const Params& p) {
@@ -268,67 +324,89 @@ struct DkdvWork {
   }
 };
 
-template <int D>
-__global__ void __launch_bounds__(kWgThreads, 1)
-    flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tm_q,
-                         const __grid_constant__ CUtensorMap tm_do,
-                         const __grid_constant__ CUtensorMap tm_k,
-                         const __grid_constant__ CUtensorMap tm_v, Params p) {
-  using Lay = DkdvLayout<D>;
-  extern __shared__ __align__(1024) unsigned char smem_tiles[];
-  unsigned char* base = align_1024(smem_tiles);
-  float* lse_s = reinterpret_cast<float*>(base + Lay::LSE_OFF);
-  float* dl_s = reinterpret_cast<float*>(base + Lay::DL_OFF);
+template <class Lay>
+__device__ __forceinline__ void dkdv_init_barriers(unsigned char* base) {
   uint64_t* kv_full = reinterpret_cast<uint64_t*>(base + Lay::BAR_OFF);
   uint64_t* full = kv_full + 1;
-  uint64_t* empty = full + kDkdvStages;
-  const DkdvWork w(p);
-
+  uint64_t* empty = full + Lay::kStages;
   if (threadIdx.x == 0) {
     mbar_init(kv_full, 1);
-    for (int s = 0; s < kDkdvStages; ++s) {
+    for (int s = 0; s < Lay::kStages; ++s) {
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], 8);     // lane 0 of each consumer warp
     }
     mbar_fence_init();
   }
   __syncthreads();
+}
+
+// The dK/dV producer warp: its lanes copy LSE and Delta, lane 0 issues TMA:
+// K and V once, then the (Q, dO) steps of every query head of the group.
+template <int D, class Lay>
+__device__ __forceinline__ void dkdv_producer(const Params& p, const DkdvWork<Lay::kKeys>& w,
+                                              unsigned char* base, const CUtensorMap* tm_q,
+                                              const CUtensorMap* tm_do, const CUtensorMap* tm_k,
+                                              const CUtensorMap* tm_v, int lane) {
+  float* lse_s = reinterpret_cast<float*>(base + Lay::LSE_OFF);
+  float* dl_s = reinterpret_cast<float*>(base + Lay::DL_OFF);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(base + Lay::BAR_OFF);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + Lay::kStages;
+  if (lane == 0) {
+    mbar_arrive_expect_tx(kv_full, 2 * Lay::KV_BYTES);
+    load_tile<D>(base + Lay::K_OFF, tm_k, kv_full, Lay::kKeys, w.kh, w.t0, w.b);
+    load_tile<D>(base + Lay::V_OFF, tm_v, kv_full, Lay::kKeys, w.kh, w.t0, w.b);
+  }
+  int h = w.kh * (p.H / p.K), qi = 0;
+#pragma unroll 1   // unrolled, the loop spills the producer's 24 registers
+  for (int i = 0; i < w.n_steps; ++i) {
+    const int stage = i % Lay::kStages, r0 = w.r_begin + qi * kQTile;
+    mbar_wait(&empty[stage], ((i / Lay::kStages) & 1) ^ 1);
+    for (int r = lane; r < kQTile; r += 32) {
+      const bool in = r0 + r < p.S;
+      const size_t row = ((size_t)w.b * p.H + h) * p.S + r0 + r;
+      lse_s[stage * kQTile + r] = in ? p.lse[row] * kLog2e : 0.f;
+      dl_s[stage * kQTile + r] = in ? p.delta[row] : 0.f;
+    }
+    __syncwarp();   // the lanes' stores before lane 0's arrive
+    if (lane == 0) {
+      mbar_arrive_expect_tx(&full[stage], 2 * Lay::QT_BYTES);
+      load_tile<D>(base + Lay::Q_OFF + stage * Lay::QT_BYTES, tm_q, &full[stage], kQTile, h, r0,
+                   w.b);
+      load_tile<D>(base + Lay::DO_OFF + stage * Lay::QT_BYTES, tm_do, &full[stage], kQTile, h,
+                   r0, w.b);
+    }
+    if (++qi == w.n_q) {
+      qi = 0;
+      ++h;
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tm_q,
+                         const __grid_constant__ CUtensorMap tm_do,
+                         const __grid_constant__ CUtensorMap tm_k,
+                         const __grid_constant__ CUtensorMap tm_v, Params p) {
+  using Lay = DkdvPairLayout<D>;
+  using L = Panels<D>;
+  constexpr int kKeys = Lay::kKeys, kStages = Lay::kStages, DP = L::DP;
+  extern __shared__ __align__(1024) unsigned char smem_tiles[];
+  unsigned char* base = align_1024(smem_tiles);
+  const float* lse_s = reinterpret_cast<const float*>(base + Lay::LSE_OFF);
+  const float* dl_s = reinterpret_cast<const float*>(base + Lay::DL_OFF);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(base + Lay::BAR_OFF);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + kStages;
+  const DkdvWork<kKeys> w(p);
+  dkdv_init_barriers<Lay>(base);
 
   const int wg = threadIdx.x / 128, warp = threadIdx.x % 128 / 32, lane = threadIdx.x % 32;
   if (wg == 2) {
-    // ---- producer warp: its lanes copy LSE and Delta, lane 0 issues TMA ----
     setmaxnreg_dec<kDkdvProducerRegs>();
-    if (warp == 0 && w.n_steps > 0) {
-      if (lane == 0) {
-        mbar_arrive_expect_tx(kv_full, 2 * Lay::KV_BYTES);
-        load_tile<D>(base + Lay::K_OFF, &tm_k, kv_full, kKeys, w.kh, w.t0, w.b);
-        load_tile<D>(base + Lay::V_OFF, &tm_v, kv_full, kKeys, w.kh, w.t0, w.b);
-      }
-      int h = w.kh * (p.H / p.K), qi = 0;
-#pragma unroll 1   // unrolled, the loop spills the producer's 24 registers
-      for (int i = 0; i < w.n_steps; ++i) {
-        const int stage = i % kDkdvStages, r0 = w.r_begin + qi * kQTile;
-        mbar_wait(&empty[stage], ((i / kDkdvStages) & 1) ^ 1);
-        for (int r = lane; r < kQTile; r += 32) {
-          const bool in = r0 + r < p.S;
-          const size_t row = ((size_t)w.b * p.H + h) * p.S + r0 + r;
-          lse_s[stage * kQTile + r] = in ? p.lse[row] * kLog2e : 0.f;
-          dl_s[stage * kQTile + r] = in ? p.delta[row] : 0.f;
-        }
-        __syncwarp();   // the lanes' stores before lane 0's arrive
-        if (lane == 0) {
-          mbar_arrive_expect_tx(&full[stage], 2 * Lay::QT_BYTES);
-          load_tile<D>(base + Lay::Q_OFF + stage * Lay::QT_BYTES, &tm_q, &full[stage], kQTile,
-                       h, r0, w.b);
-          load_tile<D>(base + Lay::DO_OFF + stage * Lay::QT_BYTES, &tm_do, &full[stage],
-                       kQTile, h, r0, w.b);
-        }
-        if (++qi == w.n_q) {
-          qi = 0;
-          ++h;
-        }
-      }
-    }
+    if (warp == 0 && w.n_steps > 0)
+      dkdv_producer<D, Lay>(p, w, base, &tm_q, &tm_do, &tm_k, &tm_v, lane);
   } else {
     // ---- consumers: warpgroup wg owns keys t0 + 64 wg .. + 63 ----
     setmaxnreg_inc<kDkdvConsumerRegs>();
@@ -338,20 +416,20 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     const uint32_t k_addr = smem_addr(base + Lay::K_OFF);
     const uint32_t v_addr = smem_addr(base + Lay::V_OFF);
 
-    float dk[D / 2], dv[D / 2];
+    float dk[DP / 2], dv[DP / 2];
 #pragma unroll
-    for (int j = 0; j < D / 2; ++j) dk[j] = dv[j] = 0.f;
+    for (int j = 0; j < DP / 2; ++j) dk[j] = dv[j] = 0.f;
 
     if (w.n_steps > 0) mbar_wait(kv_full, 0);
     int qi = 0;
     for (int i = 0; i < w.n_steps; ++i) {
-      const int stage = i % kDkdvStages, r0 = w.r_begin + qi * kQTile;
+      const int stage = i % kStages, r0 = w.r_begin + qi * kQTile;
       if (++qi == w.n_q) qi = 0;
       const uint32_t q_addr = smem_addr(base + Lay::Q_OFF + stage * Lay::QT_BYTES);
       const uint32_t do_addr = smem_addr(base + Lay::DO_OFF + stage * Lay::QT_BYTES);
       const float* lse_t = lse_s + stage * kQTile;
       const float* dl_t = dl_s + stage * kQTile;
-      mbar_wait(&full[stage], (i / kDkdvStages) & 1);
+      mbar_wait(&full[stage], (i / kStages) & 1);
 
       // S^T = K Q^T, then dP^T = V dO^T: 64 keys x 64 query rows each
       float s[kQTile / 2], dp[kQTile / 2];
@@ -359,12 +437,12 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       fence_regs(dp);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
+      for (int kk = 0; kk < L::KSTEPS; ++kk)
         Wgmma<kQTile>::ss(s, desc_k<D>(k_addr, kKeys, 64 * wg, kk),
                           desc_k<D>(q_addr, kQTile, 0, kk), kk > 0);
       wgmma_commit();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
+      for (int kk = 0; kk < L::KSTEPS; ++kk)
         Wgmma<kQTile>::ss(dp, desc_k<D>(v_addr, kKeys, 64 * wg, kk),
                           desc_k<D>(do_addr, kQTile, 0, kk), kk > 0);
       wgmma_commit();
@@ -397,7 +475,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kQTile / 16; ++kk)
-        Wgmma<D>::rs_trans_b(dv, pa[kk], desc_mn<D>(do_addr, kQTile, kk), 1);
+        Wgmma<DP>::rs_trans_b(dv, pa[kk], desc_mn<D>(do_addr, kQTile, kk), 1);
       wgmma_commit();
       wgmma_wait<1>();   // dP^T is done; dV is still on the tensor cores
       fence_regs(dp);
@@ -415,7 +493,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kQTile / 16; ++kk)
-        Wgmma<D>::rs_trans_b(dk, da[kk], desc_mn<D>(q_addr, kQTile, kk), 1);
+        Wgmma<DP>::rs_trans_b(dk, da[kk], desc_mn<D>(q_addr, kQTile, kk), 1);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(dv);
@@ -426,7 +504,8 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       if (lane == 0) mbar_arrive(&empty[stage]);
     }
 
-    // after the last wgmma, and under no branch that encloses one
+    // after the last wgmma, and under no branch that encloses one; the D
+    // real columns only (15 of the 16 column groups at D 120)
     const size_t kv_stride = (size_t)p.K * D;
     bf16* dkb = static_cast<bf16*>(p.dk) + ((size_t)w.b * p.T * p.K + w.kh) * D;
     bf16* dvb = static_cast<bf16*>(p.dv) + ((size_t)w.b * p.T * p.K + w.kh) * D;
@@ -447,12 +526,170 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   }
 }
 
+// dK, dV at D 256, where one warpgroup cannot hold both accumulators of 64
+// keys (2 x 128 fp32 registers a thread). Both consumer warpgroups own the
+// block's 64 keys and split D: warpgroup wg accumulates columns 128 wg ..
+// 128 wg + 127 of dK and dV (128 registers). Per step, warpgroup 0 computes
+// S^T = K Q^T and warpgroup 1 dP^T = V dO^T (one product each, on the same
+// instructions with the operands picked by wg: no wgmma under a branch);
+// warpgroup 1 writes dP^T - Delta to shared memory in fp32, warpgroup 0
+// forms P^T and dS^T from it and writes both as bf16 A fragments; then each
+// warpgroup reads them back (thread t of either warpgroup holds the same
+// fragment elements, so the exchange is indexed by thread) and runs dV +=
+// P^T dO and dK += dS^T Q on its 128 columns. So no product is done twice.
+// Two named-barrier waits a step order the exchange: each buffer is
+// rewritten only after both warpgroups have passed the barrier that
+// follows its last read.
+template <int D>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    flash_bwd_dkdv_split_wgmma(const __grid_constant__ CUtensorMap tm_q,
+                               const __grid_constant__ CUtensorMap tm_do,
+                               const __grid_constant__ CUtensorMap tm_k,
+                               const __grid_constant__ CUtensorMap tm_v, Params p) {
+  using Lay = DkdvSplitLayout<D>;
+  using L = Panels<D>;
+  constexpr int kKeys = Lay::kKeys, kStages = Lay::kStages, HALF = L::DP / 2;
+  static_assert(kKeys == 64 && HALF == 128, "the split is of 64 keys at D 256");
+  extern __shared__ __align__(1024) unsigned char smem_tiles[];
+  unsigned char* base = align_1024(smem_tiles);
+  const float* lse_s = reinterpret_cast<const float*>(base + Lay::LSE_OFF);
+  const float* dl_s = reinterpret_cast<const float*>(base + Lay::DL_OFF);
+  float* xs = reinterpret_cast<float*>(base + Lay::X_OFF);
+  uint32_t* pds = reinterpret_cast<uint32_t*>(base + Lay::PD_OFF);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(base + Lay::BAR_OFF);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + kStages;
+  const DkdvWork<kKeys> w(p);
+  dkdv_init_barriers<Lay>(base);
+
+  const int wg = threadIdx.x / 128, warp = threadIdx.x % 128 / 32, lane = threadIdx.x % 32;
+  if (wg == 2) {
+    setmaxnreg_dec<kDkdvProducerRegs>();
+    if (warp == 0 && w.n_steps > 0)
+      dkdv_producer<D, Lay>(p, w, base, &tm_q, &tm_do, &tm_k, &tm_v, lane);
+  } else {
+    setmaxnreg_inc<kDkdvConsumerRegs>();
+    const Logits lg(p);
+    const int tid = threadIdx.x % 128, c2 = (lane % 4) * 2;
+    const int key_lo = w.t0 + 16 * warp + lane / 4;
+    // this warpgroup's product: S^T from K and Q (wg 0), dP^T from V and dO
+    const uint32_t a_addr = smem_addr(base + (wg == 0 ? Lay::K_OFF : Lay::V_OFF));
+    const int b_off = wg == 0 ? Lay::Q_OFF : Lay::DO_OFF;
+    // its columns of dO and Q: panels 2 wg and 2 wg + 1
+    const uint32_t half_off = wg * 2 * kQTile * L::ROW;
+
+    float dk[HALF / 2], dv[HALF / 2];
+#pragma unroll
+    for (int j = 0; j < HALF / 2; ++j) dk[j] = dv[j] = 0.f;
+
+    if (w.n_steps > 0) mbar_wait(kv_full, 0);
+    int qi = 0;
+    for (int i = 0; i < w.n_steps; ++i) {
+      const int stage = i % kStages, r0 = w.r_begin + qi * kQTile;
+      if (++qi == w.n_q) qi = 0;
+      const uint32_t q_addr = smem_addr(base + Lay::Q_OFF + stage * Lay::QT_BYTES);
+      const uint32_t do_addr = smem_addr(base + Lay::DO_OFF + stage * Lay::QT_BYTES);
+      const uint32_t b_addr = smem_addr(base + b_off + stage * Lay::QT_BYTES);
+      mbar_wait(&full[stage], (i / kStages) & 1);
+
+      // S^T (wg 0) or dP^T (wg 1): 64 keys x 64 query rows
+      float x[kQTile / 2];
+      fence_regs(x);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < L::KSTEPS; ++kk)
+        Wgmma<kQTile>::ss(x, desc_k<D>(a_addr, kKeys, 0, kk), desc_k<D>(b_addr, kQTile, 0, kk),
+                          kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(x);
+
+      // Element 4 jj + e of x: key key_lo (e < 2) or key_lo + 8, query row
+      // r0 + 8 jj + c2 + (e & 1); pair (j, j + 1) is A register
+      // [j / 8][(j % 8) / 2] of the m16n8k16 layout, exchanged at j / 2.
+      if (wg == 1) {
+        const float* dl_t = dl_s + stage * kQTile;
+#pragma unroll
+        for (int j = 0; j < kQTile / 2; ++j)
+          xs[j * 128 + tid] = x[j] - dl_t[8 * (j / 4) + c2 + (j & 1)];
+      }
+      named_barrier_sync(1, 256);
+      if (wg == 0) {
+        const float* lse_t = lse_s + stage * kQTile;
+        const bool edge = edge_tile(p, r0, kQTile, w.t0, kKeys);
+#pragma unroll
+        for (int j = 0; j < kQTile / 2; j += 2) {
+          const int col = 8 * (j / 4) + c2, key = j % 4 ? key_lo + 8 : key_lo;
+          const float2 l2 = *reinterpret_cast<const float2*>(lse_t + col);
+          float d0, d1;
+          float p0 = lg.prob(x[j], l2.x, d0), p1 = lg.prob(x[j + 1], l2.y, d1);
+          if (edge) {
+            if (!visible(p, r0 + col, key)) p0 = 0.f;
+            if (!visible(p, r0 + col + 1, key)) p1 = 0.f;
+          }
+          pds[(j / 2) * 128 + tid] = pack_bf16x2(p0, p1);
+          pds[(16 + j / 2) * 128 + tid] =
+              pack_bf16x2(p0 * d0 * xs[j * 128 + tid], p1 * d1 * xs[(j + 1) * 128 + tid]);
+        }
+      }
+      named_barrier_sync(1, 256);
+      uint32_t pa[kQTile / 16][4], da[kQTile / 16][4];
+#pragma unroll
+      for (int r = 0; r < 16; ++r) {
+        pa[r / 4][r % 4] = pds[r * 128 + tid];
+        da[r / 4][r % 4] = pds[(16 + r) * 128 + tid];
+      }
+
+      // dV += P^T dO and dK += dS^T Q on this warpgroup's 128 columns
+      fence_regs(dv);
+      fence_regs(dk);
+      fence_regs(pa);
+      fence_regs(da);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kQTile / 16; ++kk)
+        Wgmma<HALF>::rs_trans_b(dv, pa[kk], desc_mn<D>(do_addr + half_off, kQTile, kk), 1);
+#pragma unroll
+      for (int kk = 0; kk < kQTile / 16; ++kk)
+        Wgmma<HALF>::rs_trans_b(dk, da[kk], desc_mn<D>(q_addr + half_off, kQTile, kk), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dv);
+      fence_regs(dk);
+      fence_regs(pa);
+      fence_regs(da);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[stage]);
+    }
+
+    // after the last wgmma, and under no branch that encloses one
+    const size_t kv_stride = (size_t)p.K * D;
+    bf16* dkb = static_cast<bf16*>(p.dk) + ((size_t)w.b * p.T * p.K + w.kh) * D + HALF * wg;
+    bf16* dvb = static_cast<bf16*>(p.dv) + ((size_t)w.b * p.T * p.K + w.kh) * D + HALF * wg;
+#pragma unroll
+    for (int j = 0; j < HALF / 8; ++j) {
+#pragma unroll
+      for (int hi = 0; hi < 2; ++hi) {
+        const int key = key_lo + 8 * hi;
+        if (key < p.T) {
+          const size_t at = (size_t)key * kv_stride + j * 8 + c2;
+          *reinterpret_cast<uint32_t*>(dkb + at) =
+              pack_bf16x2(dk[4 * j + 2 * hi] * p.scale, dk[4 * j + 2 * hi + 1] * p.scale);
+          *reinterpret_cast<uint32_t*>(dvb + at) =
+              pack_bf16x2(dv[4 * j + 2 * hi], dv[4 * j + 2 * hi + 1]);
+        }
+      }
+    }
+  }
+}
+
 // ---- 3. dQ --------------------------------------------------------------------
 
 template <int D>
 struct DqLayout {
-  static constexpr int Q_BYTES = kRows * D * 2;
-  static constexpr int KV_BYTES = kKTile * D * 2;
+  static constexpr int KT = Tiles<D>::KT;
+  static constexpr int Q_BYTES = kRows * Panels<D>::DP * 2;
+  static constexpr int KV_BYTES = KT * Panels<D>::DP * 2;
   static constexpr int Q_OFF = 0;
   static constexpr int DO_OFF = Q_BYTES;
   static constexpr int K_OFF = 2 * Q_BYTES;                      // [stage] K tile
@@ -463,9 +700,10 @@ struct DqLayout {
   static_assert(LAUNCH_BYTES <= 232448, "over the 227 KB a block may use");
 };
 
-// One block's work: 128 query rows of one (b, h). Blocks are numbered
-// heaviest first: the last query tile of every (b, h), then the one
-// before, ...
+// One block's work: 128 query rows of one (b, h), over key tiles of kKTile.
+// Blocks are numbered heaviest first: the last query tile of every (b, h),
+// then the one before, ...
+template <int kKTile>
 struct DqWork {
   int q0, h, b, t_begin, n_tiles;
   __device__ explicit DqWork(const Params& p) {
@@ -486,12 +724,14 @@ __global__ void __launch_bounds__(kWgThreads, 1)
                        const __grid_constant__ CUtensorMap tm_k,
                        const __grid_constant__ CUtensorMap tm_v, Params p) {
   using Lay = DqLayout<D>;
+  using L = Panels<D>;
+  constexpr int kKTile = Lay::KT, DP = L::DP;
   extern __shared__ __align__(1024) unsigned char smem_tiles[];
   unsigned char* base = align_1024(smem_tiles);
   uint64_t* q_full = reinterpret_cast<uint64_t*>(base + Lay::BAR_OFF);
   uint64_t* kv_full = q_full + 1;
   uint64_t* kv_empty = kv_full + kDqStages;
-  const DqWork w(p);
+  const DqWork<kKTile> w(p);
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
@@ -539,9 +779,9 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       lse2[r] = row < p.S ? p.lse[idx] * kLog2e : 0.f;
       dl[r] = row < p.S ? p.delta[idx] : 0.f;
     }
-    float dq[D / 2];
+    float dq[DP / 2];
 #pragma unroll
-    for (int j = 0; j < D / 2; ++j) dq[j] = 0.f;
+    for (int j = 0; j < DP / 2; ++j) dq[j] = 0.f;
 
     mbar_wait(q_full, 0);
     for (int i = 0; i < w.n_tiles; ++i) {
@@ -550,18 +790,18 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       const uint32_t v_addr = smem_addr(base + Lay::V_OFF + stage * Lay::KV_BYTES);
       mbar_wait(&kv_full[stage], (i / kDqStages) & 1);
 
-      // S = Q K^T, then dP = dO V^T: 64 rows x 128 keys each
+      // S = Q K^T, then dP = dO V^T: 64 rows x kKTile keys each
       float s[kKTile / 2], dp[kKTile / 2];
       fence_regs(s);
       fence_regs(dp);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
+      for (int kk = 0; kk < L::KSTEPS; ++kk)
         Wgmma<kKTile>::ss(s, desc_k<D>(q_addr, kRows, 64 * wg, kk),
                           desc_k<D>(k_addr, kKTile, 0, kk), kk > 0);
       wgmma_commit();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
+      for (int kk = 0; kk < L::KSTEPS; ++kk)
         Wgmma<kKTile>::ss(dp, desc_k<D>(do_addr, kRows, 64 * wg, kk),
                           desc_k<D>(v_addr, kKTile, 0, kk), kk > 0);
       wgmma_commit();
@@ -596,7 +836,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kKTile / 16; ++kk)
-        Wgmma<D>::rs_trans_b(dq, da[kk], desc_mn<D>(k_addr, kKTile, kk), 1);
+        Wgmma<DP>::rs_trans_b(dq, da[kk], desc_mn<D>(k_addr, kKTile, kk), 1);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(dq);
@@ -605,7 +845,8 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       if (lane == 0) mbar_arrive(&kv_empty[stage]);
     }
 
-    // after the last wgmma, and under no branch that encloses one
+    // after the last wgmma, and under no branch that encloses one; the D
+    // real columns only
     const size_t q_stride = (size_t)p.H * D;
     bf16* dqb = static_cast<bf16*>(p.dq) + ((size_t)w.b * p.S * p.H + w.h) * D;
 #pragma unroll
@@ -629,9 +870,10 @@ constexpr int kF32QRows = 16;  // dq: query rows per block, 4 per warp
 constexpr int kF32KTile = 32;  // dq: keys per step (lane j: key j)
 
 // dK, dV of 32 keys; warp w owns keys 8w..8w+7, lane i columns i, i + 32, ...
+// that are < D (at D 120 lanes 24-31 own three, the others four).
 template <int D>
 __global__ void __launch_bounds__(128) flash_bwd_dkdv_f32(Params p) {
-  constexpr int LD = D + 1, NV = D / 32, KPW = kF32Keys / 4;
+  constexpr int LD = D + 1, NV = (D + 31) / 32, KPW = kF32Keys / 4;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* ks = reinterpret_cast<float*>(smem_raw);   // [kF32Keys][LD]
   float* vs = ks + kF32Keys * LD;
@@ -693,8 +935,10 @@ __global__ void __launch_bounds__(128) flash_bwd_dkdv_f32(Params p) {
           const float dj = __shfl_sync(0xffffffffu, ds, jj);
 #pragma unroll
           for (int c = 0; c < NV; ++c) {
-            dv[j][c] = fmaf(pj, gs[jj * LD + lane + 32 * c], dv[j][c]);
-            dk[j][c] = fmaf(dj, qs[jj * LD + lane + 32 * c], dk[j][c]);
+            if (D % 32 == 0 || lane + 32 * c < D) {
+              dv[j][c] = fmaf(pj, gs[jj * LD + lane + 32 * c], dv[j][c]);
+              dk[j][c] = fmaf(dj, qs[jj * LD + lane + 32 * c], dk[j][c]);
+            }
           }
         }
       }
@@ -708,16 +952,19 @@ __global__ void __launch_bounds__(128) flash_bwd_dkdv_f32(Params p) {
     float* dvo = static_cast<float*>(p.dv) + (((size_t)b * p.T + key) * p.K + kh) * D;
 #pragma unroll
     for (int c = 0; c < NV; ++c) {
-      dko[lane + 32 * c] = dk[j][c] * p.scale;
-      dvo[lane + 32 * c] = dv[j][c];
+      if (D % 32 == 0 || lane + 32 * c < D) {
+        dko[lane + 32 * c] = dk[j][c] * p.scale;
+        dvo[lane + 32 * c] = dv[j][c];
+      }
     }
   }
 }
 
-// dQ of 16 query rows; warp w owns rows 4w..4w+3, lane i columns i, i + 32, ...
+// dQ of 16 query rows; warp w owns rows 4w..4w+3, lane i columns i, i + 32,
+// ... that are < D.
 template <int D>
 __global__ void __launch_bounds__(128) flash_bwd_dq_f32(Params p) {
-  constexpr int LD = D + 1, NV = D / 32, RPW = kF32QRows / 4;
+  constexpr int LD = D + 1, NV = (D + 31) / 32, RPW = kF32QRows / 4;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* qs = reinterpret_cast<float*>(smem_raw);   // [kF32QRows][D]
   float* gs = qs + kF32QRows * D;
@@ -776,7 +1023,9 @@ __global__ void __launch_bounds__(128) flash_bwd_dq_f32(Params p) {
       for (int j = 0; j < kF32KTile; ++j) {
         const float dj = __shfl_sync(0xffffffffu, ds, j);
 #pragma unroll
-        for (int c = 0; c < NV; ++c) dq[rr][c] = fmaf(dj, ks[j * LD + lane + 32 * c], dq[rr][c]);
+        for (int c = 0; c < NV; ++c)
+          if (D % 32 == 0 || lane + 32 * c < D)
+            dq[rr][c] = fmaf(dj, ks[j * LD + lane + 32 * c], dq[rr][c]);
       }
     }
   }
@@ -786,7 +1035,8 @@ __global__ void __launch_bounds__(128) flash_bwd_dq_f32(Params p) {
     if (r >= p.S) continue;
     float* out = static_cast<float*>(p.dq) + ((size_t)(b * p.S + r) * p.H + h) * D;
 #pragma unroll
-    for (int c = 0; c < NV; ++c) out[lane + 32 * c] = dq[rr][c] * p.scale;
+    for (int c = 0; c < NV; ++c)
+      if (D % 32 == 0 || lane + 32 * c < D) out[lane + 32 * c] = dq[rr][c] * p.scale;
   }
 }
 
@@ -800,30 +1050,38 @@ int launch(Kernel kernel, dim3 grid, int bytes, const Params& p, cudaStream_t st
   return static_cast<int>(cudaGetLastError());
 }
 
-// The bf16 passes: dK/dV, then dQ, on 4-D tensor maps over the inputs.
+// The bf16 passes: dK/dV, then dQ, on 4-D tensor maps over the inputs. At D
+// 256 the dK/dV pass is flash_bwd_dkdv_split_wgmma.
 template <int D>
 int launch_wgmma(const Params& p, cudaStream_t st) {
   using L = Panels<D>;
+  using T = Tiles<D>;
+  using DkdvLay = std::conditional_t<(D > 128), DkdvSplitLayout<D>, DkdvPairLayout<D>>;
+  const auto dkdv = [] {
+    if constexpr (D > 128) return flash_bwd_dkdv_split_wgmma<D>;
+    else return flash_bwd_dkdv_wgmma<D>;
+  }();
   const CUtensorMapSwizzle swizzle =
       L::PANEL == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
-  CUtensorMap q_tile, do_tile, q_rows, do_rows, k_tile, v_tile;
+  CUtensorMap q_tile, do_tile, q_rows, do_rows, k_keys, v_keys, k_tile, v_tile;
   int rc = encode_bf16_4d(&q_tile, p.q, D, p.H, p.S, p.B, L::PANEL, kQTile, swizzle);
   if (rc == 0) rc = encode_bf16_4d(&do_tile, p.dout, D, p.H, p.S, p.B, L::PANEL, kQTile, swizzle);
   if (rc == 0) rc = encode_bf16_4d(&q_rows, p.q, D, p.H, p.S, p.B, L::PANEL, kRows, swizzle);
   if (rc == 0) rc = encode_bf16_4d(&do_rows, p.dout, D, p.H, p.S, p.B, L::PANEL, kRows, swizzle);
-  if (rc == 0) rc = encode_bf16_4d(&k_tile, p.k, D, p.K, p.T, p.B, L::PANEL, kKeys, swizzle);
-  if (rc == 0) rc = encode_bf16_4d(&v_tile, p.v, D, p.K, p.T, p.B, L::PANEL, kKeys, swizzle);
+  if (rc == 0) rc = encode_bf16_4d(&k_keys, p.k, D, p.K, p.T, p.B, L::PANEL, T::KEYS, swizzle);
+  if (rc == 0) rc = encode_bf16_4d(&v_keys, p.v, D, p.K, p.T, p.B, L::PANEL, T::KEYS, swizzle);
+  if (rc == 0) rc = encode_bf16_4d(&k_tile, p.k, D, p.K, p.T, p.B, L::PANEL, T::KT, swizzle);
+  if (rc == 0) rc = encode_bf16_4d(&v_tile, p.v, D, p.K, p.T, p.B, L::PANEL, T::KT, swizzle);
   if (rc != 0) return rc;
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkdv_wgmma<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         DkdvLayout<D>::LAUNCH_BYTES);
+  cudaError_t err = cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         DkdvLay::LAUNCH_BYTES);
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(flash_bwd_dq_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                DqLayout<D>::LAUNCH_BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int n_keys = (p.T + kKeys - 1) / kKeys, n_rows = (p.S + kRows - 1) / kRows;
-  flash_bwd_dkdv_wgmma<D><<<n_keys * p.K * p.B, kWgThreads, DkdvLayout<D>::LAUNCH_BYTES, st>>>(
-      q_tile, do_tile, k_tile, v_tile, p);
+  const int n_keys = (p.T + T::KEYS - 1) / T::KEYS, n_rows = (p.S + kRows - 1) / kRows;
+  dkdv<<<n_keys * p.K * p.B, kWgThreads, DkdvLay::LAUNCH_BYTES, st>>>(q_tile, do_tile, k_keys,
+                                                                      v_keys, p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   flash_bwd_dq_wgmma<D><<<n_rows * p.H * p.B, kWgThreads, DqLayout<D>::LAUNCH_BYTES, st>>>(
@@ -867,7 +1125,9 @@ int flash_attention_bwd(const void* q, const void* k, const void* v, const void*
   switch (D) {
     case 32: return launch_all<32>(p, is_bf16, st);
     case 64: return launch_all<64>(p, is_bf16, st);
+    case 120: return launch_all<120>(p, is_bf16, st);
     case 128: return launch_all<128>(p, is_bf16, st);
+    case 256: return launch_all<256>(p, is_bf16, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

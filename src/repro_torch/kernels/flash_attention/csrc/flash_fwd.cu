@@ -56,16 +56,29 @@
 // an H100); the softmax's exponentials and conversions take issue slots the
 // products need; and the output is stored from registers, not by TMA.
 //
-// At D 80 the kernel is the D-128 kernel over zero-filled columns: S = Q K^T
-// takes the 5 k-steps of the 80 real columns, but O += P V is one n128
-// product per k-step, of which 48 columns are zeros dropped at the store
-// (wgmma allows n80, as n64 on panel 0 plus n16 on panel 1, or n80 across
-// the two; either reads a partial 128-byte swizzle atom of the MN-major V,
-// which this first version does not risk), and shared memory holds the
-// padded tiles. So P V does 1.6 times the products it needs.
+// At D 80 and D 120 the kernel is the D-128 kernel over zero-filled
+// columns: S = Q K^T takes the (D + 15) / 16 k-steps that hold real columns
+// (5; 8 at D 120, whose last is half zeros), but O += P V is one n128
+// product per k-step, of which 128 - D columns are zeros dropped at the
+// store (wgmma allows n80 or n120, but such a product reads a partial
+// 128-byte swizzle atom of the MN-major V, which this first version does
+// not risk), and shared memory holds the padded tiles. So P V does 1.6
+// times the products it needs at D 80, 1.07 times at D 120.
+//
+// At D 256 (gemma2-2b) the D-128 tiling does not fit: Q (128 x 256) is 64
+// KB and two stages of 128-key K and V tiles 256 KB more, over the 227 KB
+// of shared memory; and a consumer's O (64 x 256 fp32, 128 registers a
+// thread) beside a 128-key S and P would spill. So a K/V tile holds 64 keys
+// (Q plus two stages: 192 KB), S = Q K^T is m64n64k16 over 16 k-steps, O +=
+// P V two m64n128k16 per k-step (hopper.cuh's Wgmma<256>), and the
+// consumers take 240 registers, the producer 24 (at 232 ptxas spilled and
+// serialised the wgmma, C7512). Half the keys a tile doubles the softmax
+// rounds and barrier waits per key, so D 256 stands further from its bound
+// (operations) than D 128.
 //
 // The fp32 path (flash_fwd_f32) is off the serving path: full fp32 on the
-// CUDA cores (never TF32), q scaled after the load as the TPU kernel does.
+// CUDA cores (never TF32), q scaled after the load as the TPU kernel does;
+// its tiles are dynamic shared memory (80 KB at D 256).
 
 #include <math.h>
 #include <stdint.h>
@@ -109,33 +122,41 @@ __device__ __forceinline__ float cap(const Params& p, float s) {
 // ---- bf16: wgmma + TMA, warp-specialised ----------------------------------
 
 constexpr int kBQ = 128;           // query rows per block (two warpgroups of 64)
-constexpr int kBK = 128;           // keys per tile
 constexpr int kStages = 2;         // K/V ring depth
 constexpr int kWgThreads = 384;    // consumer warpgroups 0 and 1, producer 2
-constexpr int kProducerRegs = 40;
-constexpr int kConsumerRegs = 232;
+// setmaxnreg: registers a producer and a consumer thread get (producer + 2
+// consumers <= 512). At D 256 the consumers hold O's 128 fp32 accumulators
+// beside S and P in flight; at 232 ptxas spilled and serialised the wgmma
+// (C7512), so they take 240 and the producer 24.
+template <int D>
+struct Regs {
+  static constexpr int PRODUCER = D > 128 ? 24 : 40;
+  static constexpr int CONSUMER = D > 128 ? 240 : 232;
+};
 
 // Shared memory, from a 1024-byte aligned base: Q, then the K and V ring,
 // then the barriers. Each tile is stored as DP / PANEL panels of rows of
 // PANEL elements (one swizzle row each: 128 bytes, or 64 at D 32), where
-// DP is D rounded up to whole panels (128 at D 80; the columns past D are
-// TMA's zeros).
+// DP is D rounded up to whole panels (128 at D 80 and 120; the columns
+// past D are TMA's zeros). BK keys a tile: 128, or 64 at D 256, where two
+// stages of 128-key K and V tiles would not fit beside Q.
 template <int D>
 struct WgLayout {
   static constexpr int PANEL = D < 64 ? D : 64;
   static constexpr int DP = (D + PANEL - 1) / PANEL * PANEL;
   static constexpr int PANELS = DP / PANEL;
+  static constexpr int BK = D > 128 ? 64 : 128;
   static constexpr int SWIZZLE = PANEL == 64 ? 1 : 2;   // wgmma code: 128 B, 64 B
   static constexpr int ROW_BYTES = PANEL * 2;
   static constexpr int Q_BYTES = kBQ * DP * 2;
-  static constexpr int KV_BYTES = kBK * DP * 2;
+  static constexpr int KV_BYTES = BK * DP * 2;
   static constexpr int K_OFF = Q_BYTES;
   static constexpr int V_OFF = K_OFF + kStages * KV_BYTES;
   static constexpr int BAR_OFF = V_OFF + kStages * KV_BYTES;
   static constexpr int BYTES = BAR_OFF + (2 + 4 * kStages) * 8;
   static constexpr int LAUNCH_BYTES = BYTES + 1024;   // room to align the base
   static_assert(LAUNCH_BYTES <= 232448, "over the 227 KB a block may use");
-  static_assert(D % 16 == 0 && (DP == D || DP == 128), "a head dim wgmma takes");
+  static_assert(D % 8 == 0 && (DP == D || DP == 128), "a head dim wgmma takes");
 };
 
 // One consumer warpgroup's view of the block: its rows, the softmax
@@ -143,20 +164,22 @@ struct WgLayout {
 template <int D>
 struct Consumer {
   using Lay = WgLayout<D>;
-  static constexpr int PANEL = Lay::PANEL, ROW = Lay::ROW_BYTES, DP = Lay::DP;
+  static constexpr int PANEL = Lay::PANEL, ROW = Lay::ROW_BYTES, DP = Lay::DP, kBK = Lay::BK;
   const Params& p;
   uint32_t q_addr, k_base, v_base;
   int r0, row_lo, row_hi, c2, shift;
   bool softcap;
   float mult, cap_in, cap_out;
 
-  // S (64 x 128 fp32 fragment) = Q K^T for the K tile in ring slot `stage`.
+  // S (64 x BK fp32 fragment) = Q K^T for the K tile in ring slot `stage`,
+  // over the k-steps of 16 columns that hold real columns (at D 120 the
+  // eighth is half TMA's zeros; D / 16 would drop columns 112-119).
   __device__ __forceinline__ void qk(float (&s)[kBK / 2], int stage) const {
     const uint32_t k_addr = k_base + stage * Lay::KV_BYTES;
     fence_regs(s);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
+    for (int kk = 0; kk < (D + 15) / 16; ++kk) {
       const uint32_t off = (kk * 16 % PANEL) * 2;   // bytes into the swizzled row
       const uint32_t panel = kk * 16 / PANEL;
       const uint64_t da = wgmma_desc(q_addr + panel * kBQ * ROW + off, 16, 8 * ROW,
@@ -234,12 +257,14 @@ struct Consumer {
   }
 };
 
-// One block's unit of work: 128 query rows of one (b, h). Work items are
-// numbered heaviest first (the last query tile of every (b, h), then the
-// one before, ...), and a block takes items blockIdx.x, + gridDim.x, ...
-struct Work {
+// One block's unit of work: 128 query rows of one (b, h), over key tiles
+// of kBK. Work items are numbered heaviest first (the last query tile of
+// every (b, h), then the one before, ...), and a block takes items
+// blockIdx.x, + gridDim.x, ...
+template <int kBK>
+struct WorkItem {
   int q0, h, b, t_begin, n_tiles;
-  __device__ Work(const Params& p, int w, int nq) {
+  __device__ WorkItem(const Params& p, int w, int nq) {
     const int hb = w % (p.H * p.B);
     q0 = (nq - 1 - w / (p.H * p.B)) * kBQ;
     h = hb % p.H;
@@ -256,7 +281,8 @@ __global__ void __launch_bounds__(kWgThreads, 1)
                     const __grid_constant__ CUtensorMap tm_k,
                     const __grid_constant__ CUtensorMap tm_v, Params p) {
   using Lay = WgLayout<D>;
-  constexpr int PANEL = Lay::PANEL, ROW = Lay::ROW_BYTES, DP = Lay::DP;
+  constexpr int PANEL = Lay::PANEL, ROW = Lay::ROW_BYTES, DP = Lay::DP, kBK = Lay::BK;
+  using Work = WorkItem<kBK>;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* base =
       smem_raw + ((1024u - (smem_addr(smem_raw) & 1023u)) & 1023u);
@@ -289,7 +315,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   const int wg = threadIdx.x / 128;
   if (wg == 2) {
     // ---- producer: one thread issues every load ----
-    setmaxnreg_dec<kProducerRegs>();
+    setmaxnreg_dec<Regs<D>::PRODUCER>();
     if (threadIdx.x == 256) {
       int it = 0, tc = 0;
       for (int w = blockIdx.x; w < n_work; w += gridDim.x, ++tc) {
@@ -320,7 +346,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     }
   } else {
     // ---- consumers: warpgroup wg owns query rows q0 + 64 wg .. + 63 ----
-    setmaxnreg_inc<kConsumerRegs>();
+    setmaxnreg_inc<Regs<D>::CONSUMER>();
     const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
     Consumer<D> cw{p};
     cw.q_addr = smem_addr(q_s) + wg * 64 * ROW;
@@ -446,13 +472,23 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 
 // fp32: 4 warps, 4 query rows each, 32-key tiles. Lane j scores key j of the
 // tile; for the accumulator, lane i owns columns i, i + 32, ... of the row
-// that are < D (at D 80 lanes 0-15 own three columns, lanes 16-31 two).
+// that are < D (at D 80 lanes 0-15 own three columns, lanes 16-31 two; at D
+// 120 lanes 0-23 four, lanes 24-31 three). The tiles are dynamic shared
+// memory: at D 256 they take 80 KB, over the 48 KB of static shared memory.
+constexpr int kF32Q = 16, kF32K = 32;
+
+template <int D>
+constexpr int f32_smem_bytes() {
+  return (kF32Q * D + kF32K * (D + 1) + kF32K * D) * 4;
+}
+
 template <int D>
 __global__ void __launch_bounds__(128) flash_fwd_f32(Params p) {
-  constexpr int BQ = 16, BK = 32, RPW = BQ / 4, NV = (D + 31) / 32;
-  __shared__ float qs[BQ][D];
-  __shared__ float ks[BK][D + 1];
-  __shared__ float vs[BK][D];
+  constexpr int BQ = kF32Q, BK = kF32K, RPW = BQ / 4, NV = (D + 31) / 32;
+  extern __shared__ __align__(16) unsigned char smem_f32[];
+  float(*qs)[D] = reinterpret_cast<float(*)[D]>(smem_f32);
+  float(*ks)[D + 1] = reinterpret_cast<float(*)[D + 1]>(smem_f32 + BQ * D * 4);
+  float(*vs)[D] = reinterpret_cast<float(*)[D]>(smem_f32 + (BQ * D + BK * (D + 1)) * 4);
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
@@ -539,8 +575,8 @@ int launch_wgmma(const Params& p, int B, cudaStream_t st) {
       Lay::PANEL == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
   CUtensorMap tm_q, tm_k, tm_v;
   int rc = encode_bf16_4d(&tm_q, p.q, D, p.H, p.S, B, Lay::PANEL, kBQ, swizzle);
-  if (rc == 0) rc = encode_bf16_4d(&tm_k, p.k, D, p.K, p.T, B, Lay::PANEL, kBK, swizzle);
-  if (rc == 0) rc = encode_bf16_4d(&tm_v, p.v, D, p.K, p.T, B, Lay::PANEL, kBK, swizzle);
+  if (rc == 0) rc = encode_bf16_4d(&tm_k, p.k, D, p.K, p.T, B, Lay::PANEL, Lay::BK, swizzle);
+  if (rc == 0) rc = encode_bf16_4d(&tm_v, p.v, D, p.K, p.T, B, Lay::PANEL, Lay::BK, swizzle);
   if (rc != 0) return rc;
   // persistent: one block per SM, each walking its share of the work items
   int dev = 0, sms = 0;
@@ -553,6 +589,16 @@ int launch_wgmma(const Params& p, int B, cudaStream_t st) {
   const int n_work = (p.S + kBQ - 1) / kBQ * p.H * B;
   flash_fwd_wgmma<D><<<min(n_work, sms), kWgThreads, Lay::LAUNCH_BYTES, st>>>(tm_q, tm_k, tm_v,
                                                                               p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_f32(const Params& p, int B, cudaStream_t st) {
+  constexpr int bytes = f32_smem_bytes<D>();
+  const cudaError_t err =
+      cudaFuncSetAttribute(flash_fwd_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_fwd_f32<D><<<dim3((p.S + kF32Q - 1) / kF32Q, p.H, B), 128, bytes, st>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -576,19 +622,21 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
       case 32: return launch_wgmma<32>(p, B, st);
       case 64: return launch_wgmma<64>(p, B, st);
       case 80: return launch_wgmma<80>(p, B, st);
+      case 120: return launch_wgmma<120>(p, B, st);
       case 128: return launch_wgmma<128>(p, B, st);
+      case 256: return launch_wgmma<256>(p, B, st);
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
   }
-  const dim3 grid((S + 15) / 16, H, B);
   switch (D) {
-    case 32: flash_fwd_f32<32><<<grid, 128, 0, st>>>(p); break;
-    case 64: flash_fwd_f32<64><<<grid, 128, 0, st>>>(p); break;
-    case 80: flash_fwd_f32<80><<<grid, 128, 0, st>>>(p); break;
-    case 128: flash_fwd_f32<128><<<grid, 128, 0, st>>>(p); break;
+    case 32: return launch_f32<32>(p, B, st);
+    case 64: return launch_f32<64>(p, B, st);
+    case 80: return launch_f32<80>(p, B, st);
+    case 120: return launch_f32<120>(p, B, st);
+    case 128: return launch_f32<128>(p, B, st);
+    case 256: return launch_f32<256>(p, B, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 const char* flash_attention_error_string(int code) {

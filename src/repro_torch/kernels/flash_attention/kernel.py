@@ -18,10 +18,13 @@ mode: :class:`FlashAttention` (through ``ops.attention``) is the
 differentiable path. Each function's ``launches`` attribute counts its
 calls; one backward call launches three kernels.
 
-Head dims: the forward takes 32, 64, 80 and 128 (80 is zamba2-2.7b's
-2560 / 32), the backward 32, 64 and 128. A D-80 backward is refused with
-``ValueError`` here, before the library's dispatch, until a model with
-that head dim trains.
+Head dims: the forward takes 32, 64, 80, 120, 128 and 256 (80 is
+zamba2-2.7b's 2560 / 32, 120 h2o-danube-3-4b's 3840 / 32, 256
+gemma2-2b's), the backward 32, 64, 120, 128 and 256. D 80 and 120 run
+the D-128 tiles over columns TMA fills with zeros; D 256 runs tiles of
+fewer keys (each source's header says how). A D-80 backward is refused
+with ``ValueError`` here, before the library's dispatch, until a model
+with that head dim trains.
 """
 
 from __future__ import annotations
@@ -40,8 +43,8 @@ __all__ = ["BWD_HEAD_DIMS", "BWD_SOURCE", "FWD_HEAD_DIMS", "FlashAttention",
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_fwd.cu"
 BWD_SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_bwd.cu"
-FWD_HEAD_DIMS = (32, 64, 80, 128)
-BWD_HEAD_DIMS = (32, 64, 128)
+FWD_HEAD_DIMS = (32, 64, 80, 120, 128, 256)
+BWD_HEAD_DIMS = (32, 64, 120, 128, 256)
 _MAX_GRID_YZ = 65535
 _lib: Optional[ctypes.CDLL] = None
 _bwd_lib: Optional[ctypes.CDLL] = None

@@ -109,6 +109,16 @@ def apply_mrope(x: torch.Tensor, positions: torch.Tensor,
     return _rotate(x, angles)
 
 
+# At most this many fp32 logits in one chunk of chunked_softmax_xent. The
+# configs' loss_chunk counts tokens (16384); at gemma2-2b's 256,000-word
+# vocabulary one 8192-token chunk holds 7.8 GiB of logits a copy, and its
+# soft-cap and gradients take three more beside a 47.7 GiB train state,
+# over an 80 GB card. 2^29 (2 GiB a copy) leaves every other config's
+# chunk on the card as the config sizes it (llama3.2-3b's 2 x 2048 tokens
+# at 128,256 words is 525 M).
+LOSS_CHUNK_ELEMENTS = 1 << 29
+
+
 def _xent_chunk(h, unembed, y, final_softcap):
     logits = (h @ unembed.to(h.dtype)).float()
     logits = soft_cap(logits, final_softcap)
@@ -134,8 +144,10 @@ def chunked_softmax_xent(
     of ``chunk`` with masked rows; here the last chunk is shorter instead,
     which gives the same sum and gradient without building the padded
     rows. Under grad mode each chunk runs under activation checkpointing,
-    so one chunk's logits are alive at a time.
+    so one chunk's logits are alive at a time. A chunk is also cut to
+    ``LOSS_CHUNK_ELEMENTS`` logits (a different grouping of the same sum).
     """
+    chunk = max(1, min(chunk, LOSS_CHUNK_ELEMENTS // unembed.shape[1]))
     loss = hidden.new_zeros((), dtype=torch.float32)
     count = hidden.new_zeros((), dtype=torch.float32)
     for c0 in range(0, hidden.shape[0], chunk):

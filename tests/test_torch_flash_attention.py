@@ -15,12 +15,17 @@ from repro.kernels.flash_attention.kernel import flash_attention as jax_flash  #
 from repro.kernels.flash_attention.ref import attention_reference as jax_ref  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel, ops, ref  # noqa: E402
 from test_kernels import ATTN_SWEEP, _tol  # noqa: E402
-from test_torch_gpu import D80  # noqa: E402
+from test_torch_gpu import D80, D120, D256  # noqa: E402
 
 _TORCH = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
 _JAX = {v: k for k, v in _TORCH.items()}
 # head dim 80 (zamba2-2.7b), the rows the CUDA forward runs on the card
 D80_ROWS = [row[:-1] + (_JAX[row[-1]],) for row in D80]
+# head dims 120 (h2o-danube-3-4b) and 256 (gemma2-2b), the rows both CUDA
+# kernels run on the card
+NEW_DIM_ROWS = [row[:-1] + (_JAX[row[-1]],) for row in D120 + D256]
+NEW_DIM_IDS = ([f"d120_{i}" for i in range(len(D120))]
+               + [f"d256_{i}" for i in range(len(D256))])
 
 
 def _inputs(seed, b, s, t, h, k, d, dtype):
@@ -40,8 +45,8 @@ def _np(x):
 
 
 @pytest.mark.parametrize(
-    "b,s,t,h,k,d,window,softcap,dtype", ATTN_SWEEP,
-    ids=[f"attn{i}" for i in range(len(ATTN_SWEEP))],
+    "b,s,t,h,k,d,window,softcap,dtype", ATTN_SWEEP + NEW_DIM_ROWS,
+    ids=[f"attn{i}" for i in range(len(ATTN_SWEEP))] + NEW_DIM_IDS,
 )
 def test_plain_flash_vs_jax_reference(b, s, t, h, k, d, window, softcap,
                                       dtype):
@@ -78,6 +83,24 @@ def test_plain_flash_d80_vs_pallas_interpret(row):
     (S = T on its block grid: the ragged row is the oracle's only)."""
     b, s, t, h, k, d, window, softcap, dtype = D80_ROWS[row]
     (jq, jk, jv), (tq, tk, tv) = _inputs(11, b, s, t, h, k, d, dtype)
+    want = jax_flash(jq, jk, jv, causal=True, window=window, softcap=softcap,
+                     interpret=True)
+    got = ref.attention_reference(tq, tk, tv, causal=True, window=window,
+                                  softcap=softcap)
+    np.testing.assert_allclose(_np(got), _np(want), **_tol(dtype))
+
+
+@pytest.mark.parametrize("row", [0, 1, 2, 4, 5, 8, 9, 10, 12, 13],
+                         ids=["d120_f32_mha", "d120_mha", "d120_gqa4",
+                              "d120_f32_win_cap", "d120_win_cap",
+                              "d256_f32_mha", "d256_mha", "d256_gqa2",
+                              "d256_f32_win_cap", "d256_win_cap"])
+def test_plain_flash_d120_d256_vs_pallas_interpret(row):
+    """Head dims 120 and 256 against the JAX package's Pallas kernel,
+    interpreted (S = T on its block grid: the ragged rows are the
+    oracle's only)."""
+    b, s, t, h, k, d, window, softcap, dtype = NEW_DIM_ROWS[row]
+    (jq, jk, jv), (tq, tk, tv) = _inputs(17, b, s, t, h, k, d, dtype)
     want = jax_flash(jq, jk, jv, causal=True, window=window, softcap=softcap,
                      interpret=True)
     got = ref.attention_reference(tq, tk, tv, causal=True, window=window,

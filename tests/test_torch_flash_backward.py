@@ -17,15 +17,19 @@ import jax.numpy as jnp  # noqa: E402
 from repro.kernels.flash_attention.ref import attention_reference as jax_ref  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel, ops, ref  # noqa: E402
 from test_kernels import ATTN_SWEEP, _tol  # noqa: E402
-from test_torch_gpu import EDGES  # noqa: E402
+from test_torch_gpu import D120, D256, EDGES  # noqa: E402
 from torch_parity import to_np  # noqa: E402
 
 _JAX = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
 _TORCH = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
-# ATTN_SWEEP, then the edges of the bf16 CUDA kernels' tiling
-ROWS = ATTN_SWEEP + [row[:-1] + (_JAX[row[-1]],) for row in EDGES]
+# ATTN_SWEEP, then the edges of the bf16 CUDA kernels' tiling, then head
+# dims 120 (h2o-danube-3-4b) and 256 (gemma2-2b)
+ROWS = ATTN_SWEEP + [row[:-1] + (_JAX[row[-1]],)
+                     for row in EDGES + D120 + D256]
 IDS = ([f"attn{i}" for i in range(len(ATTN_SWEEP))]
-       + [f"edge{i}" for i in range(len(EDGES))])
+       + [f"edge{i}" for i in range(len(EDGES))]
+       + [f"d120_{i}" for i in range(len(D120))]
+       + [f"d256_{i}" for i in range(len(D256))])
 
 
 def _inputs(seed, b, s, t, h, k, d, dtype):

@@ -73,6 +73,33 @@ D80 = [
     (1, 256, 256, 4, 2, 80, 64, 30.0, torch.float32),
     (1, 384, 384, 4, 2, 80, 100, 50.0, torch.bfloat16),
 ]
+# Head dims 120 (h2o-danube-3-4b: 3840 / 32, GQA 4:1) and 256 (gemma2-2b,
+# GQA 2:1), forward and backward: fp32 and bf16 MHA, the model's GQA ratio,
+# S and T off the tile grid with S < T, a window with a soft-cap in both
+# dtypes, S below one query tile, and S < T with a window narrower than
+# T - S, so that a whole key block is seen by no query row.
+# tests/test_torch_flash_attention.py and test_torch_flash_backward.py hold
+# the plain version at these rows against the JAX package's.
+D120 = [
+    (1, 256, 256, 4, 4, 120, None, None, torch.float32),
+    (2, 256, 256, 4, 4, 120, None, None, torch.bfloat16),
+    (1, 256, 256, 8, 2, 120, None, None, torch.bfloat16),
+    (1, 200, 328, 8, 2, 120, None, None, torch.bfloat16),
+    (1, 256, 256, 4, 1, 120, 64, 30.0, torch.float32),
+    (1, 384, 384, 8, 2, 120, 100, 50.0, torch.bfloat16),
+    (1, 40, 300, 4, 1, 120, None, None, torch.bfloat16),
+    (1, 100, 400, 8, 2, 120, 64, 50.0, torch.bfloat16),
+]
+D256 = [
+    (1, 256, 256, 4, 4, 256, None, None, torch.float32),
+    (2, 256, 256, 4, 4, 256, None, None, torch.bfloat16),
+    (1, 256, 256, 8, 4, 256, None, None, torch.bfloat16),
+    (1, 200, 328, 8, 4, 256, None, None, torch.bfloat16),
+    (1, 256, 256, 4, 2, 256, 64, 30.0, torch.float32),
+    (1, 384, 384, 8, 4, 256, 100, 50.0, torch.bfloat16),
+    (1, 40, 300, 4, 2, 256, None, None, torch.bfloat16),
+    (1, 100, 400, 8, 4, 256, 64, 50.0, torch.bfloat16),
+]
 
 # tests/test_kernels.py::SSD_SWEEP with torch dtypes;
 # tests/test_torch_ssd.py holds the two equal.
@@ -123,11 +150,13 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("row", SWEEP + RAGGED + EDGES + D80,
+@pytest.mark.parametrize("row", SWEEP + RAGGED + EDGES + D80 + D120 + D256,
                          ids=[f"attn{i}" for i in range(len(SWEEP))]
                          + [f"ragged{i}" for i in range(len(RAGGED))]
                          + [f"edge{i}" for i in range(len(EDGES))]
-                         + [f"d80_{i}" for i in range(len(D80))])
+                         + [f"d80_{i}" for i in range(len(D80))]
+                         + [f"d120_{i}" for i in range(len(D120))]
+                         + [f"d256_{i}" for i in range(len(D256))])
 def test_cuda_kernel_vs_plain(cuda, row):
     b, s, t, h, k, d, window, softcap, dtype = row
     gen = torch.Generator(device=cuda).manual_seed(42)
@@ -163,10 +192,12 @@ def _close_grads(got, want, dtype):
         torch.testing.assert_close(g, w, **_tol(dtype))
 
 
-@pytest.mark.parametrize("row", SWEEP + RAGGED + EDGES,
+@pytest.mark.parametrize("row", SWEEP + RAGGED + EDGES + D120 + D256,
                          ids=[f"attn{i}" for i in range(len(SWEEP))]
                          + [f"ragged{i}" for i in range(len(RAGGED))]
-                         + [f"edge{i}" for i in range(len(EDGES))])
+                         + [f"edge{i}" for i in range(len(EDGES))]
+                         + [f"d120_{i}" for i in range(len(D120))]
+                         + [f"d256_{i}" for i in range(len(D256))])
 def test_cuda_backward_vs_plain(cuda, row):
     """The forward's output against the plain version's at the dtype's
     _tol and its LSE at fp32 _tol; dq, dk, dv of the backward kernels
@@ -1046,3 +1077,35 @@ def test_cuda_embed_smoke_decode_matches_cpu(cuda, arch, head_dim):
         outs.append(torch.stack(seq).float().cpu())
     assert torch.isfinite(outs[1]).all()
     torch.testing.assert_close(outs[1], outs[0], rtol=0.15, atol=0.15)
+
+
+# ---------------------------------------------------------------------------
+# Head dims 120 (h2o-danube-3-4b) and 256 (gemma2-2b) on the card
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("d,h,k", [(120, 32, 8), (256, 8, 4)],
+                         ids=["danube_d120", "gemma2_d256"])
+def test_cuda_ops_attention_gradients_reach_qkv_at_new_dims(cuda, d, h, k):
+    """ops.attention under grad mode at each model's head layout, window
+    4096 and gemma2's soft-cap where it has one: one forward and one
+    backward launch, the gradients those of the backward kernels, nonzero
+    on q, k and v, and within bf16 _tol of autograd through the plain
+    version."""
+    softcap = 50.0 if d == 256 else None
+    cfg = dict(causal=True, window=96, softcap=softcap)
+    q, kk, vv, do = _attn_grad_inputs(cuda, 1, 320, 320, h, k, d,
+                                      torch.bfloat16)
+    leaves = [x.clone().requires_grad_() for x in (q, kk, vv)]
+    fwd = kernel.flash_attention.launches
+    bwd = kernel.flash_attention_backward.launches
+    ops.attention(*leaves, **cfg).backward(do)
+    assert kernel.flash_attention.launches == fwd + 1
+    assert kernel.flash_attention_backward.launches == bwd + 1
+    o, lse = kernel.flash_attention(q, kk, vv, return_lse=True, **cfg)
+    want = kernel.flash_attention_backward(q, kk, vv, o, lse, do, **cfg)
+    plain = [x.float().requires_grad_() for x in (q, kk, vv)]
+    ref.attention_reference(*plain, **cfg).backward(do.float())
+    torch.cuda.synchronize()
+    assert all(torch.equal(x.grad, w) for x, w in zip(leaves, want))
+    assert all(x.grad.abs().max() > 0 for x in leaves)
+    _close_grads([x.grad for x in leaves], [x.grad for x in plain],
+                 torch.bfloat16)

@@ -41,8 +41,9 @@ from torch_parity import configs, params, to_np, to_torch, tol  # noqa: E402
 B, S, STEPS = 2, 16, 6
 
 
-def _run_both(dtype, own_greedy, arch="llama3.2-3b", **change):
-    """Prefill, grow and STEPS decode steps in both packages. Token models
+def _run_both(dtype, own_greedy, arch="llama3.2-3b", s=S, **change):
+    """Prefill of ``s`` tokens, grow and STEPS decode steps in both
+    packages. Token models
     decode greedily (the port on its own tokens with ``own_greedy``, else
     on JAX's); an ``embed``-frontend model is fed the same random fp32
     embeddings in both, (B, S, M) for the prompt and (B, 1, M) a step."""
@@ -53,15 +54,15 @@ def _run_both(dtype, own_greedy, arch="llama3.2-3b", **change):
     rng = np.random.default_rng(0)
     embed = jcfg.frontend == "embed"
     if embed:
-        prompts = rng.standard_normal((B, S, jcfg.d_model)).astype(np.float32)
+        prompts = rng.standard_normal((B, s, jcfg.d_model)).astype(np.float32)
         frames = rng.standard_normal(
             (STEPS, B, 1, jcfg.d_model)).astype(np.float32)
     else:
-        prompts = rng.integers(0, jcfg.vocab_size, (B, S)).astype(np.int32)
+        prompts = rng.integers(0, jcfg.vocab_size, (B, s)).astype(np.int32)
     jlog, jc, jpos = jlm.prefill(jcfg, jp, jnp.asarray(prompts))
     tlog, tc, tpos = tlm.prefill(tcfg, tp, to_torch(prompts))
-    jc = jlm.grow_caches(jcfg, jc, S + STEPS)
-    tc = tlm.grow_caches(tcfg, tc, S + STEPS)
+    jc = jlm.grow_caches(jcfg, jc, s + STEPS)
+    tc = tlm.grow_caches(tcfg, tc, s + STEPS)
     jlogits, tlogits, jtoks, ttoks = [jlog], [tlog], [], []
     for i in range(STEPS):
         jt = np.argmax(to_np(jlog)[:, : jcfg.vocab_size], -1).astype(np.int32)
@@ -464,10 +465,13 @@ def test_embed_frontend_param_tree_has_no_input_table(arch):
     ("musicgen-large", 3_225_618_432),
     ("starcoder2-15b", 21_995_427_840),
     ("qwen2-vl-72b", 71_459_676_160),
+    ("gemma2-2b", 3_204_046_080),
+    ("h2o-danube-3-4b", 3_961_839_360),
 ])
 def test_new_full_config_shapes_match_jax_without_memory(arch, count):
-    """The three configs of this slice at full width: the port's tree of
-    shapes (meta device) is JAX's (eval_shape), leaf for leaf, and its
+    """The embed-frontend, code and windowed configs at full width
+    (gemma2-2b at head dim 256, h2o-danube-3-4b at 120): the port's tree
+    of shapes (meta device) is JAX's (eval_shape), leaf for leaf, and its
     count the config's n_params() and the final norm."""
     import functools
 
@@ -481,3 +485,42 @@ def test_new_full_config_shapes_match_jax_without_memory(arch, count):
     assert tlm.param_shapes(tcfg) == want
     n = tlm.param_count(tlm.init_params(tcfg, None, device="meta"))
     assert n == count and n - tcfg.d_model == jcfg.n_params()
+
+
+# Sliding-window attention at every layer (h2o-danube-3-4b) and local and
+# global layers in turn with attention and final soft-caps (gemma2-2b):
+# the smoke window is 64, so an 80-token prompt crosses it and the
+# windowed caches wrap.
+WINDOWED_ARCHS = ["gemma2-2b", "h2o-danube-3-4b"]
+LONG = 80
+
+
+@pytest.mark.parametrize("arch", WINDOWED_ARCHS)
+def test_windowed_serving_path_fp32_matches_jax(arch):
+    """An 80-token prompt past the smoke window of 64, then 6 greedy decode
+    steps: logits within 1e-3, the same greedy tokens, and every cache leaf
+    of every slot within 1e-3."""
+    jl, tl, jt, tt, jc, tc = _run_both("float32", own_greedy=True, arch=arch,
+                                       s=LONG)
+    assert tl.shape == jl.shape == (STEPS + 1, B, 512)
+    np.testing.assert_allclose(tl, jl, rtol=1e-3, atol=1e-3)
+    np.testing.assert_array_equal(tt, jt)
+    assert set(tc) == set(jc)
+    for slot in jc:
+        assert set(tc[slot]) == set(jc[slot])
+        for name in jc[slot]:
+            assert tuple(tc[slot][name].shape) == jc[slot][name].shape
+            np.testing.assert_allclose(to_np(tc[slot][name]),
+                                       to_np(jc[slot][name]), rtol=1e-3,
+                                       atol=1e-3, err_msg=f"{slot}/{name}")
+
+
+@pytest.mark.parametrize("arch", WINDOWED_ARCHS)
+def test_windowed_serving_path_bf16_matches_jax(arch):
+    """The same in bf16 weights and compute, fed JAX's tokens: logits
+    within rtol = atol = 0.15."""
+    jl, tl, _, _, _, _ = _run_both("bfloat16", own_greedy=False, arch=arch,
+                                   s=LONG)
+    assert np.isfinite(tl).all()
+    np.testing.assert_allclose(tl, jl, rtol=0.15, atol=0.15)
+

@@ -1,9 +1,10 @@
 """The port's serving entry point (repro_torch.launch.serve) on the CPU: the
 torch twin of tests/test_system.py::test_serve_generates_and_reports, on
 the llama3.2-3b and mamba2-130m smoke configs; both CLIs (serve and train)
-on the smoke configs of this slice's archs, musicgen-large and
-qwen2-vl-72b (the ``embed`` frontend) and starcoder2-15b. A CUDA request
-without a card must fail, not run on the CPU."""
+on the smoke configs of musicgen-large and qwen2-vl-72b (the ``embed``
+frontend) and starcoder2-15b, and of the windowed gemma2-2b and
+h2o-danube-3-4b. A CUDA request without a card must fail, not run on the
+CPU."""
 
 import json
 
@@ -165,3 +166,15 @@ def test_embed_serve_feeds_embeddings_and_zero_frames(arch, monkeypatch):
                                seed=4, verbose=False, device="cpu")
     np.testing.assert_array_equal(again, tokens)
     assert torch.equal(seen[0][1], prompt)
+
+
+@pytest.mark.parametrize("arch", ["gemma2-2b", "h2o-danube-3-4b"])
+def test_main_cli_windowed_archs_on_cpu(arch, monkeypatch, capsys):
+    """Both windowed configs serve from the CLI with an 80-token prompt,
+    past their smoke window of 64."""
+    monkeypatch.setattr("sys.argv", [
+        "serve", "--arch", arch, "--smoke", "--device", "cpu",
+        "--requests", "2", "--prompt-len", "80", "--gen-len", "4"])
+    serve_mod.main()
+    last = capsys.readouterr().out.strip().splitlines()[-1]
+    assert last.startswith("generated 8 tokens in ")

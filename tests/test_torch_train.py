@@ -406,13 +406,17 @@ def test_port_resumes_a_checkpoint_the_jax_trainer_wrote(tmp_path):
     directory, resumes from JAX's step_2 and runs steps 3-5. Its losses,
     grad norms and final state agree with the JAX run's at fp32 _tol
     (test_three_train_steps_match_jax's tolerance)."""
+    _resumes_jax_checkpoint("llama3.2-3b", tmp_path, seq_len=32)
+
+
+def _resumes_jax_checkpoint(arch, tmp_path, seq_len):
     import shutil
 
     from repro.launch.train import train as jax_train
 
-    jcfg, tcfg = tp.configs(compute_dtype="float32")
+    jcfg, tcfg = tp.configs(arch, compute_dtype="float32")
     opt = dict(lr=1e-3, warmup_steps=2, total_steps=6)
-    kw = dict(steps=6, global_batch=2, seq_len=32, verbose=False)
+    kw = dict(steps=6, global_batch=2, seq_len=seq_len, verbose=False)
     ck = tmp_path / "ck"
     jstate, jhist, _ = jax_train(jcfg, ckpt_dir=str(ck), ckpt_every=3,
                                  opt_cfg=JAdamWConfig(**opt), **kw)
@@ -496,14 +500,15 @@ def test_embed_trainer_matches_the_jax_trainer(arch, tmp_path):
 @pytest.mark.parametrize("arch,fits", [
     ("llama3.2-3b", True), ("granite-moe-3b-a800m", True),
     ("musicgen-large", True), ("starcoder2-15b", False),
-    ("qwen2-vl-72b", False),
+    ("qwen2-vl-72b", False), ("gemma2-2b", True), ("h2o-danube-3-4b", True),
 ])
 def test_train_state_memory_check_at_80_gib(arch, fits):
     """check_train_state_fits at a stated 80 GiB card: 16 bytes a parameter
     (fp32 masters and both moments, bf16 cast leaves and gradients) is
-    53.7 GiB for llama3.2-3b, 59.3 for granite and 48.1 for musicgen-large,
-    which pass; starcoder2-15b's 327.8 GiB and qwen2-vl-72b's 1064.8 GiB are
-    refused with ValueError."""
+    53.7 GiB for llama3.2-3b, 59.3 for granite, 48.1 for musicgen-large,
+    47.7 for gemma2-2b and 59.0 for h2o-danube-3-4b, which pass;
+    starcoder2-15b's 327.8 GiB and qwen2-vl-72b's 1064.8 GiB are refused
+    with ValueError."""
     from repro_torch.configs import get_config
     from repro_torch.launch.train import (
         TRAIN_STATE_BYTES_PER_PARAM, check_train_state_fits,
@@ -549,3 +554,106 @@ def test_train_on_cuda_refuses_a_train_state_larger_than_the_card(
                           global_batch=2, seq_len=32, verbose=False,
                           device="cpu")
     assert np.isfinite(history[0]["loss"])
+
+
+# Sliding-window attention at every layer (h2o-danube-3-4b, head dim 120)
+# and local and global layers in turn with soft-caps (gemma2-2b, head dim
+# 256); the batches' 96 tokens cross the smoke window of 64.
+WINDOWED_ARCHS = ["gemma2-2b", "h2o-danube-3-4b"]
+
+
+@pytest.mark.parametrize("arch", WINDOWED_ARCHS)
+def test_windowed_train_loss_and_grads_match_jax_fp32(arch):
+    """The loss, its token count and every gradient leaf at fp32 _tol,
+    through the window and (gemma2-2b) both soft-caps."""
+    _loss_and_grads_match_jax(arch)
+
+
+@pytest.mark.parametrize("arch", WINDOWED_ARCHS)
+def test_windowed_three_train_steps_match_jax(arch):
+    """test_three_train_steps_match_jax on the windowed configs."""
+    _three_steps_match_jax(arch)
+
+
+@pytest.mark.parametrize("arch", WINDOWED_ARCHS)
+def test_windowed_train_loss_matches_jax_in_bf16_compute(arch):
+    jcfg, tcfg = tp.configs(arch, compute_dtype="bfloat16")
+    jp, tparams = tp.params(jcfg, tcfg)
+    batch = _batches(jcfg, 1)[0]
+    jloss, _ = jlm.train_loss(jcfg, jax.tree.map(
+        lambda x: x.astype(jax.numpy.bfloat16), jp), batch)
+    leaves = tlm.tree_map(lambda x: x.to(torch.bfloat16), tparams)
+    loss, _ = tlm.train_loss(tcfg, leaves, _torch_batch(batch))
+    np.testing.assert_allclose(float(loss), float(jloss), **tp.tol("bfloat16"))
+
+
+@pytest.mark.parametrize("arch", WINDOWED_ARCHS)
+def test_port_resumes_a_jax_checkpoint_of_a_windowed_model(arch, tmp_path):
+    """test_port_resumes_a_checkpoint_the_jax_trainer_wrote on the windowed
+    configs, at 80 tokens a row (past the smoke window)."""
+    _resumes_jax_checkpoint(arch, tmp_path, seq_len=80)
+
+
+def test_check_trainable_on_card_takes_head_dims_120_and_256():
+    """h2o-danube-3-4b's head dim 120 and gemma2-2b's 256 have a flash
+    backward: check_trainable_on_card passes both (before any card is
+    looked for), and still refuses zamba2-2.7b's 80."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.kernel import BWD_HEAD_DIMS
+    from repro_torch.launch.train import check_trainable_on_card
+
+    for arch, d in (("h2o-danube-3-4b", 120), ("gemma2-2b", 256)):
+        cfg = get_config(arch)
+        assert cfg.resolved_head_dim == d and d in BWD_HEAD_DIMS
+        check_trainable_on_card(cfg)
+    with pytest.raises(ValueError, match="flash backward"):
+        check_trainable_on_card(get_config("zamba2-2.7b"))
+
+
+@pytest.mark.parametrize("arch", WINDOWED_ARCHS)
+def test_cli_trains_windowed_archs_on_the_cpu(arch, tmp_path, capsys):
+    hist = tmp_path / "history.json"
+    main(["--arch", arch, "--smoke", "--device", "cpu", "--steps", "2",
+          "--batch", "2", "--seq", "80", "--history-json", str(hist)])
+    history = json.loads(hist.read_text())
+    assert [h["step"] for h in history] == [0, 1]
+    assert all(np.isfinite(h["loss"]) and h["grad_norm"] > 0
+               for h in history)
+    assert 'region "train_loop"' in capsys.readouterr().out
+
+
+def test_loss_chunk_is_cut_to_the_logit_budget(monkeypatch):
+    """chunked_softmax_xent holds at most common.LOSS_CHUNK_ELEMENTS fp32
+    logits in one chunk, whatever the config's loss_chunk (tokens) says:
+    gemma2-2b trained at 1 x 8192 (256,000 words) runs chunks of 2097
+    tokens, 2 GiB of logits each, where the config's 16384 would put all
+    8192 in one chunk of 7.8 GiB (with the soft-cap and the gradients,
+    more than an 80 GB card has beside the train state). A budget of 64
+    rows at the smoke vocabulary cuts the smoke config's chunk of 256 to
+    64, and the loss and every gradient stay JAX's (one chunk of 256) at
+    fp32 _tol."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import common
+
+    cfg = get_config("gemma2-2b")
+    seen = []
+    real = common._xent_chunk
+
+    def spy(h, *args):
+        seen.append(h.shape[0])
+        return real(h, *args)
+
+    monkeypatch.setattr(common, "_xent_chunk", spy)
+    meta = dict(device="meta")
+    with torch.no_grad():
+        common.chunked_softmax_xent(
+            torch.empty(8192, cfg.d_model, **meta),
+            torch.empty(cfg.d_model, cfg.vocab_size, **meta),
+            torch.empty(8192, dtype=torch.int32, **meta),
+            chunk=cfg.loss_chunk, final_softcap=cfg.final_logit_softcap)
+    assert cfg.loss_chunk == 16384 and seen == [2097, 2097, 2097, 1901]
+    assert 2097 * cfg.vocab_size <= common.LOSS_CHUNK_ELEMENTS
+    seen.clear()
+    monkeypatch.setattr(common, "LOSS_CHUNK_ELEMENTS", 64 * 512)
+    _loss_and_grads_match_jax("gemma2-2b")
+    assert max(seen) == 64 and smoke_config("gemma2-2b").loss_chunk == 256
