@@ -13,7 +13,8 @@
    SSD forward and backward have HMMA; fails if any ``ptxas`` log says it
    serialises wgmma (warning C7520, a wgmma under a branch; C7512, too few
    registers), if a forward kernel (D 32, 64, 80, 120, 128, 256), a bf16
-   kernel of the flash backward (both passes at D 32, 64, 120, 128 and 256)
+   kernel of the flash backward (both passes at D 32, 64, 80, 120, 128 and
+   256)
    or a kernel of the SSD backward's bf16 path spills.
    Then TALP's device records, which come from CUPTI's activity API
    (read by a host library built here at first use): a sleep kernel's
@@ -54,14 +55,17 @@
    * the flash-attention backward over the same rows, the new head
      layouts and the training shapes of llama3.2-3b (B 2, S 2048, H 24,
      K 8, D 128, bf16), of granite-moe-3b-a800m (the same at D 64) and of
-     musicgen-large (H = K = 32, D 64), then NEW_DIMS and the training
-     shapes of gemma2-2b (B 1, S 8192, D 256; global and local) and
-     h2o-danube-3-4b (B 1, S 8192, D 120, window 4096): dq, dk, dv against
+     musicgen-large (H = K = 32, D 64), then NEW_DIMS (with its D-80 rows,
+     the D-120 rows at D 80) and the training shapes of gemma2-2b (B 1,
+     S 8192, D 256; global and local), h2o-danube-3-4b (B 1, S 8192,
+     D 120, window 4096) and zamba2-2.7b (B 2, S 4096, H = K 32, D 80):
+     dq, dk, dv against
      the plain backward and against autograd through the plain forward,
      both in fp32 (one KV group at a time where a request's fp32 scores
      exceed 2 GiB), bf16 rows also per row against the plain backward,
-     with the planted faults at the 8192-token shapes, and a second run
-     bit-identical; at the six training shapes and llama's serving prefill
+     with the planted faults at the 4096- and 8192-token training shapes,
+     and a second run bit-identical; at the seven training shapes and
+     llama's serving prefill
      shape it times the plain version, then the kernels and the backward
      of ``scaled_dot_product_attention`` in turns (of ``flex_attention``
      for windows and soft-caps, SDPA's as a side note, as in the forward);
@@ -86,7 +90,9 @@
      (autograd through the plain version in fp32), the CUDA-core design
      (the fp32 path's kernels on the same values widened to fp32) and the
      tensor-core kernel in turns, beside the bound of ssd_backward_work,
-     and prints one traced call's kernels by name.
+     and prints one traced call's kernels by name; the same rows and
+     timing at zamba2-2.7b's training shape (B 2, L 4096, H 80, P 64, G 1,
+     N 64).
    Timings are CUDA events around runs of back-to-back calls (ms per
    call), medians; kernel and yardstick are timed in turns.
 3. Path checks: two narrow layers of each model's block on the card
@@ -140,8 +146,10 @@
    card: llama3.2-3b (3.61 B parameters), 6 steps of 2 x 2048 tokens,
    mamba2-130m (24 layers), 6 steps of 8 x 4096 tokens,
    granite-moe-3b-a800m, 6 steps of 2 x 2048, musicgen-large (3.23 B
-   parameters, fp32 embedding batches), 6 steps of 2 x 2048, and
-   h2o-danube-3-4b (3.96 B) and gemma2-2b (3.20 B), 6 steps of 1 x 8192;
+   parameters, fp32 embedding batches), 6 steps of 2 x 2048,
+   h2o-danube-3-4b (3.96 B) and gemma2-2b (3.20 B), 6 steps of 1 x 8192,
+   and zamba2-2.7b (54 layers, the shared block at D 80), 6 steps of
+   2 x 4096;
    first
    ``train`` must refuse starcoder2-15b and qwen2-vl-72b, whose train
    states (16 bytes a parameter) exceed the card, before allocating
@@ -150,7 +158,9 @@
    step, llama launches the flash forward 56 times (28 layers, twice with
    remat) and its backward 28 times; mamba the SSD forward 48 times and
    its backward 24 times; granite the flash forward 64 times and its
-   backward 32; musicgen 96 and 48; danube 48 and 24; gemma2 52 and 26.
+   backward 32; musicgen 96 and 48; danube 48 and 24; gemma2 52 and 26;
+   zamba2 the flash forward 18 and its backward 9 (9 repeats of the
+   shared block) and the SSD forward 90 and its backward 45.
    Prints
    each step's loss (all finite; granite's moe_aux too), step time,
    tokens/s, MFU, peak memory and TALP's train_loop numbers, then traces
@@ -194,7 +204,14 @@
    payloads, with two host-state rows; each rank's CE in (0, 1]; 6 step
    rows per rank. Prints each rank's step time, peak memory and device
    PE, and the job's host Load Balance and PE.
-10. Prints one JSON line with every kernel's numbers, then, as the last
+10. Mesh phase (``mesh_phase``): a one-rank NCCL process group and a
+   (1, 1) ("data", "model") DeviceMesh; llama3.2-3b's train steps (3 of
+   2 x 2048, and one in fp32 compute) with the state placed by the
+   partition plan held to the unsharded steps (loss, parameters, each
+   leaf's gradient, flash launches), and
+   zamba2-2.7b's decode steps (8 x 4096 + 16) on cache_pspec-placed caches
+   held to the unsharded decode per row.
+11. Prints one JSON line with every kernel's numbers, then, as the last
    line, ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -276,10 +293,10 @@ SWEEP += [
     (1, 100, 400, 4, 2, 64, 64, None, torch.bfloat16),
 ]
 PREFILL = (8, 1024, 1024, 24, 8, 128, None, None, torch.bfloat16)
-# Head dim 80 (zamba2-2.7b's shared block, 2560 / 32 heads, MHA), forward
-# only (the backward refuses D 80): fp32 and bf16 MHA, GQA 2:1, S and T off
-# the tile grid with S < T, window and soft-cap; then zamba2's serving
-# prefill shape.
+# Head dim 80 (zamba2-2.7b's shared block, 2560 / 32 heads, MHA) in the
+# forward phase (NEW_DIMS holds its backward rows): fp32 and bf16 MHA, GQA
+# 2:1, S and T off the tile grid with S < T, window and soft-cap; then
+# zamba2's serving prefill shape.
 SWEEP_D80 = [
     (1, 256, 256, 4, 4, 80, None, None, torch.float32),
     (2, 256, 256, 4, 4, 80, None, None, torch.bfloat16),
@@ -333,6 +350,16 @@ NEW_DIMS = [
     (1, 384, 384, 8, 4, 256, 100, 50.0, torch.bfloat16),
     (1, 40, 300, 4, 2, 256, None, None, torch.bfloat16),
     (1, 100, 400, 8, 4, 256, 64, 50.0, torch.bfloat16),
+    # head dim 80 (zamba2-2.7b's shared block, 2560 / 32), whose backward
+    # came last: the D-120 rows at D 80 (MHA, GQA 4:1 and 2:1)
+    (1, 256, 256, 4, 4, 80, None, None, torch.float32),
+    (2, 256, 256, 4, 4, 80, None, None, torch.bfloat16),
+    (1, 256, 256, 8, 2, 80, None, None, torch.bfloat16),
+    (1, 200, 328, 8, 4, 80, None, None, torch.bfloat16),
+    (1, 256, 256, 4, 1, 80, 64, 30.0, torch.float32),
+    (1, 384, 384, 8, 2, 80, 100, 50.0, torch.bfloat16),
+    (1, 40, 300, 4, 1, 80, None, None, torch.bfloat16),
+    (1, 100, 400, 8, 4, 80, 64, 50.0, torch.bfloat16),
 ]
 # The two models' serving prefills (4 x 8192, each model's context, past
 # its window of 4096): gemma2-2b's global layers (no window) and local
@@ -517,8 +544,8 @@ def build_kernels() -> dict:
     the SSD forward's and backward's kernels run mma.sync; that no
     ``ptxas`` log warns of serialised wgmma (C7520 or C7512); and that no
     flash forward kernel (D 32, 64, 80, 120, 128 and 256, bf16 and fp32),
-    no bf16 kernel of the flash backward (its two passes at D 32, 64, 120,
-    128 and 256) and no kernel of the SSD backward's bf16
+    no bf16 kernel of the flash backward (its two passes at D 32, 64, 80,
+    120, 128 and 256) and no kernel of the SSD backward's bf16
     path spills. Returns each kernel record's SASS counts."""
     from repro_torch.kernels import cuda_build
     from repro_torch.kernels.flash_attention import kernel as flash
@@ -554,11 +581,11 @@ def build_kernels() -> dict:
     spills = [(label, spill) for label, _, spill in ptxas_kernels(bwd_log)
               if label.startswith(("flash_bwd_dkdv_wgmma", "flash_bwd_dq_wgmma",
                                    "flash_bwd_dkdv_split_wgmma"))]
-    # two passes at D 32, 64, 120, 128 and 256 (the dK/dV pass's split
+    # two passes at D 32, 64, 80, 120, 128 and 256 (the dK/dV pass's split
     # kernel at 256)
     assert sorted(label for label, _ in spills) == sorted(
-        [f"flash_bwd_dq_wgmma<{d}>" for d in (32, 64, 120, 128, 256)]
-        + [f"flash_bwd_dkdv_wgmma<{d}>" for d in (32, 64, 120, 128)]
+        [f"flash_bwd_dq_wgmma<{d}>" for d in (32, 64, 80, 120, 128, 256)]
+        + [f"flash_bwd_dkdv_wgmma<{d}>" for d in (32, 64, 80, 120, 128)]
         + ["flash_bwd_dkdv_split_wgmma<256>"]), spills
     assert not any(spilled(s) for _, s in spills), spills
     # every kernel the SSD backward's bf16 path launches: four templated
@@ -907,6 +934,8 @@ MUSICGEN_TRAIN_ATTN = (2, 2048, 2048, 32, 32, 64, None, None, torch.bfloat16)
 GEMMA_TRAIN_GLOBAL = (1, 8192, 8192, 8, 4, 256, None, 50.0, torch.bfloat16)
 GEMMA_TRAIN_LOCAL = (1, 8192, 8192, 8, 4, 256, 4096, 50.0, torch.bfloat16)
 DANUBE_TRAIN = (1, 8192, 8192, 32, 8, 120, 4096, None, torch.bfloat16)
+# ... and of zamba2-2.7b's shared block (MHA 32, D 80), 2 x 4096 tokens.
+ZAMBA_TRAIN_ATTN = (2, 4096, 4096, 32, 32, 80, None, None, torch.bfloat16)
 
 
 def attention_backward_work(b, s, t, h, k, d, window, dtype):
@@ -980,7 +1009,8 @@ def backward_phase(device: torch.device) -> dict:
 
     train_errs = {}
     train_rows = (TRAIN_ATTN, GRANITE_TRAIN_ATTN, MUSICGEN_TRAIN_ATTN,
-                  GEMMA_TRAIN_GLOBAL, GEMMA_TRAIN_LOCAL, DANUBE_TRAIN)
+                  GEMMA_TRAIN_GLOBAL, GEMMA_TRAIN_LOCAL, DANUBE_TRAIN,
+                  ZAMBA_TRAIN_ATTN)
     rows = (SWEEP + list(train_rows[:2]) + NEW_HEADS + [MUSICGEN_TRAIN_ATTN]
             + NEW_DIMS + list(train_rows[3:]))
     for i, row in enumerate(rows):
@@ -1057,7 +1087,8 @@ def backward_phase(device: torch.device) -> dict:
                        ("musicgen train", MUSICGEN_TRAIN_ATTN),
                        ("gemma2 train global", GEMMA_TRAIN_GLOBAL),
                        ("gemma2 train local", GEMMA_TRAIN_LOCAL),
-                       ("danube train", DANUBE_TRAIN)):
+                       ("danube train", DANUBE_TRAIN),
+                       ("zamba2 train", ZAMBA_TRAIN_ATTN)):
         b, s, t, h, k, d, window, softcap, dtype = row
         cfg = dict(causal=True, window=window, softcap=softcap)
         q, kk, vv, do = inputs(99, b, s, t, h, k, d, dtype)
@@ -1192,7 +1223,10 @@ def backward_phase(device: torch.device) -> dict:
                 "B1 S8192 T8192 H8 K4 D256 bf16 causal window 4096 "
                 "softcap 50"),
                ("danube_train_shape", "danube train", DANUBE_TRAIN,
-                "B1 S8192 T8192 H32 K8 D120 bf16 causal window 4096"))},
+                "B1 S8192 T8192 H32 K8 D120 bf16 causal window 4096"),
+               ("zamba2_train_shape", "zamba2 train", ZAMBA_TRAIN_ATTN,
+                "B2 S4096 T4096 H32 K32 D80 bf16 causal (D-128 tiles over "
+                "TMA's zero columns 80-127)"))},
     }
 
 
@@ -1317,6 +1351,8 @@ def ssd_kernel_phase(device: torch.device) -> dict:
 # The training shape of mamba2-130m (global batch 8 x 4096 tokens), where
 # the SSD backward runs on the main path; no state in or out.
 SSD_TRAIN = (8, 4096, 24, 64, 1, 128, 256, torch.bfloat16, False)
+# ... and of zamba2-2.7b's SSD layers (2 x 4096 tokens, H 80, N 64).
+ZAMBA_SSD_TRAIN = (2, 4096, 80, 64, 1, 64, 256, torch.bfloat16, False)
 
 
 def ssd_backward_work(b, l, h, p, g, n, chunk, dtype, with_state):
@@ -1396,8 +1432,9 @@ def ssd_backward_phase(device: torch.device) -> dict:
                                    atol=TOL[dtype])
         return (got - want).abs().max().item()
 
-    train_err = None
-    for i, row in enumerate(SSD_SWEEP + [SSD_TRAIN, SSD_P128]):
+    train_err = {}
+    for i, row in enumerate(SSD_SWEEP + [SSD_TRAIN, SSD_P128,
+                                         ZAMBA_SSD_TRAIN]):
         b, l, h, p, g, n, chunk, dtype, with_state = row
         x, dt, a, bm, cm, d, s0, dy, dfin = inputs(i, *row[:6], dtype,
                                                    with_state)
@@ -1421,41 +1458,54 @@ def ssd_backward_phase(device: torch.device) -> dict:
               f"{str(dtype)[6:]} state={with_state}: {kind} vs float64 "
               "autograd " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
               + f" (tol {TOL[dtype]}); rerun bit-identical")
-        if row is SSD_TRAIN:
-            train_err = max(errs.values())
+        if row in (SSD_TRAIN, ZAMBA_SSD_TRAIN):
+            train_err[row] = max(errs.values())
         del x, dt, a, bm, cm, d, s0, dy, dfin, got, again, want
 
-    b, l, h, p, g, n, chunk, dtype, with_state = SSD_TRAIN
-    x, dt, a, bm, cm, d, _, dy, _ = inputs(99, *SSD_TRAIN[:6], dtype, False)
-    leaves = [t.clone().requires_grad_() for t in (x, dt, a, bm, cm, d)]
-    y = ref.ssd_reference(*leaves[:5], chunk=chunk, d_skip=leaves[5])
-    plain = lambda: torch.autograd.grad(  # noqa: E731
-        y, leaves, dy, retain_graph=True)
-    # the first design, kept as the fp32 path (products on the CUDA cores),
-    # on the same values widened to fp32
-    xf, bf, cf, dyf = (t.float() for t in (x, bm, cm, dy))
-    plain_ms, cuda_core_ms, kernel_ms = time_turns(
-        plain,
-        lambda: kernel.ssd_scan_backward(xf, dt, a, bf, cf, dyf, chunk, d),
-        lambda: kernel.ssd_scan_backward(x, dt, a, bm, cm, dy, chunk, d),
-        reps=3, inner=2)
-    del leaves, y, xf, bf, cf, dyf
-    flops, nbytes = ssd_backward_work(*SSD_TRAIN)
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-    t_bytes = nbytes / PEAK_BYTES * 1e3
-    bound = max(t_ops, t_bytes)
-    shape = (f"B{b} L{l} H{h} P{p} G{g} N{n} chunk{chunk} {str(dtype)[6:]}, "
-             "no state")
-    print(f"[ssd-backward] {shape}: kernel {kernel_ms:.4f} ms (10 "
-          f"launches, bf16 products on the tensor cores), CUDA-core design "
-          f"{cuda_core_ms:.4f} ms (the fp32 path's kernels on the same values "
-          f"widened to fp32), plain backward {plain_ms:.4f} ms (autograd "
-          f"through the plain version in fp32); in turns: plain, CUDA-core, "
-          f"kernel, kernel, CUDA-core, plain; no library call, bound "
-          f"{bound:.4f} ms ({flops / 1e9:.2f} GFLOP is {t_ops:.4f} ms at the "
-          f"bf16 rate, {nbytes / 1e6:.1f} MB is {t_bytes:.4f} ms), "
-          f"kernel/bound {kernel_ms / bound:.2f}, CUDA-core/bound "
-          f"{cuda_core_ms / bound:.2f}")
+    def timing(row):
+        """The plain backward, the CUDA-core design and the kernel in
+        turns at a training shape, beside its bound."""
+        b, l, h, p, g, n, chunk, dtype, with_state = row
+        x, dt, a, bm, cm, d, _, dy, _ = inputs(99, *row[:6], dtype, False)
+        leaves = [t.clone().requires_grad_() for t in (x, dt, a, bm, cm, d)]
+        y = ref.ssd_reference(*leaves[:5], chunk=chunk, d_skip=leaves[5])
+        plain = lambda: torch.autograd.grad(  # noqa: E731
+            y, leaves, dy, retain_graph=True)
+        # the first design, kept as the fp32 path (products on the CUDA
+        # cores), on the same values widened to fp32
+        xf, bf, cf, dyf = (t.float() for t in (x, bm, cm, dy))
+        plain_ms, cuda_core_ms, kernel_ms = time_turns(
+            plain,
+            lambda: kernel.ssd_scan_backward(xf, dt, a, bf, cf, dyf, chunk,
+                                             d),
+            lambda: kernel.ssd_scan_backward(x, dt, a, bm, cm, dy, chunk, d),
+            reps=3, inner=2)
+        del leaves, y, xf, bf, cf, dyf
+        flops, nbytes = ssd_backward_work(*row)
+        t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+        t_bytes = nbytes / PEAK_BYTES * 1e3
+        bound = max(t_ops, t_bytes)
+        shape = (f"B{b} L{l} H{h} P{p} G{g} N{n} chunk{chunk} "
+                 f"{str(dtype)[6:]}, no state")
+        print(f"[ssd-backward] {shape}: kernel {kernel_ms:.4f} ms (10 "
+              f"launches, bf16 products on the tensor cores), CUDA-core "
+              f"design {cuda_core_ms:.4f} ms (the fp32 path's kernels on the "
+              f"same values widened to fp32), plain backward {plain_ms:.4f} "
+              f"ms (autograd through the plain version in fp32); in turns: "
+              f"plain, CUDA-core, kernel, kernel, CUDA-core, plain; no "
+              f"library call, bound {bound:.4f} ms ({flops / 1e9:.2f} GFLOP "
+              f"is {t_ops:.4f} ms at the bf16 rate, {nbytes / 1e6:.1f} MB is "
+              f"{t_bytes:.4f} ms), kernel/bound {kernel_ms / bound:.2f}, "
+              f"CUDA-core/bound {cuda_core_ms / bound:.2f}")
+        return (x, dt, a, bm, cm, d, dy), dict(
+            ms=kernel_ms, kernel_ms=kernel_ms, plain_ms=plain_ms,
+            cuda_core_ms=cuda_core_ms, bound_ms=bound,
+            bound_by="operations" if t_ops >= t_bytes else "bytes",
+            library_ms=None, max_abs_err=train_err[row], shape=shape)
+
+    zamba = timing(ZAMBA_SSD_TRAIN)[1]
+    (x, dt, a, bm, cm, d, dy), mamba = timing(SSD_TRAIN)
+    chunk, dtype = SSD_TRAIN[6], SSD_TRAIN[7]
     # the kernels of a call, by name, from the profiler: three calls, a
     # sleep kernel at each edge (a collection may lose its first or last
     # rows)
@@ -1488,21 +1538,15 @@ def ssd_backward_phase(device: torch.device) -> dict:
         "replaces_fn": None,
         "launches": None,
         "launches_on_path": None,
-        "max_abs_err": train_err,
+        **mamba,
         "tol": TOL[dtype],
-        "ms": kernel_ms,
-        "kernel_ms": kernel_ms,
-        "plain_ms": plain_ms,
-        "cuda_core_ms": cuda_core_ms,
-        "bound_ms": bound,
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "library_ms": None,
         "library": "none: no single PyTorch call computes the scan's "
                    "backward",
         "passes_ms": {_trace_label(e.key): dev_time(e) * 1e-3 / reps
                       for e in passes},
-        "shape": shape + " (ten launches, bf16 mma.sync on the tensor cores, "
-                         "fp32 operands split hi + lo)",
+        "shape": mamba["shape"] + " (ten launches, bf16 mma.sync on the "
+                                  "tensor cores, fp32 operands split hi + lo)",
+        "zamba2_train_shape": zamba,
     }
 
 
@@ -2060,6 +2104,16 @@ def rel_norm(got: torch.Tensor, want: torch.Tensor) -> float:
     return ((got - want).norm() / want.norm().clamp_min(1e-30)).item()
 
 
+def adamw_first_step(opt, p, mu, nu, lr: float) -> torch.Tensor:
+    """``p`` after a first AdamW step with moments ``mu`` and ``nu`` (bias
+    corrections at count 1), in ``optim.adamw.adamw_update``'s ops."""
+    b1c, b2c = (float(1.0 - torch.tensor(b, dtype=torch.float32))
+                for b in (opt.b1, opt.b2))
+    denom = torch.div(nu, b2c).sqrt_().add_(opt.eps)
+    step = torch.div(mu, b1c).div_(denom).add_(p, alpha=opt.weight_decay)
+    return torch.sub(p, step, alpha=lr)
+
+
 def _named_leaves(tree, prefix=""):
     if isinstance(tree, dict):
         for k, v in tree.items():
@@ -2218,6 +2272,11 @@ TRAIN = [
      {"flash_attention_fwd": 48, "flash_attention_bwd": 24}),
     ("gemma2-2b", 6, 1, 8192, 3e-4, 2,
      {"flash_attention_fwd": 52, "flash_attention_bwd": 26}),
+    # 54 layers: 9 repeats of five SSD layers and the shared attention
+    # block (one parameter set, applied once a repeat)
+    ("zamba2-2.7b", 6, 2, 4096, 3e-4, 2,
+     {"flash_attention_fwd": 18, "flash_attention_bwd": 9, "ssd_fwd": 90,
+      "ssd_bwd": 45}),
 ]
 # Configs whose train state (16 bytes a parameter) no one card holds:
 # ``train`` must refuse them before it allocates anything.
@@ -3106,6 +3165,303 @@ def fleet_phase(device: torch.device, records: dict) -> None:
     shutil.rmtree(tmp)
 
 
+# The mesh phase: llama3.2-3b's train steps and zamba2-2.7b's decode steps
+# on a one-rank ("data", "model") mesh, sharded as the partition plan says.
+MESH_TRAIN = ("llama3.2-3b", 3, 2, 2048,
+              {"flash_attention_fwd": 56, "flash_attention_bwd": 28})
+MESH_DECODE = ("zamba2-2.7b", 8, 4096, 16)
+# How much further from the fp32 gradient (in norm, leaf by leaf) the
+# sharded bf16 step's gradient may lie than the unsharded bf16 step's:
+# four bf16 roundings (2^-8 each), for the partial sums a sharded step
+# rounds to bf16 before it reduces them. A fault in a gradient (a partial
+# sum dropped or counted twice) moves a leaf by a large part of its norm.
+MESH_BF16_EXTRA = 2.0 ** -6
+
+
+def _place_in(tree, specs, mesh) -> None:
+    """Replace each leaf of ``tree`` by its DTensor on ``mesh``, one leaf at
+    a time (the old leaf is dropped as its DTensor is made, so the card
+    never holds two copies of the state)."""
+    from repro_torch.sharding.partition import distribute_tree
+
+    for key, leaf in tree.items():
+        if isinstance(leaf, dict):
+            _place_in(leaf, specs[key], mesh)
+        else:
+            tree[key] = distribute_tree(leaf, mesh, specs[key])
+
+
+def mesh_phase(device: torch.device, records: dict) -> None:
+    """The partition plan executed on DeviceMesh and DTensor: a one-rank
+    NCCL process group (``tcp://localhost``, a free port) and a (1, 1)
+    ("data", "model") mesh (``launch.mesh.make_mesh``); the card holds one
+    rank, so this shows the sharded path on the card with its kernels under
+    it, not a speed over cards.
+
+    (a) llama3.2-3b at full width through ``make_train_step`` (its default
+    AdamW), each run from the same seed, unsharded and with the state
+    placed by ``state_shardings`` and each batch by ``batch_pspec``. One
+    step of 2 x 2048 tokens in fp32 compute each way: the sharded first
+    moments (the clipped gradients) within TOL[fp32] of the unsharded ones
+    leaf by leaf, each relative to its own norm; the sharded parameters
+    equal to p0 moved by AdamW from the run's own moments. Then 3 steps in
+    bf16 compute each way: the loss at every step within 1e-3; step 1's
+    first moments of each run against the fp32 ones leaf by leaf, the
+    sharded run no further from them than the unsharded run plus
+    ``MESH_BF16_EXTRA``; the parameters after the last step at TOL[fp32];
+    the flash launches equal (56 and 28 a step); both step times printed
+    (their gap is DTensor's host cost).
+
+    (b) zamba2-2.7b at full width, 8 requests of 4096 prompt tokens
+    (prefilled unsharded) and 16 decode steps through ``make_serve_step``,
+    unsharded and with parameters placed by ``param_pspec`` and caches by
+    ``cache_pspec`` on the mesh, both fed the unsharded run's tokens: each
+    step's logits per row (``row_rel_err``) within TOL[bf16]."""
+    import socket
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokenPipeline
+    from repro_torch.launch.mesh import describe_mesh, make_mesh
+    from repro_torch.launch.serve import make_prompts
+    from repro_torch.launch.steps import (init_train_state, make_prefill_step,
+                                          make_serve_step, make_train_step)
+    from repro_torch.models import lm
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.sharding.partition import (
+        batch_pspec, cache_pspec, distribute_tree, make_sharding_tree,
+        param_pspec, state_shardings)
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    torch.cuda.set_device(device)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), device.type)
+        counters = launch_counters()
+
+        arch, steps, batch, seq, per_step = MESH_TRAIN
+        cfg = get_config(arch)
+        # make_train_step's default AdamW (warmup 100, so lr 3e-6 to 9e-6
+        # over these steps), as tests/test_distribution.py's step
+        opt = AdamWConfig()
+        data = SyntheticTokenPipeline(DataConfig(batch, seq, cfg.vocab_size))
+
+        def batch_at(i, sharded):
+            b = {k: torch.from_numpy(v).to(device)
+                 for k, v in data.batch_at(i).items()}
+            if sharded:
+                _place_in(b, {k: batch_pspec(mesh, v.shape[0], v.ndim)
+                              for k, v in b.items()}, mesh)
+            return b
+
+        def fresh_state(cfg_, sharded):
+            gen = torch.Generator(device=device).manual_seed(0)
+            state = init_train_state(cfg_, gen, device=device)
+            if sharded:
+                _place_in(state, state_shardings(state, mesh, cfg_), mesh)
+            return state
+
+        def gathered(tree, sharded):
+            for name, t in _named_leaves(tree):
+                yield name, (t.full_tensor() if sharded else t)
+
+        # One step in fp32 compute each way (the fp32 flash kernels): the
+        # sharded first moments (0.1 times the clipped gradient) against
+        # the unsharded ones leaf by leaf, each relative to its own norm,
+        # at TOL[fp32]; the sharded parameters equal p0 moved by AdamW from
+        # the run's own moments (the update is 3e-6, so the parameters
+        # alone would pass whatever the gradients were). The unsharded
+        # moments are kept as the exact gradient for the bf16 runs.
+        cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+        exact, fp32_gap, fp32_loss = {}, (0.0, None), {}
+        for sharded in (False, True):
+            state = fresh_state(cfg32, sharded)
+            state, metrics = make_train_step(cfg32, opt)(
+                state, batch_at(0, sharded))
+            loss = metrics["loss"]
+            fp32_loss[sharded] = float(loss.full_tensor() if sharded
+                                       else loss)
+            lr = float(metrics["lr"])
+            del metrics
+            for name, m in gathered(state["opt"]["mu"], sharded):
+                if not sharded:
+                    exact[name] = m.cpu()
+                    continue
+                d = rel_norm(m, exact[name].to(device))
+                assert d <= TOL[torch.float32], ("fp32 mu", name, d)
+                fp32_gap = max(fp32_gap, (d, name))
+            if sharded:
+                p0 = dict(_named_leaves(lm.init_params(
+                    cfg32, torch.Generator(device=device).manual_seed(0),
+                    device=device)))
+                mu, nu = (dict(gathered(state["opt"][k], True))
+                          for k in ("mu", "nu"))
+                for name, p in gathered(state["params"], True):
+                    want = adamw_first_step(opt, p0.pop(name), mu.pop(name),
+                                            nu.pop(name), lr)
+                    torch.testing.assert_close(p, want, rtol=2.5e-7,
+                                               atol=1e-9, msg=name)
+                del p0, mu, nu
+            del state
+            torch.cuda.empty_cache()
+        assert abs(fp32_loss[True] - fp32_loss[False]) < 1e-3, fp32_loss
+
+        # Three steps in bf16 compute (the config's) each way. Step 1's
+        # first moments of both runs are held to the fp32 moments leaf by
+        # leaf: the unsharded run's distance from them is bf16's own, and
+        # the sharded run's may exceed it by MESH_BF16_EXTRA at most.
+        runs, ref = {}, {}
+        worst = {"params": (0.0, None)}
+        dist_un, dist_sh, gap_bf16 = {}, {}, {}
+
+        def held(part, tree, sharded):
+            """Keep each leaf of ``tree`` on the host (the unsharded run),
+            or hold the sharded run's leaf to it: the parameters at
+            TOL[fp32]; step 1's first moments against the fp32 ones (and
+            the two runs' bf16 moments' gap from each other, printed)."""
+            for name, t in gathered(tree, sharded):
+                if part == "grads":
+                    d = rel_norm(t.float(), exact[name].to(device))
+                    if not sharded:
+                        dist_un[name] = d
+                        ref[part, name] = t.to("cpu", torch.bfloat16)
+                        continue
+                    dist_sh[name] = d
+                    assert d <= dist_un[name] + MESH_BF16_EXTRA, (
+                        name, d, dist_un[name])
+                    gap_bf16[name] = rel_norm(
+                        t.to(torch.bfloat16).float(),
+                        ref.pop((part, name)).to(device).float())
+                    continue
+                if not sharded:
+                    ref[part, name] = t.to("cpu", torch.float32)
+                    continue
+                want_t = ref.pop((part, name)).to(device)
+                torch.testing.assert_close(t, want_t, rtol=TOL[torch.float32],
+                                           atol=TOL[torch.float32])
+                worst["params"] = max(worst["params"], (
+                    (t - want_t).abs().max().item(), name))
+                del want_t
+
+        step_fn = make_train_step(cfg, opt)
+        for sharded in (False, True):
+            state = fresh_state(cfg, sharded)
+            for wrapper in counters.values():
+                wrapper.launches = 0
+            losses, times = [], []
+            for i in range(steps):
+                b = batch_at(i, sharded)
+                torch.cuda.synchronize(device)
+                t0 = time.perf_counter()
+                state, metrics = step_fn(state, b)
+                loss = metrics["loss"]
+                loss = float(loss.full_tensor() if sharded else loss)
+                times.append(time.perf_counter() - t0)
+                losses.append(loss)
+                del b, metrics
+                if i == 0:
+                    held("grads", state["opt"]["mu"], sharded)
+            launches = {n: w.launches for n, w in counters.items()}
+            want = {n: per_step.get(n, 0) * steps for n in counters}
+            assert launches == want, (sharded, launches, want)
+            runs[sharded] = (losses, times, launches)
+            held("params", state["params"], sharded)
+            del state
+            torch.cuda.empty_cache()
+        del exact
+        (l0, t0s, n0), (l1, t1s, n1) = runs[False], runs[True]
+        for i, (a, b) in enumerate(zip(l0, l1)):
+            assert math.isfinite(a) and abs(a - b) < 1e-3, (i, a, b)
+        print(f"[mesh] {describe_mesh(mesh)} NCCL mesh, {arch} full width, "
+              f"{steps} AdamW steps of {batch} x {seq}: losses unsharded "
+              + "/".join(f"{x:.6f}" for x in l0) + ", sharded "
+              + "/".join(f"{x:.6f}" for x in l1) + f" (largest difference "
+              f"{max(abs(a - b) for a, b in zip(l0, l1)):.3e}, bound 1e-3); "
+              f"parameters after step {steps}: largest difference "
+              f"{worst['params'][0]:.3e} ({worst['params'][1]}; tol "
+              f"{TOL[torch.float32]}); launches "
+              f"{n1} as unsharded ({n0})")
+        print(f"[mesh] step time unsharded " + "/".join(
+            f"{x * 1e3:.3f}" for x in t0s) + " ms, sharded " + "/".join(
+            f"{x * 1e3:.3f}" for x in t1s) + f" ms (steps 2-{steps}: "
+            f"{statistics.median(t0s[1:]) * 1e3:.3f} vs "
+            f"{statistics.median(t1s[1:]) * 1e3:.3f} ms, the gap DTensor's "
+            "host cost on one rank)")
+        top = sorted(gap_bf16, key=gap_bf16.get, reverse=True)
+        print(f"[mesh] step 1's gradients (first moments), leaf by leaf, "
+              f"each relative to its own norm: fp32 compute, sharded against "
+              f"unsharded, largest {fp32_gap[0]:.3e} ({fp32_gap[1]}; tol "
+              f"{TOL[torch.float32]}; losses {fp32_loss[False]:.6f} and "
+              f"{fp32_loss[True]:.6f}; parameters equal p0 moved by AdamW "
+              f"from the sharded run's moments); bf16 compute, distance from "
+              f"the fp32 gradient unsharded / sharded (bound: unsharded + "
+              f"{MESH_BF16_EXTRA}), largest {max(dist_un.values()):.3e} / "
+              f"{max(dist_sh.values()):.3e}, sharded further by at most "
+              f"{max(dist_sh[n] - dist_un[n] for n in dist_un):.3e}; the two "
+              f"bf16 runs apart, leaf by leaf: " + ", ".join(
+                  f"{gap_bf16[n]:.3e} ({n}: {dist_un[n]:.3e} / "
+                  f"{dist_sh[n]:.3e} from fp32)" for n in top))
+        add_path_launches(records, f"mesh {arch} ({steps} sharded steps)", n1)
+        del runs
+
+        arch, requests, prompt_len, gen_len = MESH_DECODE
+        cfg = get_config(arch)
+        with torch.no_grad():
+            gen = torch.Generator(device=device).manual_seed(0)
+            params = lm.init_params(cfg, gen, device=device,
+                                    dtype=torch.bfloat16)
+            prompts = make_prompts(cfg, requests, prompt_len, gen, device)
+            logits, caches, pos = make_prefill_step(cfg)(params, prompts)
+            caches = lm.grow_caches(cfg, caches, prompt_len + gen_len)
+            tok = logits[:, :cfg.vocab_size].argmax(-1).to(torch.int32)
+            sharded_caches = lm.tree_map(lambda t: t.clone(), caches)
+            decode = make_serve_step(cfg)
+            want, toks = [], []
+            p, c = pos.clone(), caches
+            t_plain = time.perf_counter()
+            for _ in range(gen_len):
+                toks.append(tok)
+                out, c, p = decode(params, tok[:, None], p, c)
+                want.append(out)
+                tok = out[:, :cfg.vocab_size].argmax(-1).to(torch.int32)
+            torch.cuda.synchronize(device)
+            t_plain = time.perf_counter() - t_plain
+            del caches, c
+            sp = lm.tree_map(lambda t: t, params)   # new dicts, same leaves
+            _place_in(sp, make_sharding_tree(params, mesh, cfg, param_pspec),
+                      mesh)
+            _place_in(sharded_caches, make_sharding_tree(
+                sharded_caches, mesh, cfg, cache_pspec), mesh)
+            tok_spec, pos_spec = (batch_pspec(mesh, requests, n)
+                                  for n in (2, 1))
+            p = distribute_tree(pos.clone(), mesh, pos_spec)
+            c = sharded_caches
+            errs = []
+            t_mesh = time.perf_counter()
+            for i in range(gen_len):
+                out, c, p = decode(sp, distribute_tree(
+                    toks[i][:, None].contiguous(), mesh, tok_spec), p, c)
+                errs.append(row_rel_err(out.full_tensor(), want[i]))
+            torch.cuda.synchronize(device)
+            t_mesh = time.perf_counter() - t_mesh
+        assert max(errs) <= TOL[torch.bfloat16], errs
+        print(f"[mesh] {describe_mesh(mesh)} NCCL mesh, {arch} full width, "
+              f"{cfg.num_layers} layers, {requests} requests x {prompt_len} "
+              f"prompt + {gen_len} decode steps: sharded logits per row "
+              f"against unsharded, largest {max(errs):.3e} (tol "
+              f"{TOL[torch.bfloat16]}); decode {t_plain * 1e3 / gen_len:.3f} "
+              f"ms/step unsharded, {t_mesh * 1e3 / gen_len:.3f} ms/step "
+              "sharded")
+        del params, sp, sharded_caches, c, want
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -3169,6 +3525,9 @@ def main() -> int:
     mark("TALP flags")
     fleet_phase(device, records)
     mark("fleet")
+    mesh_phase(device, records)
+    torch.cuda.empty_cache()
+    mark("mesh")
     print("[time] seconds since the start, after each phase: " + ", ".join(
         f"{phase} {secs:.1f}" for phase, secs in marks))
     missing = [name for name, rec in records.items() if not rec["launches"]]

@@ -19,7 +19,14 @@ know is refused with ``ValueError``. Writes are
 crash-safe: everything lands in ``step_<N>.tmp`` and is renamed once the
 manifest is fsynced, so a half-written checkpoint is never visible to
 ``latest_step``. Restore places each leaf on the device its ``devices``
-entry names, where the JAX package takes shardings.
+entry names, where the JAX package takes shardings; or, given a mesh and
+a placements tree, on those placements (the elastic path: a state saved
+on one mesh restores onto another).
+
+A DTensor state (a sharded step) is saved collectively: every rank of
+its mesh calls :func:`save_checkpoint`, each leaf's full value is
+gathered, and the first rank of the process group writes it, so the files
+are the JAX layout byte for byte, whatever mesh wrote them.
 """
 
 from __future__ import annotations
@@ -32,6 +39,8 @@ from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from ..sharding.local import is_dtensor
 
 __all__ = ["save_checkpoint", "restore_checkpoint", "latest_step",
            "list_steps", "flatten_with_keys"]
@@ -76,6 +85,8 @@ _PLAIN_STORE = ("bool", "uint8", "uint16", "uint32", "uint64", "int8",
 
 
 def _to_storable(t: torch.Tensor) -> Tuple[np.ndarray, str]:
+    if is_dtensor(t):
+        t = t.full_tensor()
     t = t.detach().cpu().contiguous()
     name = _BY_DTYPE.get(t.dtype)
     if name is not None:
@@ -98,7 +109,35 @@ def _from_storable(arr: np.ndarray, dtype_name: str) -> torch.Tensor:
 
 def save_checkpoint(directory: str, step: int, state: Any) -> str:
     """Write a checkpoint of ``state`` (a nested dict of tensors, on any
-    device); returns the final path."""
+    device); returns the final path. With DTensor leaves every rank calls
+    it and the process group's rank 0 writes (see the module docstring)."""
+    leaves = list(flatten_with_keys(state))
+    if any(is_dtensor(leaf) for _, leaf in leaves):
+        return _save_collective(directory, step, leaves)
+    return _write(directory, step, _stored(leaves))
+
+
+def _stored(leaves):
+    """(key, array, dtype name) of each leaf, one leaf at a time (a
+    DTensor leaf's gather is a collective, in the same order on every
+    rank)."""
+    for key, leaf in leaves:
+        yield (key,) + _to_storable(leaf)
+
+
+def _save_collective(directory: str, step: int, leaves) -> str:
+    dist = torch.distributed
+    final = os.path.join(directory, f"step_{step}")
+    if dist.get_rank() == 0:
+        _write(directory, step, _stored(leaves))
+    else:
+        for _ in _stored(leaves):
+            pass
+    dist.barrier()
+    return final
+
+
+def _write(directory: str, step: int, stored) -> str:
     final = os.path.join(directory, f"step_{step}")
     tmp = final + ".tmp"
     if os.path.exists(tmp):
@@ -106,8 +145,7 @@ def save_checkpoint(directory: str, step: int, state: Any) -> str:
     os.makedirs(tmp, exist_ok=True)
 
     entries: List[Dict[str, Any]] = []
-    for key, leaf in flatten_with_keys(state):
-        arr, dtype_name = _to_storable(leaf)
+    for key, arr, dtype_name in stored:
         np.save(os.path.join(tmp, key + ".npy"), arr)
         entries.append({
             "key": key,
@@ -147,13 +185,19 @@ def restore_checkpoint(
     step: int,
     target: Any,
     devices: Any = None,
+    mesh: Any = None,
+    placements: Any = None,
 ) -> Any:
     """Load ``step`` into the structure of ``target`` (a nested dict of
     tensors, which may lie on the meta device: only their shapes and
     dtypes are read). With ``devices`` (a matching tree of devices), each
-    leaf is placed on its device; without, on the CPU. Raises ``KeyError``
-    for a leaf the checkpoint lacks and ``ValueError`` for a shape that
-    differs."""
+    leaf is placed on its device; without, on the CPU. With ``mesh`` and
+    ``placements`` (a matching tree of DTensor placements, as
+    ``partition.placements`` gives them; None for a leaf that stays a plain
+    tensor), each leaf becomes a DTensor on them, every rank reading the
+    file and keeping its own shards (the JAX package's restore onto a
+    sharding tree, mesh-independent). Raises ``KeyError`` for a leaf the
+    checkpoint lacks and ``ValueError`` for a shape that differs."""
     path = os.path.join(directory, f"step_{step}")
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
@@ -164,9 +208,15 @@ def restore_checkpoint(
               if devices is not None else [None] * len(leaves))
     if len(places) != len(leaves):
         raise ValueError("devices tree does not match target tree")
+    layouts = ([pl for _, pl in flatten_with_keys(placements)]
+               if placements is not None else [None] * len(leaves))
+    if len(layouts) != len(leaves):
+        raise ValueError("placements tree does not match target tree")
+    if placements is not None and mesh is None:
+        raise ValueError("placements need the mesh they refer to")
 
     out = {}
-    for (key, leaf), device in zip(leaves, places):
+    for (key, leaf), device, layout in zip(leaves, places, layouts):
         if key not in available:
             raise KeyError(f"checkpoint {path} missing leaf {key}")
         t = _from_storable(np.load(os.path.join(path, key + ".npy")),
@@ -177,5 +227,12 @@ def restore_checkpoint(
                 f"{key}: checkpoint shape {tuple(t.shape)} != target "
                 f"{want_shape}"
             )
+        if layout is not None:
+            from torch.distributed.tensor import distribute_tensor
+
+            out[key] = distribute_tensor(
+                t.to(device=mesh.device_type, dtype=leaf.dtype), mesh,
+                list(layout), src_data_rank=None)
+            continue
         out[key] = t.to(device=device or "cpu", dtype=leaf.dtype)
     return _unflatten_like(target, out)

@@ -7,8 +7,8 @@
 // on the card, so its gradient is a hand-written kernel too. It takes what
 // the forward takes: causal GQA attention with aligned ends (query r sees
 // keys <= r + (T - S)), an optional sliding window and an optional logit
-// soft-cap softcap * tanh(s / softcap), D in {32, 64, 120, 128, 256}, bf16
-// or fp32 (not D 80: the wrapper refuses it).
+// soft-cap softcap * tanh(s / softcap), D in {32, 64, 80, 120, 128, 256},
+// bf16 or fp32.
 //
 // Inputs q, o, dO (B, S, H, D); k, v (B, T, K, D); lse (B, H, S) fp32, the
 // natural-log log-sum-exp of each row's scaled, soft-capped and masked
@@ -71,7 +71,12 @@
 // columns (Panels::DP): TMA fills columns 120-127 with zeros, the products
 // over D take 8 k-steps, the accumulators span 128 columns whose last 8
 // stay 0, and the stores write the 120 real ones. So the padding costs
-// 1.07 times the products, as in the forward.
+// 1.07 times the products, as in the forward. D 80 (zamba2-2.7b's shared
+// block, 2560 / 32) pads the same way: two 64-column panels whose columns
+// 80-127 TMA fills with zeros, 5 k-steps over D, and stores of the 80 real
+// columns (10 of the 16 column groups). The products with an N of D (dV,
+// dK, dQ) run at n128, so 48 of their 128 columns (37.5%) are zeros: the
+// padding costs 1.6 times those three products and 1.35 times the five.
 //
 // D 256 (gemma2-2b) does not fit the D-128 split. In dK/dV a warpgroup
 // owning 64 keys would hold dK and dV of 64 x 256 each, 256 fp32 registers
@@ -88,7 +93,7 @@
 // products run the tensor cores at a quarter of their width.
 //
 // The fp32 path runs on the CUDA cores (never TF32), off the training path;
-// at D 120 a lane's columns i, i + 32, ... stop at D.
+// at D 80 and 120 a lane's columns i, i + 32, ... stop at D.
 
 #include <math.h>
 #include <stdint.h>
@@ -183,11 +188,12 @@ constexpr int kDqStages = 2;       // dq: (K, V) ring depth
 
 // A tile of `rows` rows of D bf16 is stored as PANELS panels of `rows` rows
 // of PANEL elements, one swizzle row each (128 bytes, or 64 at D 32). DP is
-// D rounded up to whole panels: at D 120 a tile is two panels, and TMA
-// fills columns 120-127 with zeros (the tensor maps' D extent is 120), so
+// D rounded up to whole panels: at D 80 and 120 a tile is two panels, and
+// TMA fills columns D-127 with zeros (the tensor maps' D extent is D), so
 // every product over D runs on the D-128 tiles and the zeros add nothing;
 // stores write the real columns only. KSTEPS is the k-steps of 16 columns
-// that hold real columns ((D + 15) / 16: D / 16 would drop 112-119).
+// that hold real columns ((D + 15) / 16: D / 16 would drop 112-119 at
+// D 120; 5 at D 80).
 template <int D>
 struct Panels {
   static constexpr int PANEL = D < 64 ? D : 64;
@@ -505,7 +511,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     }
 
     // after the last wgmma, and under no branch that encloses one; the D
-    // real columns only (15 of the 16 column groups at D 120)
+    // real columns only (15 of the 16 column groups at D 120, 10 at D 80)
     const size_t kv_stride = (size_t)p.K * D;
     bf16* dkb = static_cast<bf16*>(p.dk) + ((size_t)w.b * p.T * p.K + w.kh) * D;
     bf16* dvb = static_cast<bf16*>(p.dv) + ((size_t)w.b * p.T * p.K + w.kh) * D;
@@ -870,7 +876,8 @@ constexpr int kF32QRows = 16;  // dq: query rows per block, 4 per warp
 constexpr int kF32KTile = 32;  // dq: keys per step (lane j: key j)
 
 // dK, dV of 32 keys; warp w owns keys 8w..8w+7, lane i columns i, i + 32, ...
-// that are < D (at D 120 lanes 24-31 own three, the others four).
+// that are < D (at D 120 lanes 24-31 own three, the others four; at D 80
+// lanes 16-31 own two, the others three).
 template <int D>
 __global__ void __launch_bounds__(128) flash_bwd_dkdv_f32(Params p) {
   constexpr int LD = D + 1, NV = (D + 31) / 32, KPW = kF32Keys / 4;
@@ -1125,6 +1132,7 @@ int flash_attention_bwd(const void* q, const void* k, const void* v, const void*
   switch (D) {
     case 32: return launch_all<32>(p, is_bf16, st);
     case 64: return launch_all<64>(p, is_bf16, st);
+    case 80: return launch_all<80>(p, is_bf16, st);
     case 120: return launch_all<120>(p, is_bf16, st);
     case 128: return launch_all<128>(p, is_bf16, st);
     case 256: return launch_all<256>(p, is_bf16, st);

@@ -20,11 +20,10 @@ calls; one backward call launches three kernels.
 
 Head dims: the forward takes 32, 64, 80, 120, 128 and 256 (80 is
 zamba2-2.7b's 2560 / 32, 120 h2o-danube-3-4b's 3840 / 32, 256
-gemma2-2b's), the backward 32, 64, 120, 128 and 256. D 80 and 120 run
-the D-128 tiles over columns TMA fills with zeros; D 256 runs tiles of
-fewer keys (each source's header says how). A D-80 backward is refused
-with ``ValueError`` here, before the library's dispatch, until a model
-with that head dim trains.
+gemma2-2b's), and so does the backward. D 80 and 120 run the D-128 tiles
+over columns TMA fills with zeros; D 256 runs tiles of fewer keys (each
+source's header says how). Any other head dim is refused with
+``ValueError`` here, before the library's dispatch.
 """
 
 from __future__ import annotations
@@ -35,6 +34,7 @@ from typing import Optional
 
 import torch
 
+from ...sharding.local import refuse_dtensor
 from .. import cuda_build
 
 __all__ = ["BWD_HEAD_DIMS", "BWD_SOURCE", "FWD_HEAD_DIMS", "FlashAttention",
@@ -44,7 +44,7 @@ __all__ = ["BWD_HEAD_DIMS", "BWD_SOURCE", "FWD_HEAD_DIMS", "FlashAttention",
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_fwd.cu"
 BWD_SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_bwd.cu"
 FWD_HEAD_DIMS = (32, 64, 80, 120, 128, 256)
-BWD_HEAD_DIMS = (32, 64, 120, 128, 256)
+BWD_HEAD_DIMS = (32, 64, 80, 120, 128, 256)
 _MAX_GRID_YZ = 65535
 _lib: Optional[ctypes.CDLL] = None
 _bwd_lib: Optional[ctypes.CDLL] = None
@@ -84,7 +84,9 @@ def check_inputs(q, k, v, causal: bool, window: Optional[int],
                  softcap: Optional[float],
                  head_dims: tuple = FWD_HEAD_DIMS) -> None:
     """Raise ``ValueError`` for any input the kernel does not take; the
-    head dim must be one of ``head_dims``."""
+    head dim must be one of ``head_dims``. A DTensor raises ``TypeError``
+    (``ops.attention`` maps it to its shards first)."""
+    refuse_dtensor("flash_attention", q, k, v)
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash_attention wants q (B,S,H,D), k/v (B,T,K,D)")
     b, s, h, d = q.shape

@@ -4,7 +4,16 @@ A CUDA tensor goes to :class:`.kernel.FlashAttention`, whose forward and
 backward are the hand-written kernels, which launch or raise; a CPU
 tensor goes to the plain version (:mod:`.ref`), differentiated by
 autograd. There is no fallback from the first to the second. Port of
-``repro.kernels.flash_attention.ops.attention``."""
+``repro.kernels.flash_attention.ops.attention``.
+
+DTensor inputs (a sharded step) run in a local map
+(``repro_torch.sharding.local``): attention is independent per batch row
+and per head, so q, k and v are redistributed to the batch over the FSDP
+axes (where the batch divides) and the heads over ``model`` (where the
+KV heads divide), the sequence and head dim gathered, and each rank runs
+the path above on its shards: in placements those of q, k, v, out
+placements the output's, the same; the gradients come back in them.
+A DTensor that reaches :mod:`.kernel` outside this map raises."""
 
 from __future__ import annotations
 
@@ -12,6 +21,7 @@ from typing import Optional
 
 import torch
 
+from ...sharding.local import is_dtensor, op_placements, run_local
 from . import kernel as _kernel
 from . import ref as _ref
 
@@ -26,6 +36,12 @@ def attention(
     window: Optional[int] = None,
     softcap: Optional[float] = None,
 ) -> torch.Tensor:
+    if is_dtensor(q):
+        mesh = q.device_mesh
+        pl = op_placements(mesh, 0, q.shape[0], 2, k.shape[2])
+        return run_local(
+            lambda q_, k_, v_: attention(q_, k_, v_, causal, window, softcap),
+            (q, k, v), (pl, pl, pl), pl, mesh)
     if q.device.type == "cpu":
         return _ref.attention_reference(q, k, v, causal=causal, window=window,
                                         softcap=softcap)

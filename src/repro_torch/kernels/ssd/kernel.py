@@ -41,6 +41,7 @@ from typing import Optional
 
 import torch
 
+from ...sharding.local import refuse_dtensor
 from .. import cuda_build
 
 __all__ = ["BWD_SOURCE", "MAX_CHUNK", "SIZES", "SOURCE", "SSDScan",
@@ -88,7 +89,10 @@ def backward_library() -> ctypes.CDLL:
 
 def check_inputs(x, dt, a, b_mat, c_mat, chunk: int, d_skip=None,
                  initial_state=None) -> None:
-    """Raise ``ValueError`` for any input the kernel does not take."""
+    """Raise ``ValueError`` for any input the kernel does not take. A
+    DTensor raises ``TypeError`` (``ops.ssd`` maps it to its shards
+    first)."""
+    refuse_dtensor("ssd_scan", x, dt, a, b_mat, c_mat, d_skip, initial_state)
     if x.dim() != 4 or dt.dim() != 3 or a.dim() != 1 or b_mat.dim() != 4:
         raise ValueError("ssd wants x (B,L,H,P), dt (B,L,H), a (H,), "
                          "B/C (B,L,G,N)")

@@ -13,6 +13,11 @@ partial softmaxes with :func:`combine_parts`.
 Decode uses a uniform ring-buffer cache: every slot remembers the token
 position it holds (``kv_pos``; -1 = empty), so full-attention and
 windowed layers share one code path.
+
+On DTensors (a sharded step) K and V take the ambient activation spec's
+gather point after RoPE (``act_sharding.constrain_seq_gathered``, where
+the JAX package puts it), prefill attention runs in ``ops.attention``'s
+local map, and decode attention in its own (:func:`attn_decode`).
 """
 
 from __future__ import annotations
@@ -22,6 +27,8 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..kernels.flash_attention import ops as flash_ops
+from ..sharding.act_sharding import constrain_seq_gathered
+from ..sharding.local import is_dtensor, op_placements, replicate_like, run_local
 from .common import apply_mrope, apply_rope, truncated_normal
 
 __all__ = [
@@ -188,6 +195,10 @@ def attn_forward(
     q, k, v = _project_qkv(cfg, p, x)
     q = _rope(cfg, q, positions)
     k = _rope(cfg, k, positions)
+    # the gather point before attention: K and V batch-sharded, the
+    # sequence whole (the queries keep their layout)
+    k = constrain_seq_gathered(k)
+    v = constrain_seq_gathered(v)
     out = flash_ops.attention(q, k, v, causal=True, window=_window(cfg, kind),
                               softcap=cfg.attn_logit_softcap)
     b, s, _, _ = out.shape
@@ -267,18 +278,59 @@ def attn_decode(
     q, k_new, v_new = _project_qkv(cfg, p, x)
     q = _rope(cfg, q, rot_pos)
     k_new = _rope(cfg, k_new, rot_pos)
-    hot = cache["hk"].shape[1]
-    slot = (pos % hot).long()
-    _ring_write(cache["hk"], k_new.to(cache["hk"].dtype), slot)
-    _ring_write(cache["hv"], v_new.to(cache["hv"].dtype), slot)
-    _ring_write(cache["h_pos"], positions.to(torch.int32), slot)
     kw = dict(window=_window(cfg, kind), softcap=cfg.attn_logit_softcap)
-    parts = [
-        attention_parts(q, cache["k"], cache["v"], positions, cache["kv_pos"],
-                        kv_chunk=cache["k"].shape[1], **kw),
-        attention_parts(q, cache["hk"], cache["hv"], positions,
-                        cache["h_pos"], kv_chunk=hot, **kw),
-    ]
-    out = combine_parts(parts, (b, 1, q.shape[2], q.shape[3]), q.dtype)
+    names = ("k", "v", "kv_pos", "hk", "hv", "h_pos")
+    if is_dtensor(q):
+        out = _decode_attend_sharded(q, k_new, v_new, positions, cache,
+                                     names, kw)
+    else:
+        out = _decode_attend(q, k_new, v_new, positions,
+                             *(cache[n] for n in names), **kw)
     y = out.reshape(b, 1, -1) @ p["wo"].to(out.dtype)
     return y, cache
+
+
+def _decode_attend(q, k_new, v_new, positions, k, v, kv_pos, hk, hv, h_pos,
+                   window=None, softcap=None):
+    """Write the new token into the hot ring (in place), then attend over
+    the prefix and the ring and combine the two partial softmaxes."""
+    b = q.shape[0]
+    hot = hk.shape[1]
+    slot = (positions[:, 0] % hot).long()
+    _ring_write(hk, k_new.to(hk.dtype), slot)
+    _ring_write(hv, v_new.to(hv.dtype), slot)
+    _ring_write(h_pos, positions.to(torch.int32), slot)
+    kw = dict(window=window, softcap=softcap)
+    parts = [
+        attention_parts(q, k, v, positions, kv_pos, kv_chunk=k.shape[1],
+                        **kw),
+        attention_parts(q, hk, hv, positions, h_pos, kv_chunk=hot, **kw),
+    ]
+    return combine_parts(parts, (b, 1, q.shape[2], q.shape[3]), q.dtype)
+
+
+def _decode_attend_sharded(q, k_new, v_new, positions, cache, names, kw):
+    """:func:`_decode_attend` in a local map. In placements: q, the new K
+    and V and the caches with the batch over the FSDP axes where it
+    divides and the heads over ``model`` where the KV heads divide
+    (``op_placements``), positions by the batch alone; a sequence-sharded
+    prefix (``cache_pspec``'s fallback) is gathered. The hot ring must
+    already lie so (``cache_pspec`` places it so), since its in-place
+    writes land in the shards. Out placements: those of q."""
+    mesh = q.device_mesh
+    b, nk = q.shape[0], k_new.shape[2]
+    heads = op_placements(mesh, 0, b, 2, nk)
+    rows = op_placements(mesh, 0, b)
+    want = dict(k=heads, v=heads, kv_pos=rows, hk=heads, hv=heads,
+                h_pos=rows)
+    for n in ("hk", "hv", "h_pos"):
+        if tuple(cache[n].placements) != want[n]:
+            raise ValueError(
+                f"hot ring {n} is placed {tuple(cache[n].placements)}; its "
+                f"in-place writes need {want[n]} (partition.cache_pspec)")
+    positions = replicate_like(positions, q)
+    return run_local(
+        lambda *args: _decode_attend(*args, **kw),
+        (q, k_new, v_new, positions, *(cache[n] for n in names)),
+        (heads, heads, heads, rows, *(want[n] for n in names)),
+        heads, mesh)

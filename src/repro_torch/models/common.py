@@ -5,6 +5,10 @@ embeddings, logit soft-capping, chunked cross-entropy. Port of
 Parameters are plain tensors in nested dicts with the JAX package's
 layouts (weights ``(in, out)``, used as ``x @ w``), stored in
 ``param_dtype`` and cast to the compute dtype at use.
+
+On DTensors (a sharded step), the rotary tables, built alike on every
+rank, join the activations as replicated DTensors, and the chunked loss
+runs vocab-parallel in a local map (:func:`chunked_softmax_xent`).
 """
 
 from __future__ import annotations
@@ -14,6 +18,8 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
+
+from ..sharding.local import is_dtensor, op_placements, replicate_like, run_local
 
 __all__ = [
     "truncated_normal",
@@ -72,6 +78,7 @@ def _rotate(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
     dtype = x.dtype
     x = x.float()
     x1, x2 = x.chunk(2, dim=-1)
+    angles = replicate_like(angles, x)
     sin, cos = torch.sin(angles), torch.cos(angles)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(dtype)
@@ -80,7 +87,8 @@ def _rotate(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float = 10000.0) -> torch.Tensor:
     """Standard RoPE. x: (B, S, H, D); positions: (B, S) int."""
-    freqs = rope_frequencies(x.shape[-1], theta, device=x.device)
+    freqs = replicate_like(
+        rope_frequencies(x.shape[-1], theta, device=x.device), positions)
     angles = positions[..., None, None].float() * freqs      # (B,S,1,D/2)
     return _rotate(x, angles)
 
@@ -99,6 +107,8 @@ def apply_mrope(x: torch.Tensor, positions: torch.Tensor,
     half = x.shape[-1] // 2
     if sum(sections) != half:
         raise ValueError(f"mrope sections {sections} must sum to {half}")
+    if is_dtensor(positions):   # a few ints: every rank takes them all
+        positions = positions.full_tensor()
     freqs = rope_frequencies(x.shape[-1], theta, device=x.device)
     # band i takes the position stream its section names
     stream_idx = torch.repeat_interleave(
@@ -119,13 +129,50 @@ def apply_mrope(x: torch.Tensor, positions: torch.Tensor,
 LOSS_CHUNK_ELEMENTS = 1 << 29
 
 
-def _xent_chunk(h, unembed, y, final_softcap):
+def _xent_chunk(h, unembed, y, final_softcap, v0=0, group=None):
+    """(sum of the masked rows' cross-entropy, their count) for one chunk
+    of rows. With a ``group``, ``unembed`` is the vocab slice ``[v0, v0 +
+    V_local)`` of a vocabulary split over it: the row max, sum of
+    exponentials and label logit are reduced over the group."""
     logits = (h @ unembed.to(h.dtype)).float()
     logits = soft_cap(logits, final_softcap)
-    lse = torch.logsumexp(logits, dim=-1)
-    picked = torch.gather(logits, 1, y.clamp_min(0).long()[:, None])[:, 0]
+    if group is None:
+        lse = torch.logsumexp(logits, dim=-1)
+        picked = torch.gather(logits, 1, y.clamp_min(0).long()[:, None])[:, 0]
+    else:
+        m = logits.detach().amax(dim=-1)
+        torch.distributed.all_reduce(m, op=torch.distributed.ReduceOp.MAX,
+                                     group=group)
+        sumexp = torch.exp(logits - m[:, None]).sum(dim=-1)
+        local = y.long() - v0
+        inside = (local >= 0) & (local < logits.shape[1])
+        picked = torch.gather(
+            logits, 1, local.clamp(0, logits.shape[1] - 1)[:, None])[:, 0]
+        picked = torch.where(inside, picked, torch.zeros_like(picked))
+        lse = torch.log(_SumOver.apply(sumexp, group)) + m
+        picked = _SumOver.apply(picked, group)
     mask = (y >= 0).float()
     return torch.sum((lse - picked) * mask), torch.sum(mask)
+
+
+def _xent_chunks(hidden, unembed, labels, chunk, final_softcap, v0=0,
+                 group=None):
+    """The loop of :func:`chunked_softmax_xent` over row chunks of at most
+    ``LOSS_CHUNK_ELEMENTS`` logits, each under activation checkpointing in
+    grad mode (``v0``, ``group``: :func:`_xent_chunk`'s vocab slice)."""
+    chunk = max(1, min(chunk, LOSS_CHUNK_ELEMENTS // unembed.shape[1]))
+    loss = hidden.new_zeros((), dtype=torch.float32)
+    count = hidden.new_zeros((), dtype=torch.float32)
+    for c0 in range(0, hidden.shape[0], chunk):
+        args = (hidden[c0:c0 + chunk], unembed, labels[c0:c0 + chunk],
+                final_softcap, v0, group)
+        if torch.is_grad_enabled():
+            part, n = checkpoint(_xent_chunk, *args, use_reentrant=False)
+        else:
+            part, n = _xent_chunk(*args)
+        loss = loss + part
+        count = count + n
+    return loss, count
 
 
 def chunked_softmax_xent(
@@ -146,17 +193,60 @@ def chunked_softmax_xent(
     rows. Under grad mode each chunk runs under activation checkpointing,
     so one chunk's logits are alive at a time. A chunk is also cut to
     ``LOSS_CHUNK_ELEMENTS`` logits (a different grouping of the same sum).
+
+    DTensor inputs run vocab-parallel in a local map: in placements, the
+    rows of ``hidden`` and ``labels`` over the FSDP axes where they divide
+    and replicated over ``model``, ``unembed``'s vocab over ``model`` where
+    it divides and its d_model gathered; each rank takes its rows' logits
+    over its vocab slice, in chunks of at most ``LOSS_CHUNK_ELEMENTS`` of
+    them, and the row max, sum of exponentials and label logit are reduced
+    over ``model`` (the same sum grouped otherwise). Out placements: both
+    sums partial over the FSDP axes the rows are split on, else
+    replicated. Gradient placements: ``hidden``'s partial over ``model``
+    where the vocab is split, ``unembed``'s partial over the FSDP axes the
+    rows are split on.
     """
-    chunk = max(1, min(chunk, LOSS_CHUNK_ELEMENTS // unembed.shape[1]))
-    loss = hidden.new_zeros((), dtype=torch.float32)
-    count = hidden.new_zeros((), dtype=torch.float32)
-    for c0 in range(0, hidden.shape[0], chunk):
-        args = (hidden[c0:c0 + chunk], unembed, labels[c0:c0 + chunk],
-                final_softcap)
-        if torch.is_grad_enabled():
-            part, n = checkpoint(_xent_chunk, *args, use_reentrant=False)
-        else:
-            part, n = _xent_chunk(*args)
-        loss = loss + part
-        count = count + n
-    return loss, count
+    if is_dtensor(hidden):
+        return _vocab_parallel_xent(hidden, unembed, labels, chunk,
+                                    final_softcap)
+    return _xent_chunks(hidden, unembed, labels, chunk, final_softcap)
+
+
+class _SumOver(torch.autograd.Function):
+    """All-reduce (sum) over ``group`` whose backward is the identity: the
+    sum is a replicated value every rank of the group goes on with alike,
+    so each rank's gradient of its own term is the upstream one."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        out = x.clone()
+        torch.distributed.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def _vocab_parallel_xent(hidden, unembed, labels, chunk, final_softcap):
+    from torch.distributed.tensor import Partial, Replicate
+
+    mesh = hidden.device_mesh
+    vocab = unembed.shape[1]
+    rows = op_placements(mesh, 0, hidden.shape[0])
+    cols = op_placements(mesh, head_dim=1, heads=vocab)
+    split = any(p.is_shard() for p in cols)
+    group = mesh.get_group("model") if split else None
+    sums = tuple(Partial() if r.is_shard() else Replicate() for r in rows)
+
+    def local(h, u, y):
+        v0 = mesh.get_local_rank("model") * u.shape[1] if split else 0
+        return _xent_chunks(h, u, y, chunk, final_softcap, v0, group)
+
+    h_grad = tuple(Partial() if c.is_shard() else r
+                   for r, c in zip(rows, cols))
+    u_grad = tuple(Partial() if r.is_shard() else c
+                   for r, c in zip(rows, cols))
+    return run_local(local, (hidden, unembed, labels), (rows, cols, rows),
+                     (sums, sums), mesh,
+                     in_grad_placements=(h_grad, u_grad, rows))

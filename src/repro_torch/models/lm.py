@@ -22,6 +22,11 @@ blocks). The JAX
 when gradients are taken, as the JAX scan body runs under
 ``jax.checkpoint``: the recomputed forward is the same computation on
 the same inputs, so an MoE layer routes as it did the first time.
+
+Given DTensor parameters (a sharded step, ``repro_torch.sharding``), the
+same code runs on the mesh: each repeat's boundaries take the ambient
+activation spec (``act_sharding.constrain``, where the JAX scan body
+does), and the kernels run in their ops' local maps.
 """
 
 from __future__ import annotations
@@ -31,11 +36,14 @@ from typing import Any, Dict, List, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from .attention import attn_decode, attn_forward, init_attn_params
+from ..sharding.act_sharding import constrain
+from ..sharding.local import replicate_like
+from .attention import (attn_decode, attn_forward, init_attn_params,
+                        init_kv_cache)
 from .common import chunked_softmax_xent, rms_norm, soft_cap, truncated_normal
 from .mlp import init_mlp_params, mlp_forward
 from .moe import init_moe_params, moe_forward
-from .ssm import init_ssm_params, ssm_decode, ssm_forward
+from .ssm import init_ssm_cache, init_ssm_params, ssm_decode, ssm_forward
 
 __all__ = [
     "init_params",
@@ -44,6 +52,7 @@ __all__ = [
     "param_count",
     "prefill",
     "grow_caches",
+    "init_decode_caches",
     "decode_step",
     "train_loss",
     "MOE_AUX_WEIGHT",
@@ -219,14 +228,17 @@ def _unbind(tree, repeats: int) -> List[Dict[str, Any]]:
 
 
 def _repeat(cfg, layer, x, aux, positions, build_cache):
-    """One repeat of the block pattern (the JAX scan body)."""
+    """One repeat of the block pattern (the JAX scan body), its residual
+    stream constrained to the ambient activation spec at both ends."""
     caches = {}
+    x = constrain(x)   # layer-boundary activation sharding (SP)
     for i, kind in enumerate(cfg.pattern):
         key = f"slot{i}"
         x, aux, cache = _block_fwd(cfg, kind, layer[key], x, positions, aux,
                                    build_cache)
         if build_cache:
             caches[key] = cache
+    x = constrain(x)
     return x, aux, caches
 
 
@@ -249,7 +261,8 @@ def _stack_fwd(cfg, params, x, positions, build_cache=False):
     """(x, aux: the MoE loss summed over layers, fp32, caches)."""
     remat = (cfg.remat == "full" and torch.is_grad_enabled()
              and not build_cache)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux = replicate_like(
+        torch.zeros((), dtype=torch.float32, device=x.device), x)
     cache_rows: Dict[str, list] = {}
     for layer in _layer_rows(cfg, params):
         if remat:
@@ -358,6 +371,40 @@ def prefill(cfg, params, inputs) -> Tuple[torch.Tensor, Any, torch.Tensor]:
     h = rms_norm(x[:, -1:], params["final_norm"])
     pos = torch.full((b,), s, dtype=torch.int32, device=inputs.device)
     return _logits(cfg, params, h)[:, 0], caches, pos
+
+
+def init_decode_caches(cfg, batch: int, cache_len: int, filled: bool = False,
+                       device=None) -> Dict[str, Any]:
+    """Stacked (R-leading) decode caches, zeros in the compute dtype (SSD
+    states fp32), in the JAX package's tree (``init_kv_cache`` for every
+    attention slot, a shared block's included; ``init_ssm_cache`` for
+    every SSM slot). ``filled=True`` marks every prefix slot as holding a
+    real token, the last ``t`` positions before ``cache_len`` (a cache
+    after ``cache_len`` tokens of prefill), as the JAX one does. Built on
+    ``device`` (``"meta"``: shapes only)."""
+    check_supported(cfg)
+    r = cfg.repeats
+    dtype = getattr(torch, cfg.compute_dtype)
+
+    def stack(tree):
+        return tree_map(
+            lambda x: x.unsqueeze(0).expand((r,) + tuple(x.shape)).clone(),
+            tree)
+
+    caches: Dict[str, Any] = {}
+    for i, kind in enumerate(cfg.pattern):
+        if kind == "ssm":
+            caches[f"slot{i}"] = stack(init_ssm_cache(cfg, batch, dtype,
+                                                      device))
+            continue
+        c = init_kv_cache(cfg, batch, cache_len, kind, dtype, device)
+        if filled:
+            t = c["kv_pos"].shape[1]
+            c["kv_pos"] = torch.arange(
+                cache_len - t, cache_len, dtype=torch.int32,
+                device=device).expand(batch, t).contiguous()
+        caches[f"slot{i}"] = stack(c)
+    return caches
 
 
 def _pad_seq(x: torch.Tensor, pad: int, value) -> torch.Tensor:

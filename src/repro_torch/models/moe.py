@@ -15,9 +15,9 @@ Top-k breaks ties toward the lower expert index, as ``jax.lax.top_k``
 does, through a stable descending sort: ``torch.topk`` picks otherwise
 on ties (equal bf16 router probabilities are common at full width), and
 a routing that differs from the reference's on ties is a different
-model. The expert weights are cast to the compute dtype; the JAX
-package's ``_gathered_weight`` also pins their sharded layout, which the
-port has no use for until sharding is ported.
+model. The expert weights are cast to the compute dtype and, as in the
+JAX package's ``_gathered_weight``, a DTensor weight takes the layout the
+launcher pins (``act_sharding.moe_weight_sharding``).
 """
 
 from __future__ import annotations
@@ -28,6 +28,8 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..sharding.act_sharding import constrain_to, current_moe_specs
+from ..sharding.local import replicate_like
 from .common import truncated_normal
 
 __all__ = ["init_moe_params", "moe_forward", "moe_capacity", "route",
@@ -65,7 +67,8 @@ def top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
 
 def _one_hot(idx: torch.Tensor, n: int, dtype) -> torch.Tensor:
     """``jax.nn.one_hot``: an index outside [0, n) gives a row of zeros."""
-    return (idx[..., None] == torch.arange(n, device=idx.device)).to(dtype)
+    classes = replicate_like(torch.arange(n, device=idx.device), idx)
+    return (idx[..., None] == classes).to(dtype)
 
 
 def route(cfg, router: torch.Tensor, xg: torch.Tensor):
@@ -112,13 +115,25 @@ def dispatch_tensors(eh: torch.Tensor, pos_k: torch.Tensor,
     return dispatch, combine
 
 
+def _gathered_weight(w: torch.Tensor, cdt, which: str) -> torch.Tensor:
+    """An expert weight cast to the compute dtype, at the compute-time
+    layout the launcher pins (``moe_weight_sharding``: the FSDP-sharded
+    d_model dim gathered, the expert or d_ff dim kept sharded) when it is
+    a DTensor; else just cast."""
+    w = w.to(cdt)
+    specs = current_moe_specs()
+    if specs is not None:
+        w = constrain_to(w, specs[0] if which in ("gate", "up") else specs[1])
+    return w
+
+
 def expert_ffn(p: Dict[str, torch.Tensor], xin: torch.Tensor) -> torch.Tensor:
     """Every expert's SwiGLU on its capacity slots: xin (g, ep, C, M) →
     (g, ep, C, M), in xin's dtype."""
     cdt = xin.dtype
-    w_gate = p["w_gate"].to(cdt)    # (ep, M, f)
-    w_up = p["w_up"].to(cdt)        # (ep, M, f)
-    w_down = p["w_down"].to(cdt)    # (ep, f, M)
+    w_gate = _gathered_weight(p["w_gate"], cdt, "gate")    # (ep, M, f)
+    w_up = _gathered_weight(p["w_up"], cdt, "up")          # (ep, M, f)
+    w_down = _gathered_weight(p["w_down"], cdt, "down")    # (ep, f, M)
     h_gate = F.silu(torch.einsum("gecm,emf->gecf", xin, w_gate))
     h_up = torch.einsum("gecm,emf->gecf", xin, w_up)
     return torch.einsum("gecf,efm->gecm", h_gate * h_up, w_down)

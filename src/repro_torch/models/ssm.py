@@ -24,7 +24,6 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.ssd import ops as ssd_ops
-from ..kernels.ssd.ref import ssd_decode_step
 from .common import rms_norm, truncated_normal
 
 __all__ = ["init_ssm_params", "ssm_forward", "init_ssm_cache", "ssm_decode"]
@@ -174,7 +173,7 @@ def ssm_decode(
         outs[name] = _causal_conv(val, p[name], tail=tail)
         new_cache[name] = torch.cat([tail[:, 1:], val.to(tail.dtype)], dim=1)
     x, b, c = outs["conv_x"], outs["conv_b"], outs["conv_c"]
-    y, state = ssd_decode_step(
+    y, state = ssd_ops.decode_step(
         x[:, 0].reshape(bsz, nh, hp),
         dt[:, 0],
         _decay_rates(p),

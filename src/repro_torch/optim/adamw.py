@@ -9,6 +9,15 @@ JAX version builds new arrays; the values are the same). It is not
 
 ``grad_dtype="bfloat16"`` casts the gradients to bf16 before the norm and
 the update, as the JAX version does before its data-parallel reduction.
+
+With a DTensor state (a sharded step), each gradient is first
+redistributed to its parameter's placements (a gradient that autograd
+returns partial over the FSDP axes is reduce-scattered, as GSPMD inserts
+it), so no in-place op runs on a partial tensor; the update, elementwise
+over identically placed tensors, then runs on each rank's shards. The
+global norm sums each rank's squares, a replicated shard counted by one
+rank of its replicas, and is reduced once over the process group, which
+the mesh spans (``launch.mesh.make_mesh``).
 """
 
 from __future__ import annotations
@@ -18,6 +27,8 @@ from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+
+from ..sharding.local import is_dtensor
 
 __all__ = ["AdamWConfig", "init_opt_state", "adamw_update"]
 
@@ -72,10 +83,34 @@ def _schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
 
 def _global_norm(grads) -> torch.Tensor:
     total = None
+    mesh = None
     for g in _leaves(grads):
-        sq = torch.sum(torch.square(g.to(torch.float32)))
+        if is_dtensor(g):
+            mesh = g.device_mesh
+            coord = mesh.get_coordinate()
+            # a shard held by several ranks (replicated over a mesh dim)
+            # counts once: on the ranks at coordinate 0 of those dims
+            counted = all(c == 0 for c, p in zip(coord, g.placements)
+                          if not p.is_shard())
+            g = g.to_local()
+            sq = torch.sum(torch.square(g.to(torch.float32)))
+            if not counted:
+                sq = torch.zeros_like(sq)
+        else:
+            sq = torch.sum(torch.square(g.to(torch.float32)))
         total = sq if total is None else total + sq
+    if mesh is not None:   # a mesh spans the process group (make_mesh)
+        torch.distributed.all_reduce(total)
     return torch.sqrt(total)
+
+
+def _as_placed(g, p):
+    """``g`` redistributed to ``p``'s placements when both are DTensors."""
+    if not is_dtensor(p):
+        return g
+    if tuple(g.placements) != tuple(p.placements):
+        g = g.redistribute(p.device_mesh, p.placements)
+    return g
 
 
 @torch.no_grad()
@@ -88,6 +123,7 @@ def adamw_update(
     of a bf16 forward); each is widened to fp32 leaf by leaf."""
     if cfg.grad_dtype is not None:
         grads = _map(lambda g: g.to(getattr(torch, cfg.grad_dtype)), grads)
+    grads = _map(_as_placed, grads, params)
     gnorm = _global_norm(grads)
     scale = torch.clamp_max(cfg.grad_clip / torch.clamp_min(gnorm, 1e-9), 1.0)
     count = opt_state["count"] + 1
@@ -97,6 +133,8 @@ def adamw_update(
     lr_f, b1c_f, b2c_f = float(lr), float(b1c), float(b2c)
 
     def upd(p, g, mu, nu):
+        if is_dtensor(p):   # identically placed: each rank's shards
+            p, g, mu, nu = (t.to_local() for t in (p, g, mu, nu))
         # two fp32 temporaries of the leaf's size: g (then the denominator)
         # and the step
         g = g.to(torch.float32) * scale

@@ -128,12 +128,15 @@ def test_backward_wrapper_refuses_cpu_and_mismatched_inputs():
     before = kernel.flash_attention_backward.launches
     with pytest.raises(ValueError, match="CUDA"):
         kernel.flash_attention_backward(q, k, k, q, lse, q)
-    # head dim 80 (zamba2-2.7b): the forward takes it, the backward refuses
-    # it before looking at the device
+    # head dim 96, which neither kernel takes: the backward refuses it
+    # before looking at the device; head dim 80 (zamba2-2.7b) it takes,
+    # and refuses only the CPU tensors
+    q96 = torch.zeros(1, 64, 4, 96, dtype=torch.bfloat16)
+    k96 = torch.zeros(1, 64, 2, 96, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim 96"):
+        kernel.flash_attention_backward(q96, k96, k96, q96, lse, q96)
     q80 = torch.zeros(1, 64, 4, 80, dtype=torch.bfloat16)
     k80 = torch.zeros(1, 64, 2, 80, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="head dim 80"):
+    with pytest.raises(ValueError, match="CUDA"):
         kernel.flash_attention_backward(q80, k80, k80, q80, lse, q80)
-    with torch.no_grad(), pytest.raises(ValueError, match="CUDA"):
-        kernel.flash_attention(q80, k80, k80)
     assert kernel.flash_attention_backward.launches == before

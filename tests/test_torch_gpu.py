@@ -61,9 +61,9 @@ EDGES = [
     (1, 1, 130, 4, 4, 32, None, None, torch.bfloat16),
     (1, 100, 400, 4, 2, 64, 64, None, torch.bfloat16),
 ]
-# Head dim 80 (zamba2-2.7b's shared block: 2560 / 32, MHA), forward only:
-# fp32 and bf16 MHA, GQA 2:1, S and T off the tile grid with S < T, window
-# and soft-cap in both dtypes. tests/test_torch_flash_attention.py holds
+# Head dim 80 (zamba2-2.7b's shared block: 2560 / 32, MHA), forward (D80_BWD
+# below holds the backward): fp32 and bf16 MHA, GQA 2:1, S and T off the
+# tile grid with S < T, window and soft-cap in both dtypes. tests/test_torch_flash_attention.py holds
 # the plain version at these rows against the JAX package's.
 D80 = [
     (1, 256, 256, 4, 4, 80, None, None, torch.float32),
@@ -89,6 +89,18 @@ D120 = [
     (1, 384, 384, 8, 2, 120, 100, 50.0, torch.bfloat16),
     (1, 40, 300, 4, 1, 120, None, None, torch.bfloat16),
     (1, 100, 400, 8, 2, 120, 64, 50.0, torch.bfloat16),
+]
+# Head dim 80 backward (zamba2-2.7b's shared block trains): the rows of
+# D120 at D 80, MHA and GQA 4:1 and 2:1.
+D80_BWD = [
+    (1, 256, 256, 4, 4, 80, None, None, torch.float32),
+    (2, 256, 256, 4, 4, 80, None, None, torch.bfloat16),
+    (1, 256, 256, 8, 2, 80, None, None, torch.bfloat16),
+    (1, 200, 328, 8, 4, 80, None, None, torch.bfloat16),
+    (1, 256, 256, 4, 1, 80, 64, 30.0, torch.float32),
+    (1, 384, 384, 8, 2, 80, 100, 50.0, torch.bfloat16),
+    (1, 40, 300, 4, 1, 80, None, None, torch.bfloat16),
+    (1, 100, 400, 8, 4, 80, 64, 50.0, torch.bfloat16),
 ]
 D256 = [
     (1, 256, 256, 4, 4, 256, None, None, torch.float32),
@@ -192,12 +204,14 @@ def _close_grads(got, want, dtype):
         torch.testing.assert_close(g, w, **_tol(dtype))
 
 
-@pytest.mark.parametrize("row", SWEEP + RAGGED + EDGES + D120 + D256,
+@pytest.mark.parametrize("row", SWEEP + RAGGED + EDGES + D120 + D256
+                         + D80_BWD,
                          ids=[f"attn{i}" for i in range(len(SWEEP))]
                          + [f"ragged{i}" for i in range(len(RAGGED))]
                          + [f"edge{i}" for i in range(len(EDGES))]
                          + [f"d120_{i}" for i in range(len(D120))]
-                         + [f"d256_{i}" for i in range(len(D256))])
+                         + [f"d256_{i}" for i in range(len(D256))]
+                         + [f"d80_{i}" for i in range(len(D80_BWD))])
 def test_cuda_backward_vs_plain(cuda, row):
     """The forward's output against the plain version's at the dtype's
     _tol and its LSE at fp32 _tol; dq, dk, dv of the backward kernels
@@ -259,18 +273,17 @@ def test_cuda_kernel_refuses_unsupported_head_dim(cuda):
         ops.attention(q, k, k)
 
 
-def test_cuda_backward_refuses_head_dim_80(cuda):
-    """The forward takes D 80; the backward refuses it with ValueError
-    before its library dispatches, launching nothing."""
-    q, kk, vv, do = _attn_grad_inputs(cuda, 1, 128, 128, 4, 2, 80,
+def test_cuda_backward_refuses_a_head_dim_it_lacks(cuda):
+    """Head dim 96 is one neither kernel takes: the backward refuses it
+    with ValueError before its library dispatches, launching nothing (its
+    o and lse are placeholders: the forward refuses D 96 too)."""
+    q, kk, vv, do = _attn_grad_inputs(cuda, 1, 128, 128, 4, 2, 96,
                                       torch.bfloat16)
-    o, lse = kernel.flash_attention(q, kk, vv, return_lse=True)
+    o = torch.zeros_like(q)
+    lse = torch.zeros((1, 4, 128), dtype=torch.float32, device=cuda)
     before = kernel.flash_attention_backward.launches
-    with pytest.raises(ValueError, match="head dim 80"):
+    with pytest.raises(ValueError, match="head dim 96"):
         kernel.flash_attention_backward(q, kk, vv, o, lse, do)
-    out = ops.attention(*(x.clone().requires_grad_() for x in (q, kk, vv)))
-    with pytest.raises(ValueError, match="head dim 80"):
-        out.backward(do)
     assert kernel.flash_attention_backward.launches == before
 
 

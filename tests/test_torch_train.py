@@ -278,17 +278,19 @@ def test_ssm_model_trains_on_the_cpu_with_talp():
 
 
 def test_train_on_cuda_refuses_a_head_dim_the_flash_backward_lacks():
-    """zamba2-2.7b's attention head dim, 80, has a flash forward but no
-    flash backward: train() on the card refuses it with the backward's
-    ValueError before it looks for the card or allocates, so the refusal
-    shows on a machine without one too; mamba2-130m (no attention) passes
-    that check and meets the no-card error; the CPU trains zamba2."""
+    """A config whose attention head dim the flash backward lacks (48:
+    zamba2-2.7b's with its width cut to 1536) is refused by train() on the
+    card with the backward's ValueError before it looks for the card or
+    allocates, so the refusal shows on a machine without one too;
+    mamba2-130m (no attention) and llama3.2-3b pass that check, and
+    without a card mamba2-130m meets the no-card error; the CPU trains the
+    D-48 config."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention.kernel import BWD_HEAD_DIMS
     from repro_torch.launch.train import check_trainable_on_card
 
-    cfg = get_config("zamba2-2.7b")
-    assert cfg.resolved_head_dim == 80 and 80 not in BWD_HEAD_DIMS
+    cfg = dataclasses.replace(get_config("zamba2-2.7b"), d_model=1536)
+    assert cfg.resolved_head_dim == 48 and 48 not in BWD_HEAD_DIMS
     with pytest.raises(ValueError, match="flash backward"):
         train(cfg, steps=1, verbose=False, device="cuda")
     with pytest.raises(ValueError, match="flash backward"):
@@ -298,10 +300,31 @@ def test_train_on_cuda_refuses_a_head_dim_the_flash_backward_lacks():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="is_available"):
             train(smoke_config("mamba2-130m"), steps=1, verbose=False)
-    _, history, _ = train(smoke_config("zamba2-2.7b"), steps=1,
-                          global_batch=2, seq_len=32, verbose=False,
-                          device="cpu")
+    small = dataclasses.replace(smoke_config("zamba2-2.7b"), head_dim=48)
+    _, history, _ = train(small, steps=1, global_batch=2, seq_len=32,
+                          verbose=False, device="cpu")
     assert np.isfinite(history[0]["loss"])
+
+
+def test_zamba2_passes_the_card_checks_before_allocating():
+    """zamba2-2.7b's shared block (head dim 80) has a flash backward:
+    check_trainable_on_card passes its config, and its train state (16
+    bytes a parameter, about 30.7 GiB) fits an 80 GB card by
+    check_train_state_fits, which still refuses it on a 16 GiB one."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.kernel import BWD_HEAD_DIMS
+    from repro_torch.launch.train import (
+        check_train_state_fits, check_trainable_on_card)
+    from repro_torch.models import lm
+
+    cfg = get_config("zamba2-2.7b")
+    assert cfg.resolved_head_dim == 80 and 80 in BWD_HEAD_DIMS
+    check_trainable_on_card(cfg)
+    n = lm.param_count(lm.init_params(cfg, None, device="meta"))
+    assert 30.0 < 16 * n / 2 ** 30 < 31.5
+    check_train_state_fits(cfg, 80 * 10 ** 9)
+    with pytest.raises(ValueError, match="train state"):
+        check_train_state_fits(cfg, 16 * 2 ** 30)
 
 
 def test_train_on_cuda_without_a_card_raises():
@@ -597,7 +620,8 @@ def test_port_resumes_a_jax_checkpoint_of_a_windowed_model(arch, tmp_path):
 def test_check_trainable_on_card_takes_head_dims_120_and_256():
     """h2o-danube-3-4b's head dim 120 and gemma2-2b's 256 have a flash
     backward: check_trainable_on_card passes both (before any card is
-    looked for), and still refuses zamba2-2.7b's 80."""
+    looked for), and still refuses a head dim the backward lacks (48:
+    zamba2-2.7b's width cut to 1536)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention.kernel import BWD_HEAD_DIMS
     from repro_torch.launch.train import check_trainable_on_card
@@ -607,7 +631,8 @@ def test_check_trainable_on_card_takes_head_dims_120_and_256():
         assert cfg.resolved_head_dim == d and d in BWD_HEAD_DIMS
         check_trainable_on_card(cfg)
     with pytest.raises(ValueError, match="flash backward"):
-        check_trainable_on_card(get_config("zamba2-2.7b"))
+        check_trainable_on_card(dataclasses.replace(
+            get_config("zamba2-2.7b"), d_model=1536))
 
 
 @pytest.mark.parametrize("arch", WINDOWED_ARCHS)
