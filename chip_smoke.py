@@ -211,7 +211,20 @@
    leaf's gradient, flash launches), and
    zamba2-2.7b's decode steps (8 x 4096 + 16) on cache_pspec-placed caches
    held to the unsharded decode per row.
-11. Prints one JSON line with every kernel's numbers, then, as the last
+11. Dry-run phase (``dryrun_phase``): ``repro_torch.launch.dryrun`` on
+   fake process groups, in subprocesses run side by side (no fake group
+   meets the NCCL group above; nothing is allocated): llama3.2-3b's
+   training (2 x 2048), prefill (8 x 1024) and decode step (8 x 1088),
+   zamba2-2.7b's training (2 x 4096) and granite-moe-3b-a800m's (2 x
+   2048), each counted on a (1, 1) "cuda" mesh of one fake rank and held
+   to the same step measured above: the predicted kernel time (the larger
+   of the compute and HBM terms) no more than the traced kernel time, the
+   predicted peak within PEAK_BAND of max_memory_allocated, the TALP
+   device trees printed side by side; then three calibrated production
+   cells through the dry run's CLI (llama3.2-3b train_4k on 16x16,
+   qwen3-moe-235b-a22b decode_32k on 16x16, mamba2-130m decode_32k on
+   2x16x16), each printed as its JSON line with its seconds.
+12. Prints one JSON line with every kernel's numbers, then, as the last
    line, ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -455,21 +468,6 @@ def time_turns(*fns, reps: int = 25, inner: int = 10):
         for k in order:
             samples[k] += time_samples(fns[k], reps, inner=inner)
     return tuple(statistics.median(t) for t in samples)
-
-
-def attention_work(b, s, t, h, k, d, window, dtype):
-    """(operations, bytes) the causal forward needs on these shapes:
-    4·D operations per visible (query, key) pair; q, k, v read once and
-    o written once."""
-    rows = torch.arange(s)[:, None]
-    cols = torch.arange(t)[None, :]
-    vis = cols <= rows + (t - s)
-    if window is not None:
-        vis &= cols > rows + (t - s) - window
-    flops = 4.0 * d * int(vis.sum()) * b * h
-    esize = torch.finfo(dtype).bits // 8
-    nbytes = esize * (2 * b * s * h * d + 2 * b * t * k * d)
-    return flops, nbytes
 
 
 KERNEL_NAMES = ("flash_fwd_wgmma", "flash_fwd_f32", "flash_bwd_preprocess",
@@ -776,6 +774,7 @@ def flash_timing(device, row, inputs) -> dict:
     a side note: without the cap, a different function; with a window, an
     explicit boolean mask, which computes every score."""
     from repro_torch.kernels.flash_attention import kernel, ref
+    from repro_torch.kernels.flash_attention.work import attention_work
 
     b, s, t, h, k, d, window, softcap, dtype = row
     cfg = dict(causal=True, window=window, softcap=softcap)
@@ -938,18 +937,6 @@ DANUBE_TRAIN = (1, 8192, 8192, 32, 8, 120, 4096, None, torch.bfloat16)
 ZAMBA_TRAIN_ATTN = (2, 4096, 4096, 32, 32, 80, None, None, torch.bfloat16)
 
 
-def attention_backward_work(b, s, t, h, k, d, window, dtype):
-    """(operations, bytes) the causal backward needs on these shapes: five
-    products of 2·D operations per visible (query, key) pair (S and dP
-    recomputed, dV, dQ, dK); q, k, v, o, dO and the fp32 LSE read once,
-    dq, dk, dv written once."""
-    flops, _ = attention_work(b, s, t, h, k, d, window, dtype)
-    esize = torch.finfo(dtype).bits // 8
-    nbytes = (esize * (4 * b * s * h * d + 4 * b * t * k * d)
-              + 4 * b * h * s)
-    return flops * 10 / 4, nbytes
-
-
 def _sdpa_backend(fn) -> str:
     """Names of the CUDA kernels one call of ``fn`` runs (profiler). A
     session can come back with no device event at all (on the card, now
@@ -987,6 +974,8 @@ def backward_phase(device: torch.device) -> dict:
     (head dim 64) and at the two new models' (with a window or a
     soft-cap, flex_attention's backward, and SDPA's as a side note)."""
     from repro_torch.kernels.flash_attention import kernel, ref
+    from repro_torch.kernels.flash_attention.work import (
+        attention_backward_work)
 
     def inputs(i, b, s, t, h, k, d, dtype):
         gen = torch.Generator(device=device).manual_seed(3000 + i)
@@ -1230,26 +1219,9 @@ def backward_phase(device: torch.device) -> dict:
     }
 
 
-def ssd_work(b, l, h, p, g, n, chunk, dtype, with_state):
-    """(operations, bytes) the scan needs on these shapes. Per chunk of q
-    tokens: q(q+1)/2 (query, key) pairs at 2(N+P) operations (C·B and the
-    gate times X) and 4·q·N·P for the carried-state term and the state
-    update. Bytes: x, B, C, fp32 dt and the initial state read once, y and
-    the final fp32 state written once."""
-    flops = 0.0
-    for c0 in range(0, l, chunk):
-        q = min(chunk, l - c0)
-        flops += q * (q + 1) / 2 * 2 * (n + p) + 4.0 * q * n * p
-    flops *= b * h
-    esize = torch.finfo(dtype).bits // 8
-    state = 4 * b * h * p * n
-    nbytes = (esize * (2 * b * l * h * p + 2 * b * l * g * n)
-              + 4 * b * l * h + state * (2 if with_state else 1))
-    return flops, nbytes
-
-
 def ssd_kernel_phase(device: torch.device) -> dict:
     from repro_torch.kernels.ssd import kernel, ref
+    from repro_torch.kernels.ssd.work import ssd_work
 
     def inputs(i, b, l, h, p, g, n, dtype, with_state):
         gen = torch.Generator(device=device).manual_seed(2000 + i)
@@ -1355,31 +1327,11 @@ SSD_TRAIN = (8, 4096, 24, 64, 1, 128, 256, torch.bfloat16, False)
 ZAMBA_SSD_TRAIN = (2, 4096, 80, 64, 1, 64, 256, torch.bfloat16, False)
 
 
-def ssd_backward_work(b, l, h, p, g, n, chunk, dtype, with_state):
-    """(operations, bytes) the backward needs on these shapes, counted as
-    ssd_work counts the forward. Per chunk of q tokens: q(q+1)/2 (query,
-    key) pairs at 2(3N + 2P) operations (C·B and dy·x recomputed, the gate
-    times dy, M times B and times C) and 10·q·N·P for the five state
-    products (the recomputed local state, its gradient's local term, the
-    carried state's term of dC, G·B and Gᵀx). Bytes: x, dy, B, C and fp32
-    dt read once, dx, dB, dC and ddt written once; with a state, the
-    initial state and the final state's gradient read and the initial
-    state's gradient written."""
-    flops = 0.0
-    for c0 in range(0, l, chunk):
-        q = min(chunk, l - c0)
-        flops += q * (q + 1) / 2 * 2 * (3 * n + 2 * p) + 10.0 * q * n * p
-    flops *= b * h
-    esize = torch.finfo(dtype).bits // 8
-    nbytes = (esize * (3 * b * l * h * p + 4 * b * l * g * n) + 8 * b * l * h
-              + (3 * 4 * b * h * p * n if with_state else 0))
-    return flops, nbytes
-
-
 def ssd_backward_phase(device: torch.device) -> dict:
     """The SSD backward on every row of SSD_SWEEP and at the training shape
     (see the module docstring), then its timing at the training shape."""
     from repro_torch.kernels.ssd import kernel, ref
+    from repro_torch.kernels.ssd.work import ssd_backward_work
 
     names = ("dx", "ddt", "da", "dB", "dC", "dD", "ds0")
 
@@ -2191,7 +2143,7 @@ def serve_phase(device: torch.device, arch: str, requests: int,
     """Full-width serving of ``arch`` (at ``layers`` layers where that is
     not None) through the port's entry point. Returns TALP's device PE of
     the prefill and decode regions, each with the region's wall per call
-    (the prefill; one decode step)."""
+    (the prefill; one decode step), and both regions' device metrics."""
     from repro_torch.core.report import render_tables
     from repro_torch.launch.serve import serve
 
@@ -2241,7 +2193,9 @@ def serve_phase(device: torch.device, arch: str, requests: int,
                       launches)
     pre = result.regions["prefill"]
     return {"prefill": (pre.device.parallel_efficiency, pre.elapsed),
-            "decode": (dec.device.parallel_efficiency, dec.elapsed / gen_len)}
+            "decode": (dec.device.parallel_efficiency, dec.elapsed / gen_len),
+            "device": {"prefill": pre.device.as_dict(),
+                       "decode": dec.device.as_dict()}}
 
 
 def add_path_launches(records: dict, path: str, launches: dict) -> None:
@@ -2285,14 +2239,17 @@ TRAIN_REFUSED = ("starcoder2-15b", "qwen2-vl-72b")
 
 def train_phase(device: torch.device, arch: str, steps: int, batch: int,
                 seq: int, lr: float, warmup: int, per_step: dict,
-                records: dict) -> None:
+                records: dict) -> dict:
     """Full-width training of ``arch`` through the port's entry point
     (``repro_torch.launch.train.train``), random fp32 weights from a seed:
     per-step loss (all finite), step time, tokens/s and MFU (median of
     steps 2-5), peak memory, each kernel's launches (counts set to 0 just
     before, read just after: ``per_step`` times the steps), and TALP's
     train_loop hierarchies. Then one more step traced with
-    ``torch.profiler``: device time by kernel and the busy share."""
+    ``torch.profiler``: device time by kernel and the busy share. Returns
+    the median step, the traced step's kernel time (the union of its
+    kernels; None where the profiler saw none), the run's peak memory and
+    TALP's train_loop device metrics."""
     from repro_torch.configs import ShapeConfig, get_config
     from repro_torch.data.pipeline import DataConfig, SyntheticTokenPipeline
     from repro_torch.launch.steps import make_train_step, model_flops
@@ -2409,6 +2366,8 @@ def train_phase(device: torch.device, arch: str, steps: int, batch: int,
     print(f"[train] AdamW update alone: {statistics.median(times):.3f} ms "
           f"(median of 3, CUDA events) of the {step_s * 1e3:.3f} ms step")
     del state, b, grads
+    return {"step_s": step_s, "busy_s": union if busy > 0 else None,
+            "peak": peak, "device": loop.device.as_dict()}
 
 
 def train_refusal_check(device: torch.device) -> None:
@@ -2559,6 +2518,9 @@ def profile_phase(device: torch.device, arch: str, batch: int,
     step's kernel time per call (the union of the traced calls' kernel
     intervals over the number of calls), which main() divides by the serve
     phase's wall per call of the same step for the profiler's busy share,
+    and each step's peak memory (``max_memory_allocated`` over the first
+    prefill, with the parameters and prompts live, and over the first
+    decode step of the grown caches),
     and holds TALP's device PE of that region against it: TALP reads the
     kernel time through its markers and the engine's flattening, the
     profile from a session of its own. The decode step is then timed again
@@ -2573,7 +2535,13 @@ def profile_phase(device: torch.device, arch: str, batch: int,
     with torch.inference_mode():
         params = lm.init_params(cfg, gen, device=device, dtype=torch.bfloat16)
         prompts = make_prompts(cfg, batch, prompt_len, gen, device)
+        # each step's peak with its own arguments live (the dry run's
+        # prediction is held to them): the parameters and prompts here
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
         logits, caches, pos = lm.prefill(cfg, params, prompts)
+        torch.cuda.synchronize(device)
+        peaks = {"prefill": torch.cuda.max_memory_allocated(device)}
         caches = lm.grow_caches(cfg, caches, prompt_len + gen_len)
         # the serve driver's decode input: the argmax token, or a zero frame
         tok = (logits.argmax(-1).to(torch.int32)[:, None]
@@ -2599,11 +2567,16 @@ def profile_phase(device: torch.device, arch: str, batch: int,
             return statistics.median(walls)
 
         for name, step in steps.items():
+            torch.cuda.reset_peak_memory_stats(device)
             step()
             torch.cuda.synchronize()
+            if name == "decode_step":   # the caches, parameters and token
+                peaks[name] = torch.cuda.max_memory_allocated(device)
             wall = median_wall(step)
             reps = 3 if name == "prefill" else 8
-            prof, traced_wall, union, _ = traced(step, reps)
+            # (the traced calls' last output is dropped here: the next
+            # step's peak is measured with its own arguments live)
+            prof, traced_wall, union = traced(step, reps)[:3]
             kernels = [e for e in prof.key_averages()
                        if e.device_type == torch.autograd.DeviceType.CUDA]
             dev_time = lambda e: getattr(  # noqa: E731
@@ -2650,7 +2623,7 @@ def profile_phase(device: torch.device, arch: str, batch: int,
                 print(f"[profile]   {dev_time(e) * 1e-3 / reps:9.3f} ms "
                       f"x{e.count // reps:<5d} {e.key[:90]}")
     del params, caches
-    return kernel_time
+    return kernel_time, peaks
 
 
 def traced(step, reps: int = 1):
@@ -3462,6 +3435,152 @@ def mesh_phase(device: torch.device, records: dict) -> None:
         dist.destroy_process_group()
 
 
+# The dry run's one-card cells (arch, step kind, sequence length, batch):
+# the steps the phases above measured on the card, each predicted on a
+# (1, 1) mesh over one fake rank at the full stack's count.
+DRYRUN_ONE_CARD = [
+    ("llama3.2-3b", "train", 2048, 2),
+    ("llama3.2-3b", "prefill", 1024, 8),
+    ("llama3.2-3b", "decode", 1088, 8),    # 1024 prompt + 64 generated
+    ("zamba2-2.7b", "train", 4096, 2),
+    ("granite-moe-3b-a800m", "train", 2048, 2),
+]
+# Calibrated production cells through the dry run's CLI (arch, shape,
+# multi-pod): a training cell on 16x16, qwen3-moe-235b-a22b (438 GiB of
+# bf16 weights, which no card holds) on 16x16, and a 2x16x16 cell; each
+# the cheapest of its kind (decode cells run no activation sharding, whose
+# strided shards DTensor plans slowly on three mesh dims).
+DRYRUN_PRODUCTION = [
+    ("llama3.2-3b", "train_4k", False),
+    ("qwen3-moe-235b-a22b", "decode_32k", False),
+    ("mamba2-130m", "decode_32k", True),
+]
+# The band a predicted peak must fall in, as a multiple of the measured
+# max_memory_allocated of the same step.
+PEAK_BAND = (0.8, 1.25)
+DRYRUN_TIMEOUT = 600
+
+
+def dryrun_worker(out: str) -> int:
+    """The one-card cells of DRYRUN_ONE_CARD, in this process (a fake
+    process group of one rank: it must not meet another group), written to
+    ``out`` as JSON with each cell's seconds."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch.dryrun import run_cell
+
+    cells = []
+    for arch, kind, seq, batch in DRYRUN_ONE_CARD:
+        t0 = time.perf_counter()
+        res = run_cell(arch, ShapeConfig(f"{kind}_{batch}x{seq}", seq, batch,
+                                         kind),
+                       verbose=False, calibrate=False, device="cuda",
+                       mesh=((1, 1), ("data", "model")))
+        cells.append({"arch": arch, "kind": kind, "seconds":
+                      time.perf_counter() - t0, "result": res})
+    Path(out).write_text(json.dumps(cells))
+    return 0
+
+
+def dryrun_phase(measured: dict) -> None:
+    """The dry run (``repro_torch.launch.dryrun``) on fake process groups,
+    in subprocesses of their own, run side by side: no fake group meets
+    the NCCL group of ``mesh_phase`` and nothing is allocated on the card.
+
+    (a) DRYRUN_ONE_CARD on a (1, 1) "cuda" mesh against what this run
+    measured of the same steps (``measured``, by (arch, kind): the median
+    step, the traced step's kernel time, max_memory_allocated and TALP's
+    device metrics). Fails if a predicted kernel time (max of the compute
+    and HBM terms) exceeds the measured kernel time, or a predicted peak
+    (arguments and the step's live tensors) lies outside PEAK_BAND times
+    the measured one.
+
+    (b) DRYRUN_PRODUCTION through ``python -m repro_torch.launch.dryrun``
+    (calibrated, each cell's JSON written under a temporary directory):
+    every cell must come back ``ok``; its JSON line and seconds printed."""
+    out = Path(tempfile.mkdtemp(prefix="dryrun_"))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(SRC)] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    commands = {"one-card": [sys.executable, str(Path(__file__).resolve()),
+                             "--dryrun-worker", str(out / "one_card.json")]}
+    for arch, shape, multi_pod in DRYRUN_PRODUCTION:
+        commands[arch, shape, multi_pod] = [
+            sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+            "--shape", shape, "--out", str(out)] + (
+            ["--multi-pod"] if multi_pod else [])
+    procs, seconds = {}, {}
+    t0 = time.perf_counter()
+    try:
+        for key, cmd in commands.items():
+            log = out / (("_".join(map(str, key)) if isinstance(key, tuple)
+                          else key) + ".log")
+            with open(log, "w") as f:   # DTensor warns at length: a file
+                procs[key] = (subprocess.Popen(
+                    cmd, env=env, stdout=f, stderr=subprocess.STDOUT), log)
+        while len(seconds) < len(procs):
+            assert time.perf_counter() - t0 < DRYRUN_TIMEOUT, (
+                "dry-run cells still running", sorted(
+                    map(str, set(procs) - set(seconds))))
+            for key, (proc, log) in procs.items():
+                if key not in seconds and proc.poll() is not None:
+                    seconds[key] = time.perf_counter() - t0
+                    assert proc.returncode == 0, (
+                        key, log.read_text()[-4000:])
+            time.sleep(0.5)
+    finally:
+        for proc, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    wall = time.perf_counter() - t0
+
+    cells = json.loads((out / "one_card.json").read_text())
+    for cell in cells:
+        res, key = cell["result"], (cell["arch"], cell["kind"])
+        got = measured[key]
+        assert res["status"] == "ok", res
+        assert got["busy_s"], f"{key}: the profiler measured no kernel time"
+        kernel_s = max(res["compute_s"], res["memory_s"])
+        peak = res["memory_analysis"]["peak_memory"]
+        ratio = peak / got["peak"]
+        print(f"[dryrun] {cell['arch']} {cell['kind']} {res['shape']} on "
+              f"{res['mesh']} ({cell['seconds']:.1f} s): predicted compute "
+              f"{res['compute_s'] * 1e3:.3f} ms, memory "
+              f"{res['memory_s'] * 1e3:.3f} ms, kernel {kernel_s * 1e3:.3f} "
+              f"ms, collective {res['collective_s'] * 1e3:.3f} ms, dominant "
+              f"{res['dominant']}, peak {peak / 2**30:.3f} GiB (arguments "
+              f"{res['argument_size'] / 2**30:.3f}, temp "
+              f"{res['temp_size'] / 2**30:.3f}); measured step "
+              f"{got['step_s'] * 1e3:.3f} ms, kernel time "
+              f"{got['busy_s'] * 1e3:.3f} ms, max_memory_allocated "
+              f"{got['peak'] / 2**30:.3f} GiB; predicted kernel / measured "
+              f"kernel {kernel_s / got['busy_s']:.4f}, peak ratio "
+              f"{ratio:.4f} (band {PEAK_BAND}); FLOPs {res['flops']:.4e} "
+              f"(model {res['model_flops']:.4e}), HBM bytes "
+              f"{res['hbm_bytes']:.4e}")
+        print(f"[dryrun]   TALP device predicted {json.dumps(res['talp_device'])}"
+              f" | measured {json.dumps(got['device'])}")
+        assert kernel_s <= got["busy_s"], (
+            f"{key}: a roofline above what the card did is a counting fault",
+            kernel_s, got["busy_s"])
+        assert PEAK_BAND[0] <= ratio <= PEAK_BAND[1], (key, peak, got["peak"])
+    for key in commands:
+        if key == "one-card":
+            continue
+        arch, shape, multi_pod = key
+        [path] = [p for p in out.glob(f"{arch}__{shape}__*.json")
+                  if ("2podx" in p.name) == multi_pod]
+        res = json.loads(path.read_text())
+        assert res["status"] == "ok", res
+        assert res["collective_bytes"] > 0, res
+        print(f"[dryrun] {arch} x {shape} x {res['mesh']}: process "
+              f"{seconds[key]:.1f} s; " + json.dumps(res))
+    print(f"[dryrun] phase wall {wall:.1f} s (one-card worker "
+          f"{seconds['one-card']:.1f} s; cells "
+          + ", ".join(f"{c['arch']} {c['kind']} {c['seconds']:.1f}"
+                      for c in cells) + ")")
+    shutil.rmtree(out)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -3502,19 +3621,25 @@ def main() -> int:
     train_path_check(device)
     mark("path checks")
     busy_by_arch = {}
+    # what the dry run's one-card cells are held to, by (arch, step kind)
+    measured = {}
     for arch, requests, prompt_len, gen_len, expected, layers in SERVE:
         talp = serve_phase(device, arch, requests, prompt_len, gen_len,
                            expected, layers, records)
         torch.cuda.empty_cache()
-        busy = busy_by_arch[arch] = profile_phase(device, arch, requests,
-                                                  prompt_len, gen_len, layers)
+        busy, peaks = profile_phase(device, arch, requests, prompt_len,
+                                    gen_len, layers)
+        busy_by_arch[arch] = busy
         for region, step in (("prefill", "prefill"), ("decode", "decode_step")):
             compare_pe(f"{arch} {region}", *talp[region], busy.get(step))
+            measured[arch, region] = {
+                "step_s": talp[region][1], "busy_s": busy.get(step),
+                "peak": peaks[step], "device": talp["device"][region]}
         torch.cuda.empty_cache()
     mark("serve and profile")
     train_refusal_check(device)
     for row in TRAIN:
-        train_phase(device, *row, records)
+        measured[row[0], "train"] = train_phase(device, *row, records)
         torch.cuda.empty_cache()
     mark("training")
     checkpoint_phase(device, records)
@@ -3528,6 +3653,8 @@ def main() -> int:
     mesh_phase(device, records)
     torch.cuda.empty_cache()
     mark("mesh")
+    dryrun_phase(measured)
+    mark("dry run")
     print("[time] seconds since the start, after each phase: " + ", ".join(
         f"{phase} {secs:.1f}" for phase, secs in marks))
     missing = [name for name, rec in records.items() if not rec["launches"]]
@@ -3540,4 +3667,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dryrun-worker"]:
+        sys.exit(dryrun_worker(sys.argv[2]))
     sys.exit(main())

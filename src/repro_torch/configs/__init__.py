@@ -1,10 +1,10 @@
 """Architecture registry of the port, copied from ``repro.configs``.
 
-Nine architectures are registered: ``llama3.2-3b``, ``mamba2-130m``,
+All ten architectures are registered: ``llama3.2-3b``, ``mamba2-130m``,
 ``zamba2-2.7b``, ``granite-moe-3b-a800m``, ``musicgen-large``,
-``starcoder2-15b``, ``qwen2-vl-72b``, ``gemma2-2b`` (head dim 256) and
-``h2o-danube-3-4b`` (head dim 120). ``qwen3-moe-235b-a22b`` stays out: the
-JAX package only dry-runs it."""
+``starcoder2-15b``, ``qwen2-vl-72b``, ``gemma2-2b`` (head dim 256),
+``h2o-danube-3-4b`` (head dim 120) and ``qwen3-moe-235b-a22b`` (235 B
+parameters, 438 GiB in bf16, which only the dry run takes)."""
 
 from .base import (
     ModelConfig,
@@ -25,6 +25,7 @@ from . import (  # noqa: F401
     mamba2_130m,
     musicgen_large,
     qwen2_vl_72b,
+    qwen3_moe_235b_a22b,
     starcoder2_15b,
     zamba2_2_7b,
 )

@@ -26,8 +26,7 @@ collection closes:
     flush closes its collection (``flush_closes_collection``); elsewhere
     it flushes at every step close, as the copy does.
   * :class:`~.merge.AllGatherTransport` runs on ``torch.distributed``;
-    :mod:`.backends.analytical` holds only ``HardwareSpec`` and
-    ``StepModel``, whose default hardware is one H100.
+    :mod:`.backends.analytical`'s default hardware is one H100.
 """
 
 from . import intervals

@@ -1,7 +1,13 @@
 from .base import ActivityBackend, available_backends, get_backend, register_backend
 from .synthetic import SyntheticBackend, SyntheticTraceBuilder
 from .cuda_runtime import CudaRuntimeBackend
-from .analytical import H100_SXM, HardwareSpec, StepModel
+from .analytical import (
+    AnalyticalBackend,
+    H100_SXM,
+    HardwareSpec,
+    StepModel,
+    trace_from_step_model,
+)
 
 __all__ = [
     "ActivityBackend",
@@ -11,7 +17,9 @@ __all__ = [
     "SyntheticBackend",
     "SyntheticTraceBuilder",
     "CudaRuntimeBackend",
+    "AnalyticalBackend",
     "H100_SXM",
     "HardwareSpec",
     "StepModel",
+    "trace_from_step_model",
 ]

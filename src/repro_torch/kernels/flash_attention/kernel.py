@@ -18,6 +18,10 @@ mode: :class:`FlashAttention` (through ``ops.attention``) is the
 differentiable path. Each function's ``launches`` attribute counts its
 calls; one backward call launches three kernels.
 
+A fake tensor takes the kernels' place (``kernels.fake``): the same
+checks but the device's, the same outputs as fakes, and the work of
+:mod:`.work` given to its fake mode; nothing is launched or counted.
+
 Head dims: the forward takes 32, 64, 80, 120, 128 and 256 (80 is
 zamba2-2.7b's 2560 / 32, 120 h2o-danube-3-4b's 3840 / 32, 256
 gemma2-2b's), and so does the backward. D 80 and 120 run the D-128 tiles
@@ -36,6 +40,8 @@ import torch
 
 from ...sharding.local import refuse_dtensor
 from .. import cuda_build
+from ..fake import is_fake, record_work
+from .work import attention_backward_work, attention_work
 
 __all__ = ["BWD_HEAD_DIMS", "BWD_SOURCE", "FWD_HEAD_DIMS", "FlashAttention",
            "SOURCE", "backward_library", "check_inputs", "flash_attention",
@@ -113,6 +119,8 @@ def check_inputs(q, k, v, causal: bool, window: Optional[int],
         raise ValueError(f"softcap must be > 0, got {softcap}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention wants contiguous q, k, v")
+    if is_fake(q):   # no memory: the device and alignment are the launch's
+        return
     if any(x.device.type != "cuda" for x in (q, k, v)):
         raise ValueError("flash_attention launches a CUDA kernel and wants "
                          "CUDA tensors; ops.attention takes the plain version "
@@ -147,12 +155,16 @@ def flash_attention(
     synchronise. Refuses inputs that require grad under grad mode."""
     _refuse_grad(q, k, v)
     check_inputs(q, k, v, causal, window, softcap)
-    lib = library()
     b, s, h, d = q.shape
     t, nk = k.shape[1], k.shape[2]
     o = torch.empty_like(q)
     lse = (torch.empty((b, h, s), dtype=torch.float32, device=q.device)
            if return_lse else None)
+    if is_fake(q):
+        record_work(q, "flash_attention_fwd", *attention_work(
+            b, s, t, h, nk, d, window, q.dtype, causal))
+        return (o, lse) if return_lse else o
+    lib = library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.flash_attention_fwd(
@@ -199,6 +211,11 @@ def flash_attention_backward(
                          f"({b}, {h}, {s}) float32 on {q.device}")
     if not (o.is_contiguous() and lse.is_contiguous()):
         raise ValueError("flash_attention_backward wants contiguous o, lse")
+    if is_fake(q):
+        grads = tuple(torch.empty_like(x) for x in (q, k, v))
+        record_work(q, "flash_attention_bwd", *attention_backward_work(
+            b, s, t, h, nk, d, window, q.dtype, causal))
+        return grads
     if any(x.data_ptr() % 16 for x in (o, do, lse)):
         raise ValueError("flash_attention_backward wants 16-byte aligned "
                          "tensors")

@@ -3,7 +3,9 @@
 A CUDA tensor goes to :class:`.kernel.FlashAttention`, whose forward and
 backward are the hand-written kernels, which launch or raise; a CPU
 tensor goes to the plain version (:mod:`.ref`), differentiated by
-autograd. There is no fallback from the first to the second. Port of
+autograd. A fake tensor (the dry run's) goes to the kernels on any
+device, which count their work and launch nothing (``kernels.fake``).
+There is no fallback from the first to the second. Port of
 ``repro.kernels.flash_attention.ops.attention``.
 
 DTensor inputs (a sharded step) run in a local map
@@ -22,6 +24,7 @@ from typing import Optional
 import torch
 
 from ...sharding.local import is_dtensor, op_placements, run_local
+from ..fake import is_fake
 from . import kernel as _kernel
 from . import ref as _ref
 
@@ -42,7 +45,7 @@ def attention(
         return run_local(
             lambda q_, k_, v_: attention(q_, k_, v_, causal, window, softcap),
             (q, k, v), (pl, pl, pl), pl, mesh)
-    if q.device.type == "cpu":
+    if q.device.type == "cpu" and not is_fake(q):
         return _ref.attention_reference(q, k, v, causal=causal, window=window,
                                         softcap=softcap)
     return _kernel.FlashAttention.apply(q, k, v, causal, window, softcap)

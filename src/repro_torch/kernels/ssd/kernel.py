@@ -23,6 +23,12 @@ product and the recurrence over the chunks being the forward's own
 is by dtype. The libraries are built with ``nvcc`` at their first launch,
 never at import, so this module imports on machines without CUDA.
 
+A fake tensor takes the kernels' place (``kernels.fake``): the same
+checks but the device's, the same outputs and forward scratch as fakes
+(not the backward's workspace, whose size the library computes), and the
+work of :mod:`.work` given to its fake mode; nothing is launched or
+counted.
+
 :func:`ssd_scan` and :func:`ssd_scan_backward` take CUDA tensors only
 and raise ``ValueError`` for anything their kernels do not take, before
 any library is loaded; they never fall back to the plain version.
@@ -43,6 +49,8 @@ import torch
 
 from ...sharding.local import refuse_dtensor
 from .. import cuda_build
+from ..fake import is_fake, record_work
+from .work import ssd_backward_work, ssd_work
 
 __all__ = ["BWD_SOURCE", "MAX_CHUNK", "SIZES", "SOURCE", "SSDScan",
            "backward_library", "check_inputs", "library", "ssd_scan",
@@ -130,6 +138,8 @@ def check_inputs(x, dt, a, b_mat, c_mat, chunk: int, d_skip=None,
     tensors = [x, dt, a, b_mat, c_mat] + extra
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("ssd wants contiguous tensors")
+    if is_fake(x):   # no memory: the device and alignment are the launch's
+        return
     if any(t.device.type != "cuda" for t in tensors):
         raise ValueError("ssd_scan launches a CUDA kernel and wants CUDA "
                          "tensors; ops.ssd takes the plain version for CPU "
@@ -171,11 +181,11 @@ def ssd_scan(
             "would cut the gradient to its inputs; call ops.ssd (SSDScan) "
             "for inputs that require grad")
     check_inputs(x, dt, a, b_mat, c_mat, chunk, d_skip, initial_state)
-    lib = library()
     bsz, l, h, p = x.shape
     g, n = b_mat.shape[2], b_mat.shape[3]
     bf16 = x.dtype == torch.bfloat16
-    if bf16:
+    fake = is_fake(x)
+    if bf16 and not fake:
         x, b_mat, c_mat, initial_state = _aligned16(x, b_mat, c_mat,
                                                     initial_state)
     y = torch.empty_like(x)
@@ -186,6 +196,12 @@ def ssd_scan(
                           device=x.device) if bf16 else None)
     decay = (torch.empty((bsz, nc, h), dtype=torch.float32, device=x.device)
              if bf16 else None)
+    if fake:
+        record_work(x, "ssd_fwd", *ssd_work(
+            bsz, l, h, p, g, n, chunk, x.dtype, initial_state is not None
+            or return_final_state))
+        return (y, final) if return_final_state else y
+    lib = library()
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -237,6 +253,16 @@ def ssd_scan_backward(
     dy = dy.contiguous()
     if d_final_state is not None:
         d_final_state = d_final_state.contiguous()
+    if is_fake(x):
+        f32 = dict(dtype=torch.float32, device=x.device)
+        grads = tuple(torch.empty_like(t) for t in (x, dt, a, b_mat, c_mat))
+        record_work(x, "ssd_bwd", *ssd_backward_work(
+            bsz, l, h, p, b_mat.shape[2], n, chunk, x.dtype,
+            initial_state is not None or d_final_state is not None))
+        return grads + (
+            torch.empty((h,), **f32) if d_skip is not None else None,
+            torch.empty((bsz, h, p, n), **f32) if initial_state is not None
+            else None)
     # both paths run the state recurrences on float4s; the bf16 path also
     # loads x, dy, B and C by cp.async
     x, b_mat, c_mat, dy, initial_state, d_final_state = _aligned16(

@@ -4,7 +4,9 @@ A CUDA tensor goes to the hand-written kernels (:mod:`.kernel`), which
 launch or raise: through :class:`.kernel.SSDScan`, whose backward is the
 CUDA backward, when grad mode is on, and straight to
 :func:`.kernel.ssd_scan` when it is off. A CPU tensor goes to the plain
-version (:func:`.ref.ssd_reference`), which autograd differentiates.
+version (:func:`.ref.ssd_reference`), which autograd differentiates. A fake
+tensor (the dry run's) goes to the kernels on any device, which count
+their work and launch nothing (``kernels.fake``).
 There is no fallback from the first to the second and no ``impl``
 switch. Port of ``repro.kernels.ssd.ops.ssd``, with the initial and
 final state of ``ssd_reference`` on both paths.
@@ -29,6 +31,7 @@ import torch
 
 from ...sharding.local import is_dtensor, op_placements, run_local
 from ...sharding.partition import axis_sizes
+from ..fake import is_fake
 from . import kernel as _kernel
 from . import ref as _ref
 
@@ -94,7 +97,7 @@ def ssd(
                                 g_shared if d_skip is not None else None,
                                 state))
         return outs if return_final_state else outs[0]
-    if x.device.type == "cpu":
+    if x.device.type == "cpu" and not is_fake(x):
         return _ref.ssd_reference(x, dt, a, b_mat, c_mat, chunk=chunk,
                                   d_skip=d_skip, initial_state=initial_state,
                                   return_final_state=return_final_state)

@@ -1,11 +1,16 @@
-"""Step-function factories: training and serving. Port of
-``repro.launch.steps`` (``init_train_state``, ``train_state_shapes``,
-``make_train_step``, ``make_prefill_step``, ``make_serve_step``,
-``model_flops``)."""
+"""Step-function factories: training and serving, and the abstract inputs of
+every (architecture × shape) cell. Port of ``repro.launch.steps``.
+
+``input_specs(cfg, shape)`` and ``serve_params_shapes(cfg)`` return trees
+of tensors on the meta device (shapes and dtypes, no memory), the port's
+``jax.ShapeDtypeStruct``: the dry run (``repro_torch.launch.dryrun``)
+places fakes of them on its mesh. Train cells run ``train_step`` (forward,
+backward and the AdamW update); prefill cells ``prefill_step``; decode
+cells ``serve_step`` (one new token against a ``seq_len`` cache)."""
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
 
 import torch
 
@@ -20,6 +25,8 @@ __all__ = [
     "make_train_step",
     "make_prefill_step",
     "make_serve_step",
+    "input_specs",
+    "serve_params_shapes",
     "model_flops",
 ]
 
@@ -99,6 +106,44 @@ def make_serve_step(cfg: ModelConfig):
         return lm.decode_step(cfg, params, token, pos, caches)
 
     return serve_step
+
+
+# ---------------------------------------------------------------------------
+# abstract inputs (meta tensors)
+# ---------------------------------------------------------------------------
+def serve_params_shapes(cfg: ModelConfig):
+    """Serving weights: the parameter tree on the meta device, its float
+    leaves bf16 (fp32 masters live in the train state)."""
+    return lm.init_params(cfg, None, device="meta", dtype=torch.bfloat16)
+
+
+def _token_spec(cfg: ModelConfig, batch: int, seq: int) -> torch.Tensor:
+    if cfg.frontend == "token":
+        return torch.empty((batch, seq), dtype=torch.int32, device="meta")
+    # VLM/audio stub: precomputed frame/patch embeddings
+    return torch.empty((batch, seq, cfg.d_model),
+                       dtype=getattr(torch, cfg.compute_dtype), device="meta")
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> Tuple[Any, ...]:
+    """Abstract inputs for the step the shape runs (params/state apart), as
+    meta tensors: a train batch ``{"inputs", "labels"}``; prefill inputs;
+    or a decode token, positions and filled caches of ``seq_len`` slots."""
+    b, s = shape.global_batch, shape.seq_len
+    if shape.kind == "train":
+        batch = {
+            "inputs": _token_spec(cfg, b, s),
+            "labels": torch.empty((b, s), dtype=torch.int32, device="meta"),
+        }
+        return (batch,)
+    if shape.kind == "prefill":
+        return (_token_spec(cfg, b, s),)
+    if shape.kind == "decode":
+        token = _token_spec(cfg, b, 1)
+        pos = torch.empty((b,), dtype=torch.int32, device="meta")
+        caches = lm.init_decode_caches(cfg, b, s, filled=True, device="meta")
+        return (token, pos, caches)
+    raise ValueError(shape.kind)
 
 
 # ---------------------------------------------------------------------------

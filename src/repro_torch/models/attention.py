@@ -28,7 +28,8 @@ import torch
 
 from ..kernels.flash_attention import ops as flash_ops
 from ..sharding.act_sharding import constrain_seq_gathered
-from ..sharding.local import is_dtensor, op_placements, replicate_like, run_local
+from ..sharding.local import (is_dtensor, merge_last, op_placements,
+                              replicate_like, run_local, split_last)
 from .common import apply_mrope, apply_rope, truncated_normal
 
 __all__ = [
@@ -62,9 +63,9 @@ def _project_qkv(cfg, p, h):
     hd = cfg.resolved_head_dim
     nh, nk = cfg.num_heads, cfg.num_kv_heads
     cdt = h.dtype
-    q = (h @ p["wq"].to(cdt)).reshape(b, s, nh, hd)
-    k = (h @ p["wk"].to(cdt)).reshape(b, s, nk, hd)
-    v = (h @ p["wv"].to(cdt)).reshape(b, s, nk, hd)
+    q = split_last(h @ p["wq"].to(cdt), nh)
+    k = split_last(h @ p["wk"].to(cdt), nk)
+    v = split_last(h @ p["wv"].to(cdt), nk)
     return q, k, v
 
 
@@ -202,7 +203,7 @@ def attn_forward(
     out = flash_ops.attention(q, k, v, causal=True, window=_window(cfg, kind),
                               softcap=cfg.attn_logit_softcap)
     b, s, _, _ = out.shape
-    y = out.reshape(b, s, -1) @ p["wo"].to(out.dtype)
+    y = merge_last(out) @ p["wo"].to(out.dtype)
     cache = None
     if build_cache:
         hot = cfg.decode_hot_len
@@ -286,7 +287,7 @@ def attn_decode(
     else:
         out = _decode_attend(q, k_new, v_new, positions,
                              *(cache[n] for n in names), **kw)
-    y = out.reshape(b, 1, -1) @ p["wo"].to(out.dtype)
+    y = merge_last(out) @ p["wo"].to(out.dtype)
     return y, cache
 
 

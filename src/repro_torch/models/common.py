@@ -111,9 +111,10 @@ def apply_mrope(x: torch.Tensor, positions: torch.Tensor,
         positions = positions.full_tensor()
     freqs = rope_frequencies(x.shape[-1], theta, device=x.device)
     # band i takes the position stream its section names
-    stream_idx = torch.repeat_interleave(
-        torch.arange(len(sections), device=x.device),
-        torch.tensor(list(sections), device=x.device))          # (half,)
+    # (built from the config's ints, not by a repeat whose output size a
+    # tensor gives: the dry run's fake tensors hold no values)
+    stream_idx = torch.tensor([i for i, n in enumerate(sections)
+                               for _ in range(n)], device=x.device)  # (half,)
     pos_per_band = positions.float()[stream_idx]              # (half, B, S)
     angles = pos_per_band.movedim(0, -1)[..., None, :] * freqs  # (B,S,1,half)
     return _rotate(x, angles)

@@ -36,8 +36,8 @@ from typing import Any, Dict, List, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from ..sharding.act_sharding import constrain
-from ..sharding.local import replicate_like
+from ..sharding.act_sharding import constrain, constrain_seq_gathered
+from ..sharding.local import reduce_partial, replicate_like
 from .attention import (attn_decode, attn_forward, init_attn_params,
                         init_kv_cache)
 from .common import chunked_softmax_xent, rms_norm, soft_cap, truncated_normal
@@ -52,6 +52,7 @@ __all__ = [
     "param_count",
     "prefill",
     "grow_caches",
+    "consolidate_caches",
     "init_decode_caches",
     "decode_step",
     "train_loss",
@@ -174,31 +175,51 @@ def param_count(params) -> int:
 # ---------------------------------------------------------------------------
 # block application
 # ---------------------------------------------------------------------------
+def _norm_gathered(x, scale):
+    """The block's normed input, the sequence gathered where the ambient
+    activation spec shards it (sequence parallelism: gathered after the
+    norm, once for every product of the block, as Megatron-LM's SP does;
+    DTensor cannot fold a sequence-sharded (B, S, M) into the (B·S, M) a
+    product takes, and torch 2.11's refuses to); the identity without a
+    spec."""
+    return constrain_seq_gathered(rms_norm(x, scale))
+
+
+def _residual(x, y):
+    """``x + y``, the block's output ``y`` first brought to the ambient
+    activation spec by an explicit redistribution (sequence parallelism's
+    reduce-scatter), whose backward returns ``y``'s gradient to ``y``'s own
+    layout: otherwise the gradient reaches the block's last product
+    sequence-sharded, which DTensor cannot fold for the product's
+    backward. Without a spec, just ``x + y``."""
+    return x + constrain(y)
+
+
 def _ffn(cfg, bp, x, aux):
     """The feed-forward half of an attention block; ``aux`` accumulates
     the MoE's load-balancing loss."""
     if cfg.is_moe:
-        h = rms_norm(x, bp["ln2"])
+        h = _norm_gathered(x, bp["ln2"])
         y, a = moe_forward(cfg, bp["moe"], h)
-        return x + y, aux + a
+        return _residual(x, y), aux + a
     if cfg.d_ff:
-        h = rms_norm(x, bp["ln2"])
-        return x + mlp_forward(bp["mlp"], h), aux
+        h = _norm_gathered(x, bp["ln2"])
+        return _residual(x, mlp_forward(bp["mlp"], h)), aux
     return x, aux
 
 
 def _block_fwd(cfg, kind, bp, x, positions, aux, build_cache):
     """Full-sequence application (train / prefill): (x, aux, cache)."""
     if kind == "ssm":
-        h = rms_norm(x, bp["ln"])
+        h = _norm_gathered(x, bp["ln"])
         if build_cache:
             y, cache = ssm_forward(cfg, bp["ssm"], h, build_cache=True)
-            return x + y, aux, cache
-        return x + ssm_forward(cfg, bp["ssm"], h), aux, None
-    h = rms_norm(x, bp["ln1"])
+            return _residual(x, y), aux, cache
+        return _residual(x, ssm_forward(cfg, bp["ssm"], h)), aux, None
+    h = _norm_gathered(x, bp["ln1"])
     y, cache = attn_forward(cfg, bp["attn"], h, positions, kind,
                             build_cache=build_cache)
-    x, aux = _ffn(cfg, bp, x + y, aux)
+    x, aux = _ffn(cfg, bp, _residual(x, y), aux)
     return x, aux, cache
 
 
@@ -309,7 +330,8 @@ def _embed(cfg, params, inputs):
     exactly, so it is not a separate path here."""
     cdt = getattr(torch, cfg.compute_dtype)
     if cfg.frontend == "token":
-        return torch.nn.functional.embedding(inputs, params["embed"].to(cdt))
+        return reduce_partial(
+            torch.nn.functional.embedding(inputs, params["embed"].to(cdt)))
     return inputs.to(cdt)   # precomputed embeddings (VLM/audio stub)
 
 
@@ -343,7 +365,7 @@ def train_loss(cfg, params, batch) -> Tuple[torch.Tensor, Dict[str, Any]]:
     x = _embed(cfg, params, inputs)
     x, aux, _ = _stack_fwd(cfg, params, x,
                            _positions(cfg, b, s, labels.device))
-    h = rms_norm(x, params["final_norm"])
+    h = _norm_gathered(x, params["final_norm"])
     loss_sum, count = chunked_softmax_xent(
         h.reshape(-1, cfg.d_model),
         params["unembed"],
@@ -423,10 +445,11 @@ def grow_caches(cfg, caches, new_len: int):
     ``shared_attn`` block is never windowed, as in the JAX package.
 
     Decode writes only the hot ring, at ``pos % decode_hot_len``, and
-    nothing here or in the serve loop flushes it into the prefix, so
-    after ``decode_hot_len`` generated tokens the ring overwrites its own
-    oldest entries — as in the JAX package, whose serve loop does not call
-    ``consolidate_caches`` either."""
+    nothing here or in the serve loop flushes it into the prefix
+    (:func:`consolidate_caches` would), so after ``decode_hot_len``
+    generated tokens the ring overwrites its own oldest entries — as in
+    the JAX package, whose serve loop does not call ``consolidate_caches``
+    either."""
     out = {}
     for i, kind in enumerate(cfg.pattern):
         key = f"slot{i}"
@@ -449,6 +472,56 @@ def grow_caches(cfg, caches, new_len: int):
         grown["v"] = _pad_seq(c["v"], pad, 0)
         grown["kv_pos"] = _pad_seq(c["kv_pos"], pad, -1)
         out[key] = grown
+    return out
+
+
+def _scatter_slots(prefix: torch.Tensor, hot: torch.Tensor,
+                   idx: torch.Tensor) -> torch.Tensor:
+    """A copy of ``prefix`` (R, B, T, ...) with ``hot[r, b, j]`` written at
+    slot ``idx[r, b, j]`` of row (r, b); an index of T is dropped. Where
+    two hot slots name one prefix slot the later hot slot wins, as XLA's
+    scatter applies its updates in order."""
+    r, b, t = prefix.shape[:3]
+    n = idx.shape[-1]
+    later = torch.ones((n, n), dtype=torch.bool, device=idx.device).triu(1)
+    shadowed = ((idx[..., :, None] == idx[..., None, :]) & later).any(-1)
+    idx = torch.where(shadowed, torch.full_like(idx, t), idx)
+    out = torch.cat([prefix, prefix.new_zeros((r, b, 1) + prefix.shape[3:])],
+                    dim=2)   # slot t takes the drops
+    index = idx.reshape(idx.shape + (1,) * (hot.dim() - 3)).expand_as(hot)
+    out.scatter_(2, index.to(torch.int64), hot)
+    return out[:, :, :t].contiguous()
+
+
+def consolidate_caches(cfg, caches):
+    """Flush hot-ring entries into the prefix cache and reset the rings, as
+    ``repro.models.lm.consolidate_caches``: every valid hot slot
+    (``h_pos >= 0``) is written at prefix slot ``h_pos % T`` (ring
+    semantics, so windowed and full layers share the path), the rings come
+    back zero with ``h_pos = -1``, and SSM carries pass through. Returns new
+    caches; the given ones are left as they are. Neither driver calls it,
+    as in the JAX package."""
+    out = {}
+    for i, kind in enumerate(cfg.pattern):
+        key = f"slot{i}"
+        if key not in caches:
+            continue
+        c = caches[key]
+        if kind == "ssm" or "hk" not in c:
+            out[key] = c
+            continue
+        t = c["k"].shape[2]
+        h_pos = c["h_pos"]
+        idx = torch.where(h_pos >= 0, torch.remainder(h_pos, t),
+                          torch.full_like(h_pos, t))
+        out[key] = {
+            "k": _scatter_slots(c["k"], c["hk"], idx),
+            "v": _scatter_slots(c["v"], c["hv"], idx),
+            "kv_pos": _scatter_slots(c["kv_pos"], h_pos, idx),
+            "hk": torch.zeros_like(c["hk"]),
+            "hv": torch.zeros_like(c["hv"]),
+            "h_pos": torch.full_like(h_pos, -1),
+        }
     return out
 
 

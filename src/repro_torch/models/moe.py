@@ -29,7 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from ..sharding.act_sharding import constrain_to, current_moe_specs
-from ..sharding.local import replicate_like
+from ..sharding.local import gather_dims, replicate_like
 from .common import truncated_normal
 
 __all__ = ["init_moe_params", "moe_forward", "moe_capacity", "route",
@@ -61,8 +61,13 @@ def top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """The ``k`` largest values of the last axis and their indices, in
     descending order, equal values in ascending index order: the order of
     ``jax.lax.top_k``."""
-    values, indices = torch.sort(x, dim=-1, descending=True, stable=True)
-    return values[..., :k], indices[..., :k]
+    with torch.no_grad():
+        indices = torch.sort(x, dim=-1, descending=True,
+                             stable=True).indices[..., :k]
+    # the values gathered at the indices, the same as the sort's: the
+    # gradient then flows through a gather, whose backward DTensor takes
+    # (torch 2.11's cannot take the sort's, a scatter into a plain tensor)
+    return torch.gather(x, -1, indices), indices
 
 
 def _one_hot(idx: torch.Tensor, n: int, dtype) -> torch.Tensor:
@@ -160,7 +165,12 @@ def moe_forward(cfg, p: Dict[str, torch.Tensor],
     # --- expert computation (compute dtype) ---
     xin = torch.einsum("gsm,gsec->gecm", xg, dispatch)
     out = expert_ffn(p, xin)
-    y = torch.einsum("gecm,gsec->gsm", out, combine)
+    # the combine contracts (expert, slot) as one dim: a product over the
+    # folded pair, of which only the leading (expert) dim may stay sharded
+    # (torch 2.11's DTensor folds no other sharded dim)
+    e_c = out.shape[1] * out.shape[2]
+    y = torch.bmm(gather_dims(combine, (3,)).reshape(g, gs, e_c),
+                  gather_dims(out, (2,)).reshape(g, e_c, m))
 
     # --- Switch load-balance aux loss (over the e *logical* experts) ---
     frac_tokens = torch.mean(eh[..., :e].sum(2), dim=1)           # (g,e)

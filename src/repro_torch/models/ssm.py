@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.ssd import ops as ssd_ops
+from ..sharding.local import merge_last, split_last
 from .common import rms_norm, truncated_normal
 
 __all__ = ["init_ssm_params", "ssm_forward", "init_ssm_cache", "ssm_decode"]
@@ -77,7 +78,11 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor,
     JAX package's order (i = 0..K-1), so bf16 rounds where JAX does."""
     k = w.shape[0]
     if tail is None:
-        xp = F.pad(x, (0, 0, k - 1, 0))
+        # zeros before the sequence (a concatenation, not F.pad: torch
+        # 2.11's DTensor gives a pad's output one placement whatever the
+        # mesh's dims)
+        xp = torch.cat([x.new_zeros((x.shape[0], k - 1, x.shape[2])), x],
+                       dim=1)
     else:
         xp = torch.cat([tail.to(x.dtype), x], dim=1)
     # windows: out[:, t] = sum_i w[i] * xp[:, t + i]
@@ -108,23 +113,20 @@ def ssm_forward(cfg, p: Dict[str, torch.Tensor], h: torch.Tensor,
     With ``build_cache`` also returns the decode carry (final SSD state +
     conv tails), for the prefill→decode handoff of SSM layers.
     """
-    bsz, l, _ = h.shape
-    d_in = cfg.ssm_d_inner
-    nh, hp = cfg.ssm_heads, cfg.ssm_head_dim
-    g, n = cfg.ssm_groups, cfg.ssm_state
+    nh, g = cfg.ssm_heads, cfg.ssm_groups
     k = cfg.ssm_conv
     z, x_raw, b_raw, c_raw, dt = _project(cfg, p, h)
     x = _causal_conv(x_raw, p["conv_x"])
     b = _causal_conv(b_raw, p["conv_b"])
     c = _causal_conv(c_raw, p["conv_c"])
     out = ssd_ops.ssd(
-        x.reshape(bsz, l, nh, hp), dt, _decay_rates(p),
-        b.reshape(bsz, l, g, n), c.reshape(bsz, l, g, n),
+        split_last(x, nh), dt, _decay_rates(p),
+        split_last(b, g), split_last(c, g),
         chunk=cfg.ssm_chunk, d_skip=p["d_skip"].float(),
         return_final_state=build_cache,
     )
     y, state = out if build_cache else (out, None)
-    y = y.reshape(bsz, l, d_in)
+    y = merge_last(y)
     y = rms_norm(y * _silu(z), p["norm"])
     out = y @ p["wo"].to(y.dtype)
     if not build_cache:
@@ -162,9 +164,7 @@ def ssm_decode(
     """One-token decode. h: (B, 1, M). Returns (out, new cache); the new
     state and conv tails are new tensors and ``cache`` is not modified
     (the caller writes them back where it keeps the cache)."""
-    bsz = h.shape[0]
-    nh, hp = cfg.ssm_heads, cfg.ssm_head_dim
-    g, n = cfg.ssm_groups, cfg.ssm_state
+    nh, g = cfg.ssm_heads, cfg.ssm_groups
     z, x, b, c, dt = _project(cfg, p, h)
     new_cache = dict(cache)
     outs = {}
@@ -174,15 +174,15 @@ def ssm_decode(
         new_cache[name] = torch.cat([tail[:, 1:], val.to(tail.dtype)], dim=1)
     x, b, c = outs["conv_x"], outs["conv_b"], outs["conv_c"]
     y, state = ssd_ops.decode_step(
-        x[:, 0].reshape(bsz, nh, hp),
+        split_last(x[:, 0], nh),
         dt[:, 0],
         _decay_rates(p),
-        b[:, 0].reshape(bsz, g, n),
-        c[:, 0].reshape(bsz, g, n),
+        split_last(b[:, 0], g),
+        split_last(c[:, 0], g),
         cache["state"],
         d_skip=p["d_skip"].float(),
     )
     new_cache["state"] = state
-    y = y.reshape(bsz, 1, cfg.ssm_d_inner)
+    y = merge_last(y).unsqueeze(1)   # (B, 1, d_inner)
     y = rms_norm(y * _silu(z), p["norm"])
     return y @ p["wo"].to(y.dtype), new_cache

@@ -11,6 +11,13 @@ DTensors of that layout. A plain tensor built on every rank alike (RoPE
 tables, masks, the MoE's zero loss) joins a DTensor as a replicated one.
 
 No op here gathers a whole tensor to run the op on every rank.
+
+The reshapes the models make of DTensors go through helpers here where
+DTensor cannot take them as the tensor lies: a head split that would cut
+a head (:func:`split_last`), the merge whose backward would (:func:`merge_last`),
+a fold behind a sharded dim (:func:`gather_dims`; torch 2.11's DTensor
+folds only a fold's leading sharded dim) and a masked embedding read
+twice (:func:`reduce_partial`).
 """
 
 from __future__ import annotations
@@ -24,7 +31,8 @@ import torch
 from .partition import axis_sizes
 
 __all__ = ["is_dtensor", "refuse_dtensor", "replicate_like", "op_placements",
-           "run_local"]
+           "run_local", "split_last", "merge_last", "reduce_partial",
+           "gather_dims"]
 
 
 def is_dtensor(x) -> bool:
@@ -101,3 +109,60 @@ def run_local(fn: Callable, args: Sequence, in_placements: Sequence,
                        in_grad_placements=in_grad_placements,
                        device_mesh=mesh, redistribute_inputs=True)
     return mapped(*args)
+
+
+def split_last(x: torch.Tensor, parts: int) -> torch.Tensor:
+    """``x`` (..., parts · n) as (..., parts, n): the heads of a projection.
+    A DTensor whose last dim is sharded over mesh dims whose shard count
+    does not divide ``parts`` (a shard would cut a head: llama's 24 heads
+    on a 16-way model axis) is first gathered on that dim, as GSPMD
+    reshards before such a reshape; one that holds whole heads is split
+    where it lies."""
+    if is_dtensor(x):
+        last, shards = x.ndim - 1, 1
+        for i, p in enumerate(x.placements):
+            if p.is_shard(last):
+                shards *= x.device_mesh.size(i)
+        if parts % shards:
+            x = gather_dims(x, (last,))
+    return x.reshape(*x.shape[:-1], parts, x.shape[-1] // parts)
+
+
+def merge_last(x: torch.Tensor) -> torch.Tensor:
+    """``x`` (..., parts, n) as (..., parts · n), the inverse of
+    :func:`split_last`. A DTensor's gradient is brought back to the merged
+    layout before the merge's backward splits it (a product's gradient may
+    come sharded across head boundaries)."""
+    y = x.reshape(*x.shape[:-2], -1)
+    if is_dtensor(y):
+        y = y.redistribute(y.device_mesh, y.placements)
+    return y
+
+
+def reduce_partial(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor's pending sums reduced now (each partial mesh dim made
+    Replicate); any other tensor as it is. A vocab-parallel embedding
+    lookup whose rows are not split over the batch comes back partial
+    (masked), and DTensor applies a masked reduction once only, where the
+    residual stream is read twice (the norm and the residual add)."""
+    if not is_dtensor(x) or not any(p.is_partial() for p in x.placements):
+        return x
+    from torch.distributed.tensor import Replicate
+
+    return x.redistribute(x.device_mesh, [
+        Replicate() if p.is_partial() else p for p in x.placements])
+
+
+def gather_dims(x: torch.Tensor, dims) -> torch.Tensor:
+    """A DTensor with every mesh dim that shards one of ``dims`` made
+    Replicate; any other tensor as it is."""
+    if not is_dtensor(x):
+        return x
+    dims = {d % x.ndim for d in dims}
+    if not any(p.is_shard() and p.dim in dims for p in x.placements):
+        return x
+    from torch.distributed.tensor import Replicate
+
+    return x.redistribute(x.device_mesh, [
+        Replicate() if p.is_shard() and p.dim in dims else p
+        for p in x.placements])

@@ -404,3 +404,51 @@ def test_fault_plan_and_coverage_identical(tmp_path):
         jobs.append(job)
         shutil.rmtree(root)
     assert jobs[0] == jobs[1]
+
+
+# ---------------------------------------------------------------------------
+# The analytical backend: the same StepModels give the same trace and the
+# same analysis in both packages. Each side gets an equal HardwareSpec, as
+# their defaults differ on purpose (one H100 against one TPU v5e).
+# ---------------------------------------------------------------------------
+_STEP_MODEL_CASES = {
+    "balanced": ([dict(flops=3e14, hbm_bytes=4e11, collective_bytes=1e10,
+                       model_flops=2e14)] * 2, 3, 0.0),
+    "imbalanced": ([dict(flops=1e14, hbm_bytes=0.0, collective_bytes=0.0),
+                    dict(flops=4e14, hbm_bytes=1e12, collective_bytes=5e9,
+                         model_flops=1e14)], 2, 0.25),
+    "host_gap_and_overlap": ([dict(flops=2e14, hbm_bytes=3e12,
+                                   collective_bytes=2e11, host_gap_s=0.5,
+                                   collective_overlap=0.4,
+                                   model_flops=1.5e14)] * 3, 5, 0.1),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_STEP_MODEL_CASES))
+def test_analytical_backend_identical(case):
+    """trace_from_step_model gives the same host states, device columns
+    and window, and AnalyticalBackend the same analysis and trees, in both
+    packages."""
+    from repro.core.backends import analytical as jan
+    from repro_torch.core.backends import analytical as tan
+
+    models, steps, host_useful = _STEP_MODEL_CASES[case]
+    out = []
+    for core, mod in ((jcore, jan), (tcore, tan)):
+        hw = mod.HardwareSpec(name="h", peak_flops=5e14, hbm_bw=2e12,
+                              ici_bw=1e11)
+        sms = [mod.StepModel(hw=hw, **m) for m in models]
+        trace = mod.trace_from_step_model(sms, steps=steps,
+                                          host_useful_s=host_useful)
+        dev = {d: [(r.kind.code, r.start, r.end) for r in
+                   trace.devices[d].records]
+               for d in sorted(trace.devices)}
+        hosts = {r: trace.hosts[r].as_dict() for r in sorted(trace.hosts)}
+        a = mod.AnalyticalBackend(sms, steps=steps,
+                                  host_useful_s=host_useful).analyze()
+        a.validate()
+        trees = {k: v.as_dict() for k, v in a.trees().items()}
+        out.append((trace.window, dev, hosts, a.elapsed,
+                    a.host.as_dict(), a.device.as_dict(), a.host_states,
+                    a.device_states, trees))
+    assert out[0] == out[1]

@@ -112,8 +112,8 @@ def test_moe_forward_matches_jax(capacity_factor):
 def test_moe_capacity_formula(arch, group_size):
     """tests/test_model_properties.py::test_moe_capacity_formula's rule,
     ceil(S·k/E·cf) rounded up to a multiple of 4 and at least 4, equal to
-    repro.models.moe.moe_capacity, on the full and the smoke configs
-    (qwen3's config is the JAX package's: the port does not register it)."""
+    repro.models.moe.moe_capacity, on the JAX package's full and smoke
+    configs."""
     from repro.configs import get_config as jax_get_config
     from repro.configs import smoke_config as jax_smoke_config
 

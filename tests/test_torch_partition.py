@@ -1,5 +1,5 @@
 """The port's partition plan against the JAX package's, with no devices
-and no memory: for the nine registered configs, the specs of every
+and no memory: for the ten registered configs, the specs of every
 parameter, train-state, decode-cache and batch leaf that
 repro_torch.sharding.partition gives on abstract meshes equal those of
 repro.sharding.partition on JAX abstract meshes of the same shapes (the
