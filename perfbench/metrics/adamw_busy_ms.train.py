@@ -1,0 +1,12 @@
+"""adamw_busy_ms.train: the card's busy time (the union of TALP's Kernel and
+Memory rows) inside the device window of the program's ``adamw`` span, the
+optimizer (collecting the gradients, ``adamw_update``'s norm and update),
+per training step of the window, in ms. The window's ends are two CUDA
+events on the step's stream, placed on TALP's clock through the runtime
+backend's anchor."""
+
+from perfbench.metrics import _phases
+
+
+def read(rec, cell):
+    return _phases.mean_ms(rec, "adamw", "busy")

@@ -1,0 +1,10 @@
+"""adamw_host_ms.train: the host's time inside the program's ``adamw`` span,
+the optimizer (collecting the gradients, ``adamw_update``'s norm and
+update), per training step of the window, in ms; the span's ends are two
+reads of TALP's clock."""
+
+from perfbench.metrics import _phases
+
+
+def read(rec, cell):
+    return _phases.mean_ms(rec, "adamw", "host")

@@ -1,0 +1,10 @@
+"""backward_idle_ms.train: the card's idle time inside the device window of
+the program's ``backward`` span, the backward (``loss.backward()``,
+remat's second forward included), per training step of the window, in ms:
+the window less the union of TALP's Kernel and Memory rows in it."""
+
+from perfbench.metrics import _phases
+
+
+def read(rec, cell):
+    return _phases.mean_ms(rec, "backward", "idle")

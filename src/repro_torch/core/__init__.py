@@ -27,6 +27,12 @@ collection closes:
     it flushes at every step close, as the copy does.
   * :class:`~.merge.AllGatherTransport` runs on ``torch.distributed``;
     :mod:`.backends.analytical`'s default hardware is one H100.
+  * :mod:`.telemetry.phases` is the port's own (no namesake in
+    ``repro.core``): spans of named phases inside a launched step, each
+    with a device window from two CUDA events that the runtime backend
+    places on the monitor's clock through its anchor.
+    ``CudaRuntimeBackend.start()`` installs a recorder, and the backend
+    charges its per-launch markers to the overhead section ``mark``.
 """
 
 from . import intervals

@@ -105,7 +105,14 @@ backend's one record per compiled launch:
     reopens. A step-series recorder then defers a step's device columns
     to the next drain instead of draining at every step close. The
     reopening is charged to the monitor's ``flush`` overhead section
-    with the drain, the reading of the rows to ``drain``.
+    with the drain, the reading of the rows to ``drain``, the two markers
+    around each launch to ``mark``.
+
+``start()`` installs a :class:`~..telemetry.phases.PhaseRecorder`
+(``phases``) on the backend's clock and device, so the spans a launched
+step records (``launch/steps.py``) have device windows: each drain reads
+their events through the anchor, as it places the markers. It stays
+installed after ``stop()`` until the next ``start()``.
 """
 
 from __future__ import annotations
@@ -122,6 +129,7 @@ import torch
 
 from ..states import DeviceActivity, DeviceRecord
 from ..telemetry import overhead as _ovh
+from ..telemetry import phases as _phases
 from .base import register_backend
 
 __all__ = ["CudaRuntimeBackend", "AsyncHandle", "CuptiActivity"]
@@ -346,6 +354,7 @@ class CudaRuntimeBackend:
         self._launched = 0       # launches and transfers since the open
         self._launch_counts: dict = {}  # device -> launch() calls, enabled
         self._ordinal = 0        # the card's device index (CUDA)
+        self.phases: Optional[_phases.PhaseRecorder] = None
         self.enabled = False
 
     @property
@@ -383,6 +392,9 @@ class CudaRuntimeBackend:
             self._ordinal = (self.torch_device.index
                              if self.torch_device.index is not None
                              else torch.cuda.current_device())
+        self.phases = _phases.PhaseRecorder(
+            clock=self.clock, device=self.torch_device if self.cuda else None)
+        _phases.install(self.phases)
         if self.activity is not None:
             self._open()
         self.enabled = True
@@ -541,6 +553,8 @@ class CudaRuntimeBackend:
         if self.cuda:
             self._mark()            # the closing marker
             torch.cuda.synchronize(self.torch_device)
+            if self.phases is not None:
+                self.phases.place(self._event_time)
         with _ovh.section("drain"):
             batches = self.activity.close()
         n_rows = sum(len(b[1]) for b in batches)
@@ -628,12 +642,14 @@ class CudaRuntimeBackend:
         marked = self._collecting() and self.cuda
         t0 = self.clock()
         if marked:
-            self._mark()
+            with _ovh.section("mark"):
+                self._mark()
         out = fn(*args, **kwargs)
         end = None
         if self.cuda:
             if marked:
-                self._mark()
+                with _ovh.section("mark"):
+                    self._mark()
             end = self._end_event()
         h = AsyncHandle(out, t0, device, label, stream, end)
         self._pending.append(h)

@@ -15,6 +15,7 @@ from typing import Any, Dict, Tuple
 import torch
 
 from ..configs.base import ModelConfig, ShapeConfig
+from ..core.telemetry import phases
 from ..models import lm
 from ..optim.adamw import AdamWConfig, adamw_update, init_opt_state
 
@@ -73,14 +74,19 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig = AdamWConfig()):
         return lm.tree_map(lambda x: x.detach().to(cdt).requires_grad_(), p)
 
     def train_step(state, batch):
-        leaves = cast_params(state["params"])
-        loss, metrics = lm.train_loss(cfg, leaves, batch)
-        loss.backward()
-        grads = lm.tree_map(lambda x: x.grad, leaves)
-        del leaves, loss
-        new_params, new_opt, opt_metrics = adamw_update(
-            opt_cfg, state["params"], grads, state["opt"]
-        )
+        # three phase spans (core/telemetry/phases.py), recorded only while
+        # a runtime backend has installed a recorder
+        with phases.section("forward"):
+            leaves = cast_params(state["params"])
+            loss, metrics = lm.train_loss(cfg, leaves, batch)
+        with phases.section("backward"):
+            loss.backward()     # the recompute too, under remat "full"
+        with phases.section("adamw"):
+            grads = lm.tree_map(lambda x: x.grad, leaves)
+            del leaves, loss
+            new_params, new_opt, opt_metrics = adamw_update(
+                opt_cfg, state["params"], grads, state["opt"]
+            )
         new_state = {
             "params": new_params,
             "opt": new_opt,

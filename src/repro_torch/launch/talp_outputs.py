@@ -22,21 +22,35 @@ defaults and behaviour, in one place for both of the port's drivers.
     ``time.perf_counter``;
   * ``--rank`` / ``--world-size``: this process's place in a job of
     independent processes (no collective).
+
+At the end, the phase spans a launched step recorded
+(``core/telemetry/phases.py``) are joined with the device rows
+(:func:`join_phases`): each span's busy and idle time inside its device
+window, and the time ``outside`` the phases between two steps. With
+``verbose`` the phase table is printed after TALP's tables; with
+``talp_json`` it is written under the file's ``phases`` key, only when a
+span was recorded.
 """
 
 from __future__ import annotations
 
+import json
 import time
 from contextlib import nullcontext
-from typing import Callable, Optional
+from typing import Callable, Dict, Optional
 
+import numpy as np
+
+from ..core import intervals as ivx
 from ..core.backends.analytical import StepModel
 from ..core.collect import FaultPlan
 from ..core.merge import FileSpoolTransport, emit_job_report
 from ..core.report import render_tables, to_json
 from ..core.talp import TalpMonitor
+from ..core.telemetry.phases import PhaseRecorder, Span
 
-__all__ = ["TALP_FLAGS", "add_talp_arguments", "talp_kwargs", "TalpOutputs"]
+__all__ = ["TALP_FLAGS", "add_talp_arguments", "talp_kwargs", "TalpOutputs",
+           "join_phases", "phase_table", "render_phases"]
 
 # the keyword arguments of serve() and train() the flags below set
 TALP_FLAGS = ("rank", "world_size", "talp_spool", "talp_sample_every",
@@ -87,6 +101,87 @@ def add_talp_arguments(ap, unit: str) -> None:
 def talp_kwargs(args) -> dict:
     """The parsed flags as keyword arguments of ``serve``/``train``."""
     return {k: getattr(args, k) for k in TALP_FLAGS}
+
+
+def join_phases(rec: PhaseRecorder, kernel: np.ndarray,
+                memory: np.ndarray) -> None:
+    """Join the placed spans of ``rec`` with one device's Kernel and Memory
+    intervals on the monitor's clock: each span's ``busy`` is the union of
+    both inside its device window, its ``idle`` the rest. ``rec.outside``
+    gets a span ``outside`` for each top-level ``adamw`` followed by a
+    top-level ``forward`` (one training step's end, the next one's start):
+    device window from the one's device end to the other's device start,
+    host window likewise."""
+    busy_iv = ivx.union(ivx.as_intervals(kernel), ivx.as_intervals(memory))
+
+    def fill(span: Span) -> None:
+        span.busy = ivx.window_total(busy_iv, span.d0, span.d1)
+        span.idle = (span.d1 - span.d0) - span.busy
+
+    top = []
+    for span in rec.spans():
+        if span.d1 is None:
+            continue
+        fill(span)
+        if span.parent is None:
+            top.append(span)
+    rec.outside = []
+    for a, b in zip(top, top[1:]):
+        if a.name == "adamw" and b.name == "forward":
+            gap = Span(-1, "outside", None)
+            gap.t0, gap.t1 = a.t1, max(b.t0, a.t1)
+            gap.d0, gap.d1 = a.d1, max(b.d0, a.d1)
+            fill(gap)
+            rec.outside.append(gap)
+
+
+def phase_table(rec: PhaseRecorder, backend=None) -> dict:
+    """Per phase name (in order of first appearance), then ``outside``:
+    the joined spans' count, and host ms, device window, busy and idle ms
+    per span, and the busy share of the windows; with the backend's
+    ``lost_markers`` and CUPTI's ``dropped`` records, and the spans the
+    recorder's ring dropped."""
+    groups: Dict[str, list] = {}
+    for span in rec.spans():
+        if span.busy is not None:
+            groups.setdefault(span.name, []).append(span)
+    if rec.outside:
+        groups["outside"] = list(rec.outside)
+    rows = {}
+    for name, spans in groups.items():
+        n = len(spans)
+        window = sum(s.d1 - s.d0 for s in spans)
+        busy = sum(s.busy for s in spans)
+        rows[name] = {
+            "spans": n,
+            "host_ms": 1e3 * sum(s.t1 - s.t0 for s in spans) / n,
+            "window_ms": 1e3 * window / n,
+            "busy_ms": 1e3 * busy / n,
+            "idle_ms": 1e3 * sum(s.idle for s in spans) / n,
+            "busy_share": busy / window if window > 0 else None,
+        }
+    activity = getattr(backend, "activity", None)
+    dropped = getattr(activity, "dropped", None)
+    return {"rows": rows,
+            "lost_markers": getattr(backend, "lost_markers", None),
+            "dropped": int(dropped) if dropped is not None else None,
+            "spans_dropped": rec.dropped}
+
+
+def render_phases(table: dict) -> str:
+    """The phase table as text."""
+    lines = ["[talp phases] per span, ms; device windows on TALP's clock",
+             f"{'phase':<12}{'spans':>7}{'host':>11}{'window':>11}"
+             f"{'busy':>11}{'idle':>11}{'busy %':>8}"]
+    for name, r in table["rows"].items():
+        share = (f"{100 * r['busy_share']:.1f}"
+                 if r["busy_share"] is not None else "-")
+        lines.append(f"{name:<12}{r['spans']:>7}{r['host_ms']:>11.3f}"
+                     f"{r['window_ms']:>11.3f}{r['busy_ms']:>11.3f}"
+                     f"{r['idle_ms']:>11.3f}{share:>8}")
+    lines.append(f"lost markers {table['lost_markers']}; CUPTI dropped "
+                 f"{table['dropped']}; spans dropped {table['spans_dropped']}")
+    return "\n".join(lines)
 
 
 class TalpOutputs:
@@ -216,6 +311,22 @@ class TalpOutputs:
         if self.watchdog is not None:
             self.watchdog.close()
 
+    def _phases(self) -> Optional[dict]:
+        """After ``finalize``: the backend's phase spans, placed on the
+        monitor's clock by its drains (``finalize`` drains last), joined
+        with its device's rows; their table, or None when no span was
+        recorded."""
+        backend = self.mon.backend
+        rec = getattr(backend, "phases", None)
+        if rec is None or not rec.counts:
+            return None
+        dev = backend._ordinal if backend.cuda else 0
+        flats = self.mon._device_flats()
+        empty = np.empty((0, 2))
+        kernel, memory = flats.get(dev, (empty, empty))
+        join_phases(rec, kernel, memory)
+        return phase_table(rec, backend)
+
     def finish(self, talp_json: Optional[str] = None,
                notes: Callable[[], None] = None):
         """Finalize the monitor and write every output; ``notes`` prints the
@@ -228,6 +339,7 @@ class TalpOutputs:
         if self.recorder is not None:
             self.recorder.close()   # detach before finalize's Global close
         result = mon.finalize()
+        phases = self._phases()
         if self.trace_out:
             from ..core.telemetry.traceexport import export_monitor
 
@@ -246,14 +358,21 @@ class TalpOutputs:
             telemetry.close()
         if self.verbose:
             print(render_tables(result))
+            if phases is not None:
+                print(render_phases(phases))
             if notes is not None:
                 notes()
             if self.watchdog is not None and self.watchdog.events:
                 print(f"[talp watchdog] {len(self.watchdog.events)} anomaly "
                       f"event(s); first: {self.watchdog.events[0].as_dict()}")
         if talp_json:
+            text = to_json(result)
+            if phases is not None:
+                payload = json.loads(text)
+                payload["phases"] = phases
+                text = json.dumps(payload, indent=2)
             with open(talp_json, "w") as f:
-                f.write(to_json(result))
+                f.write(text)
         if self.spool and self.recorder is not None:
             steps_transport = self.sample_transport or FileSpoolTransport(
                 self.spool, world_size=self.world_size,

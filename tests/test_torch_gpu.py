@@ -1122,3 +1122,113 @@ def test_cuda_ops_attention_gradients_reach_qkv_at_new_dims(cuda, d, h, k):
     assert all(x.grad.abs().max() > 0 for x in leaves)
     _close_grads([x.grad for x in leaves], [x.grad for x in plain],
                  torch.bfloat16)
+
+
+# ---------------------------------------------------------------------------
+# Phase spans inside the train step (core/telemetry/phases.py) on the card
+# ---------------------------------------------------------------------------
+def test_cuda_phase_window_matches_the_sleep_kernels_row(cuda):
+    """A span around a sleep kernel queued behind another (so that the
+    span's first event and the kernel's start are not split by a launch):
+    its device window, read through the backend's anchor at the drain,
+    lies within 50 us of the kernel's CUPTI row at both ends, on each of
+    three launches."""
+    from repro_torch.core.telemetry import phases
+
+    be = CudaRuntimeBackend(cuda)
+    be.start()
+
+    def step():
+        torch.cuda._sleep(2_000_000)      # holds the queue while we enqueue
+        with phases.section("sleep"):
+            torch.cuda._sleep(1_000_000)
+
+    for _ in range(3):
+        be.wait(be.launch(step))
+        time.sleep(0.02)
+    [(_, kinds, starts, ends, _)] = be.flush_arrays()
+    be.stop()
+    assert len(kinds) == 6
+    spans = be.phases.spans()
+    assert [s.name for s in spans] == ["sleep"] * 3
+    order = np.argsort(starts)
+    for span, i in zip(spans, order[1::2]):
+        assert abs(span.d0 - starts[i]) <= 50e-6, (span, starts[i])
+        assert abs(span.d1 - ends[i]) <= 50e-6, (span, ends[i])
+
+
+def _phased_mamba_steps(cuda, steps=4):
+    """``steps`` steps of smoke_config("mamba2-130m") at 2 x 96 under
+    TalpOutputs, launched and waited as the trainer does; the monitor and
+    the backend, finished."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokenPipeline
+    from repro_torch.launch.steps import init_train_state, make_train_step
+    from repro_torch.launch.talp_outputs import TalpOutputs
+    from repro_torch.optim.adamw import AdamWConfig
+
+    cfg = smoke_config("mamba2-130m")
+    state = init_train_state(
+        cfg, torch.Generator(device=cuda).manual_seed(5), device=cuda)
+    data = SyntheticTokenPipeline(DataConfig(2, 96, cfg.vocab_size, seed=6))
+    step = make_train_step(cfg, AdamWConfig(lr=1e-3, warmup_steps=1,
+                                            total_steps=steps))
+    be = CudaRuntimeBackend(cuda)
+    talp = TalpOutputs("train", be, "step", lambda: 0.0, verbose=False)
+    mon = talp.mon
+    with mon.region("train_loop"):
+        for i in range(steps):
+            batch = {k: torch.from_numpy(v).to(cuda)
+                     for k, v in data.batch_at(i).items()}
+            h = be.launch(step, state, batch, name="train_step")
+            with mon.offload():
+                state, metrics = be.wait(h)
+            float(metrics["loss"])
+    talp.finish(None)
+    return mon, be
+
+
+def _tiles(be):
+    spans = be.phases.spans()
+    return sorted([(s.d0, s.d1) for s in spans]
+                  + [(g.d0, g.d1) for g in be.phases.outside])
+
+
+def test_cuda_phase_windows_and_outside_tile_the_steps(cuda):
+    """Four real steps: forward, backward and adamw in each, the markers
+    and the spans' bookkeeping charged (2 and 6 sections a step); their
+    device windows and the 3 ``outside`` gaps do not overlap and cover at
+    least 99% of the device time from the first forward to the last
+    adamw; each span's busy plus idle is its window."""
+    steps = 4
+    mon, be = _phased_mamba_steps(cuda, steps)
+    spans = be.phases.spans()
+    assert [s.name for s in spans] == ["forward", "backward",
+                                       "adamw"] * steps
+    assert len(be.phases.outside) == steps - 1
+    assert mon.overhead.counts["mark"] == 2 * steps
+    assert mon.overhead.counts["phases"] == 6 * steps
+    tiles = _tiles(be)
+    for (a0, a1), (b0, b1) in zip(tiles, tiles[1:]):
+        assert a0 <= a1 <= b0 + 1e-6 and b0 <= b1
+    whole = tiles[-1][1] - tiles[0][0]
+    assert sum(b - a for a, b in tiles) >= 0.99 * whole
+    for s in spans + be.phases.outside:
+        assert s.busy >= 0 and s.idle >= -1e-9
+        assert s.busy + s.idle == pytest.approx(s.d1 - s.d0, abs=1e-9)
+
+
+def test_cuda_phase_busy_sums_to_talps_device_busy(cuda):
+    """The busy time of the phases and ``outside`` together is within 1%
+    of TALP's device busy (the union of its Kernel and Memory rows) from
+    the first forward's device start to the last adamw's device end."""
+    from repro_torch.core import intervals as ivx
+
+    mon, be = _phased_mamba_steps(cuda)
+    kernel, memory = mon._device_flats()[be._ordinal]
+    tiles = _tiles(be)
+    talp_busy = ivx.window_total(ivx.union(kernel, memory), tiles[0][0],
+                                 tiles[-1][1])
+    ours = sum(s.busy for s in be.phases.spans() + be.phases.outside)
+    assert talp_busy > 0
+    assert ours == pytest.approx(talp_busy, rel=0.01)
