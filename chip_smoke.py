@@ -5,7 +5,8 @@
 1. Prints the card (``nvidia-smi`` name and power limit), the torch and
    CUDA versions, and builds the CUDA kernels from the sources in this
    checkout (one ``nvcc`` per source, all started together: the flash
-   forward, the flash backward, the SSD scan forward and backward), timing
+   forward, the flash backward, the SSD scan forward and backward, the
+   fused AdamW), timing
    the build and printing each kernel's ``ptxas -v`` registers and spills.
    Counts the HGMMA (wgmma), UTMALDG (TMA load) and HMMA (mma.sync)
    instructions in each library's SASS (``cuobjdump -sass``) and fails
@@ -15,7 +16,8 @@
    registers), if a forward kernel (D 32, 64, 80, 120, 128, 256), a bf16
    kernel of the flash backward (both passes at D 32, 64, 80, 120, 128 and
    256)
-   or a kernel of the SSD backward's bf16 path spills.
+   or a kernel of the SSD backward's bf16 path or of the fused AdamW
+   spills.
    Then TALP's device records, which come from CUPTI's activity API
    (read by a host library built here at first use): a sleep kernel's
    record against the CUDA events
@@ -92,7 +94,15 @@
      tensor-core kernel in turns, beside the bound of ssd_backward_work,
      and prints one traced call's kernels by name; the same rows and
      timing at zamba2-2.7b's training shape (B 2, L 4096, H 80, P 64, G 1,
-     N 64).
+     N 64);
+   * the fused AdamW (``adamw_phase``) on mamba2-2.7b's whole 2.83
+     B-parameter tree with bf16 gradients: three steps past warmup, the
+     clip on, against the plain arithmetic leaf by leaf (each leaf's
+     change in p, mu and nu within ADAMW_CHANGE_TOL of the plain change;
+     the grad norm; a rerun bit-identical), then the fused step, the
+     plain one and the library route (``torch._fused_adamw_``) in turns,
+     each pass alone beside its bound, and each route's peak memory
+     beyond the state.
    Timings are CUDA events around runs of back-to-back calls (ms per
    call), medians; kernel and yardstick are timed in turns.
 3. Path checks: two narrow layers of each model's block on the card
@@ -160,7 +170,10 @@
    its backward 24 times; granite the flash forward 64 times and its
    backward 32; musicgen 96 and 48; danube 48 and 24; gemma2 52 and 26;
    zamba2 the flash forward 18 and its backward 9 (9 repeats of the
-   shared block) and the SSD forward 90 and its backward 45.
+   shared block) and the SSD forward 90 and its backward 45; every
+   training step, here and in the path checks, the checkpoint, fleet and
+   mesh phases, calls the fused AdamW's two passes once each
+   (ADAMW_STEP).
    Prints
    each step's loss (all finite; granite's moe_aux too), step time,
    tokens/s, MFU, peak memory and TALP's train_loop numbers, then traces
@@ -476,7 +489,8 @@ KERNEL_NAMES = ("flash_fwd_wgmma", "flash_fwd_f32", "flash_bwd_preprocess",
                 "ssd_chunk_output", "ssd_fwd_f32", "ssd_bwd_outer",
                 "ssd_bwd_tc_query", "ssd_bwd_tc_key", "ssd_bwd_query",
                 "ssd_bwd_key", "ssd_bwd_chunk", "ssd_bwd_group_sum",
-                "ssd_bwd_head_sum")
+                "ssd_bwd_head_sum", "adamw_norm_partials", "adamw_norm_total",
+                "adamw_update_pass")
 
 
 def _kernel_label(mangled: str) -> str:
@@ -546,6 +560,7 @@ def build_kernels() -> dict:
     120, 128 and 256) and no kernel of the SSD backward's bf16
     path spills. Returns each kernel record's SASS counts."""
     from repro_torch.kernels import cuda_build
+    from repro_torch.kernels.adamw import kernel as adamw
     from repro_torch.kernels.flash_attention import kernel as flash
     from repro_torch.kernels.ssd import kernel as ssd
 
@@ -555,7 +570,8 @@ def build_kernels() -> dict:
         return lib, time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    sources = (flash.SOURCE, flash.BWD_SOURCE, ssd.SOURCE, ssd.BWD_SOURCE)
+    sources = (flash.SOURCE, flash.BWD_SOURCE, ssd.SOURCE, ssd.BWD_SOURCE,
+               adamw.SOURCE)
     with ThreadPoolExecutor(len(sources)) as pool:
         built = list(pool.map(timed, sources))
     print(f"[build] {len(sources)} sources in {time.perf_counter() - t0:.1f}"
@@ -599,13 +615,21 @@ def build_kernels() -> dict:
     assert len(spills) == 4 * 16 + 5, [label for label, _ in spills]
     assert not any(spilled(s) for _, s in spills), [
         (label, s) for label, s in spills if spilled(s)]
+    # the fused AdamW: both passes at each gradient dtype, and the sum
+    adamw_kernels = list(ptxas_kernels(built[4][0].with_suffix(".log")))
+    assert sorted(label for label, _, _ in adamw_kernels) == sorted(
+        [f"{name}<{dt}>" for name in ("adamw_norm_partials",
+                                      "adamw_update_pass")
+         for dt in ("", "bf16")] + ["adamw_norm_total<>"]), adamw_kernels
+    assert not any(spilled(s) for _, _, s in adamw_kernels), adamw_kernels
+    adamw.library()
     flash.library()
     flash.backward_library()
     ssd.library()
     ssd.backward_library()
     counts = {name: sass_counts(lib) for name, (lib, _) in
               zip(("flash_attention_fwd", "flash_attention_bwd", "ssd_fwd",
-                   "ssd_bwd"), built)}
+                   "ssd_bwd"), built[:4])}
     for name, c in counts.items():
         print(f"[sass] {name}: " + ", ".join(f"{op} {n}" for op, n in c.items()))
     f, b, s, sb = (counts[name] for name in (
@@ -1502,6 +1526,272 @@ def ssd_backward_phase(device: torch.device) -> dict:
     }
 
 
+# mamba2-2.7b (state-spaces/mamba2-2.7b) at its published widths, as the
+# benchmark's training cell runs it: the program's mamba2-130m at 64
+# layers of 2560 and a vocabulary of 50277 (17 leaves, 2.83 B parameters).
+ADAMW_TREE = dict(name="mamba2-2.7b", num_layers=64, d_model=2560,
+                  vocab_size=50277)
+# The check's steps, its first step count (past the cell's 10 warmup
+# steps) and its gradients' norm (above grad_clip: the clip is on).
+ADAMW_CHECK = dict(steps=3, count=20, grad_norm=1.5)
+# The fused steps' error on a leaf may reach this share of the largest
+# element of the plain steps' change to the leaf, plus 4 eps of the value
+# (a few roundings of the value itself).
+ADAMW_CHANGE_TOL = 1e-3
+ADAMW_SLICE = 2 ** 26   # elements of a leaf checked at a time
+
+
+def _like(tree, leaves):
+    """A tree shaped like ``tree`` holding the next of ``leaves`` at each
+    leaf, in ``_leaves``' order."""
+    if isinstance(tree, dict):
+        return {k: _like(v, leaves) for k, v in tree.items()}
+    return next(leaves)
+
+
+def adamw_phase(device: torch.device) -> list:
+    """The fused AdamW (``kernels.adamw``) on mamba2-2.7b's whole parameter
+    tree with bf16 gradients, the benchmark cell's AdamW settings:
+
+    (a) ADAMW_CHECK's steps of ``adamw_update`` (the timed multi-tensor
+    pair) past warmup, with gradients of norm 1.5 (the clip on) and
+    moments of a clipped gradient's scale, against the plain version's
+    arithmetic (``optim.adamw.update_leaf`` with the plain global norm's
+    scale) leaf by leaf, each leaf's start made anew from its seed: the
+    change to each leaf's p, mu and nu within ADAMW_CHANGE_TOL of the
+    plain change's largest element plus 4 eps of the value, and at most a
+    hundredth of it; each step's grad norm within 1e-5 of the plain norm.
+    The same steps from the same start again give the same bits (the
+    first run's result held in host memory).
+
+    (b) On the tree as (a) leaves it, the fused step, the plain one and
+    the library route in turns (CUDA events): the library route is
+    ``torch._foreach_norm`` and ``torch._fused_adamw_`` on fp32 copies of
+    the gradients (its kernel takes no bf16 gradient beside fp32
+    masters), the clip as its ``grad_scale`` on the device, first held to
+    ``update_leaf`` on three small leaves. Then the norm pass and the
+    update pass alone, each beside its bound (its ``work`` bytes at 3.35
+    TB/s); the plain global norm alone beside the norm pass; each route's
+    peak device memory beyond the state's.
+
+    Returns the kernel table's two records, ``adamw_norm`` and
+    ``adamw_update``."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.adamw import kernel
+    from repro_torch.kernels.adamw.work import (adamw_norm_work,
+                                                adamw_update_work)
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+    from repro_torch.optim.adamw import (AdamWConfig, adamw_update,
+                                         adamw_update_reference, update_leaf)
+
+    opt = AdamWConfig(lr=3e-4, warmup_steps=10, total_steps=10000)
+    cfg = dataclasses.replace(get_config("mamba2-130m"), **ADAMW_TREE)
+    steps, count0 = ADAMW_CHECK["steps"], ADAMW_CHECK["count"]
+    gen = torch.Generator(device=device).manual_seed(12)
+    params = lm.init_params(cfg, gen, device=device)
+    names = [name for name, _ in _named_leaves(params)]
+    n = lm.param_count(params)
+    sigma = 1 / math.sqrt(n)   # an element of a gradient of norm 1
+    grads = lm.tree_map(lambda p: torch.randn(
+        p.shape, generator=gen, device=device, dtype=torch.bfloat16).mul_(
+            ADAMW_CHECK["grad_norm"] * sigma), params)
+    p0 = lm.tree_map(torch.clone, params)
+
+    def moments(k, like):
+        """Leaf k's moments at the start, from its own seed: mu of a
+        clipped gradient's scale, nu of its square's."""
+        g = torch.Generator(device=device).manual_seed(1000 + k)
+        mu = torch.randn(like.shape, generator=g, device=device).mul_(sigma)
+        nu = torch.randn(like.shape, generator=g, device=device).square_()
+        return mu, nu.add_(0.5).mul_(sigma * sigma)
+
+    def fused_run():
+        for p, q in zip(_leaves(params), _leaves(p0)):
+            p.copy_(q)
+        start = [moments(k, q) for k, q in enumerate(_leaves(p0))]
+        state = {"mu": _like(params, (m for m, _ in start)),
+                 "nu": _like(params, (v for _, v in start)),
+                 "count": torch.tensor(count0, dtype=torch.int32)}
+        del start
+        norms = []
+        for _ in range(steps):
+            _, state, m = adamw_update(opt, params, grads, state)
+            norms.append(m["grad_norm"])
+        torch.cuda.synchronize()
+        return torch.stack(norms), state
+
+    def result(state):
+        return [t for tree in (params, state["mu"], state["nu"])
+                for t in _leaves(tree)]
+
+    # (a) the check, on the whole tree
+    t0 = time.perf_counter()
+    norms, state = fused_run()
+    first = (norms.cpu(), [t.cpu() for t in result(state)])
+    del state
+    norms, state = fused_run()
+    identical = torch.equal(norms.cpu(), first[0]) and all(
+        torch.equal(t.cpu(), h) for t, h in zip(result(state), first[1]))
+    del first
+    assert identical, "two fused runs of the same steps differ"
+    gnorm = adamw._global_norm(grads)
+    scale = torch.clamp_max(opt.grad_clip / torch.clamp_min(gnorm, 1e-9),
+                            1.0)
+    hypers = [adamw._prepare(opt, params, grads, {"count": torch.tensor(
+        count0 + k, dtype=torch.int32)})[3] for k in range(steps)]
+    norm_err = (norms - gnorm).abs().max().item()
+    torch.testing.assert_close(norms, gnorm.expand(steps), rtol=1e-5, atol=0)
+    rtol = 4 * torch.finfo(torch.float32).eps
+    share = dict.fromkeys(("p", "mu", "nu"), 0.0)
+    abs_err = 0.0
+    for k, (name, p, g, mu, nu, q) in enumerate(zip(
+            names, _leaves(params), _leaves(grads), _leaves(state["mu"]),
+            _leaves(state["nu"]), _leaves(p0))):
+        # slices of ADAMW_SLICE elements: a leaf holds up to 0.84 B
+        start = (q, *moments(k, q))
+        change, err, excess = ([0.0] * 3 for _ in range(3))
+        for lo in range(0, q.numel(), ADAMW_SLICE):
+            cut = slice(lo, lo + ADAMW_SLICE)
+            want = [t.reshape(-1)[cut].clone() for t in start]
+            for hyper in hypers:
+                update_leaf(opt, want[0], g.reshape(-1)[cut], want[1],
+                            want[2], scale, *hyper)
+            for j, (got, w, b) in enumerate(zip((p, mu, nu), want, start)):
+                diff = (got.reshape(-1)[cut] - w).abs()
+                change[j] = max(change[j], (w - b.reshape(-1)[cut]).abs()
+                                .max().item())
+                err[j] = max(err[j], diff.max().item())
+                excess[j] = max(excess[j], diff.sub_(w.abs().mul_(rtol))
+                                .max().item())
+            del want, diff
+        for j, part in enumerate(share):
+            # as assert_close(rtol, atol=ADAMW_CHANGE_TOL * change) would
+            assert change[j] > 0, (part, name)
+            assert excess[j] <= ADAMW_CHANGE_TOL * change[j], (
+                part, name, err[j], change[j])
+            share[part] = max(share[part], err[j] / change[j])
+            abs_err = max(abs_err, err[j])
+        del start
+    assert max(share.values()) <= 1e-2, share
+    print(f"[adamw] {cfg.name}: {n / 1e9:.3f} B params in {len(names)} "
+          f"leaves, bf16 gradients of norm {gnorm.item():.4f} (clip scale "
+          f"{scale.item():.4f}), {steps} fused steps from count {count0} "
+          f"against the plain arithmetic, leaf by leaf: the largest error "
+          f"over the plain change's largest element p {share['p']:.3e}, mu "
+          f"{share['mu']:.3e}, nu {share['nu']:.3e} (tol {ADAMW_CHANGE_TOL} "
+          f"+ {rtol:.2e}·|x|); grad norm max_abs_err {norm_err:.3e}; rerun "
+          f"bit-identical: {identical} ({time.perf_counter() - t0:.1f} s)")
+    del p0
+    torch.cuda.empty_cache()
+
+    # the library route, held to the plain arithmetic on three small leaves
+    lr_f, b1c_f, b2c_f = hypers[0]
+
+    def library_step(ps, gs, ms, vs, counts):
+        g32 = [g.float() for g in gs]
+        total = torch.linalg.vector_norm(torch.stack(
+            torch._foreach_norm(g32)))
+        torch._fused_adamw_(
+            ps, g32, ms, vs, [], counts, lr=lr_f, beta1=opt.b1,
+            beta2=opt.b2, weight_decay=opt.weight_decay, eps=opt.eps,
+            amsgrad=False, maximize=False,
+            grad_scale=torch.clamp_min(total / opt.grad_clip, 1.0),
+            found_inf=None)
+
+    sizes = (2 ** 20 + 3, 999, 4096)
+    ps = [torch.randn(k, generator=gen, device=device) for k in sizes]
+    gs = [torch.randn(k, generator=gen, device=device, dtype=torch.bfloat16)
+          for k in sizes]
+    ms = [torch.randn(k, generator=gen, device=device).mul_(1e-3)
+          for k in sizes]
+    vs = [torch.randn(k, generator=gen, device=device).square_().add_(0.5)
+          .mul_(1e-6) for k in sizes]
+    counts = [torch.full((), float(count0 + 1), device=device) for _ in ps]
+    before = [[t.clone() for t in x] for x in (ps, ms, vs)]
+    want = [[t.clone() for t in x] for x in (ps, ms, vs)]
+    small_scale = torch.clamp_max(opt.grad_clip / torch.linalg.vector_norm(
+        torch.stack([g.float().norm() for g in gs])), 1.0)
+    for p, g, m, v in zip(want[0], gs, want[1], want[2]):
+        update_leaf(opt, p, g, m, v, small_scale, lr_f, b1c_f, b2c_f)
+    library_step(ps, gs, ms, vs, counts)
+    for got, w, b in zip((ps, ms, vs), want, before):
+        for x, y, z in zip(got, w, b):
+            torch.testing.assert_close(
+                x, y, rtol=rtol,
+                atol=ADAMW_CHANGE_TOL * (y - z).abs().max().item())
+    del ps, gs, ms, vs, want, before
+
+    # (b) timing on the whole tree
+    pl, gl, ml, vl = (list(_leaves(t)) for t in (
+        params, grads, state["mu"], state["nu"]))
+    counts = [torch.full((), float(count0 + 1), device=device) for _ in pl]
+    leaves = [(g.numel(), g.dtype) for g in gl]
+    norm_bytes = adamw_norm_work(leaves)[1]
+    upd_bytes = adamw_update_work(leaves)[1]
+    plain_ms, fused_ms, library_ms = time_turns(
+        lambda: adamw_update_reference(opt, params, grads, state),
+        lambda: adamw_update(opt, params, grads, state),
+        lambda: library_step(pl, gl, ml, vl, counts), reps=3, inner=2)
+    sumsq = kernel.adamw_norm(gl)
+    kw = dict(lr=lr_f, b1=opt.b1, b2=opt.b2, eps=opt.eps,
+              weight_decay=opt.weight_decay, grad_clip=opt.grad_clip,
+              b1c=b1c_f, b2c=b2c_f)
+    norm_ms = statistics.median(time_samples(
+        lambda: kernel.adamw_norm(gl), reps=5, inner=5))
+    upd_ms = statistics.median(time_samples(
+        lambda: kernel.adamw_update(pl, gl, ml, vl, sumsq, **kw), reps=5,
+        inner=2))
+    plain_norm_ms = statistics.median(time_samples(
+        lambda: adamw._global_norm(grads), reps=5, inner=2))
+    peaks = {}
+    for label, fn in (
+            ("plain", lambda: adamw_update_reference(opt, params, grads,
+                                                     state)),
+            ("fused", lambda: adamw_update(opt, params, grads, state)),
+            ("library", lambda: library_step(pl, gl, ml, vl, counts))):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        fn()
+        torch.cuda.synchronize()
+        peaks[label] = torch.cuda.max_memory_allocated(device) - base
+    bound_norm = norm_bytes / PEAK_BYTES * 1e3
+    bound_upd = upd_bytes / PEAK_BYTES * 1e3
+    shape = (f"{cfg.name}: {n / 1e9:.3f} B fp32 params in "
+             f"{len(leaves)} leaves, bf16 gradients")
+    print(f"[adamw] {shape}: the step fused {fused_ms:.3f} ms, plain "
+          f"{plain_ms:.3f} ms, library route {library_ms:.3f} ms (in turns: "
+          f"plain, fused, library, library, fused, plain), bound "
+          f"{bound_norm + bound_upd:.3f} ms ({(norm_bytes + upd_bytes) / 1e9:.2f}"
+          f" GB at 3.35 TB/s; fused at "
+          f"{(bound_norm + bound_upd) / fused_ms:.1%} of it); norm pass "
+          f"{norm_ms:.3f} ms (bound {bound_norm:.3f}, {norm_bytes / 1e9:.2f} "
+          f"GB; the plain norm {plain_norm_ms:.3f} ms), update pass "
+          f"{upd_ms:.3f} ms (bound {bound_upd:.3f}, {upd_bytes / 1e9:.2f} GB);"
+          " peak memory beyond the state: " + ", ".join(
+              f"{k} {v / 1e9:.3f} GB" for k, v in peaks.items()))
+    del params, grads, state, pl, gl, ml, vl, sumsq
+    torch.cuda.empty_cache()
+    common = dict(route="cuda",
+                  source="src/repro_torch/kernels/adamw/csrc/adamw.cu",
+                  replaces=None, replaces_fn=None, launches=None,
+                  launches_on_path=None, tol=ADAMW_CHANGE_TOL,
+                  bound_by="bytes", shape=shape, step_ms=fused_ms,
+                  step_plain_ms=plain_ms, step_library_ms=library_ms,
+                  step_bound_ms=bound_norm + bound_upd,
+                  peak_beyond_state=dict(peaks))
+    return [
+        {"name": "adamw_norm", **common, "max_abs_err": norm_err,
+         "ms": norm_ms, "kernel_ms": norm_ms, "plain_ms": plain_norm_ms,
+         "library_ms": None, "bound_ms": bound_norm},
+        {"name": "adamw_update", **common, "max_abs_err": abs_err,
+         "max_change_err": dict(share), "ms": upd_ms, "kernel_ms": upd_ms,
+         "plain_ms": plain_ms, "library_ms": library_ms,
+         "bound_ms": bound_upd},
+    ]
+
+
 def path_check(device: torch.device) -> None:
     """The model path on the card against the same path on the CPU (plain
     attention), on a small input: two layers of llama3.2-3b's block
@@ -1615,9 +1905,10 @@ def zamba_path_check(device: torch.device) -> None:
                     cfg, params, toks[:, t:t + 1].to(dev), pos, caches)
                 seq.append(logits)
         launches = {n: w.launches - before[n] for n, w in counters.items()}
-        want = ({"flash_attention_fwd": cfg.repeats, "ssd_fwd": 5 * cfg.repeats,
-                 "flash_attention_bwd": 0, "ssd_bwd": 0} if dev.type == "cuda"
-                else dict.fromkeys(counters, 0))
+        want = dict.fromkeys(counters, 0)
+        if dev.type == "cuda":
+            want.update(flash_attention_fwd=cfg.repeats,
+                        ssd_fwd=5 * cfg.repeats)
         assert launches == want, (dev, launches, want)
         outs.append(torch.stack(seq).float().cpu())
         kv.append(caches["slot5"]["k"].float().cpu())
@@ -1991,7 +2282,8 @@ def train_step_check(device, base, per_layer: dict, opt) -> None:
                 torch.cuda.synchronize()
             launches = {n: w.launches - before[n] for n, w in counters.items()}
             want = {n: (per_layer.get(n, 0) * cfg.num_layers
-                        if dev.type == "cuda" else 0) for n in counters}
+                        + ADAMW_STEP.get(n, 0) if dev.type == "cuda" else 0)
+                    for n in counters}
             assert launches == want, (dev, launches, want)
             gn = float(metrics["grad_norm"])
             out.append((lm.tree_map(lambda x: x.cpu(), new["params"]),
@@ -2083,14 +2375,23 @@ def launch_counters() -> dict:
     """Each kernel's wrapper, by the name of its JSON record; a wrapper's
     ``launches`` grows by one where it launches its kernel (the flash
     backward: one per call of its three launches; the SSD forward: one per
-    call of its three, the SSD backward of its ten)."""
+    call of its three, the SSD backward of its ten; each AdamW pass: one
+    per call of its launches over the tree)."""
+    from repro_torch.kernels.adamw import kernel as adamw
     from repro_torch.kernels.flash_attention import kernel as flash
     from repro_torch.kernels.ssd import kernel as ssd
 
     return {"flash_attention_fwd": flash.flash_attention,
             "flash_attention_bwd": flash.flash_attention_backward,
             "ssd_fwd": ssd.ssd_scan,
-            "ssd_bwd": ssd.ssd_scan_backward}
+            "ssd_bwd": ssd.ssd_scan_backward,
+            "adamw_norm": adamw.adamw_norm,
+            "adamw_update": adamw.adamw_update}
+
+
+# The fused AdamW's calls per training step on the card: one norm pass and
+# one update pass over the whole tree.
+ADAMW_STEP = {"adamw_norm": 1, "adamw_update": 1}
 
 
 # (arch, requests, prompt tokens, generated tokens, the launches of each
@@ -2216,21 +2517,22 @@ def add_path_launches(records: dict, path: str, launches: dict) -> None:
 # backward once.
 TRAIN = [
     ("llama3.2-3b", 6, 2, 2048, 3e-4, 2,
-     {"flash_attention_fwd": 56, "flash_attention_bwd": 28}),
-    ("mamba2-130m", 6, 8, 4096, 3e-4, 2, {"ssd_fwd": 48, "ssd_bwd": 24}),
+     {"flash_attention_fwd": 56, "flash_attention_bwd": 28, **ADAMW_STEP}),
+    ("mamba2-130m", 6, 8, 4096, 3e-4, 2,
+     {"ssd_fwd": 48, "ssd_bwd": 24, **ADAMW_STEP}),
     ("granite-moe-3b-a800m", 6, 2, 2048, 3e-4, 2,
-     {"flash_attention_fwd": 64, "flash_attention_bwd": 32}),
+     {"flash_attention_fwd": 64, "flash_attention_bwd": 32, **ADAMW_STEP}),
     ("musicgen-large", 6, 2, 2048, 3e-4, 2,
-     {"flash_attention_fwd": 96, "flash_attention_bwd": 48}),
+     {"flash_attention_fwd": 96, "flash_attention_bwd": 48, **ADAMW_STEP}),
     ("h2o-danube-3-4b", 6, 1, 8192, 3e-4, 2,
-     {"flash_attention_fwd": 48, "flash_attention_bwd": 24}),
+     {"flash_attention_fwd": 48, "flash_attention_bwd": 24, **ADAMW_STEP}),
     ("gemma2-2b", 6, 1, 8192, 3e-4, 2,
-     {"flash_attention_fwd": 52, "flash_attention_bwd": 26}),
+     {"flash_attention_fwd": 52, "flash_attention_bwd": 26, **ADAMW_STEP}),
     # 54 layers: 9 repeats of five SSD layers and the shared attention
     # block (one parameter set, applied once a repeat)
     ("zamba2-2.7b", 6, 2, 4096, 3e-4, 2,
      {"flash_attention_fwd": 18, "flash_attention_bwd": 9, "ssd_fwd": 90,
-      "ssd_bwd": 45}),
+      "ssd_bwd": 45, **ADAMW_STEP}),
 ]
 # Configs whose train state (16 bytes a parameter) no one card holds:
 # ``train`` must refuse them before it allocates anything.
@@ -2500,6 +2802,7 @@ def moe_step_breakdown(step, busy_s):
 
 # Kernel-name patterns by group, for the train step's device time.
 KERNEL_GROUPS = (
+    ("adamw (this repo)", "adamw_"),
     ("flash (this repo)", "flash_"),
     ("ssd (this repo)", "ssd_"),
     ("matmul (cuBLAS)", "nvjet|gemm|gemv|cutlass|sm90_xmma"),
@@ -2676,7 +2979,7 @@ def compare_pe(label: str, talp_pe: float, wall: float, kernel) -> None:
 # training step): the checkpoint and restart phase, at mamba2-130m's full
 # width (a 2.0 GB train state; a granite or llama state is 43-48 GB).
 CHECKPOINT_RUN = ("mamba2-130m", 6, 8, 4096, 3, 4,
-                  {"ssd_fwd": 48, "ssd_bwd": 24})
+                  {"ssd_fwd": 48, "ssd_bwd": 24, **ADAMW_STEP})
 
 
 def _max_diff(got, want) -> float:
@@ -3047,7 +3350,8 @@ def talp_flags_phase(device: torch.device, decode_kernel_s: float,
 
 # (arch, ranks, steps, global batch, sequence length, launches per step on
 # each rank)
-FLEET = ("mamba2-130m", 2, 6, 8, 4096, {"ssd_fwd": 48, "ssd_bwd": 24})
+FLEET = ("mamba2-130m", 2, 6, 8, 4096,
+         {"ssd_fwd": 48, "ssd_bwd": 24, **ADAMW_STEP})
 
 
 def fleet_phase(device: torch.device, records: dict) -> None:
@@ -3141,7 +3445,8 @@ def fleet_phase(device: torch.device, records: dict) -> None:
 # The mesh phase: llama3.2-3b's train steps and zamba2-2.7b's decode steps
 # on a one-rank ("data", "model") mesh, sharded as the partition plan says.
 MESH_TRAIN = ("llama3.2-3b", 3, 2, 2048,
-              {"flash_attention_fwd": 56, "flash_attention_bwd": 28})
+              {"flash_attention_fwd": 56, "flash_attention_bwd": 28,
+               **ADAMW_STEP})
 MESH_DECODE = ("zamba2-2.7b", 8, 4096, 16)
 # How much further from the fp32 gradient (in norm, leaf by leaf) the
 # sharded bf16 step's gradient may lie than the unsharded bf16 step's:
@@ -3608,7 +3913,7 @@ def main() -> int:
     records = {rec["name"]: rec
                for rec in (kernel_phase(device), backward_phase(device),
                            ssd_kernel_phase(device),
-                           ssd_backward_phase(device))}
+                           ssd_backward_phase(device), *adamw_phase(device))}
     for name, counts in sass.items():
         records[name]["sass"] = counts
     mark("kernel phases")

@@ -2,10 +2,21 @@
 ``repro.optim.adamw``.
 
 The optimizer state is a tree shaped like the parameters (``mu``,
-``nu``) plus a step ``count``. The update is the JAX version's arithmetic
-written out as tensor ops, in place on the parameters and moments (the
-JAX version builds new arrays; the values are the same). It is not
-``torch.optim.AdamW``, whose schedule and clipping differ.
+``nu``) plus a step ``count``. The update is the JAX version's arithmetic,
+in place on the parameters and moments (the JAX version builds new
+arrays; the values are the same). It is not ``torch.optim.AdamW``, whose
+schedule and clipping differ.
+
+The dispatch is by device only, as the kernels' wrappers do: CUDA leaves
+go to the hand-written fused pair (``kernels.adamw``: one multi-tensor
+pass for the global norm, one for the update, the clip's scale computed
+on the device), which launches or raises; CPU leaves take the plain
+version, the same arithmetic written out as tensor ops, leaf by leaf
+(:func:`adamw_update_reference`, which runs on any device: on the card it
+is the kernels' reference). A fake tensor (the dry run's) goes to the
+kernels on any device, which count their work and launch nothing. There
+is no switch and no fallback. The schedule, the step count and the bias
+corrections stay on the host either way.
 
 ``grad_dtype="bfloat16"`` casts the gradients to bf16 before the norm and
 the update, as the JAX version does before its data-parallel reduction.
@@ -17,7 +28,8 @@ it), so no in-place op runs on a partial tensor; the update, elementwise
 over identically placed tensors, then runs on each rank's shards. The
 global norm sums each rank's squares, a replicated shard counted by one
 rank of its replicas, and is reduced once over the process group, which
-the mesh spans (``launch.mesh.make_mesh``).
+the mesh spans (``launch.mesh.make_mesh``): on the card the norm pass's
+sum of squares is that partial.
 """
 
 from __future__ import annotations
@@ -28,9 +40,12 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from ..kernels.adamw import kernel as _fused
+from ..kernels.fake import is_fake
 from ..sharding.local import is_dtensor
 
-__all__ = ["AdamWConfig", "init_opt_state", "adamw_update"]
+__all__ = ["AdamWConfig", "init_opt_state", "adamw_update",
+           "adamw_update_reference", "update_leaf"]
 
 
 @dataclass(frozen=True)
@@ -81,23 +96,31 @@ def _schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.lr * warm * (cfg.min_lr_ratio + (1 - cfg.min_lr_ratio) * cos)
 
 
-def _global_norm(grads) -> torch.Tensor:
-    total = None
-    mesh = None
+def _norm_terms(grads):
+    """Each gradient leaf's local tensor, whether this rank counts its
+    squares, and the mesh (None without DTensors): a shard held by several
+    ranks (replicated over a mesh dim) counts once, on the ranks at
+    coordinate 0 of those dims."""
+    terms, mesh = [], None
     for g in _leaves(grads):
+        counted = True
         if is_dtensor(g):
             mesh = g.device_mesh
             coord = mesh.get_coordinate()
-            # a shard held by several ranks (replicated over a mesh dim)
-            # counts once: on the ranks at coordinate 0 of those dims
             counted = all(c == 0 for c, p in zip(coord, g.placements)
                           if not p.is_shard())
             g = g.to_local()
-            sq = torch.sum(torch.square(g.to(torch.float32)))
-            if not counted:
-                sq = torch.zeros_like(sq)
-        else:
-            sq = torch.sum(torch.square(g.to(torch.float32)))
+        terms.append((g, counted))
+    return terms, mesh
+
+
+def _global_norm(grads) -> torch.Tensor:
+    terms, mesh = _norm_terms(grads)
+    total = None
+    for g, counted in terms:
+        sq = torch.sum(torch.square(g.to(torch.float32)))
+        if not counted:
+            sq = torch.zeros_like(sq)
         total = sq if total is None else total + sq
     if mesh is not None:   # a mesh spans the process group (make_mesh)
         torch.distributed.all_reduce(total)
@@ -113,6 +136,24 @@ def _as_placed(g, p):
     return g
 
 
+def _local(t):
+    return t.to_local() if is_dtensor(t) else t
+
+
+def _prepare(cfg: AdamWConfig, params, grads, opt_state):
+    """The gradients cast and placed as the update takes them, the new
+    step count, the learning rate and, as host floats, the rate and the
+    bias corrections."""
+    if cfg.grad_dtype is not None:
+        grads = _map(lambda g: g.to(getattr(torch, cfg.grad_dtype)), grads)
+    grads = _map(_as_placed, grads, params)
+    count = opt_state["count"] + 1
+    lr = _schedule(cfg, opt_state["count"])
+    b1c = 1.0 - torch.tensor(cfg.b1, dtype=torch.float32) ** count.float()
+    b2c = 1.0 - torch.tensor(cfg.b2, dtype=torch.float32) ** count.float()
+    return grads, count, lr, (float(lr), float(b1c), float(b2c))
+
+
 @torch.no_grad()
 def adamw_update(
     cfg: AdamWConfig, params, grads, opt_state
@@ -120,31 +161,62 @@ def adamw_update(
     """One AdamW step. Updates ``params`` and the moments of ``opt_state``
     in place and returns (params, new opt state, {"grad_norm", "lr"}).
     ``grads`` may be in another dtype than ``params`` (the bf16 gradients
-    of a bf16 forward); each is widened to fp32 leaf by leaf."""
-    if cfg.grad_dtype is not None:
-        grads = _map(lambda g: g.to(getattr(torch, cfg.grad_dtype)), grads)
-    grads = _map(_as_placed, grads, params)
-    gnorm = _global_norm(grads)
-    scale = torch.clamp_max(cfg.grad_clip / torch.clamp_min(gnorm, 1e-9), 1.0)
-    count = opt_state["count"] + 1
-    lr = _schedule(cfg, opt_state["count"])
-    b1c = 1.0 - torch.tensor(cfg.b1, dtype=torch.float32) ** count.float()
-    b2c = 1.0 - torch.tensor(cfg.b2, dtype=torch.float32) ** count.float()
-    lr_f, b1c_f, b2c_f = float(lr), float(b1c), float(b2c)
-
-    def upd(p, g, mu, nu):
-        if is_dtensor(p):   # identically placed: each rank's shards
-            p, g, mu, nu = (t.to_local() for t in (p, g, mu, nu))
-        # two fp32 temporaries of the leaf's size: g (then the denominator)
-        # and the step
-        g = g.to(torch.float32) * scale
-        mu.mul_(cfg.b1).add_(g, alpha=1 - cfg.b1)
-        nu.mul_(cfg.b2).add_(g.square_(), alpha=1 - cfg.b2)
-        denom = torch.div(nu, b2c_f, out=g).sqrt_().add_(cfg.eps)
-        step = torch.div(mu, b1c_f).div_(denom)
-        step.add_(p, alpha=cfg.weight_decay)
-        p.sub_(step, alpha=lr_f)
-
-    _map(upd, params, grads, opt_state["mu"], opt_state["nu"])
+    of a bf16 forward); each is widened to fp32 element by element. CPU
+    leaves take :func:`adamw_update_reference`; any other leaves the fused
+    kernels, which raise for what they do not take."""
+    first = _local(next(_leaves(params)))
+    if first.device.type == "cpu" and not is_fake(first):
+        return adamw_update_reference(cfg, params, grads, opt_state)
+    grads, count, lr, (lr_f, b1c_f, b2c_f) = _prepare(cfg, params, grads,
+                                                      opt_state)
+    terms, mesh = _norm_terms(grads)
+    sumsq = _fused.adamw_norm([g for g, counted in terms if counted],
+                              device=first.device)
+    if mesh is not None:   # a mesh spans the process group (make_mesh)
+        torch.distributed.all_reduce(sumsq)
+    # each rank's shards, paired by key as the plain version pairs them
+    quads = []
+    _map(lambda *leaf: quads.append([_local(t) for t in leaf]),
+         params, grads, opt_state["mu"], opt_state["nu"])
+    ps, gs, mus, nus = zip(*quads)
+    gnorm = _fused.adamw_update(
+        ps, gs, mus, nus, sumsq, lr=lr_f, b1=cfg.b1, b2=cfg.b2, eps=cfg.eps,
+        weight_decay=cfg.weight_decay, grad_clip=cfg.grad_clip,
+        b1c=b1c_f, b2c=b2c_f)
     new_state = {"mu": opt_state["mu"], "nu": opt_state["nu"], "count": count}
     return params, new_state, {"grad_norm": gnorm, "lr": lr}
+
+
+@torch.no_grad()
+def adamw_update_reference(
+    cfg: AdamWConfig, params, grads, opt_state
+) -> Tuple[Any, Dict[str, Any], Dict[str, torch.Tensor]]:
+    """:func:`adamw_update` as plain tensor ops, leaf by leaf, on any
+    device: the CPU path, and on the card the fused kernels' reference."""
+    grads, count, lr, (lr_f, b1c_f, b2c_f) = _prepare(cfg, params, grads,
+                                                      opt_state)
+    gnorm = _global_norm(grads)
+    scale = torch.clamp_max(cfg.grad_clip / torch.clamp_min(gnorm, 1e-9), 1.0)
+    _map(lambda p, g, mu, nu: update_leaf(cfg, p, g, mu, nu, scale, lr_f,
+                                          b1c_f, b2c_f),
+         params, grads, opt_state["mu"], opt_state["nu"])
+    new_state = {"mu": opt_state["mu"], "nu": opt_state["nu"], "count": count}
+    return params, new_state, {"grad_norm": gnorm, "lr": lr}
+
+
+def update_leaf(cfg: AdamWConfig, p, g, mu, nu, scale, lr: float, b1c: float,
+                b2c: float) -> None:
+    """The plain version's update of one leaf, in place on ``p``, ``mu``
+    and ``nu``: the gradient times the clip's ``scale``, the learning rate
+    ``lr`` and the bias corrections ``b1c``, ``b2c`` of the step."""
+    # identically placed DTensors: each rank's shards
+    p, g, mu, nu = (_local(t) for t in (p, g, mu, nu))
+    # two fp32 temporaries of the leaf's size: g (then the denominator)
+    # and the step
+    g = g.to(torch.float32) * scale
+    mu.mul_(cfg.b1).add_(g, alpha=1 - cfg.b1)
+    nu.mul_(cfg.b2).add_(g.square_(), alpha=1 - cfg.b2)
+    denom = torch.div(nu, b2c, out=g).sqrt_().add_(cfg.eps)
+    step = torch.div(mu, b1c).div_(denom)
+    step.add_(p, alpha=cfg.weight_decay)
+    p.sub_(step, alpha=lr)

@@ -1232,3 +1232,289 @@ def test_cuda_phase_busy_sums_to_talps_device_busy(cuda):
     ours = sum(s.busy for s in be.phases.spans() + be.phases.outside)
     assert talp_busy > 0
     assert ours == pytest.approx(talp_busy, rel=0.01)
+
+
+# ---------------------------------------------------------------------------
+# The fused AdamW (kernels/adamw) against the plain update
+# ---------------------------------------------------------------------------
+# Leaf sizes: 1, 7 and 4,099 (all below the 8-element vector or with a
+# tail), 2^20 + 3, and one above 2^27 elements (many blocks, a tail); and
+# 4,099 elements whose four tensors start 4 bytes past a 16-byte boundary
+# (the scalar loop).
+ADAMW_SIZES = (1, 7, 4099, 2 ** 20 + 3, 2 ** 27 + 5)
+ADAMW_UNALIGNED = 4099
+
+
+def _adamw_tree(cuda, grad_dtype, grad_scale, seed=0):
+    """(params, grads, opt state) of ADAMW_SIZES and the unaligned leaf,
+    moments from a few steps' worth of noise (nu >= 0), gradients times
+    ``grad_scale``."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+
+    def leaf(n, offset=0):
+        t = torch.empty(n + offset, device=cuda)[offset:]
+        return t.normal_(generator=gen)
+
+    params, grads, mu, nu = {}, {}, {}, {}
+    names = [f"n{n}" for n in ADAMW_SIZES] + ["unaligned"]
+    for name, n in zip(names, ADAMW_SIZES + (ADAMW_UNALIGNED,)):
+        off = 1 if name == "unaligned" else 0
+        params[name] = leaf(n, off)
+        mu[name] = leaf(n, off).mul_(1e-2)
+        nu[name] = leaf(n, off).square_().mul_(1e-4)
+        g = leaf(n, off).mul_(grad_scale)
+        grads[name] = g if grad_dtype == torch.float32 else (
+            torch.empty(n + off, dtype=grad_dtype, device=cuda)[off:]
+            .copy_(g))
+    assert params["unaligned"].data_ptr() % 16 != 0
+    state = {"mu": mu, "nu": nu, "count": torch.tensor(3, dtype=torch.int32)}
+    return params, grads, state
+
+
+# The fused update's error on a leaf may reach this share of the largest
+# element of the plain update's change to the leaf, plus 4 eps of the
+# value: the change, and not only the value, is compared, so that a pass
+# that writes nothing or half a step fails wherever the step is far below
+# _tol (the moments' change is).
+ADAMW_CHANGE_TOL = 1e-3
+
+
+def _assert_change_close(got, want, start, msg):
+    """``got`` within ADAMW_CHANGE_TOL of the change ``want - start`` (its
+    largest element) and 4 eps of the value, leaf by leaf."""
+    for name in want:
+        change = (want[name] - start[name]).abs().max().item()
+        assert change > 0, (msg, name)
+        torch.testing.assert_close(
+            got[name], want[name], rtol=4 * torch.finfo(torch.float32).eps,
+            atol=ADAMW_CHANGE_TOL * change, msg=f"{msg} {name}")
+
+
+def _adamw_copy(tree):
+    """A copy that keeps each leaf's offset from a 16-byte boundary."""
+    if isinstance(tree, dict):
+        return {k: _adamw_copy(v) for k, v in tree.items()}
+    if tree.dim() == 0 or tree.data_ptr() % 16 == 0:
+        return tree.clone()
+    off = (tree.data_ptr() % 16) // tree.element_size()
+    return torch.empty(tree.numel() + off, dtype=tree.dtype,
+                       device=tree.device)[off:].copy_(tree)
+
+
+@pytest.mark.parametrize("grad_dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+@pytest.mark.parametrize("clip", [True, False], ids=["clip", "noclip"])
+def test_cuda_fused_adamw_matches_plain(cuda, grad_dtype, clip):
+    """Two steps of the fused update (optim.adamw.adamw_update on CUDA
+    leaves) against adamw_update_reference on copies of the same state:
+    each step's grad norm and lr, and p, mu, nu after both, at fp32 _tol;
+    with clipping on (norm about 1.2e4, scale below 1e-4) and off (the
+    gradients scaled to a norm below grad_clip)."""
+    from repro_torch.kernels.adamw import kernel as fused
+    from repro_torch.optim.adamw import (AdamWConfig, adamw_update,
+                                         adamw_update_reference)
+
+    opt = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=10)
+    params, grads, state = _adamw_tree(cuda, grad_dtype,
+                                       1.0 if clip else 1e-5)
+    ref_params, ref_state = _adamw_copy(params), _adamw_copy(state)
+    start_params, start_state = _adamw_copy(params), _adamw_copy(state)
+    before = (fused.adamw_norm.launches, fused.adamw_update.launches)
+    for _ in range(2):
+        _, state, m = adamw_update(opt, params, grads, state)
+        _, ref_state, m_ref = adamw_update_reference(opt, ref_params, grads,
+                                                     ref_state)
+        torch.cuda.synchronize()
+        scale = min(1.0, opt.grad_clip / float(m_ref["grad_norm"]))
+        assert (scale < 1e-3) if clip else scale == 1.0, scale
+        torch.testing.assert_close(m["grad_norm"], m_ref["grad_norm"],
+                                   **_tol(torch.float32))
+        assert float(m["lr"]) == float(m_ref["lr"])
+    assert (fused.adamw_norm.launches, fused.adamw_update.launches) == (
+        before[0] + 2, before[1] + 2)
+    for part, got, want in (("p", params, ref_params),
+                            ("mu", state["mu"], ref_state["mu"]),
+                            ("nu", state["nu"], ref_state["nu"])):
+        for name in got:
+            torch.testing.assert_close(got[name], want[name],
+                                       **_tol(torch.float32),
+                                       msg=f"{part} {name}")
+    _assert_change_close(params, ref_params, start_params, "p")
+    for part in ("mu", "nu"):
+        _assert_change_close(state[part], ref_state[part], start_state[part],
+                             part)
+
+
+def test_cuda_fused_adamw_many_leaves_of_both_gradient_dtypes(cuda):
+    """A tree of 150 leaves (every seventh empty, sizes up to 19,522), a
+    third of the gradients bf16 and the rest fp32, every fifth leaf one
+    element off a 16-byte boundary: the kernels take it in three batches
+    (64 fp32 leaves, the other 22, the 42 bf16 ones), and two steps change
+    every leaf as the plain update does (ADAMW_CHANGE_TOL), the norm at
+    fp32 _tol."""
+    from repro_torch.optim.adamw import (AdamWConfig, adamw_update,
+                                         adamw_update_reference)
+
+    opt = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=10)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+
+    def leaf(n, off, dtype=torch.float32):
+        t = torch.empty(n + off, dtype=dtype, device=cuda)[off:]
+        return t.copy_(torch.randn(n, generator=gen, device=cuda))
+
+    params, grads, mu, nu = {}, {}, {}, {}
+    for i in range(150):
+        name = f"leaf{i:03d}"
+        n, off = (0 if i % 7 == 0 else 131 * i + 3), int(i % 5 == 1)
+        params[name] = leaf(n, off)
+        grads[name] = leaf(n, off, torch.bfloat16 if i % 3 == 0
+                           else torch.float32)
+        mu[name] = leaf(n, off).mul_(1e-2)
+        nu[name] = leaf(n, off).square_().add_(0.5).mul_(1e-4)
+    state = {"mu": mu, "nu": nu, "count": torch.tensor(3, dtype=torch.int32)}
+    ref_params, ref_state = _adamw_copy(params), _adamw_copy(state)
+    start_params, start_state = _adamw_copy(params), _adamw_copy(state)
+    for _ in range(2):
+        _, state, m = adamw_update(opt, params, grads, state)
+        _, ref_state, m_ref = adamw_update_reference(opt, ref_params, grads,
+                                                     ref_state)
+        torch.testing.assert_close(m["grad_norm"], m_ref["grad_norm"],
+                                   **_tol(torch.float32))
+    torch.cuda.synchronize()
+    nonempty = [k for k in params if params[k].numel()]
+    pick = lambda tree: {k: tree[k] for k in nonempty}  # noqa: E731
+    _assert_change_close(pick(params), pick(ref_params), pick(start_params),
+                         "p")
+    for part in ("mu", "nu"):
+        _assert_change_close(pick(state[part]), pick(ref_state[part]),
+                             pick(start_state[part]), part)
+
+
+def test_cuda_fused_adamw_reruns_are_bit_identical(cuda):
+    """The same step on two copies of one state (bf16 gradients, clipping
+    on): the norm and every element of p, mu and nu bit for bit."""
+    from repro_torch.optim.adamw import AdamWConfig, adamw_update
+
+    opt = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=10)
+    params, grads, state = _adamw_tree(cuda, torch.bfloat16, 1.0, seed=1)
+    runs = []
+    for _ in range(2):
+        p, s = _adamw_copy(params), _adamw_copy(state)
+        _, s, m = adamw_update(opt, p, grads, s)
+        torch.cuda.synchronize()
+        runs.append((m["grad_norm"], p, s["mu"], s["nu"]))
+    (n0, *trees0), (n1, *trees1) = runs
+    assert torch.equal(n0, n1)
+    for a, b in zip(trees0, trees1):
+        for name in a:
+            assert torch.equal(a[name], b[name]), name
+
+
+def test_cuda_fused_adamw_refuses_what_it_does_not_take(cuda):
+    """A CPU leaf among CUDA ones, a non-contiguous leaf and a bf16
+    parameter each raise ValueError before any launch."""
+    from repro_torch.kernels.adamw import kernel as fused
+
+    p = torch.zeros(64, device=cuda)
+    g = torch.zeros(64, dtype=torch.bfloat16, device=cuda)
+    sumsq = fused.adamw_norm([g])
+    kw = dict(lr=1e-3, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1,
+              grad_clip=1.0, b1c=0.1, b2c=0.05)
+    before = fused.adamw_update.launches
+    for args in (([p], [g.cpu()], [p.clone()], [p.clone()]),
+                 ([torch.zeros(64, 2, device=cuda).t()],
+                  [torch.zeros(2, 64, device=cuda)],
+                  [torch.zeros(2, 64, device=cuda)],
+                  [torch.zeros(2, 64, device=cuda)]),
+                 ([p.bfloat16()], [g], [p.clone()], [p.clone()])):
+        with pytest.raises(ValueError):
+            fused.adamw_update(*args, sumsq, **kw)
+    assert fused.adamw_update.launches == before
+
+
+def test_cuda_fused_adamw_launches_once_a_step(cuda):
+    """A make_train_step step of smoke_config("mamba2-130m") on the card
+    moves adamw_norm and adamw_update by one each (launch_counts()), and
+    the SSD kernels by their counts."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokenPipeline
+    from repro_torch.kernels import launch_counts
+    from repro_torch.launch.steps import init_train_state, make_train_step
+    from repro_torch.optim.adamw import AdamWConfig
+
+    cfg = smoke_config("mamba2-130m")
+    state = init_train_state(cfg, torch.Generator(device=cuda).manual_seed(2),
+                             cuda)
+    batch = {k: torch.from_numpy(v).to(cuda) for k, v in
+             SyntheticTokenPipeline(DataConfig(2, 96, cfg.vocab_size,
+                                               seed=6)).batch_at(0).items()}
+    step = make_train_step(cfg, AdamWConfig())
+    before = launch_counts()
+    for _ in range(2):
+        state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    moved = {k: v - before[k] for k, v in launch_counts().items()}
+    assert moved == {"flash_attention_fwd": 0, "flash_attention_bwd": 0,
+                     "ssd_fwd": 4 * cfg.num_layers,
+                     "ssd_bwd": 2 * cfg.num_layers,
+                     "adamw_norm": 2, "adamw_update": 2}, moved
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_cuda_mamba_three_steps_fused_adamw_match_plain(cuda, compute_dtype):
+    """Three make_train_step steps of smoke_config("mamba2-130m") on the
+    card from one state, with the fused AdamW and with
+    adamw_update_reference in its place: every step's loss and grad norm
+    within the compute dtype's _tol; after the steps the moments within
+    fp32 _tol, and the parameters within fp32 _tol (fp32 compute) or
+    within fp32 _tol plus 2·lr (bf16: a parameter an ulp apart after step
+    1 can round its bf16 cast the other way, and Adam moves an element by
+    about lr·sign(g))."""
+    import dataclasses
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokenPipeline
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch.steps import init_train_state, make_train_step
+    from repro_torch.models import lm
+    from repro_torch.optim.adamw import AdamWConfig, adamw_update_reference
+
+    cfg = dataclasses.replace(smoke_config("mamba2-130m"),
+                              compute_dtype=compute_dtype)
+    opt = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=4)
+    start = init_train_state(cfg, torch.Generator(device=cuda).manual_seed(4),
+                             cuda)
+    data = SyntheticTokenPipeline(DataConfig(2, 96, cfg.vocab_size, seed=8))
+    runs = []
+    for plain in (False, True):
+        state = lm.tree_map(lambda x: x.clone(), start)
+        history = []
+        with pytest.MonkeyPatch.context() as mp:
+            if plain:
+                mp.setattr(steps_mod, "adamw_update", adamw_update_reference)
+            step = make_train_step(cfg, opt)
+            for i in range(3):
+                batch = {k: torch.from_numpy(v).to(cuda)
+                         for k, v in data.batch_at(i).items()}
+                state, m = step(state, batch)
+                history.append((float(m["loss"]), float(m["grad_norm"])))
+        runs.append((history, state))
+    (h_fused, s_fused), (h_plain, s_plain) = runs
+    dtype = getattr(torch, compute_dtype)
+    torch.testing.assert_close(torch.tensor(h_fused), torch.tensor(h_plain),
+                               **_tol(dtype))
+    tol32 = _tol(torch.float32)["atol"]
+
+    def pairs(a, b):
+        if isinstance(a, dict):
+            for key in a:
+                yield from pairs(a[key], b[key])
+        else:
+            yield a, b
+
+    for part in ("mu", "nu"):
+        for got, want in pairs(s_fused["opt"][part], s_plain["opt"][part]):
+            torch.testing.assert_close(got, want, rtol=tol32, atol=tol32)
+    atol = tol32 if dtype == torch.float32 else 2 * opt.lr + tol32
+    for got, want in pairs(s_fused["params"], s_plain["params"]):
+        torch.testing.assert_close(got, want, rtol=tol32, atol=atol)
