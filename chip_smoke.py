@@ -13,9 +13,9 @@
    unless both flash libraries have HGMMA and UTMALDG and no HMMA and the
    SSD forward and backward have HMMA; fails if any ``ptxas`` log says it
    serialises wgmma (warning C7520, a wgmma under a branch; C7512, too few
-   registers), if a forward kernel (D 32, 64, 80, 120, 128, 256), a bf16
-   kernel of the flash backward (both passes at D 32, 64, 80, 120, 128 and
-   256)
+   registers), if a forward kernel (D 32, 64, 80, 120, 128, 224, 256), a
+   bf16 kernel of the flash backward (both passes at D 32, 64, 80, 120,
+   128, 224 and 256)
    or a kernel of the SSD backward's bf16 path or of the fused AdamW
    spills.
    Then TALP's device records, which come from CUPTI's activity API
@@ -102,7 +102,13 @@
      the grad norm; a rerun bit-identical), then the fused step, the
      plain one and the library route (``torch._fused_adamw_``) in turns,
      each pass alone beside its bound, and each route's peak memory
-     beyond the state.
+     beyond the state;
+   * zamba2-7b's kernels (``zamba7_phase``): both flash kernels at head
+     dim 224 with Zamba-2's scale (D/2)^-1/2 (the D-256 rows at D 224 and
+     the training shape B 2, S 4096, H = K 32), output, LSE and dq, dk, dv
+     per row against the plain versions, a second backward bit-identical,
+     kernel, plain and cuDNN's SDPA (given the scale) timed there; the SSD
+     forward at H 112, G 2, N 64 against float64, both SSD kernels timed.
    Timings are CUDA events around runs of back-to-back calls (ms per
    call), medians; kernel and yardstick are timed in turns.
 3. Path checks: two narrow layers of each model's block on the card
@@ -136,12 +142,14 @@
    one card) as llama; then h2o-danube-3-4b (24 layers, a window of 4096
    at each, D 120) and gemma2-2b (26 layers, local and global in turn,
    D 256, soft-caps 50 and 30) with 4 requests of 8192 prompt tokens (each
-   model's context, past the window) and 64 generated tokens. Every launch
+   model's context, past the window) and 64 generated tokens; then
+   zamba2-7b (all 78 layers, 13 applications of its two shared blocks)
+   with 4 requests of 4096 and 64 generated tokens. Every launch
    counter is set to 0 just before each run and read just after: the
    prefill must launch each kernel as often as SERVE says (llama: the
    flash forward 28 times; mamba: the SSD scan 24 times; zamba2: 9 and 45;
    granite: 32; musicgen: 48; starcoder2: 40; qwen2-vl: 16; danube: 24;
-   gemma2: 26) and no other. Checks the tokens and the TALP hierarchies.
+   gemma2: 26; zamba2-7b: 13 and 78) and no other. Checks the tokens and the TALP hierarchies.
 5. Profile phases: prefills and decode steps of each model at its serve
    phase's shapes, timed without the profiler and traced with
    ``torch.profiler`` (CUDA activity only): the card's kernel time per
@@ -555,9 +563,9 @@ def build_kernels() -> dict:
     forward and the flash backward run wgmma and TMA and no mma.sync and
     the SSD forward's and backward's kernels run mma.sync; that no
     ``ptxas`` log warns of serialised wgmma (C7520 or C7512); and that no
-    flash forward kernel (D 32, 64, 80, 120, 128 and 256, bf16 and fp32),
-    no bf16 kernel of the flash backward (its two passes at D 32, 64, 80,
-    120, 128 and 256) and no kernel of the SSD backward's bf16
+    flash forward kernel (D 32, 64, 80, 120, 128, 224 and 256, bf16 and
+    fp32), no bf16 kernel of the flash backward (its two passes at D 32,
+    64, 80, 120, 128, 224 and 256) and no kernel of the SSD backward's bf16
     path spills. Returns each kernel record's SASS counts."""
     from repro_torch.kernels import cuda_build
     from repro_torch.kernels.adamw import kernel as adamw
@@ -589,18 +597,18 @@ def build_kernels() -> dict:
     fwd = [(label, spill) for label, _, spill in ptxas_kernels(fwd_log)]
     assert sorted(label for label, _ in fwd) == sorted(
         f"flash_fwd_{kind}<{d}>" for kind in ("wgmma", "f32")
-        for d in (32, 64, 80, 120, 128, 256)), fwd
+        for d in (32, 64, 80, 120, 128, 224, 256)), fwd
     assert not any(spilled(s) for _, s in fwd), fwd
     bwd_log = built[1][0].with_suffix(".log")
     spills = [(label, spill) for label, _, spill in ptxas_kernels(bwd_log)
               if label.startswith(("flash_bwd_dkdv_wgmma", "flash_bwd_dq_wgmma",
                                    "flash_bwd_dkdv_split_wgmma"))]
-    # two passes at D 32, 64, 80, 120, 128 and 256 (the dK/dV pass's split
-    # kernel at 256)
+    # two passes at D 32, 64, 80, 120, 128, 224 and 256 (the dK/dV pass's
+    # split kernel at 224 and 256)
     assert sorted(label for label, _ in spills) == sorted(
-        [f"flash_bwd_dq_wgmma<{d}>" for d in (32, 64, 80, 120, 128, 256)]
+        [f"flash_bwd_dq_wgmma<{d}>" for d in (32, 64, 80, 120, 128, 224, 256)]
         + [f"flash_bwd_dkdv_wgmma<{d}>" for d in (32, 64, 80, 120, 128)]
-        + ["flash_bwd_dkdv_split_wgmma<256>"]), spills
+        + [f"flash_bwd_dkdv_split_wgmma<{d}>" for d in (224, 256)]), spills
     assert not any(spilled(s) for _, s in spills), spills
     # every kernel the SSD backward's bf16 path launches: four templated
     # tensor-core kernels (the two chunk-state modes, query, key) at each of
@@ -1349,6 +1357,9 @@ def ssd_kernel_phase(device: torch.device) -> dict:
 SSD_TRAIN = (8, 4096, 24, 64, 1, 128, 256, torch.bfloat16, False)
 # ... and of zamba2-2.7b's SSD layers (2 x 4096 tokens, H 80, N 64).
 ZAMBA_SSD_TRAIN = (2, 4096, 80, 64, 1, 64, 256, torch.bfloat16, False)
+# ... and of zamba2-7b's Mamba-2 layers: 112 heads of 64, two groups of B
+# and C, state 64 (2 x 4096 tokens)
+ZAMBA7_SSD_TRAIN = (2, 4096, 112, 64, 2, 64, 256, torch.bfloat16, False)
 
 
 def ssd_backward_phase(device: torch.device) -> dict:
@@ -1410,7 +1421,7 @@ def ssd_backward_phase(device: torch.device) -> dict:
 
     train_err = {}
     for i, row in enumerate(SSD_SWEEP + [SSD_TRAIN, SSD_P128,
-                                         ZAMBA_SSD_TRAIN]):
+                                         ZAMBA_SSD_TRAIN, ZAMBA7_SSD_TRAIN]):
         b, l, h, p, g, n, chunk, dtype, with_state = row
         x, dt, a, bm, cm, d, s0, dy, dfin = inputs(i, *row[:6], dtype,
                                                    with_state)
@@ -1539,6 +1550,159 @@ ADAMW_CHECK = dict(steps=3, count=20, grad_norm=1.5)
 # (a few roundings of the value itself).
 ADAMW_CHANGE_TOL = 1e-3
 ADAMW_SLICE = 2 ** 26   # elements of a leaf checked at a time
+
+
+# Head dim 224 (zamba2-7b's shared blocks: 7168 / 32 heads, MHA; the D-256
+# tiles over TMA's zero columns 224-255) with Zamba-2's softmax scale
+# (D/2)^-1/2, forward and backward: the D-256 rows of NEW_DIMS at D 224
+# (MHA, GQA 2:1, S and T off the tile grid, a window with a soft-cap, S
+# below one query tile), then the model's training shape, 2 x 4096.
+ZAMBA7_SCALE = (224 / 2) ** -0.5
+D224_ROWS = [
+    (1, 256, 256, 4, 4, 224, None, None, torch.bfloat16),
+    (2, 256, 256, 8, 4, 224, None, None, torch.bfloat16),
+    (1, 200, 328, 8, 4, 224, None, None, torch.bfloat16),
+    (1, 384, 384, 8, 4, 224, 100, 50.0, torch.bfloat16),
+    (1, 40, 300, 4, 2, 224, None, None, torch.bfloat16),
+]
+ZAMBA7_TRAIN_ATTN = (2, 4096, 4096, 32, 32, 224, None, None, torch.bfloat16)
+
+
+def zamba7_phase(device: torch.device) -> dict:
+    """zamba2-7b's kernels: both flash kernels at head dim 224 with the
+    scale (D/2)^-1/2 on D224_ROWS and at the training shape, the output
+    per row against the plain version at TOL[dtype] and the LSE at
+    TOL[fp32], dq, dk and dv per row against the plain backward at
+    TOL[dtype] (the plain versions on pieces, plain_split), a second
+    backward bit-identical; kernel, plain and SDPA (cuDNN, given the same
+    scale) timed at the training shape, the library in turns with the
+    kernel. Then the SSD forward at H 112, G 2, N 64 against the plain
+    version in float64 per row, and both SSD kernels timed at the training
+    shape (ssd_backward_phase holds the backward to float64 autograd at
+    ZAMBA7_SSD_TRAIN)."""
+    from repro_torch.kernels.flash_attention import kernel, ref
+    from repro_torch.kernels.flash_attention.work import (
+        attention_backward_work, attention_work)
+    from repro_torch.kernels.ssd import kernel as ssd_kernel
+    from repro_torch.kernels.ssd import ref as ssd_ref
+    from repro_torch.kernels.ssd.work import ssd_backward_work, ssd_work
+
+    scale = ZAMBA7_SCALE
+
+    def bound_ms(work, dtype=torch.bfloat16):
+        return max(work[0] / PEAK_FLOPS[dtype], work[1] / PEAK_BYTES) * 1e3
+
+    out = {}
+    for i, row in enumerate(D224_ROWS + [ZAMBA7_TRAIN_ATTN]):
+        b, s, t, h, k, d, window, softcap, dtype = row
+        cfg = dict(causal=True, window=window, softcap=softcap, scale=scale)
+        gen = torch.Generator(device=device).manual_seed(7000 + i)
+        q, kk, vv, do = (torch.randn(shape, generator=gen,
+                                     device=device).to(dtype)
+                         for shape in ((b, s, h, d), (b, t, k, d),
+                                       (b, t, k, d), (b, s, h, d)))
+        o, lse = kernel.flash_attention(q, kk, vv, return_lse=True, **cfg)
+        got = kernel.flash_attention_backward(q, kk, vv, o, lse, do, **cfg)
+        again = kernel.flash_attention_backward(q, kk, vv, o, lse, do, **cfg)
+        o_want, lse_want = plain_split(ref.attention_reference_lse, q, kk,
+                                       vv, cat=(2, 1), **cfg)
+        up = [x.float() for x in (q, kk, vv, o, do)]
+        plain = plain_split(ref.attention_backward_reference, *up[:4], lse,
+                            up[4], cat=(2, 2, 2), **cfg)
+        torch.cuda.synchronize()
+        o_err = row_rel_err(o, o_want)
+        lse_err = (lse - lse_want.contiguous()).abs().max().item()
+        g_err = [row_rel_err(g, w) for g, w in zip(got, plain)]
+        shape = (f"B{b} S{s} T{t} H{h} K{k} D{d} {str(dtype)[6:]} causal"
+                 + (f" window {window}" if window else "")
+                 + (f" softcap {softcap}" if softcap else "")
+                 + f" scale (D/2)^-1/2")
+        print(f"[zamba7] {shape}: o per-row {o_err:.3e}, lse {lse_err:.3e}, "
+              f"dq dk dv per-row " + ", ".join(f"{e:.3e}" for e in g_err)
+              + f" (tol {TOL[dtype]}, lse {TOL[torch.float32]})")
+        assert o_err <= TOL[dtype] and max(g_err) <= TOL[dtype], (row, o_err,
+                                                                   g_err)
+        assert lse_err <= TOL[torch.float32], (row, lse_err)
+        assert all(torch.equal(x, y) for x, y in zip(got, again))
+        del o_want, lse_want, plain, again, up
+    # the training shape's times: kernel, plain (one request at a time),
+    # cuDNN's SDPA in turns with the kernel
+    fw = attention_work(b, s, t, h, k, d, None, dtype)
+    bw = attention_backward_work(b, s, t, h, k, d, None, dtype)
+    qt, kt, vt, dot = (x.transpose(1, 2).contiguous() for x in (q, kk, vv, do))
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, is_causal=True, scale=scale)
+    run = lambda: kernel.flash_attention(q, kk, vv, scale=scale)  # noqa: E731
+    lib_ms, k_ms = time_turns(sdpa, run, reps=10, inner=5)
+    plain_ms = statistics.median(time_samples(
+        lambda: plain_split(ref.attention_reference, q, kk, vv, cat=(2,),
+                            causal=True, scale=scale), reps=3, inner=1))
+    leaves = [x.detach().requires_grad_() for x in (qt, kt, vt)]
+    ys = torch.nn.functional.scaled_dot_product_attention(
+        *leaves, is_causal=True, scale=scale)
+    sdpa_b = lambda: torch.autograd.grad(ys, leaves, dot,  # noqa: E731
+                                         retain_graph=True)
+    run_b = lambda: kernel.flash_attention_backward(  # noqa: E731
+        q, kk, vv, o, lse, do, scale=scale)
+    lib_b, k_b = time_turns(sdpa_b, run_b, reps=10, inner=3)
+    up = [x.float() for x in (q, kk, vv, o, do)]
+    plain_b = statistics.median(time_samples(
+        lambda: plain_split(ref.attention_backward_reference, *up[:4], lse,
+                            up[4], cat=(2, 2, 2), causal=True, scale=scale),
+        reps=3, inner=1))
+    out["fwd"] = dict(shape=shape, ms=k_ms, plain_ms=plain_ms,
+                      library_ms=lib_ms, bound_ms=bound_ms(fw),
+                      gflop=fw[0] / 1e9, row_rel_err=o_err,
+                      library="sdpa (cuDNN), the same scale")
+    out["bwd"] = dict(shape=shape, ms=k_b, plain_ms=plain_b,
+                      library_ms=lib_b, bound_ms=bound_ms(bw),
+                      gflop=bw[0] / 1e9, row_rel_err=max(g_err),
+                      library="sdpa's backward (cuDNN), the same scale")
+    print(f"[zamba7] {shape}: forward kernel {k_ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms (kernel/sdpa "
+          f"{k_ms / lib_ms:.3f}), bound {bound_ms(fw):.4f} ms; backward "
+          f"kernel {k_b:.4f} ms, plain {plain_b:.4f} ms, sdpa {lib_b:.4f} ms "
+          f"(kernel/sdpa {k_b / lib_b:.3f}), bound {bound_ms(bw):.4f} ms")
+    del q, kk, vv, do, o, lse, got, qt, kt, vt, dot, leaves, ys, up
+
+    b, l, h, p, g, n, chunk, dtype, _ = ZAMBA7_SSD_TRAIN
+    gen = torch.Generator(device=device).manual_seed(7100)
+    rnd = lambda *shape: torch.randn(shape, generator=gen,  # noqa: E731
+                                     device=device)
+    x = rnd(b, l, h, p).to(dtype)
+    dt = torch.nn.functional.softplus(rnd(b, l, h))
+    a = -torch.exp(rnd(h) * 0.3)
+    bm, cm = rnd(b, l, g, n).to(dtype), rnd(b, l, g, n).to(dtype)
+    dsk = torch.full((h,), 0.5, device=device)
+    dy = rnd(b, l, h, p).to(dtype)
+    y = ssd_kernel.ssd_scan(x, dt, a, bm, cm, chunk=chunk, d_skip=dsk)
+    y64 = ssd_ref.ssd_reference(*(t.double() for t in (x, dt, a, bm, cm)),
+                                chunk=chunk, d_skip=dsk.double())
+    torch.cuda.synchronize()
+    y_err = row_rel_err(y, y64)
+    del y64
+    assert y_err <= TOL[dtype], y_err
+    f_ms = statistics.median(time_samples(
+        lambda: ssd_kernel.ssd_scan(x, dt, a, bm, cm, chunk=chunk,
+                                    d_skip=dsk), reps=10, inner=5))
+    b_ms = statistics.median(time_samples(
+        lambda: ssd_kernel.ssd_scan_backward(x, dt, a, bm, cm, dy, chunk,
+                                             dsk), reps=10, inner=3))
+    pf_ms = statistics.median(time_samples(
+        lambda: ssd_ref.ssd_reference(x.float(), dt, a, bm.float(),
+                                      cm.float(), chunk=chunk, d_skip=dsk),
+        reps=3, inner=1))
+    sw = ssd_work(b, l, h, p, g, n, chunk, dtype, False)
+    sbw = ssd_backward_work(b, l, h, p, g, n, chunk, dtype, False)
+    shape = f"B{b} L{l} H{h} P{p} G{g} N{n} chunk {chunk} {str(dtype)[6:]}"
+    out["ssd_fwd"] = dict(shape=shape, ms=f_ms, plain_ms=pf_ms,
+                          bound_ms=bound_ms(sw), row_rel_err=y_err)
+    out["ssd_bwd"] = dict(shape=shape, ms=b_ms, bound_ms=bound_ms(sbw))
+    print(f"[zamba7] SSD {shape}: y per-row {y_err:.3e} (tol {TOL[dtype]}); "
+          f"forward kernel {f_ms:.4f} ms, plain {pf_ms:.4f} ms, bound "
+          f"{bound_ms(sw):.4f} ms; backward kernel {b_ms:.4f} ms, bound "
+          f"{bound_ms(sbw):.4f} ms")
+    return out
 
 
 def _like(tree, leaves):
@@ -2414,6 +2578,12 @@ SERVE = [
     # the kernel masks keys by the window and the windowed caches wrap
     ("h2o-danube-3-4b", 4, 8192, 64, {"flash_attention_fwd": 24}, None),
     ("gemma2-2b", 4, 8192, 64, {"flash_attention_fwd": 26}, None),
+    # all 78 layers (14.5 GB of bf16 weights): 13 applications of the two
+    # shared blocks (flash D 224) and 78 Mamba-2 layers with two groups;
+    # 4 requests, since the profile phase's second prefill runs beside the
+    # first one's grown caches (8 x 4096 did not fit beside them)
+    ("zamba2-7b", 4, 4096, 64, {"flash_attention_fwd": 13, "ssd_fwd": 78},
+     None),
 ]
 
 
@@ -3916,6 +4086,11 @@ def main() -> int:
                            ssd_backward_phase(device), *adamw_phase(device))}
     for name, counts in sass.items():
         records[name]["sass"] = counts
+    zamba7 = zamba7_phase(device)
+    for name, key in (("flash_attention_fwd", "fwd"),
+                      ("flash_attention_bwd", "bwd"), ("ssd_fwd", "ssd_fwd"),
+                      ("ssd_bwd", "ssd_bwd")):
+        records[name]["zamba2_7b_train_shape"] = zamba7[key]
     mark("kernel phases")
     path_check(device)
     mamba_path_check(device)

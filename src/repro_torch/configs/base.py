@@ -13,6 +13,7 @@ from typing import Callable, Dict, Optional, Tuple
 
 __all__ = [
     "ModelConfig",
+    "HybridConfig",
     "ShapeConfig",
     "SHAPES",
     "register_config",
@@ -42,7 +43,8 @@ class ModelConfig:
     vocab_size: int = 0
     # layer pattern: tuple of block kinds forming one scan "super-layer";
     # repeated num_layers // len(pattern) times.
-    pattern: Tuple[str, ...] = ("attn",)   # attn | attn_local | attn_global | ssm | shared_attn
+    # attn | attn_local | attn_global | ssm | shared_attn | zamba_hybrid
+    pattern: Tuple[str, ...] = ("attn",)
     # attention features
     window: Optional[int] = None       # sliding-window size (SWA / local layers)
     attn_logit_softcap: Optional[float] = None
@@ -149,6 +151,8 @@ class ModelConfig:
             + d_in * m                        # out
             + 2 * m                           # norms
         )
+        # a zamba_hybrid slot's Mamba-2 layer; HybridConfig adds the rest
+        per_kind["zamba_hybrid"] = per_kind["ssm"]
         shared_seen = False
         for r in range(self.repeats):
             for kind in self.pattern:
@@ -179,6 +183,51 @@ class ModelConfig:
         if self.frontend == "token":
             n -= self.padded_vocab * self.d_model
         return n
+
+
+@dataclass(frozen=True)
+class HybridConfig(ModelConfig):
+    """A config whose pattern holds Zamba-2's hybrid kind
+    (``zamba_hybrid``): ``shared_blocks`` shared transformer blocks,
+    applied in turn over the 2·d_model-wide concatenation of the residual
+    stream and the token embedding, each application with its own adapter
+    of rank ``adapter_rank`` on the gate-and-up product. A class of its
+    own, so every other config keeps the JAX package's fields."""
+
+    shared_blocks: int = 2
+    adapter_rank: int = 0
+
+    @property
+    def hybrid_applications(self) -> int:
+        """How many times the stack applies a shared block: each
+        ``zamba_hybrid`` slot once per repeat."""
+        return self.repeats * sum(k == "zamba_hybrid" for k in self.pattern)
+
+    def shared_block_params(self) -> int:
+        """Parameters of one shared block: its attention over the 2·M
+        concatenation, its gated feed-forward and its two norm scales."""
+        m, hd = self.d_model, self.resolved_head_dim
+        a = 2 * m
+        return (a * self.num_heads * hd + 2 * a * self.num_kv_heads * hd
+                + self.num_heads * hd * m + 3 * m * self.d_ff + a + m)
+
+    def application_params(self) -> int:
+        """One application's own leaves beside its Mamba-2 layer: the
+        projection L_r (M x M) and the adapter A_r (M x rank), B_r
+        (rank x 2F)."""
+        m = self.d_model
+        return m * m + self.adapter_rank * (m + 2 * self.d_ff)
+
+    def n_params(self) -> int:
+        return (super().n_params()
+                + self.hybrid_applications * self.application_params()
+                + self.shared_blocks * self.shared_block_params())
+
+    def n_flops_params(self) -> int:
+        # a token passes through a shared block at every application
+        return super().n_flops_params() + (
+            self.hybrid_applications - self.shared_blocks) \
+            * self.shared_block_params()
 
 
 @dataclass(frozen=True)
@@ -252,4 +301,6 @@ def smoke_config(name: str) -> ModelConfig:
                        capacity_factor=8.0)
     if cfg.mrope_sections:
         updates["mrope_sections"] = (2, 3, 3)  # sums to head_dim/2 = 8
+    if "zamba_hybrid" in cfg.pattern:
+        updates["adapter_rank"] = 8
     return replace(cfg, **updates)

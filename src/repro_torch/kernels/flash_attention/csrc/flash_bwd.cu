@@ -7,8 +7,8 @@
 // on the card, so its gradient is a hand-written kernel too. It takes what
 // the forward takes: causal GQA attention with aligned ends (query r sees
 // keys <= r + (T - S)), an optional sliding window and an optional logit
-// soft-cap softcap * tanh(s / softcap), D in {32, 64, 80, 120, 128, 256},
-// bf16 or fp32.
+// soft-cap softcap * tanh(s / softcap), D in {32, 64, 80, 120, 128, 224,
+// 256}, bf16 or fp32, and the softmax scale the caller gives.
 //
 // Inputs q, o, dO (B, S, H, D); k, v (B, T, K, D); lse (B, H, S) fp32, the
 // natural-log log-sum-exp of each row's scaled, soft-capped and masked
@@ -91,6 +91,14 @@
 // m64n128k16 a k-step): 192 KB. What bounds these: the exchange serialises
 // the warpgroups' elementwise work with each other's products, and 32-key
 // products run the tensor cores at a quarter of their width.
+//
+// D 224 (zamba2-7b's shared blocks) runs the D-256 design on tiles padded
+// to 256 columns (Panels::DP): TMA fills columns 224-255 of the fourth
+// panel with zeros, the products over D take 14 k-steps, and the stores
+// write the 224 real columns: in the split dK/dV pass warpgroup 1 owns
+// columns 128-255 and stores 128-223, the dQ pass stores 28 of its 32
+// column groups. The products with an N of D run at n128 pairs over 256
+// columns, so the padding costs 1.14 times those three.
 //
 // The fp32 path runs on the CUDA cores (never TF32), off the training path;
 // at D 80 and 120 a lane's columns i, i + 32, ... stop at D.
@@ -202,7 +210,8 @@ struct Panels {
   static constexpr int KSTEPS = (D + 15) / 16;
   static constexpr int SWIZZLE = PANEL == 64 ? 1 : 2;   // wgmma code: 128 B, 64 B
   static constexpr int ROW = PANEL * 2;                 // bytes
-  static_assert(D % 8 == 0 && (DP == D || DP == 128), "a head dim wgmma takes");
+  static_assert(D % 8 == 0 && (DP == D || DP == 128 || DP == 256),
+                "a head dim wgmma takes");
 };
 
 // Keys per dK/dV block and per dQ step. D <= 128: 128 and 128. D 256: the
@@ -668,7 +677,8 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       if (lane == 0) mbar_arrive(&empty[stage]);
     }
 
-    // after the last wgmma, and under no branch that encloses one
+    // after the last wgmma, and under no branch that encloses one; at D 224
+    // warpgroup 1's column groups from 224 on are TMA's zero padding
     const size_t kv_stride = (size_t)p.K * D;
     bf16* dkb = static_cast<bf16*>(p.dk) + ((size_t)w.b * p.T * p.K + w.kh) * D + HALF * wg;
     bf16* dvb = static_cast<bf16*>(p.dv) + ((size_t)w.b * p.T * p.K + w.kh) * D + HALF * wg;
@@ -677,7 +687,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 #pragma unroll
       for (int hi = 0; hi < 2; ++hi) {
         const int key = key_lo + 8 * hi;
-        if (key < p.T) {
+        if (key < p.T && HALF * wg + j * 8 < D) {
           const size_t at = (size_t)key * kv_stride + j * 8 + c2;
           *reinterpret_cast<uint32_t*>(dkb + at) =
               pack_bf16x2(dk[4 * j + 2 * hi] * p.scale, dk[4 * j + 2 * hi + 1] * p.scale);
@@ -1135,6 +1145,7 @@ int flash_attention_bwd(const void* q, const void* k, const void* v, const void*
     case 80: return launch_all<80>(p, is_bf16, st);
     case 120: return launch_all<120>(p, is_bf16, st);
     case 128: return launch_all<128>(p, is_bf16, st);
+    case 224: return launch_all<224>(p, is_bf16, st);
     case 256: return launch_all<256>(p, is_bf16, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -76,6 +76,16 @@
 // rounds and barrier waits per key, so D 256 stands further from its bound
 // (operations) than D 128.
 //
+// D 224 (zamba2-7b's shared blocks, 7168 / 32) is the D-256 kernel over
+// zero-filled columns, as D 80 is the D-128 one: four 64-column panels
+// whose tensor maps' D extent is 224, so TMA fills columns 224-255 of the
+// fourth with zeros; S = Q K^T takes the 14 k-steps of real columns, O +=
+// P V runs at n256 (the last 32 columns of O stay 0 and are not stored).
+// So P V does 1.14 times the products it needs; registers and shared
+// memory are D 256's. The softmax scale is the caller's (Zamba-2 takes
+// (D / 2)^-1/2), applied in fp32 in the exponent's FFMA, never to q in
+// bf16.
+//
 // The fp32 path (flash_fwd_f32) is off the serving path: full fp32 on the
 // CUDA cores (never TF32), q scaled after the load as the TPU kernel does;
 // its tiles are dynamic shared memory (80 KB at D 256).
@@ -137,8 +147,8 @@ struct Regs {
 // Shared memory, from a 1024-byte aligned base: Q, then the K and V ring,
 // then the barriers. Each tile is stored as DP / PANEL panels of rows of
 // PANEL elements (one swizzle row each: 128 bytes, or 64 at D 32), where
-// DP is D rounded up to whole panels (128 at D 80 and 120; the columns
-// past D are TMA's zeros). BK keys a tile: 128, or 64 at D 256, where two
+// DP is D rounded up to whole panels (128 at D 80 and 120, 256 at D 224;
+// the columns past D are TMA's zeros). BK keys a tile: 128, or 64 at D 256, where two
 // stages of 128-key K and V tiles would not fit beside Q.
 template <int D>
 struct WgLayout {
@@ -156,7 +166,8 @@ struct WgLayout {
   static constexpr int BYTES = BAR_OFF + (2 + 4 * kStages) * 8;
   static constexpr int LAUNCH_BYTES = BYTES + 1024;   // room to align the base
   static_assert(LAUNCH_BYTES <= 232448, "over the 227 KB a block may use");
-  static_assert(D % 8 == 0 && (DP == D || DP == 128), "a head dim wgmma takes");
+  static_assert(D % 8 == 0 && (DP == D || DP == 128 || DP == 256),
+                "a head dim wgmma takes");
 };
 
 // One consumer warpgroup's view of the block: its rows, the softmax
@@ -624,6 +635,7 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
       case 80: return launch_wgmma<80>(p, B, st);
       case 120: return launch_wgmma<120>(p, B, st);
       case 128: return launch_wgmma<128>(p, B, st);
+      case 224: return launch_wgmma<224>(p, B, st);
       case 256: return launch_wgmma<256>(p, B, st);
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
@@ -634,6 +646,7 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
     case 80: return launch_f32<80>(p, B, st);
     case 120: return launch_f32<120>(p, B, st);
     case 128: return launch_f32<128>(p, B, st);
+    case 224: return launch_f32<224>(p, B, st);
     case 256: return launch_f32<256>(p, B, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -22,12 +22,17 @@ A fake tensor takes the kernels' place (``kernels.fake``): the same
 checks but the device's, the same outputs as fakes, and the work of
 :mod:`.work` given to its fake mode; nothing is launched or counted.
 
-Head dims: the forward takes 32, 64, 80, 120, 128 and 256 (80 is
-zamba2-2.7b's 2560 / 32, 120 h2o-danube-3-4b's 3840 / 32, 256
-gemma2-2b's), and so does the backward. D 80 and 120 run the D-128 tiles
-over columns TMA fills with zeros; D 256 runs tiles of fewer keys (each
-source's header says how). Any other head dim is refused with
+Head dims: the forward takes 32, 64, 80, 120, 128, 224 and 256 (80 is
+zamba2-2.7b's 2560 / 32, 120 h2o-danube-3-4b's 3840 / 32, 224
+zamba2-7b's 7168 / 32, 256 gemma2-2b's), and so does the backward. D 80
+and 120 run the D-128 tiles over columns TMA fills with zeros; D 256 runs
+tiles of fewer keys, and D 224 the D-256 tiles over zero columns 224-255
+(each source's header says how). Any other head dim is refused with
 ``ValueError`` here, before the library's dispatch.
+
+The softmax scale is a kernel argument: D^-1/2 unless ``scale`` is given
+(Zamba-2's shared blocks take (D / 2)^-1/2), applied in fp32 inside the
+kernels, never folded into q in bf16.
 """
 
 from __future__ import annotations
@@ -49,8 +54,8 @@ __all__ = ["BWD_HEAD_DIMS", "BWD_SOURCE", "FWD_HEAD_DIMS", "FlashAttention",
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_fwd.cu"
 BWD_SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_bwd.cu"
-FWD_HEAD_DIMS = (32, 64, 80, 120, 128, 256)
-BWD_HEAD_DIMS = (32, 64, 80, 120, 128, 256)
+FWD_HEAD_DIMS = (32, 64, 80, 120, 128, 224, 256)
+BWD_HEAD_DIMS = (32, 64, 80, 120, 128, 224, 256)
 _MAX_GRID_YZ = 65535
 _lib: Optional[ctypes.CDLL] = None
 _bwd_lib: Optional[ctypes.CDLL] = None
@@ -88,10 +93,12 @@ def backward_library() -> ctypes.CDLL:
 
 def check_inputs(q, k, v, causal: bool, window: Optional[int],
                  softcap: Optional[float],
-                 head_dims: tuple = FWD_HEAD_DIMS) -> None:
+                 head_dims: tuple = FWD_HEAD_DIMS,
+                 scale: Optional[float] = None) -> None:
     """Raise ``ValueError`` for any input the kernel does not take; the
-    head dim must be one of ``head_dims``. A DTensor raises ``TypeError``
-    (``ops.attention`` maps it to its shards first)."""
+    head dim must be one of ``head_dims``, a given scale finite and > 0. A
+    DTensor raises ``TypeError`` (``ops.attention`` maps it to its shards
+    first)."""
     refuse_dtensor("flash_attention", q, k, v)
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash_attention wants q (B,S,H,D), k/v (B,T,K,D)")
@@ -117,6 +124,8 @@ def check_inputs(q, k, v, causal: bool, window: Optional[int],
         raise ValueError(f"window must be >= 1, got {window}")
     if softcap is not None and not softcap > 0:
         raise ValueError(f"softcap must be > 0, got {softcap}")
+    if scale is not None and not 0 < scale < float("inf"):
+        raise ValueError(f"scale must be finite and > 0, got {scale}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention wants contiguous q, k, v")
     if is_fake(q):   # no memory: the device and alignment are the launch's
@@ -148,13 +157,15 @@ def flash_attention(
     window: Optional[int] = None,
     softcap: Optional[float] = None,
     return_lse: bool = False,
+    scale: Optional[float] = None,
 ):
     """Launch the forward on the current stream; returns o (B, S, H, D) in
     q's dtype, and with ``return_lse`` also each row's log-sum-exp of the
-    scaled, soft-capped, masked scores, fp32 (B, H, S). Does not
-    synchronise. Refuses inputs that require grad under grad mode."""
+    scaled, soft-capped, masked scores, fp32 (B, H, S). ``scale``: the
+    softmax scale, D^-1/2 by default. Does not synchronise. Refuses inputs
+    that require grad under grad mode."""
     _refuse_grad(q, k, v)
-    check_inputs(q, k, v, causal, window, softcap)
+    check_inputs(q, k, v, causal, window, softcap, scale=scale)
     b, s, h, d = q.shape
     t, nk = k.shape[1], k.shape[2]
     o = torch.empty_like(q)
@@ -171,7 +182,8 @@ def flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr() if lse is not None else None,
             b, s, t, h, nk, d, int(q.dtype == torch.bfloat16), int(causal),
-            window or 0, float(softcap or 0.0), d ** -0.5, stream,
+            window or 0, float(softcap or 0.0),
+            d ** -0.5 if scale is None else scale, stream,
         )
     if rc != 0:
         msg = lib.flash_attention_error_string(rc).decode()
@@ -193,10 +205,12 @@ def flash_attention_backward(
     causal: bool = True,
     window: Optional[int] = None,
     softcap: Optional[float] = None,
+    scale: Optional[float] = None,
 ):
     """Launch the three backward kernels on the current stream; returns
-    (dq, dk, dv) in q's dtype. Does not synchronise."""
-    check_inputs(q, k, v, causal, window, softcap, BWD_HEAD_DIMS)
+    (dq, dk, dv) in q's dtype; ``scale`` as the forward's. Does not
+    synchronise."""
+    check_inputs(q, k, v, causal, window, softcap, BWD_HEAD_DIMS, scale)
     do = do.contiguous()
     b, s, h, d = q.shape
     t, nk = k.shape[1], k.shape[2]
@@ -231,7 +245,8 @@ def flash_attention_backward(
             do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(),
             b, s, t, h, nk, d, int(q.dtype == torch.bfloat16), int(causal),
-            window or 0, float(softcap or 0.0), d ** -0.5, stream,
+            window or 0, float(softcap or 0.0),
+            d ** -0.5 if scale is None else scale, stream,
         )
     if rc != 0:
         msg = lib.flash_attention_bwd_error_string(rc).decode()
@@ -249,12 +264,13 @@ class FlashAttention(torch.autograd.Function):
     needs only when some input requires grad."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, softcap):
-        ctx.config = (causal, window, softcap)
+    def forward(ctx, q, k, v, causal, window, softcap, scale=None):
+        ctx.config = (causal, window, softcap, scale)
         if not any(ctx.needs_input_grad[:3]):
-            return flash_attention(q, k, v, causal, window, softcap)
+            return flash_attention(q, k, v, causal, window, softcap,
+                                   scale=scale)
         o, lse = flash_attention(q, k, v, causal, window, softcap,
-                                 return_lse=True)
+                                 return_lse=True, scale=scale)
         ctx.save_for_backward(q, k, v, o, lse)
         return o
 
@@ -264,4 +280,4 @@ class FlashAttention(torch.autograd.Function):
         q, k, v, o, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_backward(q, k, v, o, lse, do,
                                               *ctx.config)
-        return dq, dk, dv, None, None, None
+        return dq, dk, dv, None, None, None, None

@@ -38,14 +38,19 @@ def attention(
     causal: bool = True,
     window: Optional[int] = None,
     softcap: Optional[float] = None,
+    scale: Optional[float] = None,
 ) -> torch.Tensor:
+    """``scale``: the softmax scale, D^-1/2 by default (Zamba-2's shared
+    blocks take (D / 2)^-1/2)."""
     if is_dtensor(q):
         mesh = q.device_mesh
         pl = op_placements(mesh, 0, q.shape[0], 2, k.shape[2])
         return run_local(
-            lambda q_, k_, v_: attention(q_, k_, v_, causal, window, softcap),
+            lambda q_, k_, v_: attention(q_, k_, v_, causal, window, softcap,
+                                         scale),
             (q, k, v), (pl, pl, pl), pl, mesh)
     if q.device.type == "cpu" and not is_fake(q):
         return _ref.attention_reference(q, k, v, causal=causal, window=window,
-                                        softcap=softcap)
-    return _kernel.FlashAttention.apply(q, k, v, causal, window, softcap)
+                                        softcap=softcap, scale=scale)
+    return _kernel.FlashAttention.apply(q, k, v, causal, window, softcap,
+                                        scale)

@@ -1,5 +1,6 @@
 """Plain PyTorch version of the flash-attention kernel: full-softmax GQA
-attention with causal/sliding-window masking and logit soft-capping.
+attention with causal/sliding-window masking, logit soft-capping and a
+softmax scale (D^-1/2 unless one is given).
 Materializes the whole score matrix — the correctness reference, and the
 path :func:`..ops.attention` takes for tensors on the CPU, where autograd
 differentiates it.
@@ -20,13 +21,19 @@ __all__ = ["attention_backward_reference", "attention_reference",
            "attention_reference_lse"]
 
 
-def _scores(q, k, causal, window, softcap):
+def _scale(q, scale):
+    return q.shape[-1] ** -0.5 if scale is None else scale
+
+
+def _scores(q, k, causal, window, softcap, scale=None):
     """Scaled, soft-capped scores (B, S, K, G, T) in fp32, the visibility
-    mask (S, T) and, with a soft-cap, tanh of the scaled scores over it."""
+    mask (S, T) and, with a soft-cap, tanh of the scaled scores over it;
+    ``scale`` the softmax scale (default D^-1/2)."""
     b, s, h, d = q.shape
     t, nk = k.shape[1], k.shape[2]
     qr = q.reshape(b, s, nk, h // nk, d).float()
-    scores = torch.einsum("bskgd,btkd->bskgt", qr, k.float()) * (d ** -0.5)
+    scores = torch.einsum("bskgd,btkd->bskgt", qr, k.float()) * _scale(q,
+                                                                       scale)
     th = None
     if softcap is not None:
         th = torch.tanh(scores / softcap)
@@ -42,10 +49,10 @@ def _scores(q, k, causal, window, softcap):
     return scores, mask, th
 
 
-def _attend(q, k, v, causal, window, softcap):
+def _attend(q, k, v, causal, window, softcap, scale=None):
     """(output in q's dtype, masked scores (B, S, K, G, T) fp32)."""
     b, s, h, d = q.shape
-    scores, mask, _ = _scores(q, k, causal, window, softcap)
+    scores, mask, _ = _scores(q, k, causal, window, softcap, scale)
     scores = torch.where(mask[None, :, None, None, :], scores, -1e30)
     p = torch.softmax(scores, dim=-1)
     out = torch.einsum("bskgt,btkd->bskgd", p, v.float())
@@ -59,8 +66,9 @@ def attention_reference(
     causal: bool = True,
     window: Optional[int] = None,
     softcap: Optional[float] = None,
+    scale: Optional[float] = None,
 ) -> torch.Tensor:
-    return _attend(q, k, v, causal, window, softcap)[0]
+    return _attend(q, k, v, causal, window, softcap, scale)[0]
 
 
 def attention_reference_lse(
@@ -70,11 +78,12 @@ def attention_reference_lse(
     causal: bool = True,
     window: Optional[int] = None,
     softcap: Optional[float] = None,
+    scale: Optional[float] = None,
 ):
     """(output in q's dtype, log-sum-exp (B, H, S) fp32 of each row's
     scaled, soft-capped, masked scores)."""
     b, s, h, _ = q.shape
-    out, scores = _attend(q, k, v, causal, window, softcap)
+    out, scores = _attend(q, k, v, causal, window, softcap, scale)
     lse = torch.logsumexp(scores, dim=-1).reshape(b, s, h).transpose(1, 2)
     return out, lse.contiguous()
 
@@ -89,6 +98,7 @@ def attention_backward_reference(
     causal: bool = True,
     window: Optional[int] = None,
     softcap: Optional[float] = None,
+    scale: Optional[float] = None,
 ):
     """(dq, dk, dv) in the inputs' dtypes, computed in fp32 as
     ``csrc/flash_bwd.cu`` computes them: P = exp(s - lse) recomputed on
@@ -99,7 +109,7 @@ def attention_backward_reference(
     b, s, h, d = q.shape
     t, nk = k.shape[1], k.shape[2]
     g = h // nk
-    scores, mask, th = _scores(q, k, causal, window, softcap)
+    scores, mask, th = _scores(q, k, causal, window, softcap, scale)
     lse_r = lse.float().transpose(1, 2).reshape(b, s, nk, g)[..., None]
     p = torch.where(mask[None, :, None, None, :], torch.exp(scores - lse_r),
                     0.0)
@@ -110,7 +120,7 @@ def attention_backward_reference(
     ds = p * (dp - delta[..., None])
     if th is not None:
         ds = ds * (1.0 - th * th)
-    scale = d ** -0.5
+    scale = _scale(q, scale)
     dq = torch.einsum("bskgt,btkd->bskgd", ds, k.float()) * scale
     dk = torch.einsum("bskgt,bskgd->btkd", ds,
                       q.reshape(b, s, nk, g, d).float()) * scale

@@ -100,6 +100,7 @@ from ..sharding.partition import (
     axis_sizes,
     batch_pspec,
     cache_pspec,
+    check_partitioned,
     distribute_tree,
     fsdp_axes,
     make_sharding_tree,
@@ -498,6 +499,7 @@ def run_cell(arch: str, shape_name: Union[str, ShapeConfig],
     cfg = get_config(arch)
     if arch_overrides:
         cfg = dataclasses.replace(cfg, **arch_overrides)
+    check_partitioned(cfg)   # before any fake world is built
     shape = SHAPES[shape_name] if isinstance(shape_name, str) else shape_name
     if shape.name == "long_500k" and not cfg.long_context_ok:
         return {
@@ -620,6 +622,8 @@ def main():
                            device=args.device)
             if res["status"] == "skipped":
                 print(f"--- {arch} × {shape}: SKIPPED ({res['reason']})")
+        except NotImplementedError as err:
+            print(f"--- {arch} × {shape}: REFUSED ({err})")
         except Exception:
             failures += 1
             print(f"!!! {arch} × {shape}: FAILED")

@@ -18,12 +18,13 @@ collection and the next step opens a new one.
 
 Runs on ``cuda`` unless ``device="cpu"`` is asked for; without a card it
 raises instead of running on the CPU. On the card, attention trains only
-at a head dim the flash backward takes (``BWD_HEAD_DIMS``: 32, 64, 120,
-128 and 256, so h2o-danube-3-4b's 120 and gemma2-2b's 256 train;
-zamba2-2.7b's 80 is refused with ``ValueError`` before anything is
-allocated), and
+at a head dim the flash backward takes (``BWD_HEAD_DIMS``: 32, 64, 80,
+120, 128, 224 and 256, so zamba2-2.7b's 80, h2o-danube-3-4b's 120,
+zamba2-7b's 224 and gemma2-2b's 256 train; any other is refused with
+``ValueError`` before anything is allocated), and
 only a model whose train state, 16 bytes a parameter, fits the card's
-memory (starcoder2-15b's 328 GiB and qwen2-vl-72b's are refused the same
+memory (starcoder2-15b's 328 GiB, qwen2-vl-72b's and zamba2-7b's 108 GiB
+at its 78 layers are refused the same
 way: sharding over several cards is not ported); the CPU trains every
 supported config through the plain versions. SSM blocks train through
 the CUDA SSD backward on the card. An ``embed``-frontend model (musicgen-

@@ -95,6 +95,7 @@ def attention_parts(
     window: Optional[int] = None,
     softcap: Optional[float] = None,
     kv_chunk: int = 1024,
+    scale: Optional[float] = None,
 ):
     """Unnormalized online-softmax accumulation over one KV source.
 
@@ -102,12 +103,14 @@ def attention_parts(
     accumulator (B,S,K,G,D). Several sources (a prefix cache and a hot
     decode ring) combine exactly via :func:`combine_parts`. As in the JAX
     version, q is scaled in its own dtype and the products take the
-    inputs' values exactly with fp32 accumulation.
+    inputs' values exactly with fp32 accumulation. ``scale`` is the
+    softmax scale (default D^-1/2).
     """
     b, s, h, d = q.shape
     t, nk = k.shape[1], k.shape[2]
     g = h // nk
-    qr = q.reshape(b, s, nk, g, d) * torch.tensor(d ** -0.5, dtype=q.dtype)
+    scale = d ** -0.5 if scale is None else scale
+    qr = q.reshape(b, s, nk, g, d) * torch.tensor(scale, dtype=q.dtype)
     qr = qr.float()
     kv_chunk = min(kv_chunk, t)
     if t % kv_chunk != 0:
@@ -182,8 +185,10 @@ def attn_forward(
     positions: torch.Tensor,    # (B, S) or (3, B, S): arange(S) in every row
     kind: str = "attn",
     build_cache: bool = False,
+    scale: Optional[float] = None,
 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
-    """Prefill attention over a full sequence.
+    """Prefill attention over a full sequence; ``scale`` is the softmax
+    scale (default D^-1/2).
 
     ``positions`` must be ``arange(S)`` in every row, as
     :func:`repro_torch.models.lm._positions` gives them; with M-RoPE they
@@ -201,7 +206,7 @@ def attn_forward(
     k = constrain_seq_gathered(k)
     v = constrain_seq_gathered(v)
     out = flash_ops.attention(q, k, v, causal=True, window=_window(cfg, kind),
-                              softcap=cfg.attn_logit_softcap)
+                              softcap=cfg.attn_logit_softcap, scale=scale)
     b, s, _, _ = out.shape
     y = merge_last(out) @ p["wo"].to(out.dtype)
     cache = None
@@ -265,9 +270,11 @@ def attn_decode(
     pos: torch.Tensor,          # (B,) current token position
     cache: Dict[str, torch.Tensor],
     kind: str = "attn",
+    scale: Optional[float] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One-token decode: write to the hot ring, read prefix + hot ring,
-    combine the two partial softmaxes exactly (flash-decoding split).
+    combine the two partial softmaxes exactly (flash-decoding split);
+    ``scale`` is the softmax scale (default D^-1/2).
 
     The hot ring is updated in place, where repro.launch.serve donates the
     cache; the returned dict is ``cache`` itself."""
@@ -280,6 +287,8 @@ def attn_decode(
     q = _rope(cfg, q, rot_pos)
     k_new = _rope(cfg, k_new, rot_pos)
     kw = dict(window=_window(cfg, kind), softcap=cfg.attn_logit_softcap)
+    if scale is not None:
+        kw["scale"] = scale
     names = ("k", "v", "kv_pos", "hk", "hv", "h_pos")
     if is_dtensor(q):
         out = _decode_attend_sharded(q, k_new, v_new, positions, cache,
@@ -292,7 +301,7 @@ def attn_decode(
 
 
 def _decode_attend(q, k_new, v_new, positions, k, v, kv_pos, hk, hv, h_pos,
-                   window=None, softcap=None):
+                   window=None, softcap=None, scale=None):
     """Write the new token into the hot ring (in place), then attend over
     the prefix and the ring and combine the two partial softmaxes."""
     b = q.shape[0]
@@ -301,7 +310,7 @@ def _decode_attend(q, k_new, v_new, positions, k, v, kv_pos, hk, hv, h_pos,
     _ring_write(hk, k_new.to(hk.dtype), slot)
     _ring_write(hv, v_new.to(hv.dtype), slot)
     _ring_write(h_pos, positions.to(torch.int32), slot)
-    kw = dict(window=window, softcap=softcap)
+    kw = dict(window=window, softcap=softcap, scale=scale)
     parts = [
         attention_parts(q, k, v, positions, kv_pos, kv_chunk=k.shape[1],
                         **kw),

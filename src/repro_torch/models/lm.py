@@ -1,9 +1,11 @@
 """Decoder-only LM assembled from config-driven block patterns. Port of
 ``repro.models.lm`` for the dense attention kinds (``attn``,
 ``attn_local``, ``attn_global``), the shared attention block
-(``shared_attn``, Zamba-2) and Mamba-2 blocks (``ssm``), each attention
-block's feed-forward a dense SwiGLU or a top-k MoE (``models.moe``), whose
-load-balancing loss ``train_loss`` adds (``MOE_AUX_WEIGHT``). Both
+(``shared_attn``, the JAX package's Zamba-2 stand-in) and Mamba-2 blocks
+(``ssm``), each attention block's feed-forward a dense SwiGLU or a top-k
+MoE (``models.moe``), whose load-balancing loss ``train_loss`` adds
+(``MOE_AUX_WEIGHT``); and one kind the JAX package has not, Zamba-2's own
+hybrid layer (``zamba_hybrid``, below). Both
 frontends: ``token`` (an embedding table) and ``embed`` (precomputed
 (B, S, M) frame or patch embeddings, the VLM/audio stub, with no input
 table); RoPE, or M-RoPE where ``cfg.mrope_sections`` is set, whose
@@ -27,6 +29,26 @@ Given DTensor parameters (a sharded step, ``repro_torch.sharding``), the
 same code runs on the mesh: each repeat's boundaries take the ambient
 activation spec (``act_sharding.constrain``, where the JAX scan body
 does), and the kernels run in their ops' local maps.
+
+``zamba_hybrid`` (Zamba-2, arXiv:2411.15242): application r of a shared
+block, block b = r mod ``cfg.shared_blocks``, on the residual stream x and
+the token embedding e, which the stack keeps for the whole pass:
+
+    u = RMSNorm([x ; e])                          (the block's ln_in, 2·M)
+    a = Attention(u) W_o                          (softmax scale (D/2)^-1/2)
+    g = RMSNorm(a)                                (ln_ff; no residual)
+    f = FFN_act(g; W_gate + A_r B_r[:, :F], W_up + A_r B_r[:, F:]) W_down
+    x ← x + Mamba2_r(RMSNorm_r(x + f L_r))
+
+The shared blocks are ``shared_blocks`` (stacked (NB, ...), unstacked per
+application, so a block's gradient sums over its applications); the
+application's own leaves (its Mamba-2 layer with ``ln``, the projection
+``proj`` L_r, the adapter ``adapter_a`` A_r and ``adapter_b`` B_r) are its
+slot's, stacked over repeats. Its decode cache is one dict holding both
+kinds of state, the SSD state and conv tails beside its own KV cache. In
+the full-sequence forward each application's shared part (attention,
+feed-forward, adapter, L_r) runs in a ``shared_block`` phase span
+(``core/telemetry/phases.py``), under remat recomputed in ``backward``.
 """
 
 from __future__ import annotations
@@ -36,12 +58,14 @@ from typing import Any, Dict, List, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..core.telemetry import phases
 from ..sharding.act_sharding import constrain, constrain_seq_gathered
 from ..sharding.local import reduce_partial, replicate_like
 from .attention import (attn_decode, attn_forward, init_attn_params,
                         init_kv_cache)
 from .common import chunked_softmax_xent, rms_norm, soft_cap, truncated_normal
-from .mlp import init_mlp_params, mlp_forward
+from .mlp import (adapted_mlp_forward, init_adapter_params, init_mlp_params,
+                  mlp_forward)
 from .moe import init_moe_params, moe_forward
 from .ssm import init_ssm_cache, init_ssm_params, ssm_decode, ssm_forward
 
@@ -61,7 +85,8 @@ __all__ = [
 
 MOE_AUX_WEIGHT = 0.01
 
-_KINDS = ("attn", "attn_local", "attn_global", "shared_attn", "ssm")
+_KINDS = ("attn", "attn_local", "attn_global", "shared_attn", "ssm",
+          "zamba_hybrid")
 _FRONTENDS = ("token", "embed")
 
 
@@ -78,6 +103,12 @@ def check_supported(cfg) -> None:
     if cfg.frontend not in _FRONTENDS:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.frontend!r} frontend is not ported")
+    if "zamba_hybrid" in cfg.pattern and (
+            getattr(cfg, "shared_blocks", 0) < 1 or cfg.frontend != "token"
+            or cfg.is_moe or not cfg.d_ff):
+        raise ValueError(
+            f"{cfg.name}: zamba_hybrid wants a HybridConfig with "
+            "shared_blocks >= 1, the token frontend and a dense feed-forward")
 
 
 def tree_map(fn, tree):
@@ -104,6 +135,14 @@ def _init_block(cfg, kind, generator, dtype, device) -> Dict[str, Any]:
             "ln": torch.zeros((cfg.d_model,), dtype=dtype, device=device),
             "ssm": init_ssm_params(generator, cfg, dtype, device),
         }
+    if kind == "zamba_hybrid":   # the application's own leaves
+        m = cfg.d_model
+        return {
+            "ln": torch.zeros((m,), dtype=dtype, device=device),
+            "ssm": init_ssm_params(generator, cfg, dtype, device),
+            "proj": truncated_normal(generator, (m, m), 1.0, dtype, device),
+            **init_adapter_params(generator, cfg, dtype, device),
+        }
     p: Dict[str, Any] = {
         "ln1": torch.zeros((cfg.d_model,), dtype=dtype, device=device),
         "attn": init_attn_params(generator, cfg, dtype, device),
@@ -115,6 +154,36 @@ def _init_block(cfg, kind, generator, dtype, device) -> Dict[str, Any]:
         p["ln2"] = torch.zeros((cfg.d_model,), dtype=dtype, device=device)
         p["mlp"] = init_mlp_params(generator, cfg, dtype, device)
     return p
+
+
+def _init_shared_block(cfg, generator, dtype, device) -> Dict[str, Any]:
+    """One shared block of a ``zamba_hybrid`` pattern: attention over the
+    2·M-wide concatenation [x ; e], its norms and feed-forward."""
+    a, m = 2 * cfg.d_model, cfg.d_model
+    hd, h, k = cfg.resolved_head_dim, cfg.num_heads, cfg.num_kv_heads
+
+    def tn(shape):
+        return truncated_normal(generator, shape, 1.0, dtype, device)
+
+    return {
+        "ln_in": torch.zeros((a,), dtype=dtype, device=device),
+        "attn": {"wq": tn((a, h * hd)), "wk": tn((a, k * hd)),
+                 "wv": tn((a, k * hd)), "wo": tn((h * hd, m))},
+        "ln_ff": torch.zeros((m,), dtype=dtype, device=device),
+        "mlp": init_mlp_params(generator, cfg, dtype, device),
+    }
+
+
+def _stacked(make, n: int):
+    """``n`` trees from ``make()``, stacked leaf by leaf: (n, ...)."""
+    stacked = None
+    for r in range(n):
+        block = make()
+        if stacked is None:
+            stacked = tree_map(
+                lambda x: x.new_empty((n,) + tuple(x.shape)), block)
+        _copy_into(stacked, block, r)
+    return stacked
 
 
 def _copy_into(dst, src, r: int) -> None:
@@ -142,19 +211,17 @@ def init_params(cfg, generator, device=None, dtype=None) -> Dict[str, Any]:
     for i, kind in enumerate(cfg.pattern):
         if kind == "shared_attn":
             continue
-        stacked = None
-        for r in range(cfg.repeats):
-            block = _init_block(cfg, kind, generator, dtype, device)
-            if stacked is None:
-                stacked = tree_map(
-                    lambda x: x.new_empty((cfg.repeats,) + tuple(x.shape)),
-                    block)
-            _copy_into(stacked, block, r)
-        slots[f"slot{i}"] = stacked
+        slots[f"slot{i}"] = _stacked(
+            lambda: _init_block(cfg, kind, generator, dtype, device),
+            cfg.repeats)
     params["slots"] = slots
     if "shared_attn" in cfg.pattern:
         params["shared"] = _init_block(cfg, "shared_attn", generator, dtype,
                                        device)
+    if "zamba_hybrid" in cfg.pattern:
+        params["shared_blocks"] = _stacked(
+            lambda: _init_shared_block(cfg, generator, dtype, device),
+            cfg.shared_blocks)
     params["final_norm"] = torch.zeros((cfg.d_model,), dtype=dtype,
                                        device=device)
     params["unembed"] = truncated_normal(
@@ -208,8 +275,49 @@ def _ffn(cfg, bp, x, aux):
     return x, aux
 
 
-def _block_fwd(cfg, kind, bp, x, positions, aux, build_cache):
-    """Full-sequence application (train / prefill): (x, aux, cache)."""
+def _zamba_scale(cfg) -> float:
+    """Zamba-2's softmax scale, (D / 2)^-1/2: its attention reads a
+    concatenation twice the stream's width."""
+    return (cfg.resolved_head_dim / 2) ** -0.5
+
+
+def _zamba_shared_out(cfg, bp, a, positions=None, build_cache=False,
+                      decode=None):
+    """T = FFN_r(RMSNorm(Attention(u) W_o)) L_r of one application, from
+    the normed concatenation ``u``: attention over the sequence (with
+    ``build_cache``, also its KV cache), or with ``decode`` = (pos, cache)
+    one token through the cache. Returns (T, KV cache or None)."""
+    sp = bp["shared"]
+    if decode is None:
+        y, kv = attn_forward(cfg, sp["attn"], a, positions, "zamba_hybrid",
+                             build_cache=build_cache, scale=_zamba_scale(cfg))
+    else:
+        y, kv = attn_decode(cfg, sp["attn"], a, *decode, "zamba_hybrid",
+                            scale=_zamba_scale(cfg))
+    g = rms_norm(y, sp["ln_ff"])
+    f = adapted_mlp_forward(sp["mlp"], bp["adapter_a"], bp["adapter_b"], g)
+    return f @ bp["proj"].to(f.dtype), kv
+
+
+def _zamba_fwd(cfg, bp, x, emb, positions, build_cache):
+    """One ``zamba_hybrid`` application over the full sequence: (x, cache:
+    the SSD state and conv tails beside the KV cache, or None)."""
+    with phases.section("shared_block"):
+        u = _norm_gathered(torch.cat([x, emb], dim=-1), bp["shared"]["ln_in"])
+        t, kv = _zamba_shared_out(cfg, bp, u, positions, build_cache)
+    h = _norm_gathered(x + t, bp["ln"])
+    if build_cache:
+        y, cache = ssm_forward(cfg, bp["ssm"], h, build_cache=True)
+        return _residual(x, y), {**cache, **kv}
+    return _residual(x, ssm_forward(cfg, bp["ssm"], h)), None
+
+
+def _block_fwd(cfg, kind, bp, x, positions, aux, build_cache, emb=None):
+    """Full-sequence application (train / prefill): (x, aux, cache);
+    ``emb`` the token embedding (``zamba_hybrid`` reads it)."""
+    if kind == "zamba_hybrid":
+        x, cache = _zamba_fwd(cfg, bp, x, emb, positions, build_cache)
+        return x, aux, cache
     if kind == "ssm":
         h = _norm_gathered(x, bp["ln"])
         if build_cache:
@@ -223,7 +331,13 @@ def _block_fwd(cfg, kind, bp, x, positions, aux, build_cache):
     return x, aux, cache
 
 
-def _block_decode(cfg, kind, bp, x, pos, cache):
+def _block_decode(cfg, kind, bp, x, pos, cache, emb=None):
+    if kind == "zamba_hybrid":
+        u = rms_norm(torch.cat([x, emb], dim=-1), bp["shared"]["ln_in"])
+        t, cache = _zamba_shared_out(cfg, bp, u, decode=(pos, cache))
+        y, cache = ssm_decode(cfg, bp["ssm"], rms_norm(x + t, bp["ln"]),
+                              cache)
+        return x + y, cache
     if kind == "ssm":
         h = rms_norm(x, bp["ln"])
         y, cache = ssm_decode(cfg, bp["ssm"], h, cache)
@@ -248,34 +362,55 @@ def _unbind(tree, repeats: int) -> List[Dict[str, Any]]:
     return list(tree.unbind(0))
 
 
-def _repeat(cfg, layer, x, aux, positions, build_cache):
+def _repeat(cfg, layer, x, aux, positions, build_cache, emb=None):
     """One repeat of the block pattern (the JAX scan body), its residual
-    stream constrained to the ambient activation spec at both ends."""
+    stream constrained to the ambient activation spec at both ends;
+    ``emb`` the token embedding where the pattern reads it."""
     caches = {}
     x = constrain(x)   # layer-boundary activation sharding (SP)
     for i, kind in enumerate(cfg.pattern):
         key = f"slot{i}"
         x, aux, cache = _block_fwd(cfg, kind, layer[key], x, positions, aux,
-                                   build_cache)
+                                   build_cache, emb)
         if build_cache:
             caches[key] = cache
     x = constrain(x)
     return x, aux, caches
 
 
-def _remat_repeat(cfg, x, aux, layer, positions):
-    return _repeat(cfg, layer, x, aux, positions, False)[:2]
+def _remat_repeat(cfg, x, aux, layer, positions, emb=None):
+    return _repeat(cfg, layer, x, aux, positions, False, emb)[:2]
+
+
+def _hybrid_block(cfg, r: int, i: int) -> int:
+    """The shared block that repeat ``r``'s ``zamba_hybrid`` slot ``i``
+    applies: its application's number, counted over the stack, mod
+    ``cfg.shared_blocks``."""
+    per_repeat = [j for j, kind in enumerate(cfg.pattern)
+                  if kind == "zamba_hybrid"]
+    return (r * len(per_repeat) + per_repeat.index(i)) % cfg.shared_blocks
 
 
 def _layer_rows(cfg, params) -> List[Dict[str, Any]]:
     """Each repeat's block parameters by slot: row r of every stacked slot,
-    and the one ``shared`` set for every ``shared_attn`` slot."""
+    and the one ``shared`` set for every ``shared_attn`` slot; a
+    ``zamba_hybrid`` slot's row also holds, under ``shared``, the shared
+    block its application applies."""
     rows = {key: _unbind(slot, cfg.repeats)
             for key, slot in params["slots"].items()}
     shared = {f"slot{i}": params["shared"]
               for i, kind in enumerate(cfg.pattern) if kind == "shared_attn"}
-    return [{**{key: rows[key][r] for key in rows}, **shared}
-            for r in range(cfg.repeats)]
+    out = [{**{key: rows[key][r] for key in rows}, **shared}
+           for r in range(cfg.repeats)]
+    if "zamba_hybrid" in cfg.pattern:
+        blocks = _unbind(params["shared_blocks"], cfg.shared_blocks)
+        for r, layer in enumerate(out):
+            for i, kind in enumerate(cfg.pattern):
+                if kind == "zamba_hybrid":
+                    layer[f"slot{i}"] = {
+                        **layer[f"slot{i}"],
+                        "shared": blocks[_hybrid_block(cfg, r, i)]}
+    return out
 
 
 def _stack_fwd(cfg, params, x, positions, build_cache=False):
@@ -284,13 +419,16 @@ def _stack_fwd(cfg, params, x, positions, build_cache=False):
              and not build_cache)
     aux = replicate_like(
         torch.zeros((), dtype=torch.float32, device=x.device), x)
+    # the token embedding, which zamba_hybrid slots read at every layer
+    emb = x if "zamba_hybrid" in cfg.pattern else None
     cache_rows: Dict[str, list] = {}
     for layer in _layer_rows(cfg, params):
         if remat:
             x, aux = checkpoint(_remat_repeat, cfg, x, aux, layer, positions,
-                                use_reentrant=False)
+                                emb, use_reentrant=False)
             continue
-        x, aux, caches = _repeat(cfg, layer, x, aux, positions, build_cache)
+        x, aux, caches = _repeat(cfg, layer, x, aux, positions, build_cache,
+                                 emb)
         for key, cache in caches.items():
             cache_rows.setdefault(key, []).append(cache)
     caches = None
@@ -304,16 +442,21 @@ def _stack_fwd(cfg, params, x, positions, build_cache=False):
 
 
 def _stack_decode(cfg, params, x, pos, caches):
+    emb = x   # the token embedding, which zamba_hybrid slots read
     for r in range(cfg.repeats):
         for i, kind in enumerate(cfg.pattern):
             key = f"slot{i}"
             bp = (params["shared"] if kind == "shared_attn" else
                   tree_map(lambda a: a[r], params["slots"][key]))
+            if kind == "zamba_hybrid":
+                b = _hybrid_block(cfg, r, i)
+                bp = {**bp, "shared": tree_map(lambda a: a[b],
+                                               params["shared_blocks"])}
             # views of row r: attention's hot-ring writes land in the
             # stacked cache; an SSM block returns a new state and new conv
             # tails, which are written back into row r here
             cache_r = {name: c[r] for name, c in caches[key].items()}
-            x, new_r = _block_decode(cfg, kind, bp, x, pos, cache_r)
+            x, new_r = _block_decode(cfg, kind, bp, x, pos, cache_r, emb)
             for name, val in new_r.items():
                 if val is not cache_r[name]:
                     cache_r[name].copy_(val)
@@ -415,17 +558,18 @@ def init_decode_caches(cfg, batch: int, cache_len: int, filled: bool = False,
 
     caches: Dict[str, Any] = {}
     for i, kind in enumerate(cfg.pattern):
-        if kind == "ssm":
-            caches[f"slot{i}"] = stack(init_ssm_cache(cfg, batch, dtype,
-                                                      device))
-            continue
-        c = init_kv_cache(cfg, batch, cache_len, kind, dtype, device)
-        if filled:
-            t = c["kv_pos"].shape[1]
-            c["kv_pos"] = torch.arange(
-                cache_len - t, cache_len, dtype=torch.int32,
-                device=device).expand(batch, t).contiguous()
-        caches[f"slot{i}"] = stack(c)
+        slot = {}
+        if kind in ("ssm", "zamba_hybrid"):
+            slot.update(stack(init_ssm_cache(cfg, batch, dtype, device)))
+        if kind != "ssm":   # a zamba_hybrid slot holds both kinds of state
+            c = init_kv_cache(cfg, batch, cache_len, kind, dtype, device)
+            if filled:
+                t = c["kv_pos"].shape[1]
+                c["kv_pos"] = torch.arange(
+                    cache_len - t, cache_len, dtype=torch.int32,
+                    device=device).expand(batch, t).contiguous()
+            slot.update(stack(c))
+        caches[f"slot{i}"] = slot
     return caches
 
 
@@ -442,7 +586,9 @@ def grow_caches(cfg, caches, new_len: int):
     layers cap at their window; SSM carries, whose size does not grow with
     the sequence, pass through). New prefix slots are empty
     (``kv_pos = -1``); the hot ring passes through untouched. A
-    ``shared_attn`` block is never windowed, as in the JAX package.
+    ``shared_attn`` block is never windowed, as in the JAX package, nor is
+    a ``zamba_hybrid`` block, whose SSM carries pass through beside its
+    grown KV cache.
 
     Decode writes only the hot ring, at ``pos % decode_hot_len``, and
     nothing here or in the serve loop flushes it into the prefix
@@ -514,7 +660,8 @@ def consolidate_caches(cfg, caches):
         h_pos = c["h_pos"]
         idx = torch.where(h_pos >= 0, torch.remainder(h_pos, t),
                           torch.full_like(h_pos, t))
-        out[key] = {
+        out[key] = {   # a zamba_hybrid slot's SSM carries pass through
+            **c,
             "k": _scatter_slots(c["k"], c["hk"], idx),
             "v": _scatter_slots(c["v"], c["hv"], idx),
             "kv_pos": _scatter_slots(c["kv_pos"], h_pos, idx),

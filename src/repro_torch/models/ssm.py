@@ -3,7 +3,11 @@ Port of ``repro.models.ssm``.
 
 Separate projections for z (gate), x, B, C and dt, a short causal
 depthwise conv over x/B/C, the SSD recurrence, a gated RMSNorm and the
-output projection. Decode carries (conv tails, SSD state) per layer.
+output projection. Decode carries (conv tails, SSD state) per layer. With
+``ssm_groups`` G > 1 (B and C shared by groups of H / G heads) the gated
+norm is taken per group of d_inner / G channels, as mamba_ssm's
+``RMSNormGated(group_size=d_inner // ngroups)`` takes it; at G 1 it is the
+norm over all of d_inner, the JAX package's.
 
 Both branches of :func:`ssm_forward` go through
 :func:`repro_torch.kernels.ssd.ops.ssd`: the hand-written CUDA kernel for
@@ -27,7 +31,8 @@ from ..kernels.ssd import ops as ssd_ops
 from ..sharding.local import merge_last, split_last
 from .common import rms_norm, truncated_normal
 
-__all__ = ["init_ssm_params", "ssm_forward", "init_ssm_cache", "ssm_decode"]
+__all__ = ["init_ssm_params", "ssm_forward", "init_ssm_cache", "ssm_decode",
+           "gated_norm"]
 
 
 def init_ssm_params(generator: torch.Generator, cfg, dtype=torch.float32,
@@ -106,6 +111,17 @@ def _decay_rates(p) -> torch.Tensor:
     return -torch.exp(p["a_log"].float())
 
 
+def gated_norm(cfg, y: torch.Tensor, z: torch.Tensor,
+               scale: torch.Tensor) -> torch.Tensor:
+    """RMSNorm of y * silu(z) over all of d_inner at G 1 (the JAX
+    package's); per group of d_inner / G channels at G > 1."""
+    g = cfg.ssm_groups
+    if g == 1:
+        return rms_norm(y * _silu(z), scale)
+    return rms_norm((y * _silu(z)).unflatten(-1, (g, -1)),
+                    scale.unflatten(-1, (g, -1))).flatten(-2)
+
+
 def ssm_forward(cfg, p: Dict[str, torch.Tensor], h: torch.Tensor,
                 build_cache: bool = False):
     """Full-sequence forward. h: (B, L, M) (post-norm input).
@@ -126,8 +142,7 @@ def ssm_forward(cfg, p: Dict[str, torch.Tensor], h: torch.Tensor,
         return_final_state=build_cache,
     )
     y, state = out if build_cache else (out, None)
-    y = merge_last(y)
-    y = rms_norm(y * _silu(z), p["norm"])
+    y = gated_norm(cfg, merge_last(y), z, p["norm"])
     out = y @ p["wo"].to(y.dtype)
     if not build_cache:
         return out
@@ -184,5 +199,5 @@ def ssm_decode(
     )
     new_cache["state"] = state
     y = merge_last(y).unsqueeze(1)   # (B, 1, d_inner)
-    y = rms_norm(y * _silu(z), p["norm"])
+    y = gated_norm(cfg, y, z, p["norm"])
     return y @ p["wo"].to(y.dtype), new_cache

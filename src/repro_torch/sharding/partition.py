@@ -50,6 +50,7 @@ __all__ = [
     "state_shardings",
     "batch_pspec",
     "cache_pspec",
+    "check_partitioned",
     "make_sharding_tree",
     "placements",
     "distribute_tree",
@@ -162,9 +163,21 @@ def _map_with_path(fn: Callable, tree, path: Tuple[str, ...] = ()):
     return fn(path, tree)
 
 
+def check_partitioned(cfg) -> None:
+    """Raise ``NotImplementedError`` for a block kind the plan has no rule
+    for: ``zamba_hybrid`` (its shared blocks, stacked over blocks and not
+    over repeats, and its caches of two kinds of state are not placed)."""
+    if "zamba_hybrid" in cfg.pattern:
+        raise NotImplementedError(
+            f"{cfg.name}: the partition plan has no rule for the "
+            "zamba_hybrid kind; it runs unsharded on one card")
+
+
 def make_sharding_tree(tree, mesh, cfg, spec_fn):
     """The spec of every leaf of ``tree`` (tensors, meta tensors included)
-    by ``spec_fn(path, leaf, mesh, cfg)``."""
+    by ``spec_fn(path, leaf, mesh, cfg)``; a config the plan does not
+    cover raises (:func:`check_partitioned`)."""
+    check_partitioned(cfg)
     return _map_with_path(lambda path, leaf: spec_fn(path, leaf, mesh, cfg),
                           tree)
 

@@ -145,6 +145,8 @@ SSD_N64 = [
     (1, 4096, 4, 64, 1, 64, 64, torch.bfloat16),
     (2, 512, 8, 64, 2, 64, 256, torch.bfloat16),
     (1, 1000, 80, 64, 1, 64, 256, torch.bfloat16),
+    # zamba2-7b's Mamba-2 layer: 112 heads of 64 in two groups, N 64
+    (1, 1000, 112, 64, 2, 64, 256, torch.bfloat16),
 ]
 
 
@@ -475,6 +477,8 @@ SSD_BWD = [
     (2, 100, 4, 16, 2, 32, 64, torch.float32),
     (1, 600, 4, 64, 1, 128, 256, torch.bfloat16),
     (2, 300, 8, 64, 2, 64, 256, torch.bfloat16),
+    # zamba2-7b's Mamba-2 layer: 112 heads of 64 in two groups, N 64
+    (1, 600, 112, 64, 2, 64, 256, torch.bfloat16),
 ]
 
 
@@ -1518,3 +1522,139 @@ def test_cuda_mamba_three_steps_fused_adamw_match_plain(cuda, compute_dtype):
     atol = tol32 if dtype == torch.float32 else 2 * opt.lr + tol32
     for got, want in pairs(s_fused["params"], s_plain["params"]):
         torch.testing.assert_close(got, want, rtol=tol32, atol=atol)
+
+
+# Head dim 224 (zamba2-7b's shared blocks: 7168 / 32, MHA; the D-256 tiles
+# over TMA's zero columns 224-255) with Zamba-2's softmax scale (D/2)^-1/2,
+# forward and backward: the D256 rows at D 224, and one row at the default
+# scale D^-1/2.
+ZAMBA_SCALE = (224 / 2) ** -0.5
+D224 = [
+    (1, 256, 256, 4, 4, 224, None, None, torch.float32, ZAMBA_SCALE),
+    (2, 256, 256, 4, 4, 224, None, None, torch.bfloat16, ZAMBA_SCALE),
+    (1, 256, 256, 8, 4, 224, None, None, torch.bfloat16, ZAMBA_SCALE),
+    (1, 200, 328, 8, 4, 224, None, None, torch.bfloat16, ZAMBA_SCALE),
+    (1, 256, 256, 4, 2, 224, 64, 30.0, torch.float32, ZAMBA_SCALE),
+    (1, 384, 384, 8, 4, 224, 100, 50.0, torch.bfloat16, ZAMBA_SCALE),
+    (1, 40, 300, 4, 2, 224, None, None, torch.bfloat16, ZAMBA_SCALE),
+    (1, 100, 400, 8, 4, 224, 64, 50.0, torch.bfloat16, ZAMBA_SCALE),
+    (1, 256, 256, 4, 4, 224, None, None, torch.bfloat16, None),
+]
+
+
+@pytest.mark.parametrize("row", D224,
+                         ids=[f"d224_{i}" for i in range(len(D224))])
+def test_cuda_d224_with_a_scale_vs_plain(cuda, row):
+    """At head dim 224 with the scale as a kernel argument: the forward's
+    output at the dtype's _tol and its LSE at fp32 _tol against the plain
+    version's at the same scale; dq, dk, dv against the plain backward
+    and autograd in fp32, a second backward run bit-identical; and
+    ops.attention's autograd path (FlashAttention) giving the same."""
+    b, s, t, h, k, d, window, softcap, dtype, scale = row
+    q, kk, vv, do = _attn_grad_inputs(cuda, b, s, t, h, k, d, dtype)
+    cfg = dict(causal=True, window=window, softcap=softcap, scale=scale)
+    o, lse = kernel.flash_attention(q, kk, vv, return_lse=True, **cfg)
+    o_want, lse_want = ref.attention_reference_lse(q, kk, vv, **cfg)
+    got = kernel.flash_attention_backward(q, kk, vv, o, lse, do, **cfg)
+    again = kernel.flash_attention_backward(q, kk, vv, o, lse, do, **cfg)
+    up = [x.float() for x in (q, kk, vv, o)]
+    want = ref.attention_backward_reference(*up, lse, do.float(), **cfg)
+    # copies: at fp32 .float() is the tensor itself, whose .grad the
+    # second autograd pass below would add to
+    leaves = [x.detach().float().clone().requires_grad_()
+              for x in (q, kk, vv)]
+    ref.attention_reference(*leaves, **cfg).backward(do.float())
+    mine = [x.detach().clone().requires_grad_() for x in (q, kk, vv)]
+    ops.attention(*mine, **cfg).backward(do)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(o.float(), o_want.float(), **_tol(dtype))
+    torch.testing.assert_close(lse, lse_want, **_tol(torch.float32))
+    _close_grads(got, want, dtype)
+    _close_grads(got, [x.grad for x in leaves], dtype)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    assert all(torch.equal(x.grad, y) for x, y in zip(mine, got))
+
+
+def test_cuda_d224_scale_is_not_the_default(cuda):
+    """The kernel applies the scale it is given: at (D/2)^-1/2 its output
+    leaves the default-scale plain version by far more than _tol."""
+    q, kk, vv, _ = _attn_grad_inputs(cuda, 1, 256, 256, 4, 4, 224,
+                                     torch.bfloat16)
+    got = kernel.flash_attention(q, kk, vv, scale=ZAMBA_SCALE)
+    default = ref.attention_reference(q, kk, vv)
+    torch.cuda.synchronize()
+    err = (got.float() - default.float()).abs().max().item()
+    assert err > 10 * _tol(torch.bfloat16)["atol"]
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_cuda_zamba2_7b_smoke_train_step_and_decode_match_cpu(
+        cuda, compute_dtype):
+    """smoke_config("zamba2-7b") at head dim 32 (2M / H; the kernels take
+    no 16) and 24 layers (four applications of two shared blocks): one
+    make_train_step step on the card (flash D 32 twice an application with
+    remat and a backward, the SSD pair at G 2) against the CPU from the
+    same state, loss and grad norm at the compute dtype's _tol, and in
+    fp32 each leaf's first gradient at fp32 _tol in relative norm; then
+    prefill of 40 tokens and 4 decode steps through the grown caches on
+    both from fresh weights, in fp32 at fp32 _tol, in bf16 at the smoke
+    depth (12 layers) and rtol = atol = 0.15, as the zamba2-2.7b decode
+    test (at 24 layers the two paths' bf16 roundings part by up to 0.4 on
+    under 1% of the logits)."""
+    import dataclasses
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokenPipeline
+    from repro_torch.launch.steps import init_train_state, make_train_step
+    from repro_torch.models import lm
+    from repro_torch.optim.adamw import AdamWConfig
+
+    cfg = dataclasses.replace(smoke_config("zamba2-7b"), head_dim=32,
+                              num_layers=24, compute_dtype=compute_dtype)
+    apps = cfg.hybrid_applications
+    opt = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=2)
+    cpu = init_train_state(cfg, torch.Generator().manual_seed(3), "cpu")
+    gpu = lm.tree_map(
+        lambda x: x.to(cuda, copy=True) if x.dim() else x.clone(), cpu)
+    batch = SyntheticTokenPipeline(DataConfig(2, 64, cfg.vocab_size,
+                                              seed=4)).batch_at(0)
+    cpu_batch = {k: torch.from_numpy(v) for k, v in batch.items()}
+    fwd = kernel.flash_attention.launches
+    bwd = kernel.flash_attention_backward.launches
+    new_gpu, m_gpu = make_train_step(cfg, opt)(
+        gpu, {k: v.to(cuda) for k, v in cpu_batch.items()})
+    torch.cuda.synchronize()
+    assert kernel.flash_attention.launches == fwd + 2 * apps
+    assert kernel.flash_attention_backward.launches == bwd + apps
+    new_cpu, m_cpu = make_train_step(cfg, opt)(cpu, cpu_batch)
+    dtype = getattr(torch, compute_dtype)
+    for key in ("loss", "grad_norm"):
+        torch.testing.assert_close(m_gpu[key].cpu(), m_cpu[key], **_tol(dtype))
+    if dtype == torch.float32:
+        g_gpu = _first_step_grads(new_gpu, m_gpu, opt)
+        g_cpu = _first_step_grads(new_cpu, m_cpu, opt)
+        for name, want in g_cpu.items():
+            assert _rel_norm(g_gpu[name], want) <= _tol(dtype)["atol"], name
+    toks = torch.from_numpy(batch["inputs"][:, :44])
+    if dtype == torch.bfloat16:
+        # bf16 rounding on two paths grows with depth: decode at the
+        # smoke depth (12 layers, both blocks once), as zamba2-2.7b's test
+        cfg = dataclasses.replace(cfg, num_layers=12)
+    fresh = init_train_state(cfg, torch.Generator().manual_seed(3),
+                             "cpu")["params"]
+    outs = []
+    for dev in (torch.device("cpu"), cuda):
+        params = lm.tree_map(lambda x: x.to(dev, dtype), fresh)
+        with torch.inference_mode():
+            logits, caches, pos = lm.prefill(cfg, params, toks[:, :40].to(dev))
+            caches = lm.grow_caches(cfg, caches, 44)
+            seq = [logits]
+            for t in range(40, 44):
+                logits, caches, pos = lm.decode_step(
+                    cfg, params, toks[:, t:t + 1].to(dev), pos, caches)
+                seq.append(logits)
+        outs.append(torch.stack(seq).float().cpu())
+    tol = (dict(rtol=0.15, atol=0.15) if dtype == torch.bfloat16
+           else _tol(dtype))
+    assert torch.isfinite(outs[1]).all()
+    torch.testing.assert_close(outs[1], outs[0], **tol)
