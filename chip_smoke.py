@@ -498,7 +498,8 @@ KERNEL_NAMES = ("flash_fwd_wgmma", "flash_fwd_f32", "flash_bwd_preprocess",
                 "ssd_bwd_tc_query", "ssd_bwd_tc_key", "ssd_bwd_query",
                 "ssd_bwd_key", "ssd_bwd_chunk", "ssd_bwd_group_sum",
                 "ssd_bwd_head_sum", "adamw_norm_partials", "adamw_norm_total",
-                "adamw_update_pass")
+                "adamw_update_pass", "causal_conv_silu_fwd",
+                "causal_conv_silu_bwd", "causal_conv_dw_sum")
 
 
 def _kernel_label(mangled: str) -> str:
@@ -569,6 +570,7 @@ def build_kernels() -> dict:
     path spills. Returns each kernel record's SASS counts."""
     from repro_torch.kernels import cuda_build
     from repro_torch.kernels.adamw import kernel as adamw
+    from repro_torch.kernels.conv import kernel as conv
     from repro_torch.kernels.flash_attention import kernel as flash
     from repro_torch.kernels.ssd import kernel as ssd
 
@@ -579,7 +581,7 @@ def build_kernels() -> dict:
 
     t0 = time.perf_counter()
     sources = (flash.SOURCE, flash.BWD_SOURCE, ssd.SOURCE, ssd.BWD_SOURCE,
-               adamw.SOURCE)
+               adamw.SOURCE, conv.SOURCE)
     with ThreadPoolExecutor(len(sources)) as pool:
         built = list(pool.map(timed, sources))
     print(f"[build] {len(sources)} sources in {time.perf_counter() - t0:.1f}"
@@ -630,7 +632,16 @@ def build_kernels() -> dict:
                                       "adamw_update_pass")
          for dt in ("", "bf16")] + ["adamw_norm_total<>"]), adamw_kernels
     assert not any(spilled(s) for _, _, s in adamw_kernels), adamw_kernels
+    # the conv: both passes at each dtype (K 4), and dw's sum
+    conv_kernels = list(ptxas_kernels(built[5][0].with_suffix(".log")))
+    assert sorted(label for label, _, _ in conv_kernels) == sorted(
+        [f"{name}<{dt}4>" for name in ("causal_conv_silu_fwd",
+                                      "causal_conv_silu_bwd")
+         for dt in ("", "bf16,")]
+        + ["causal_conv_dw_sum<>", "causal_conv_dw_sum<bf16>"]), conv_kernels
+    assert not any(spilled(s) for _, _, s in conv_kernels), conv_kernels
     adamw.library()
+    conv.library()
     flash.library()
     flash.backward_library()
     ssd.library()
@@ -1956,6 +1967,215 @@ def adamw_phase(device: torch.device) -> list:
     ]
 
 
+# (name, B, L, widths of x, B and C) of the conv's calls in the two
+# benchmark cells' training steps: mamba2-2.7b at 4 x 2048 (d_inner 5120,
+# G·N 128) and zamba2-7b at 2 x 4096 (7168, 2·64); K 4, bf16.
+CONV_SHAPES = (("mamba2-2.7b", 4, 2048, (5120, 128, 128)),
+               ("zamba2-7b", 2, 4096, (7168, 128, 128)))
+
+
+def conv_library(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """silu(causal_conv(x, w)) by the library, as mamba_ssm's reference
+    mixer writes it: cuDNN's depthwise ``F.conv1d`` over (B, C, L) padded
+    by K - 1 zeros before the sequence (its first L outputs), then
+    ``F.silu``. A yardstick for conv_phase, no path of the port."""
+    f = torch.nn.functional
+    k, length = w.shape[0], x.shape[1]
+    y = f.conv1d(x.transpose(1, 2), w.t().unsqueeze(1), padding=k - 1,
+                 groups=x.shape[2])[..., :length]
+    return f.silu(y).transpose(1, 2)
+
+
+def conv_phase(device: torch.device) -> list:
+    """The Mamba-2 mixer's conv + SiLU kernels (``kernels.conv``) at the
+    benchmark cells' layer shapes in bf16: the forward (one launch for x, B
+    and C), dx and dw against the plain version evaluated in float64 (its
+    closed-form backward) at TOL[bf16], each element; a second forward and
+    backward give the same bits. Then each pass's time on the card beside
+    the plain version's eager chain (the forward: ``ref.causal_conv`` of
+    each tensor; the backward: autograd through it, with the forward that
+    builds its graph outside the timing) and beside the library route, a
+    yardstick and no path (``conv_library``: cuDNN's depthwise conv1d and
+    ``F.silu``, autograd for the backward; its y and dx held to the same
+    float64 values first, its dw's error printed), each timed by CUDA events around calls queued behind a sleep
+    kernel, and beside its bound (its ``work`` bytes at 3.35 TB/s).
+    Returns the kernel table's two records,
+    ``causal_conv_fwd`` and ``causal_conv_bwd``, at mamba2-2.7b's shape,
+    zamba2-7b's under ``zamba2_7b_train_shape``."""
+    from repro_torch.kernels.conv import kernel, ref
+    from repro_torch.kernels.conv.work import conv_backward_work, conv_work
+
+    dtype, k = torch.bfloat16, 4
+    rows = {}
+    for name, b, l, widths in CONV_SHAPES:
+        gen = torch.Generator(device=device).manual_seed(21)
+        xs = [torch.randn((b, l, c), generator=gen, device=device).to(dtype)
+              for c in widths]
+        ws = [(0.5 * torch.randn((k, c), generator=gen, device=device)).to(
+            dtype) for c in widths]
+        dys = [torch.randn((b, l, c), generator=gen, device=device).to(dtype)
+               for c in widths]
+        ys = kernel.causal_conv_fwd(xs, ws)
+        dxs, dws = kernel.causal_conv_bwd(xs, ws, dys)
+        same = all(torch.equal(a, c) for a, c in zip(
+            ys + dxs + dws, kernel.causal_conv_fwd(xs, ws)
+            + sum(kernel.causal_conv_bwd(xs, ws, dys), ())))
+        assert same, f"{name}: two runs of the conv kernels differ"
+        err = dict.fromkeys(("y", "dx", "dw"), 0.0)
+        lib_err = dict(err)
+        for x, w, dy, y, dx, dw in zip(xs, ws, dys, ys, dxs, dws):
+            want_dx, want_dw = ref.causal_conv_silu_backward_reference(
+                x, w, dy)
+            for part, got, want in (
+                    ("y", y, ref.causal_conv(x.double(), w.double())),
+                    ("dx", dx, want_dx), ("dw", dw, want_dw)):
+                torch.testing.assert_close(got.double(), want,
+                                           rtol=TOL[dtype], atol=TOL[dtype],
+                                           msg=f"{name} {part}")
+                err[part] = max(err[part], (got.double() - want).abs().max()
+                                .item() / want.abs().max().item())
+            lib_leaves = [t.clone().requires_grad_() for t in (x, w)]
+            lib_y = conv_library(*lib_leaves)
+            lib_dx, lib_dw = torch.autograd.grad(lib_y, lib_leaves, dy)
+            for part, got, want in (("y", lib_y, ref.causal_conv(
+                    x.double(), w.double())), ("dx", lib_dx, want_dx),
+                                    ("dw", lib_dw, want_dw)):
+                if part != "dw":   # cuDNN's bf16 dw is printed, not held
+                    torch.testing.assert_close(
+                        got.double(), want, rtol=TOL[dtype], atol=TOL[dtype],
+                        msg=f"{name} library {part}")
+                lib_err[part] = max(lib_err[part], (
+                    got.double() - want).abs().max().item()
+                    / want.abs().max().item())
+            del want_dx, want_dw, lib_leaves, lib_y, lib_dx, lib_dw
+        leaves = [t.clone().requires_grad_() for t in xs + ws]
+
+        def device_ms(calls, reps=10, warmup=2):
+            """The card's time a call of ``calls()`` (a list of calls),
+            from CUDA events around them queued behind a sleep kernel, so
+            the host's time (a kernel call takes about as long on the host
+            as on the card) is not timed."""
+            samples = []
+            for i in range(warmup + reps):
+                queued = calls()
+                torch.cuda._sleep(10_000_000)
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                for call in queued:
+                    call()
+                end.record()
+                end.synchronize()
+                if i >= warmup:
+                    samples.append(start.elapsed_time(end) / len(queued))
+                del queued
+            return statistics.median(samples)
+
+        def autograd_backward(conv):
+            """Three backward calls of autograd through ``conv`` of the
+            three tensors, each call's graph built before the timed
+            window."""
+            graphs = [[conv(x, w) for x, w in zip(leaves[:3], leaves[3:])]
+                      for _ in range(3)]
+            return [lambda outs=outs: torch.autograd.grad(outs, leaves, dys)
+                    for outs in graphs]
+
+        kern_f = device_ms(lambda: [lambda: kernel.causal_conv_fwd(xs, ws)]
+                           * 10)
+        kern_b = device_ms(lambda: [lambda: kernel.causal_conv_bwd(
+            xs, ws, dys)] * 10)
+        plain_f = device_ms(lambda: [lambda: [ref.causal_conv(x, w) for x, w
+                                              in zip(xs, ws)]] * 3)
+        plain_b = device_ms(lambda: autograd_backward(ref.causal_conv))
+        lib_f = device_ms(lambda: [lambda: [conv_library(x, w) for x, w
+                                            in zip(xs, ws)]] * 3)
+        lib_b = device_ms(lambda: autograd_backward(conv_library))
+        fwd_bytes = conv_work(b, l, widths, k, dtype)[1]
+        bwd_bytes = conv_backward_work(b, l, widths, k, dtype)[1]
+        bound_f, bound_b = (n / PEAK_BYTES * 1e3 for n in (fwd_bytes,
+                                                          bwd_bytes))
+        shape = f"{name}: B{b} L{l} C {'+'.join(map(str, widths))} K{k} bf16"
+        print(f"[conv] {shape}: forward {kern_f:.4f} ms (1 launch), plain "
+              f"{plain_f:.4f} ms, library {lib_f:.4f} ms, bound "
+              f"{bound_f:.4f} ms ({fwd_bytes / 1e6:.1f} MB; kernel at "
+              f"{bound_f / kern_f:.1%}); backward {kern_b:.4f} ms (2 "
+              f"launches), plain {plain_b:.4f} ms (autograd through the "
+              f"eager forward), library {lib_b:.4f} ms (autograd through "
+              f"cuDNN's conv1d), bound {bound_b:.4f} ms "
+              f"({bwd_bytes / 1e6:.1f} MB; kernel at {bound_b / kern_b:.1%});"
+              f" largest error over the plain float64 value's largest: y "
+              f"{err['y']:.3e}, dx {err['dx']:.3e}, dw {err['dw']:.3e} (tol "
+              f"{TOL[dtype]} each element); the library's y {lib_err['y']:.3e}"
+              f", dx {lib_err['dx']:.3e}, dw {lib_err['dw']:.3e}; rerun "
+              f"bit-identical: {same}")
+        common = dict(shape=shape, tol=TOL[dtype], bound_by="bytes")
+        rows[name] = (
+            {**common, "ms": kern_f, "kernel_ms": kern_f, "plain_ms": plain_f,
+             "library_ms": lib_f, "bound_ms": bound_f,
+             "max_abs_err": err["y"]},
+            {**common, "ms": kern_b, "kernel_ms": kern_b, "plain_ms": plain_b,
+             "library_ms": lib_b, "bound_ms": bound_b,
+             "max_abs_err": max(err["dx"], err["dw"])})
+        del xs, ws, dys, ys, dxs, dws, leaves
+        torch.cuda.empty_cache()
+    source = dict(route="cuda", source="src/repro_torch/kernels/conv/csrc/"
+                  "conv.cu", replaces=None, replaces_fn=None, launches=None,
+                  launches_on_path=None)
+    return [{"name": f"causal_conv_{part}", **source,
+             **rows[CONV_SHAPES[0][0]][j],
+             "zamba2_7b_train_shape": rows[CONV_SHAPES[1][0]][j]}
+            for j, part in enumerate(("fwd", "bwd"))]
+
+
+# The benchmark cells' training steps whose conv calls conv_cells_check
+# counts: (configuration under perfbench/configs, batch, sequence length,
+# forward calls a step, backward calls a step). Two forward calls a Mamba-2
+# layer (the forward and remat's recompute) and one backward call: 64
+# layers in mamba2-2.7b, 24 in zamba2-7b's cut.
+CONV_CELLS = (("mamba2-2.7b", 4, 2048, 128, 64),
+              ("zamba2-7b", 2, 4096, 48, 24))
+
+
+def conv_cells_check(device: torch.device) -> None:
+    """One make_train_step step at each benchmark cell's configuration
+    (its file's ``port`` section as the program's ModelConfig, or
+    HybridConfig where it holds ``shared_blocks``) and batch, from fresh
+    weights on random tokens: the conv's counters move by CONV_CELLS's
+    counts (every counter's move printed), and the loss is finite."""
+    from repro_torch.configs.base import HybridConfig, ModelConfig
+    from repro_torch.launch.steps import init_train_state, make_train_step
+    from repro_torch.optim.adamw import AdamWConfig
+
+    counters = launch_counters()
+    for name, batch, seq, fwd, bwd in CONV_CELLS:
+        port = json.loads((SRC.parent / "perfbench" / "configs"
+                           / f"{name}.json").read_text())["port"]
+        port["pattern"] = tuple(port["pattern"])
+        cfg = (HybridConfig if "shared_blocks" in port else ModelConfig)(
+            **port)
+        state = init_train_state(
+            cfg, torch.Generator(device=device).manual_seed(0), device)
+        labels = torch.randint(0, cfg.vocab_size, (batch, seq),
+                               generator=torch.Generator(device=device)
+                               .manual_seed(1), device=device,
+                               dtype=torch.int32)
+        inputs = torch.roll(labels, 1, dims=1)
+        inputs[:, 0] = 0
+        before = {n: w.launches for n, w in counters.items()}
+        state, metrics = make_train_step(cfg, AdamWConfig())(
+            state, {"inputs": inputs, "labels": labels})
+        loss = float(metrics["loss"])
+        moved = {n: w.launches - before[n] for n, w in counters.items()}
+        print(f"[conv] {name} training step at {batch} x {seq} "
+              f"({cfg.num_layers} layers): launches {json.dumps(moved)}; "
+              f"loss {loss:.4f}")
+        assert math.isfinite(loss), (name, loss)
+        assert (moved["causal_conv_fwd"], moved["causal_conv_bwd"]) == (
+            fwd, bwd), (name, moved)
+        del state, metrics, labels, inputs
+        torch.cuda.empty_cache()
+
+
 def path_check(device: torch.device) -> None:
     """The model path on the card against the same path on the CPU (plain
     attention), on a small input: two layers of llama3.2-3b's block
@@ -2041,50 +2261,66 @@ def zamba_path_check(device: torch.device) -> None:
     dim 80, so that the flash forward runs its D-80 branch (the smoke 16 is
     no head dim the kernel takes), and P 64, N 64, chunk 256, so that the
     SSD kernel runs zamba2's head shape; the same bf16 weights on both, a
-    300-token prompt (a ragged second chunk), then 4 decode steps. rtol =
-    atol = 0.15 on the fp32 logits, as the llama and mamba path checks.
-    The shared block's two repeats must write two different KV rows."""
+    300-token prompt (a ragged second chunk), then 4 decode steps. The
+    card's fp32 logits no further from the CPU's fp32 run of the same
+    weights, in relative norm, than twice the CPU's bf16 run is, plus
+    TOL[bf16] (train_step_check's rule for bf16 gradients): the card's
+    conv kernel sums in fp32 and rounds once where the plain version
+    rounds after every op, and this model's random weights carry that ulp
+    to some 5% of the logits' norm, past the 0.15 of the other path checks
+    on about 1.6% of the logits. The shared block's two repeats must write
+    two different KV rows."""
     from repro_torch.configs import smoke_config
     from repro_torch.models import lm
 
     cfg = dataclasses.replace(smoke_config("zamba2-2.7b"), head_dim=80,
                               ssm_head_dim=64, ssm_state=64, ssm_chunk=256)
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
     counters = launch_counters()
     gen = torch.Generator().manual_seed(8)
     cpu_params = lm.init_params(cfg, gen, device="cpu", dtype=torch.bfloat16)
-    gpu_params = lm.tree_map(lambda x: x.to(device), cpu_params)
     toks = torch.randint(0, cfg.vocab_size, (2, 304), generator=gen,
                          dtype=torch.int32)
     outs, kv = [], []
-    for params, dev in ((cpu_params, torch.device("cpu")),
-                        (gpu_params, device)):
+    for dev, c, dtype in ((torch.device("cpu"), cfg, torch.bfloat16),
+                          (torch.device("cpu"), cfg32, torch.float32),
+                          (device, cfg, torch.bfloat16)):
+        params = lm.tree_map(lambda x: x.to(dev, dtype), cpu_params)
         before = {n: w.launches for n, w in counters.items()}
         with torch.inference_mode():
-            logits, caches, pos = lm.prefill(cfg, params,
+            logits, caches, pos = lm.prefill(c, params,
                                              toks[:, :300].to(dev))
-            caches = lm.grow_caches(cfg, caches, 304)
+            caches = lm.grow_caches(c, caches, 304)
             seq = [logits]
             for t in range(300, 304):
                 logits, caches, pos = lm.decode_step(
-                    cfg, params, toks[:, t:t + 1].to(dev), pos, caches)
+                    c, params, toks[:, t:t + 1].to(dev), pos, caches)
                 seq.append(logits)
         launches = {n: w.launches - before[n] for n, w in counters.items()}
         want = dict.fromkeys(counters, 0)
         if dev.type == "cuda":
             want.update(flash_attention_fwd=cfg.repeats,
-                        ssd_fwd=5 * cfg.repeats)
+                        ssd_fwd=5 * cfg.repeats,
+                        causal_conv_fwd=5 * cfg.repeats)
         assert launches == want, (dev, launches, want)
         outs.append(torch.stack(seq).float().cpu())
         kv.append(caches["slot5"]["k"].float().cpu())
-    assert torch.isfinite(outs[1]).all(), "non-finite logits on the card"
-    assert not torch.equal(kv[1][0], kv[1][1]), "one KV row for two repeats"
-    err = (outs[0] - outs[1]).abs().max().item()
+    (cpu, cpu32, card), tol = outs, TOL[torch.bfloat16]
+    assert torch.isfinite(card).all(), "non-finite logits on the card"
+    assert not torch.equal(kv[2][0], kv[2][1]), "one KV row for two repeats"
+    card_err, cpu_err = rel_norm(card, cpu32), rel_norm(cpu, cpu32)
+    kv_card, kv_cpu = rel_norm(kv[2], kv[1]), rel_norm(kv[0], kv[1])
     print(f"[path] zamba2 smoke (D 80, P 64, N 64, chunk 256, shared block "
-          f"at layers 6 and 12), prefill 300 + 4 decode steps: card vs CPU "
-          f"max_abs_err={err:.3e} (rtol=atol=0.15); the two repeats' KV rows "
-          f"differ; shared-block KV rows card vs CPU, relative norm "
-          f"{rel_norm(kv[1], kv[0]):.3e}")
-    torch.testing.assert_close(outs[1], outs[0], rtol=0.15, atol=0.15)
+          f"at layers 6 and 12), prefill 300 + 4 decode steps in bf16, "
+          f"relative norm from the CPU's fp32 run: logits card "
+          f"{card_err:.3e}, cpu {cpu_err:.3e} (bound 2·cpu + {tol} = "
+          f"{2 * cpu_err + tol:.3e}); shared-block KV rows card "
+          f"{kv_card:.3e}, cpu {kv_cpu:.3e}; card vs CPU bf16 max_abs_err "
+          f"{(card - cpu).abs().max().item():.3e}, share past rtol=atol=0.15 "
+          f"{((card - cpu).abs() > 0.15 + 0.15 * cpu.abs()).float().mean().item():.4f}"
+          f"; the two repeats' KV rows differ")
+    assert card_err <= 2 * cpu_err + tol, (card_err, cpu_err)
+    assert kv_card <= 2 * kv_cpu + tol, (kv_card, kv_cpu)
 
 
 def granite_path_check(device: torch.device) -> None:
@@ -2403,7 +2639,9 @@ def train_path_check(device: torch.device) -> None:
     for base, per_layer in (
             (dataclasses.replace(smoke_config("llama3.2-3b"), head_dim=32),
              {"flash_attention_fwd": 2, "flash_attention_bwd": 1}),
-            (smoke_config("mamba2-130m"), {"ssd_fwd": 2, "ssd_bwd": 1}),
+            (smoke_config("mamba2-130m"), {"ssd_fwd": 2, "ssd_bwd": 1,
+                                           "causal_conv_fwd": 2,
+                                           "causal_conv_bwd": 1}),
             (dataclasses.replace(smoke_config("musicgen-large"), head_dim=64),
              {"flash_attention_fwd": 2, "flash_attention_bwd": 1}),
             (dataclasses.replace(smoke_config("gemma2-2b"), head_dim=256),
@@ -2540,8 +2778,11 @@ def launch_counters() -> dict:
     ``launches`` grows by one where it launches its kernel (the flash
     backward: one per call of its three launches; the SSD forward: one per
     call of its three, the SSD backward of its ten; each AdamW pass: one
-    per call of its launches over the tree)."""
+    per call of its launches over the tree; the conv forward: one per
+    layer's call for its three tensors, its backward one per call of its
+    two launches)."""
     from repro_torch.kernels.adamw import kernel as adamw
+    from repro_torch.kernels.conv import kernel as conv
     from repro_torch.kernels.flash_attention import kernel as flash
     from repro_torch.kernels.ssd import kernel as ssd
 
@@ -2550,12 +2791,24 @@ def launch_counters() -> dict:
             "ssd_fwd": ssd.ssd_scan,
             "ssd_bwd": ssd.ssd_scan_backward,
             "adamw_norm": adamw.adamw_norm,
-            "adamw_update": adamw.adamw_update}
+            "adamw_update": adamw.adamw_update,
+            "causal_conv_fwd": conv.causal_conv_fwd,
+            "causal_conv_bwd": conv.causal_conv_bwd}
 
 
 # The fused AdamW's calls per training step on the card: one norm pass and
 # one update pass over the whole tree.
 ADAMW_STEP = {"adamw_norm": 1, "adamw_update": 1}
+
+
+def ssm_layers(layers: int, train: bool = False) -> dict:
+    """The SSD and conv launches of ``layers`` Mamba-2 layers: one forward
+    of each a layer (a prefill), or with ``train`` two (remat's recompute)
+    and one backward of each."""
+    if not train:
+        return {"ssd_fwd": layers, "causal_conv_fwd": layers}
+    return {"ssd_fwd": 2 * layers, "ssd_bwd": layers,
+            "causal_conv_fwd": 2 * layers, "causal_conv_bwd": layers}
 
 
 # (arch, requests, prompt tokens, generated tokens, the launches of each
@@ -2567,9 +2820,9 @@ ADAMW_STEP = {"adamw_norm": 1, "adamw_update": 1}
 # through the flash forward; its full depth waits for multi-GPU.
 SERVE = [
     ("llama3.2-3b", 8, 1024, 64, {"flash_attention_fwd": 28}, None),
-    ("mamba2-130m", 8, 4096, 64, {"ssd_fwd": 24}, None),
-    ("zamba2-2.7b", 8, 4096, 64, {"flash_attention_fwd": 9, "ssd_fwd": 45},
-     None),
+    ("mamba2-130m", 8, 4096, 64, ssm_layers(24), None),
+    ("zamba2-2.7b", 8, 4096, 64, {"flash_attention_fwd": 9,
+                                  **ssm_layers(45)}, None),
     ("granite-moe-3b-a800m", 8, 1024, 64, {"flash_attention_fwd": 32}, None),
     ("musicgen-large", 8, 1024, 64, {"flash_attention_fwd": 48}, None),
     ("starcoder2-15b", 8, 1024, 64, {"flash_attention_fwd": 40}, None),
@@ -2582,8 +2835,8 @@ SERVE = [
     # shared blocks (flash D 224) and 78 Mamba-2 layers with two groups;
     # 4 requests, since the profile phase's second prefill runs beside the
     # first one's grown caches (8 x 4096 did not fit beside them)
-    ("zamba2-7b", 4, 4096, 64, {"flash_attention_fwd": 13, "ssd_fwd": 78},
-     None),
+    ("zamba2-7b", 4, 4096, 64, {"flash_attention_fwd": 13,
+                                **ssm_layers(78)}, None),
 ]
 
 
@@ -2689,7 +2942,7 @@ TRAIN = [
     ("llama3.2-3b", 6, 2, 2048, 3e-4, 2,
      {"flash_attention_fwd": 56, "flash_attention_bwd": 28, **ADAMW_STEP}),
     ("mamba2-130m", 6, 8, 4096, 3e-4, 2,
-     {"ssd_fwd": 48, "ssd_bwd": 24, **ADAMW_STEP}),
+     {**ssm_layers(24, train=True), **ADAMW_STEP}),
     ("granite-moe-3b-a800m", 6, 2, 2048, 3e-4, 2,
      {"flash_attention_fwd": 64, "flash_attention_bwd": 32, **ADAMW_STEP}),
     ("musicgen-large", 6, 2, 2048, 3e-4, 2,
@@ -2701,8 +2954,8 @@ TRAIN = [
     # 54 layers: 9 repeats of five SSD layers and the shared attention
     # block (one parameter set, applied once a repeat)
     ("zamba2-2.7b", 6, 2, 4096, 3e-4, 2,
-     {"flash_attention_fwd": 18, "flash_attention_bwd": 9, "ssd_fwd": 90,
-      "ssd_bwd": 45, **ADAMW_STEP}),
+     {"flash_attention_fwd": 18, "flash_attention_bwd": 9,
+      **ssm_layers(45, train=True), **ADAMW_STEP}),
 ]
 # Configs whose train state (16 bytes a parameter) no one card holds:
 # ``train`` must refuse them before it allocates anything.
@@ -3149,7 +3402,7 @@ def compare_pe(label: str, talp_pe: float, wall: float, kernel) -> None:
 # training step): the checkpoint and restart phase, at mamba2-130m's full
 # width (a 2.0 GB train state; a granite or llama state is 43-48 GB).
 CHECKPOINT_RUN = ("mamba2-130m", 6, 8, 4096, 3, 4,
-                  {"ssd_fwd": 48, "ssd_bwd": 24, **ADAMW_STEP})
+                  {**ssm_layers(24, train=True), **ADAMW_STEP})
 
 
 def _max_diff(got, want) -> float:
@@ -3521,7 +3774,7 @@ def talp_flags_phase(device: torch.device, decode_kernel_s: float,
 # (arch, ranks, steps, global batch, sequence length, launches per step on
 # each rank)
 FLEET = ("mamba2-130m", 2, 6, 8, 4096,
-         {"ssd_fwd": 48, "ssd_bwd": 24, **ADAMW_STEP})
+         {**ssm_layers(24, train=True), **ADAMW_STEP})
 
 
 def fleet_phase(device: torch.device, records: dict) -> None:
@@ -4083,7 +4336,8 @@ def main() -> int:
     records = {rec["name"]: rec
                for rec in (kernel_phase(device), backward_phase(device),
                            ssd_kernel_phase(device),
-                           ssd_backward_phase(device), *adamw_phase(device))}
+                           ssd_backward_phase(device), *adamw_phase(device),
+                           *conv_phase(device))}
     for name, counts in sass.items():
         records[name]["sass"] = counts
     zamba7 = zamba7_phase(device)
@@ -4091,6 +4345,8 @@ def main() -> int:
                       ("flash_attention_bwd", "bwd"), ("ssd_fwd", "ssd_fwd"),
                       ("ssd_bwd", "ssd_bwd")):
         records[name]["zamba2_7b_train_shape"] = zamba7[key]
+    torch.cuda.empty_cache()
+    conv_cells_check(device)
     mark("kernel phases")
     path_check(device)
     mamba_path_check(device)

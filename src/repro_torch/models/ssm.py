@@ -10,11 +10,15 @@ norm is taken per group of d_inner / G channels, as mamba_ssm's
 norm over all of d_inner, the JAX package's.
 
 Both branches of :func:`ssm_forward` go through
-:func:`repro_torch.kernels.ssd.ops.ssd`: the hand-written CUDA kernel for
-tensors on the card, its plain version for tensors on the CPU. The
-training branch (``build_cache=False``) differentiates end to end: on the
-card through the CUDA SSD backward (``kernel.SSDScan``), on the CPU by
-autograd through the plain version. Prefill
+:func:`repro_torch.kernels.conv.ops.causal_conv_silu` (the conv and its
+SiLU over x, B and C in one call) and
+:func:`repro_torch.kernels.ssd.ops.ssd`: the hand-written CUDA kernels for
+tensors on the card, their plain versions for tensors on the CPU. The
+conv's plain version, :func:`repro_torch.kernels.conv.ref.causal_conv`,
+is this module's ``_causal_conv`` and decode's one-token conv on every
+device. The training branch (``build_cache=False``) differentiates end to
+end: on the card through the CUDA backwards (``CausalConvSilu``,
+``SSDScan``), on the CPU by autograd through the plain versions. Prefill
 (``build_cache=True``) asks the same call for the final state, where the
 JAX package calls ``ssd_reference`` directly because its Pallas kernel
 has no final-state output; the function computed is the same.
@@ -22,11 +26,14 @@ has no final-state output; the function computed is the same.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from ..kernels.conv import ops as conv_ops
+from ..kernels.conv.ref import causal_conv as _causal_conv
+from ..kernels.conv.ref import silu as _silu
 from ..kernels.ssd import ops as ssd_ops
 from ..sharding.local import merge_last, split_last
 from .common import rms_norm, truncated_normal
@@ -68,35 +75,6 @@ def init_ssm_params(generator: torch.Generator, cfg, dtype=torch.float32,
     }
 
 
-def _silu(x: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.silu`` as XLA evaluates it, x * (1 / (1 + exp(-x))) with
-    every op rounded to x's dtype, so bf16 rounds where the JAX package
-    does (``F.silu`` rounds once, which moves about a third of bf16
-    outputs by one ulp)."""
-    return x * (1 / (1 + torch.exp(-x)))
-
-
-def _causal_conv(x: torch.Tensor, w: torch.Tensor,
-                 tail: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Depthwise causal conv. x: (B, L, C); w: (K, C); tail: (B, K-1, C)
-    carries context across calls (decode). Summed in x's dtype in the
-    JAX package's order (i = 0..K-1), so bf16 rounds where JAX does."""
-    k = w.shape[0]
-    if tail is None:
-        # zeros before the sequence (a concatenation, not F.pad: torch
-        # 2.11's DTensor gives a pad's output one placement whatever the
-        # mesh's dims)
-        xp = torch.cat([x.new_zeros((x.shape[0], k - 1, x.shape[2])), x],
-                       dim=1)
-    else:
-        xp = torch.cat([tail.to(x.dtype), x], dim=1)
-    # windows: out[:, t] = sum_i w[i] * xp[:, t + i]
-    out = torch.zeros_like(x)
-    for i in range(k):
-        out = out + xp[:, i: i + x.shape[1], :] * w[i].to(x.dtype)
-    return _silu(out)
-
-
 def _project(cfg, p, h):
     cdt = h.dtype
     z = h @ p["wz"].to(cdt)
@@ -132,9 +110,8 @@ def ssm_forward(cfg, p: Dict[str, torch.Tensor], h: torch.Tensor,
     nh, g = cfg.ssm_heads, cfg.ssm_groups
     k = cfg.ssm_conv
     z, x_raw, b_raw, c_raw, dt = _project(cfg, p, h)
-    x = _causal_conv(x_raw, p["conv_x"])
-    b = _causal_conv(b_raw, p["conv_b"])
-    c = _causal_conv(c_raw, p["conv_c"])
+    x, b, c = conv_ops.causal_conv_silu(
+        (x_raw, b_raw, c_raw), (p["conv_x"], p["conv_b"], p["conv_c"]))
     out = ssd_ops.ssd(
         split_last(x, nh), dt, _decay_rates(p),
         split_last(b, g), split_last(c, g),
