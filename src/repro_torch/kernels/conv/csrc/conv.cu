@@ -13,15 +13,15 @@
 // configuration's ssm_conv):
 //   s[t] = sum_{i<K} w[i] x[t - K + 1 + i]       (x before t = 0 is zero)
 //   y[t] = s[t] * (1 / (1 + exp(-s[t])))
-// summed in fp32 in the plain version's order (i = 0 first), SiLU in fp32,
-// rounded once to x's dtype. The backward, from dy, recomputes s from x
-// (nothing but the inputs is saved):
+// x, w and y are bf16, summed in fp32 in the plain version's order (i = 0
+// first), SiLU in fp32, rounded once to bf16. The backward, from dy,
+// recomputes s from x (nothing but the inputs is saved):
 //   ds[t] = dy[t] sig (1 + s (1 - sig)),  sig = 1 / (1 + exp(-s[t]))
 //   dx[t] = sum_i w[i] ds[t + K - 1 - i]    (ds past L - 1 is zero)
 //   dw[i] = sum_{b, t} ds[t] x[t - K + 1 + i]
 //
 // What bounds it on the H100: bytes. The forward reads x and writes y, the
-// backward reads x and dy and writes dx: 4 and 6 bytes an element in bf16
+// backward reads x and dy and writes dx: 4 and 6 bytes an element
 // (176.2 and 264.3 MB a mamba2-2.7b layer at 4 x 2048, C = 5,376; 52.6 and
 // 78.9 us at 3.35 TB/s), against about 2K + 4 and 6K + 9 operations an
 // element (the SiLU by the SFU's exponential and reciprocal). So each pass
@@ -43,7 +43,7 @@
 // dw is deterministic: each block sums its runs' fp32 products in a fixed
 // order in shared memory and writes one partial row per (batch row, block
 // of runs); causal_conv_dw_sum then sums those rows in a fixed order in one
-// thread per weight and rounds once to the weight's dtype. There are no
+// thread per weight and rounds once to bf16. There are no
 // float atomics: a rerun on the same inputs gives the same bits.
 //
 // The argument table (pointers, widths, each tensor's first block) is a
@@ -88,21 +88,7 @@ struct Table {
 
 static_assert(sizeof(Table) < 4096, "a launch's parameters hold 4 KB");
 
-// Rows of V elements of T as fp32, and back.
-template <int V>
-__device__ __forceinline__ void load_row(const float* p, float (&f)[V]) {
-  if constexpr (V % 4 == 0) {
-#pragma unroll
-    for (int j = 0; j < V; j += 4) {
-      const float4 a = *reinterpret_cast<const float4*>(p + j);
-      f[j] = a.x; f[j + 1] = a.y; f[j + 2] = a.z; f[j + 3] = a.w;
-    }
-  } else {
-#pragma unroll
-    for (int j = 0; j < V; ++j) f[j] = p[j];
-  }
-}
-
+// Rows of V bf16 elements as fp32, and back.
 template <int V>
 __device__ __forceinline__ void load_row(const __nv_bfloat16* p,
                                          float (&f)[V]) {
@@ -117,19 +103,6 @@ __device__ __forceinline__ void load_row(const __nv_bfloat16* p,
   } else {
 #pragma unroll
     for (int j = 0; j < V; ++j) f[j] = __bfloat162float(p[j]);
-  }
-}
-
-template <int V>
-__device__ __forceinline__ void store_row(float* p, const float (&f)[V]) {
-  if constexpr (V % 4 == 0) {
-#pragma unroll
-    for (int j = 0; j < V; j += 4)
-      *reinterpret_cast<float4*>(p + j) =
-          make_float4(f[j], f[j + 1], f[j + 2], f[j + 3]);
-  } else {
-#pragma unroll
-    for (int j = 0; j < V; ++j) p[j] = f[j];
   }
 }
 
@@ -579,7 +552,6 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-__device__ __forceinline__ void store_one(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_one(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
@@ -658,21 +630,17 @@ int causal_conv_bwd_run() { return kBwdRun; }
 int causal_conv_block_runs() { return kRuns; }
 
 // y_i = silu(causal_conv(x_i, w_i)) for tensors i < count: x_i and y_i
-// (batch, len, c[i]), w_i (k, c[i]) with k = kTaps, all bf16 (bf16 != 0) or
-// all fp32, contiguous. One launch on `stream`. Returns the CUDA error code (0 on
-// success).
+// (batch, len, c[i]), w_i (k, c[i]) with k = kTaps, all bf16, contiguous.
+// One launch on `stream`. Returns the CUDA error code (0 on success).
 int causal_conv_fwd(int count, const void* const* x, const void* const* w,
                     void* const* y, const int* c, int batch, int len, int k,
-                    int bf16, void* stream) {
+                    void* stream) {
   Table t{};
   const int rc = fill(t, count, x, w, nullptr, y, c, batch, len, k,
-                      kFwdRun, kFwdBytes / (bf16 ? 2 : 4));
+                      kFwdRun, kFwdBytes / 2);
   if (rc != 0) return rc;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bf16)
-    launch(causal_conv_silu_fwd<__nv_bfloat16, kTaps>, t, st);
-  else
-    launch(causal_conv_silu_fwd<float, kTaps>, t, st);
+  launch(causal_conv_silu_fwd<__nv_bfloat16, kTaps>, t,
+         static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -683,12 +651,12 @@ int causal_conv_fwd(int count, const void* const* x, const void* const* w,
 // error code (0 on success).
 int causal_conv_bwd(int count, const void* const* x, const void* const* w,
                     const void* const* dy, void* const* dx, void* const* dw,
-                    const int* c, int batch, int len, int k, int bf16,
+                    const int* c, int batch, int len, int k,
                     float* partials, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   Table t{};
   int rc = fill(t, count, x, w, dy, dx, c, batch, len, k, kBwdRun,
-                kBwdBytes / (bf16 ? 2 : 4));
+                kBwdBytes / 2);
   if (rc != 0) return rc;
   t.rows = static_cast<int>(batch * row_blocks(len, kBwdRun));
   long long offset = 0, weights = 0;
@@ -697,10 +665,7 @@ int causal_conv_bwd(int count, const void* const* x, const void* const* w,
     t.part[i] = partials + offset;
     offset += static_cast<long long>(t.rows) * k * c[i];
   }
-  if (bf16)
-    launch(causal_conv_silu_bwd<__nv_bfloat16, kTaps>, t, st);
-  else
-    launch(causal_conv_silu_bwd<float, kTaps>, t, st);
+  launch(causal_conv_silu_bwd<__nv_bfloat16, kTaps>, t, st);
   rc = static_cast<int>(cudaGetLastError());
   if (rc != 0) return rc;
   Table s = t;
@@ -711,10 +676,7 @@ int causal_conv_bwd(int count, const void* const* x, const void* const* w,
   s.block0[count] = static_cast<int>(weights);
   const unsigned sum_blocks =
       static_cast<unsigned>((weights + kSumThreads - 1) / kSumThreads);
-  if (bf16)
-    causal_conv_dw_sum<__nv_bfloat16><<<sum_blocks, kSumThreads, 0, st>>>(s, k);
-  else
-    causal_conv_dw_sum<float><<<sum_blocks, kSumThreads, 0, st>>>(s, k);
+  causal_conv_dw_sum<__nv_bfloat16><<<sum_blocks, kSumThreads, 0, st>>>(s, k);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -8,8 +8,9 @@ _causal_conv`` is plain jnp, which XLA fuses); it takes the place of the
 eager ops of :func:`.ref.causal_conv` (about 16 kernels a tensor forward
 and 40 in autograd's backward, most of them strided bf16 products), which
 stays as its plain version, the CPU path and decode's one-token conv.
-Bytes bound it: the forward reads x and writes y, the backward reads x
-and dy and writes dx (4 and 6 bytes an element in bf16; :mod:`.work`).
+x, w, dy and every output are bf16. Bytes bound it: the forward reads x
+and writes y, the backward reads x and dy and writes dx (4 and 6 bytes an
+element; :mod:`.work`).
 One forward call launches ``causal_conv_silu_fwd`` once for every tensor;
 one backward call launches ``causal_conv_silu_bwd`` and the fixed-order
 sum of its fp32 partials of dw, ``causal_conv_dw_sum``, through a scratch
@@ -22,18 +23,18 @@ at import, so this module imports on machines without CUDA.
 :func:`causal_conv_fwd` and :func:`causal_conv_bwd` take CUDA tensors only
 (DTensors raise ``TypeError``: ``ops.causal_conv_silu`` hands them each
 rank's shards) and raise ``ValueError`` for anything the kernels do not
-take (another dtype, weights of another dtype than x, a non-contiguous
-tensor, tensors of different batch, length or taps, K other than 4, more
-than ``MAX_TENSORS`` tensors, tensors on different devices), before any
-library is loaded; they never fall back to the plain version.
-:func:`causal_conv_fwd` returns tensors with no autograd graph, so it
-refuses inputs that require grad under grad mode: :class:`CausalConvSilu`
-(through ``ops.causal_conv_silu``) is the differentiable path. A fake
-tensor takes the kernels' place (``kernels.fake``): the same checks but
-the device's, the same outputs and scratch as fakes, and the work of
-:mod:`.work` given to its fake mode; nothing is launched or counted. Each
-function's ``launches`` attribute counts its calls (one a layer and
-pass), not the kernels a call launches.
+take (a dtype other than bf16, a non-contiguous tensor, tensors of
+different batch, length or taps, K other than 4, more than ``MAX_TENSORS``
+tensors, tensors on different devices), before any library is loaded; they
+never fall back to the plain version. :func:`causal_conv_fwd` returns
+tensors with no autograd graph, so it refuses inputs that require grad
+under grad mode: :class:`CausalConvSilu` (through
+``ops.causal_conv_silu``) is the differentiable path. A fake tensor takes
+the kernels' place (``kernels.fake``): the same checks but the device's,
+the same outputs and scratch as fakes, and the work of :mod:`.work` given
+to its fake mode; nothing is launched or counted. Each function's
+``launches`` attribute counts its calls (one a layer and pass), not the
+kernels a call launches.
 """
 
 from __future__ import annotations
@@ -58,7 +59,6 @@ MAX_TENSORS = 4        # tensors in one launch (kMaxTensors)
 TAPS = (4,)            # the K the kernels take (kTaps: every config's)
 BWD_RUN = 32           # time steps of a backward run (kBwdRun)
 BLOCK_RUNS = 8         # runs of a block (kRuns)
-_DTYPES = (torch.float32, torch.bfloat16)
 _lib: Optional[ctypes.CDLL] = None
 
 
@@ -70,11 +70,11 @@ def library() -> ctypes.CDLL:
         ptrs = ctypes.POINTER(ctypes.c_void_p)
         ints = ctypes.POINTER(ctypes.c_int)
         lib.causal_conv_fwd.argtypes = ([ctypes.c_int] + [ptrs] * 3
-                                        + [ints] + [ctypes.c_int] * 4
+                                        + [ints] + [ctypes.c_int] * 3
                                         + [ctypes.c_void_p])
         lib.causal_conv_fwd.restype = ctypes.c_int
         lib.causal_conv_bwd.argtypes = ([ctypes.c_int] + [ptrs] * 5
-                                        + [ints] + [ctypes.c_int] * 4
+                                        + [ints] + [ctypes.c_int] * 3
                                         + [ctypes.c_void_p] * 2)
         lib.causal_conv_bwd.restype = ctypes.c_int
         lib.causal_conv_error_string.argtypes = [ctypes.c_int]
@@ -119,10 +119,9 @@ def _check(where: str, xs: Sequence[torch.Tensor],
         raise ValueError(f"{where} takes K in {TAPS}, got {k}")
     if min(b, length, *(x.shape[2] for x in xs)) < 1:
         raise ValueError(f"{where}: empty input {[tuple(x.shape) for x in xs]}")
-    dtype = xs[0].dtype
-    if dtype not in _DTYPES or any(t.dtype != dtype for t in (*xs, *ws)):
-        raise ValueError(f"{where} takes float32 or bfloat16 inputs and "
-                         "weights of one dtype, got "
+    if any(t.dtype != torch.bfloat16 for t in (*xs, *ws)):
+        raise ValueError(f"{where} takes bfloat16 inputs and weights, all "
+                         "of one dtype, got "
                          f"{sorted({str(t.dtype) for t in (*xs, *ws)})}")
     for x, dy in zip(xs, dys):
         if dy.shape != x.shape or dy.dtype != x.dtype:
@@ -158,7 +157,7 @@ def _work_args(xs, ws):
 def causal_conv_fwd(xs: Sequence[torch.Tensor],
                     ws: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
     """silu(causal_conv(x, w)) for each x (B, L, C_x) and its w (K, C_x),
-    in one launch on the current stream; each output in x's dtype. Does
+    in one launch on the current stream; each output in bf16. Does
     not synchronise. Refuses inputs that require grad under grad mode."""
     xs, ws = list(xs), list(ws)
     if torch.is_grad_enabled() and any(t.requires_grad for t in xs + ws):
@@ -177,7 +176,7 @@ def causal_conv_fwd(xs: Sequence[torch.Tensor],
     with torch.cuda.device(xs[0].device):
         rc = lib.causal_conv_fwd(
             len(xs), _ptrs(xs), _ptrs(ws), _ptrs(ys), _widths(xs), b, length,
-            ws[0].shape[0], int(xs[0].dtype == torch.bfloat16),
+            ws[0].shape[0],
             torch.cuda.current_stream(xs[0].device).cuda_stream)
     if rc != 0:
         msg = lib.causal_conv_error_string(rc).decode()
@@ -194,7 +193,7 @@ def causal_conv_bwd(xs: Sequence[torch.Tensor], ws: Sequence[torch.Tensor],
                     ) -> Tuple[Tuple[torch.Tensor, ...],
                                Tuple[torch.Tensor, ...]]:
     """From dys, the gradients of :func:`causal_conv_fwd`'s outputs: (the
-    dx of each x, the dw of each w), each in its input's dtype, in two
+    dx of each x, the dw of each w), each in bf16, in two
     launches on the current stream. Does not synchronise."""
     xs, ws = list(xs), list(ws)
     dys = [dy.contiguous() for dy in dys]
@@ -217,8 +216,7 @@ def causal_conv_bwd(xs: Sequence[torch.Tensor], ws: Sequence[torch.Tensor],
     with torch.cuda.device(xs[0].device):
         rc = lib.causal_conv_bwd(
             len(xs), _ptrs(xs), _ptrs(ws), _ptrs(dys), _ptrs(dxs), _ptrs(dws),
-            _widths(xs), b, length, k, int(xs[0].dtype == torch.bfloat16),
-            partials.data_ptr(),
+            _widths(xs), b, length, k, partials.data_ptr(),
             torch.cuda.current_stream(xs[0].device).cuda_stream)
     if rc != 0:
         msg = lib.causal_conv_error_string(rc).decode()

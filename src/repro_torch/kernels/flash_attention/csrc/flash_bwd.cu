@@ -8,12 +8,12 @@
 // the forward takes: causal GQA attention with aligned ends (query r sees
 // keys <= r + (T - S)), an optional sliding window and an optional logit
 // soft-cap softcap * tanh(s / softcap), D in {32, 64, 80, 120, 128, 224,
-// 256}, bf16 or fp32, and the softmax scale the caller gives.
+// 256}, bf16, and the softmax scale the caller gives.
 //
 // Inputs q, o, dO (B, S, H, D); k, v (B, T, K, D); lse (B, H, S) fp32, the
 // natural-log log-sum-exp of each row's scaled, soft-capped and masked
 // scores that the forward writes. Outputs dq (B, S, H, D), dk, dv
-// (B, T, K, D) in the input type. All contiguous, 16-byte aligned. Query
+// (B, T, K, D) in bf16. All contiguous, 16-byte aligned. Query
 // head h reads kv head h / (H / K).
 //
 // With x = scale q.k, s = softcap tanh(x / softcap) (or x), P = exp(s - lse)
@@ -99,9 +99,6 @@
 // columns 128-255 and stores 128-223, the dQ pass stores 28 of its 32
 // column groups. The products with an N of D run at n128 pairs over 256
 // columns, so the padding costs 1.14 times those three.
-//
-// The fp32 path runs on the CUDA cores (never TF32), off the training path;
-// at D 80 and 120 a lane's columns i, i + 32, ... stop at D.
 
 #include <math.h>
 #include <stdint.h>
@@ -142,22 +139,8 @@ __device__ __forceinline__ bool visible(const Params& p, int r, int t) {
   return flash_mask::visible<true>(p, r, t);
 }
 
-// Score of a raw product acc = q.k: returns s (scaled and soft-capped) and
-// sets dcap = ds/dx of the soft-cap at x = scale acc (1 without one).
-__device__ __forceinline__ float score(const Params& p, float acc, float& dcap) {
-  const float x = acc * p.scale;
-  if (p.softcap > 0.f) {
-    const float th = tanhf(x / p.softcap);
-    dcap = 1.f - th * th;
-    return p.softcap * th;
-  }
-  dcap = 1.f;
-  return x;
-}
-
 // ---- 1. Delta = rowsum(dO o O) ---------------------------------------------
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
 
 template <typename T, int D>
@@ -878,195 +861,6 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   }
 }
 
-// ---- fp32: CUDA cores ---------------------------------------------------------
-
-constexpr int kF32Keys = 32;   // dkdv: keys per block, 8 per warp
-constexpr int kF32Rows = 32;   // dkdv: query rows per step (lane j: row j)
-constexpr int kF32QRows = 16;  // dq: query rows per block, 4 per warp
-constexpr int kF32KTile = 32;  // dq: keys per step (lane j: key j)
-
-// dK, dV of 32 keys; warp w owns keys 8w..8w+7, lane i columns i, i + 32, ...
-// that are < D (at D 120 lanes 24-31 own three, the others four; at D 80
-// lanes 16-31 own two, the others three).
-template <int D>
-__global__ void __launch_bounds__(128) flash_bwd_dkdv_f32(Params p) {
-  constexpr int LD = D + 1, NV = (D + 31) / 32, KPW = kF32Keys / 4;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* ks = reinterpret_cast<float*>(smem_raw);   // [kF32Keys][LD]
-  float* vs = ks + kF32Keys * LD;
-  float* qs = vs + kF32Keys * LD;                   // [kF32Rows][LD]
-  float* gs = qs + kF32Rows * LD;
-
-  const int t0 = blockIdx.x * kF32Keys, kh = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int group = p.H / p.K;
-  const size_t q_stride = (size_t)p.H * D, kv_stride = (size_t)p.K * D;
-  const float* kb = static_cast<const float*>(p.k) + ((size_t)b * p.T * p.K + kh) * D;
-  const float* vb = static_cast<const float*>(p.v) + ((size_t)b * p.T * p.K + kh) * D;
-  for (int i = threadIdx.x; i < kF32Keys * D; i += blockDim.x) {
-    const int r = i / D, d = i % D;
-    const bool in = t0 + r < p.T;
-    ks[r * LD + d] = in ? kb[(size_t)(t0 + r) * kv_stride + d] : 0.f;
-    vs[r * LD + d] = in ? vb[(size_t)(t0 + r) * kv_stride + d] : 0.f;
-  }
-  float dk[KPW][NV], dv[KPW][NV];
-#pragma unroll
-  for (int j = 0; j < KPW; ++j)
-#pragma unroll
-    for (int c = 0; c < NV; ++c) dk[j][c] = dv[j][c] = 0.f;
-
-  int r_begin, r_end;
-  query_range(p, t0, min(p.T, t0 + kF32Keys), kF32Rows, r_begin, r_end);
-  for (int g = 0; g < group; ++g) {
-    const int h = kh * group + g;
-    const float* qb = static_cast<const float*>(p.q) + ((size_t)b * p.S * p.H + h) * D;
-    const float* gb = static_cast<const float*>(p.dout) + ((size_t)b * p.S * p.H + h) * D;
-    for (int r0 = r_begin; r0 < r_end; r0 += kF32Rows) {
-      __syncthreads();
-      for (int i = threadIdx.x; i < kF32Rows * D; i += blockDim.x) {
-        const int r = i / D, d = i % D;
-        const bool in = r0 + r < p.S;
-        qs[r * LD + d] = in ? qb[(size_t)(r0 + r) * q_stride + d] : 0.f;
-        gs[r * LD + d] = in ? gb[(size_t)(r0 + r) * q_stride + d] : 0.f;
-      }
-      __syncthreads();
-      const int r = r0 + lane;
-      const size_t row = ((size_t)b * p.H + h) * p.S + r;
-      const float lse = r < p.S ? p.lse[row] : 0.f;
-      const float dl = r < p.S ? p.delta[row] : 0.f;
-#pragma unroll
-      for (int j = 0; j < KPW; ++j) {
-        const int kl = warp * KPW + j, key = t0 + kl;
-        float acc = 0.f, dpv = 0.f;
-#pragma unroll 16
-        for (int d = 0; d < D; ++d) {
-          acc = fmaf(qs[lane * LD + d], ks[kl * LD + d], acc);
-          dpv = fmaf(gs[lane * LD + d], vs[kl * LD + d], dpv);
-        }
-        float dcap;
-        const float sc = score(p, acc, dcap);
-        const float pe = visible(p, r, key) ? expf(sc - lse) : 0.f;
-        const float ds = pe * (dpv - dl) * dcap;
-        for (int jj = 0; jj < kF32Rows; ++jj) {
-          const float pj = __shfl_sync(0xffffffffu, pe, jj);
-          const float dj = __shfl_sync(0xffffffffu, ds, jj);
-#pragma unroll
-          for (int c = 0; c < NV; ++c) {
-            if (D % 32 == 0 || lane + 32 * c < D) {
-              dv[j][c] = fmaf(pj, gs[jj * LD + lane + 32 * c], dv[j][c]);
-              dk[j][c] = fmaf(dj, qs[jj * LD + lane + 32 * c], dk[j][c]);
-            }
-          }
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < KPW; ++j) {
-    const int key = t0 + warp * KPW + j;
-    if (key >= p.T) continue;
-    float* dko = static_cast<float*>(p.dk) + (((size_t)b * p.T + key) * p.K + kh) * D;
-    float* dvo = static_cast<float*>(p.dv) + (((size_t)b * p.T + key) * p.K + kh) * D;
-#pragma unroll
-    for (int c = 0; c < NV; ++c) {
-      if (D % 32 == 0 || lane + 32 * c < D) {
-        dko[lane + 32 * c] = dk[j][c] * p.scale;
-        dvo[lane + 32 * c] = dv[j][c];
-      }
-    }
-  }
-}
-
-// dQ of 16 query rows; warp w owns rows 4w..4w+3, lane i columns i, i + 32,
-// ... that are < D.
-template <int D>
-__global__ void __launch_bounds__(128) flash_bwd_dq_f32(Params p) {
-  constexpr int LD = D + 1, NV = (D + 31) / 32, RPW = kF32QRows / 4;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* qs = reinterpret_cast<float*>(smem_raw);   // [kF32QRows][D]
-  float* gs = qs + kF32QRows * D;
-  float* ks = gs + kF32QRows * D;                   // [kF32KTile][LD]
-  float* vs = ks + kF32KTile * LD;
-
-  const int q0 = blockIdx.x * kF32QRows, h = blockIdx.y, b = blockIdx.z;
-  const int kh = h / (p.H / p.K);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const size_t q_stride = (size_t)p.H * D, kv_stride = (size_t)p.K * D;
-  const float* qb = static_cast<const float*>(p.q) + ((size_t)b * p.S * p.H + h) * D;
-  const float* gb = static_cast<const float*>(p.dout) + ((size_t)b * p.S * p.H + h) * D;
-  const float* kb = static_cast<const float*>(p.k) + ((size_t)b * p.T * p.K + kh) * D;
-  const float* vb = static_cast<const float*>(p.v) + ((size_t)b * p.T * p.K + kh) * D;
-  for (int i = threadIdx.x; i < kF32QRows * D; i += blockDim.x) {
-    const int r = i / D, d = i % D;
-    const bool in = q0 + r < p.S;
-    qs[i] = in ? qb[(size_t)(q0 + r) * q_stride + d] : 0.f;
-    gs[i] = in ? gb[(size_t)(q0 + r) * q_stride + d] : 0.f;
-  }
-  float lse[RPW], dl[RPW], dq[RPW][NV];
-#pragma unroll
-  for (int rr = 0; rr < RPW; ++rr) {
-    const int r = q0 + warp * RPW + rr;
-    const size_t row = ((size_t)b * p.H + h) * p.S + r;
-    lse[rr] = r < p.S ? p.lse[row] : 0.f;
-    dl[rr] = r < p.S ? p.delta[row] : 0.f;
-#pragma unroll
-    for (int c = 0; c < NV; ++c) dq[rr][c] = 0.f;
-  }
-
-  int t_begin, t_end;
-  key_range(p, q0, min(q0 + kF32QRows, p.S), kF32KTile, t_begin, t_end);
-  for (int t0 = t_begin; t0 < t_end; t0 += kF32KTile) {
-    __syncthreads();
-    for (int i = threadIdx.x; i < kF32KTile * D; i += blockDim.x) {
-      const int r = i / D, d = i % D;
-      const bool in = t0 + r < p.T;
-      ks[r * LD + d] = in ? kb[(size_t)(t0 + r) * kv_stride + d] : 0.f;
-      vs[r * LD + d] = in ? vb[(size_t)(t0 + r) * kv_stride + d] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int rr = 0; rr < RPW; ++rr) {
-      const int rl = warp * RPW + rr, r = q0 + rl, t = t0 + lane;
-      float acc = 0.f, dpv = 0.f;
-#pragma unroll 16
-      for (int d = 0; d < D; ++d) {
-        acc = fmaf(qs[rl * D + d], ks[lane * LD + d], acc);
-        dpv = fmaf(gs[rl * D + d], vs[lane * LD + d], dpv);
-      }
-      float dcap;
-      const float sc = score(p, acc, dcap);
-      const float pe = visible(p, r, t) ? expf(sc - lse[rr]) : 0.f;
-      const float ds = pe * (dpv - dl[rr]) * dcap;
-      for (int j = 0; j < kF32KTile; ++j) {
-        const float dj = __shfl_sync(0xffffffffu, ds, j);
-#pragma unroll
-        for (int c = 0; c < NV; ++c)
-          if (D % 32 == 0 || lane + 32 * c < D)
-            dq[rr][c] = fmaf(dj, ks[j * LD + lane + 32 * c], dq[rr][c]);
-      }
-    }
-  }
-#pragma unroll
-  for (int rr = 0; rr < RPW; ++rr) {
-    const int r = q0 + warp * RPW + rr;
-    if (r >= p.S) continue;
-    float* out = static_cast<float*>(p.dq) + ((size_t)(b * p.S + r) * p.H + h) * D;
-#pragma unroll
-    for (int c = 0; c < NV; ++c)
-      if (D % 32 == 0 || lane + 32 * c < D) out[lane + 32 * c] = dq[rr][c] * p.scale;
-  }
-}
-
-
-template <typename Kernel>
-int launch(Kernel kernel, dim3 grid, int bytes, const Params& p, cudaStream_t st) {
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<grid, 128, bytes, st>>>(p);
-  return static_cast<int>(cudaGetLastError());
-}
-
 // The bf16 passes: dK/dV, then dQ, on 4-D tensor maps over the inputs. At D
 // 256 the dK/dV pass is flash_bwd_dkdv_split_wgmma.
 template <int D>
@@ -1107,21 +901,12 @@ int launch_wgmma(const Params& p, cudaStream_t st) {
 }
 
 template <int D>
-int launch_all(const Params& p, int is_bf16, cudaStream_t st) {
+int launch_all(const Params& p, cudaStream_t st) {
   const int rows = p.B * p.S * p.H;
-  if (is_bf16)
-    flash_bwd_preprocess<bf16, D><<<(rows + 7) / 8, 256, 0, st>>>(p);
-  else
-    flash_bwd_preprocess<float, D><<<(rows + 7) / 8, 256, 0, st>>>(p);
-  int rc = static_cast<int>(cudaGetLastError());
+  flash_bwd_preprocess<bf16, D><<<(rows + 7) / 8, 256, 0, st>>>(p);
+  const int rc = static_cast<int>(cudaGetLastError());
   if (rc != 0) return rc;
-  if (is_bf16) return launch_wgmma<D>(p, st);
-  rc = launch(flash_bwd_dkdv_f32<D>, dim3((p.T + kF32Keys - 1) / kF32Keys, p.K, p.B),
-              (2 * kF32Keys + 2 * kF32Rows) * (D + 1) * 4, p, st);
-  if (rc == 0)
-    rc = launch(flash_bwd_dq_f32<D>, dim3((p.S + kF32QRows - 1) / kF32QRows, p.H, p.B),
-                (2 * kF32QRows * D + 2 * kF32KTile * (D + 1)) * 4, p, st);
-  return rc;
+  return launch_wgmma<D>(p, st);
 }
 
 }  // namespace
@@ -1129,24 +914,24 @@ int launch_all(const Params& p, int is_bf16, cudaStream_t st) {
 extern "C" {
 
 // Launches the three kernels on `stream` and returns a CUDA error code (0 on
-// success). is_bf16: 1 for bf16 tensors, 0 for fp32. window <= 0 and
+// success). q, k, v, o, dout, dq, dk and dv are bf16. window <= 0 and
 // softcap <= 0 mean "none". delta is an fp32 (B, H, S) scratch. The caller
 // checks shapes, types, contiguity and 16-byte alignment.
 int flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
                         const void* dout, const void* lse, void* delta, void* dq, void* dk,
-                        void* dv, int B, int S, int T, int H, int K, int D, int is_bf16,
+                        void* dv, int B, int S, int T, int H, int K, int D,
                         int causal, int window, float softcap, float scale, void* stream) {
   Params p{q, k, v, o, dout, static_cast<const float*>(lse), static_cast<float*>(delta),
            dq, dk, dv, B, S, T, H, K, causal, window, softcap, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 32: return launch_all<32>(p, is_bf16, st);
-    case 64: return launch_all<64>(p, is_bf16, st);
-    case 80: return launch_all<80>(p, is_bf16, st);
-    case 120: return launch_all<120>(p, is_bf16, st);
-    case 128: return launch_all<128>(p, is_bf16, st);
-    case 224: return launch_all<224>(p, is_bf16, st);
-    case 256: return launch_all<256>(p, is_bf16, st);
+    case 32: return launch_all<32>(p, st);
+    case 64: return launch_all<64>(p, st);
+    case 80: return launch_all<80>(p, st);
+    case 120: return launch_all<120>(p, st);
+    case 128: return launch_all<128>(p, st);
+    case 224: return launch_all<224>(p, st);
+    case 256: return launch_all<256>(p, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -4,12 +4,12 @@
 // (_flash_kernel, launched by flash_attention): causal GQA attention with a
 // blockwise online softmax, an aligned-end causal mask (query r sees keys
 // <= r + (T - S)), an optional sliding window and an optional logit soft-cap
-// softcap * tanh(s / softcap). Running max, sum and accumulator are fp32; the
-// output is acc / max(l, 1e-30) in the input type. Given an lse pointer,
-// it also writes each row's log-sum-exp of the scaled, soft-capped, masked
-// scores, fp32 (B, H, S), in natural-log units (the base flash_bwd.cu
-// reads): m + log(l) on the fp32 path, (m + log2(l)) ln 2 on the bf16 path,
-// whose softmax runs in base 2. Serving passes a null pointer.
+// softcap * tanh(s / softcap). Inputs and output are bf16; running max, sum
+// and accumulator are fp32, and the output is acc / max(l, 1e-30). Given an
+// lse pointer, it also writes each row's log-sum-exp of the scaled,
+// soft-capped, masked scores, fp32 (B, H, S), in natural-log units (the base
+// flash_bwd.cu reads): (m + log2(l)) ln 2, since the softmax runs in base 2.
+// Serving passes a null pointer.
 //
 // Layouts: q and o are (B, S, H, D), k and v are (B, T, K, D), all
 // contiguous. Query head h reads kv head h / (H / K).
@@ -85,10 +85,6 @@
 // memory are D 256's. The softmax scale is the caller's (Zamba-2 takes
 // (D / 2)^-1/2), applied in fp32 in the exponent's FFMA, never to q in
 // bf16.
-//
-// The fp32 path (flash_fwd_f32) is off the serving path: full fp32 on the
-// CUDA cores (never TF32), q scaled after the load as the TPU kernel does;
-// its tiles are dynamic shared memory (80 KB at D 256).
 
 #include <math.h>
 #include <stdint.h>
@@ -123,10 +119,6 @@ using flash_mask::key_range;
 
 __device__ __forceinline__ bool visible(const Params& p, int r, int t) {
   return flash_mask::visible<false>(p, r, t);
-}
-
-__device__ __forceinline__ float cap(const Params& p, float s) {
-  return p.softcap > 0.f ? p.softcap * tanhf(s / p.softcap) : s;
 }
 
 // ---- bf16: wgmma + TMA, warp-specialised ----------------------------------
@@ -481,104 +473,6 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   }
 }
 
-// fp32: 4 warps, 4 query rows each, 32-key tiles. Lane j scores key j of the
-// tile; for the accumulator, lane i owns columns i, i + 32, ... of the row
-// that are < D (at D 80 lanes 0-15 own three columns, lanes 16-31 two; at D
-// 120 lanes 0-23 four, lanes 24-31 three). The tiles are dynamic shared
-// memory: at D 256 they take 80 KB, over the 48 KB of static shared memory.
-constexpr int kF32Q = 16, kF32K = 32;
-
-template <int D>
-constexpr int f32_smem_bytes() {
-  return (kF32Q * D + kF32K * (D + 1) + kF32K * D) * 4;
-}
-
-template <int D>
-__global__ void __launch_bounds__(128) flash_fwd_f32(Params p) {
-  constexpr int BQ = kF32Q, BK = kF32K, RPW = BQ / 4, NV = (D + 31) / 32;
-  extern __shared__ __align__(16) unsigned char smem_f32[];
-  float(*qs)[D] = reinterpret_cast<float(*)[D]>(smem_f32);
-  float(*ks)[D + 1] = reinterpret_cast<float(*)[D + 1]>(smem_f32 + BQ * D * 4);
-  float(*vs)[D] = reinterpret_cast<float(*)[D]>(smem_f32 + (BQ * D + BK * (D + 1)) * 4);
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-  const int kh = h / (p.H / p.K);
-  const size_t q_stride = (size_t)p.H * D, kv_stride = (size_t)p.K * D;
-  const float* qb = static_cast<const float*>(p.q) + ((size_t)b * p.S * p.H + h) * D;
-  const float* kb = static_cast<const float*>(p.k) + ((size_t)b * p.T * p.K + kh) * D;
-  const float* vb = static_cast<const float*>(p.v) + ((size_t)b * p.T * p.K + kh) * D;
-  float* ob = static_cast<float*>(p.o) + ((size_t)b * p.S * p.H + h) * D;
-
-  for (int i = threadIdx.x; i < BQ * D; i += blockDim.x) {
-    const int r = i / D, d = i % D;
-    qs[r][d] = q0 + r < p.S ? qb[(size_t)(q0 + r) * q_stride + d] * p.scale : 0.f;
-  }
-
-  float m[RPW], l[RPW], acc[RPW][NV];
-#pragma unroll
-  for (int rr = 0; rr < RPW; ++rr) {
-    m[rr] = kMaxInit;
-    l[rr] = 0.f;
-#pragma unroll
-    for (int i = 0; i < NV; ++i) acc[rr][i] = 0.f;
-  }
-
-  int t_begin, t_end;
-  key_range(p, q0, min(q0 + BQ, p.S), BK, t_begin, t_end);
-  for (int t0 = t_begin; t0 < t_end; t0 += BK) {
-    __syncthreads();
-    for (int i = threadIdx.x; i < BK * D; i += blockDim.x) {
-      const int r = i / D, d = i % D;
-      const bool in = t0 + r < p.T;
-      ks[r][d] = in ? kb[(size_t)(t0 + r) * kv_stride + d] : 0.f;
-      vs[r][d] = in ? vb[(size_t)(t0 + r) * kv_stride + d] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int rr = 0; rr < RPW; ++rr) {
-      const int row = warp * RPW + rr, r = q0 + row, t = t0 + lane;
-      float x = 0.f;
-#pragma unroll 16
-      for (int d = 0; d < D; ++d) x = fmaf(qs[row][d], ks[lane][d], x);
-      x = visible(p, r, t) ? cap(p, x) : -INFINITY;
-      float mx = x;
-#pragma unroll
-      for (int o = 16; o > 0; o /= 2) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      const float m_new = fmaxf(m[rr], mx);
-      const float alpha = expf(m[rr] - m_new);
-      const float pe = expf(x - m_new);
-      float ps = pe;
-#pragma unroll
-      for (int o = 16; o > 0; o /= 2) ps += __shfl_xor_sync(0xffffffffu, ps, o);
-      l[rr] = l[rr] * alpha + ps;
-      m[rr] = m_new;
-#pragma unroll
-      for (int i = 0; i < NV; ++i) acc[rr][i] *= alpha;
-      for (int j = 0; j < BK; ++j) {
-        const float pj = __shfl_sync(0xffffffffu, pe, j);
-#pragma unroll
-        for (int i = 0; i < NV; ++i)
-          if (D % 32 == 0 || lane + 32 * i < D)
-            acc[rr][i] = fmaf(pj, vs[j][lane + 32 * i], acc[rr][i]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int rr = 0; rr < RPW; ++rr) {
-    const int r = q0 + warp * RPW + rr;
-    if (r >= p.S) continue;
-    const float denom = fmaxf(l[rr], 1e-30f);
-#pragma unroll
-    for (int i = 0; i < NV; ++i)
-      if (D % 32 == 0 || lane + 32 * i < D)
-        ob[(size_t)r * q_stride + lane + 32 * i] = acc[rr][i] / denom;
-    if (p.lse != nullptr && lane == 0)
-      p.lse[((size_t)b * p.H + h) * p.S + r] = m[rr] + logf(denom);
-  }
-}
-
 template <int D>
 int launch_wgmma(const Params& p, int B, cudaStream_t st) {
   using Lay = WgLayout<D>;
@@ -603,51 +497,29 @@ int launch_wgmma(const Params& p, int B, cudaStream_t st) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
-int launch_f32(const Params& p, int B, cudaStream_t st) {
-  constexpr int bytes = f32_smem_bytes<D>();
-  const cudaError_t err =
-      cudaFuncSetAttribute(flash_fwd_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  flash_fwd_f32<D><<<dim3((p.S + kF32Q - 1) / kF32Q, p.H, B), 128, bytes, st>>>(p);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
 extern "C" {
 
 // Launches on `stream` and returns a CUDA error code (0 on success).
-// is_bf16: 1 for bf16 inputs, 0 for fp32. window <= 0 and softcap <= 0 mean
-// "none". lse: fp32 (B, H, S) or null. The caller checks shapes, types,
-// contiguity and 16-byte alignment.
+// q, k, v and o are bf16. window <= 0 and softcap <= 0 mean "none". lse:
+// fp32 (B, H, S) or null. The caller checks shapes, types, contiguity and
+// 16-byte alignment.
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                         void* lse, int B, int S, int T, int H, int K, int D,
-                        int is_bf16, int causal, int window, float softcap,
+                        int causal, int window, float softcap,
                         float scale, void* stream) {
   Params p{q, k, v, o, static_cast<float*>(lse), S, T, H, K, B, causal, window,
            softcap, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    switch (D) {
-      case 32: return launch_wgmma<32>(p, B, st);
-      case 64: return launch_wgmma<64>(p, B, st);
-      case 80: return launch_wgmma<80>(p, B, st);
-      case 120: return launch_wgmma<120>(p, B, st);
-      case 128: return launch_wgmma<128>(p, B, st);
-      case 224: return launch_wgmma<224>(p, B, st);
-      case 256: return launch_wgmma<256>(p, B, st);
-      default: return static_cast<int>(cudaErrorInvalidValue);
-    }
-  }
   switch (D) {
-    case 32: return launch_f32<32>(p, B, st);
-    case 64: return launch_f32<64>(p, B, st);
-    case 80: return launch_f32<80>(p, B, st);
-    case 120: return launch_f32<120>(p, B, st);
-    case 128: return launch_f32<128>(p, B, st);
-    case 224: return launch_f32<224>(p, B, st);
-    case 256: return launch_f32<256>(p, B, st);
+    case 32: return launch_wgmma<32>(p, B, st);
+    case 64: return launch_wgmma<64>(p, B, st);
+    case 80: return launch_wgmma<80>(p, B, st);
+    case 120: return launch_wgmma<120>(p, B, st);
+    case 128: return launch_wgmma<128>(p, B, st);
+    case 224: return launch_wgmma<224>(p, B, st);
+    case 256: return launch_wgmma<256>(p, B, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

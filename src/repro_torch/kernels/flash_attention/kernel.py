@@ -10,12 +10,12 @@ H100 and what its design does about that. The libraries are built with
 ``nvcc`` at their first launch, never at import, so this module imports on
 machines without CUDA.
 
-:func:`flash_attention` and :func:`flash_attention_backward` take CUDA
-tensors only and raise for anything the kernels do not take; they never
-fall back to the plain version. :func:`flash_attention` returns a tensor
-with no autograd graph, so it refuses inputs that require grad under grad
-mode: :class:`FlashAttention` (through ``ops.attention``) is the
-differentiable path. Each function's ``launches`` attribute counts its
+:func:`flash_attention` and :func:`flash_attention_backward` take bf16
+CUDA tensors only and raise for anything the kernels do not take; they
+never fall back to the plain version. :func:`flash_attention` returns a
+tensor with no autograd graph, so it refuses inputs that require grad
+under grad mode: :class:`FlashAttention` (through ``ops.attention``) is
+the differentiable path. Each function's ``launches`` attribute counts its
 calls; one backward call launches three kernels.
 
 A fake tensor takes the kernels' place (``kernels.fake``): the same
@@ -67,7 +67,7 @@ def library() -> ctypes.CDLL:
     if _lib is None:
         lib = cuda_build.load(SOURCE)
         lib.flash_attention_fwd.argtypes = (
-            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
+            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
             + [ctypes.c_float] * 2 + [ctypes.c_void_p])
         lib.flash_attention_fwd.restype = ctypes.c_int
         lib.flash_attention_error_string.argtypes = [ctypes.c_int]
@@ -82,7 +82,7 @@ def backward_library() -> ctypes.CDLL:
     if _bwd_lib is None:
         lib = cuda_build.load(BWD_SOURCE)
         lib.flash_attention_bwd.argtypes = (
-            [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
+            [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
             + [ctypes.c_float] * 2 + [ctypes.c_void_p])
         lib.flash_attention_bwd.restype = ctypes.c_int
         lib.flash_attention_bwd_error_string.argtypes = [ctypes.c_int]
@@ -111,10 +111,9 @@ def check_inputs(q, k, v, causal: bool, window: Optional[int],
         raise ValueError(f"GQA requires H % K == 0, got {h} % {nk}")
     if d not in head_dims:
         raise ValueError(f"head dim {d} not supported; have {head_dims}")
-    if q.dtype not in (torch.float32, torch.bfloat16) or not (
-            k.dtype == v.dtype == q.dtype):
+    if not q.dtype == k.dtype == v.dtype == torch.bfloat16:
         raise ValueError(f"dtypes {q.dtype}/{k.dtype}/{v.dtype}: want all "
-                         "float32 or all bfloat16")
+                         "bfloat16")
     if min(b, s, t, h) < 1 or b > _MAX_GRID_YZ or h > _MAX_GRID_YZ:
         raise ValueError(f"sizes out of range: B={b} S={s} T={t} H={h}")
     if causal and s > t:
@@ -160,7 +159,7 @@ def flash_attention(
     scale: Optional[float] = None,
 ):
     """Launch the forward on the current stream; returns o (B, S, H, D) in
-    q's dtype, and with ``return_lse`` also each row's log-sum-exp of the
+    bf16, and with ``return_lse`` also each row's log-sum-exp of the
     scaled, soft-capped, masked scores, fp32 (B, H, S). ``scale``: the
     softmax scale, D^-1/2 by default. Does not synchronise. Refuses inputs
     that require grad under grad mode."""
@@ -181,7 +180,7 @@ def flash_attention(
         rc = lib.flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr() if lse is not None else None,
-            b, s, t, h, nk, d, int(q.dtype == torch.bfloat16), int(causal),
+            b, s, t, h, nk, d, int(causal),
             window or 0, float(softcap or 0.0),
             d ** -0.5 if scale is None else scale, stream,
         )
@@ -208,7 +207,7 @@ def flash_attention_backward(
     scale: Optional[float] = None,
 ):
     """Launch the three backward kernels on the current stream; returns
-    (dq, dk, dv) in q's dtype; ``scale`` as the forward's. Does not
+    (dq, dk, dv) in bf16; ``scale`` as the forward's. Does not
     synchronise."""
     check_inputs(q, k, v, causal, window, softcap, BWD_HEAD_DIMS, scale)
     do = do.contiguous()
@@ -244,7 +243,7 @@ def flash_attention_backward(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(),
-            b, s, t, h, nk, d, int(q.dtype == torch.bfloat16), int(causal),
+            b, s, t, h, nk, d, int(causal),
             window or 0, float(softcap or 0.0),
             d ** -0.5 if scale is None else scale, stream,
         )

@@ -54,10 +54,10 @@
 // Above the diagonal exp(cum_i - cum_j) can overflow, so it is selected to
 // 0 there (and past a ragged chunk's end), never multiplied by a mask.
 //
-// bf16 inputs (the training path) run every product on the tensor cores,
-// mma.sync m16n8k16 bf16 with fp32 accumulation, operands from shared
-// memory by ldmatrix, tiles brought in by cp.async (bf16 rows padded by
-// kPad) and double-buffered. Passes 1-4 are the forward's chunk-state
+// x, B, C and dy and their gradients are bf16. Every product runs on the
+// tensor cores, mma.sync m16n8k16 bf16 with fp32 accumulation, operands
+// from shared memory by ldmatrix, tiles brought in by cp.async (bf16 rows
+// padded by kPad) and double-buffered. Passes 1-4 are the forward's chunk-state
 // product and batched recurrence (ssd_states.cuh): pass 1 is the forward's
 // pass 1, pass 3 the same product with u = dy, v = C and the scale
 // exp(cum), pass 4 the recurrence in reverse. Passes 5 and 6 take one
@@ -75,18 +75,15 @@
 // split buys). Each warp owns its rows' sums, so the fp64 sums that feed
 // dcum are per-thread partials over the accumulator fragments reduced over
 // the four lanes of a row by __shfl_xor_sync, in a fixed order.
-// fp32 inputs keep the first design's kernels (ssd_bwd_outer, ssd_bwd_query,
-// ssd_bwd_key): fp32 products on the CUDA cores from fp32 tiles in shared
-// memory, with the same recurrences and passes 7-10.
 //
 // What bounds it on the H100. At the training shape of mamba2-130m (B 8,
-// L 4096, H 24, P 64, G 1, N 128, Q 256, bf16 x/B/C/dy) the backward needs
-// about 167.91 GFLOP (per chunk, q(q+1)/2 (query, key) pairs at 2(3N + 2P)
+// L 4096, H 24, P 64, G 1, N 128, Q 256) the backward needs about 167.91
+// GFLOP (per chunk, q(q+1)/2 (query, key) pairs at 2(3N + 2P)
 // operations and 10 q N P for the five state products: 0.1698 ms at the
 // 989 TFLOP/s bf16 rate) and about 342 MB of inputs and outputs once each
 // (0.10 ms at 3.35 TB/s): operations bound it.
-// What still separates the bf16 design from the bound: the products it
-// runs beyond the count (the query and key passes each recompute C B^T and
+// What still separates the design from the bound: the products it runs
+// beyond the count (the query and key passes each recompute C B^T and
 // dy x^T, the diagonal tiles' dead halves, the hi + lo splits: about 2.3
 // times the counted operations) at mma.sync's rate, below wgmma's, with
 // every warp reading its own B operands from shared memory by ldmatrix;
@@ -108,10 +105,9 @@
 
 namespace {
 
-constexpr int kThreads = 256;   // 16 x 16, the fp32 kernels
+constexpr int kThreads = 256;   // pass 7's block
 constexpr int kMaxChunk = 1024;
 
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(bf16* p, float v) { *p = __float2bfloat16(v); }
 
 __host__ __device__ constexpr size_t align4(size_t v) { return (v + 3) / 4 * 4; }
@@ -175,8 +171,6 @@ struct Workspace {
   }
 };
 
-// ---- fp32: products on the CUDA cores ----------------------------------------
-
 // The chunk's dt (0 past its end) and inclusive cumsum of dt * a in fp64,
 // by every thread of the block: each sums a run of consecutive rows, thread
 // 0 scans the runs' totals, and each adds its offset. s_tot holds kThreads
@@ -208,498 +202,6 @@ __device__ __forceinline__ void block_scan(const Params& p, const Chunk& ch, dou
   const double off = s_tot[threadIdx.x];
   for (int j = j0; j < min(j0 + seg, ch.qpad); ++j) s_cum[j] += off;
   __syncthreads();
-}
-
-// Rows [row0, row0 + kTile) of a chunk into shared memory as fp32 with row
-// stride LD: row r of the chunk starts at src + r * stride and has W values.
-// Rows at or past `nrows` are zero-filled.
-template <int W, int LD>
-__device__ __forceinline__ void load_tile(float* dst, const float* src, size_t stride, int row0,
-                                          int nrows) {
-  for (int e = threadIdx.x; e < kTile * W; e += kThreads) {
-    const int r = e / W, col = e % W;
-    dst[r * LD + col] = row0 + r < nrows ? src[(size_t)(row0 + r) * stride + col] : 0.f;
-  }
-}
-
-// Sum over the 16 threads of each tile row (ty + 16 r) of v[r], added to
-// out[row] by thread `row` (tid < 64), in a fixed order. s_red holds
-// kTile x 17 doubles. Starts and ends with a barrier. The sums that feed
-// dcum are kept in fp64: the reverse cumsum adds up to Q of them, and da
-// weighs each row's dcum by its cum, which reaches a few hundred.
-__device__ __forceinline__ void row_sum(const double (&v)[4], double* s_red, double* out) {
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  __syncthreads();
-#pragma unroll
-  for (int r = 0; r < 4; ++r) s_red[(ty + 16 * r) * 17 + tx] = v[r];
-  __syncthreads();
-  if (threadIdx.x < kTile) {
-    double s = 0.0;
-    for (int t = 0; t < 16; ++t) s += s_red[threadIdx.x * 17 + t];
-    out[threadIdx.x] += s;
-  }
-  __syncthreads();
-}
-
-// ---- passes 1 and 3: a chunk's sum over its rows of s_r u_r v_r^T ----------
-// MODE 0: u = x, v = B, s = w = exp(cum_last - cum) dt (the local state);
-//         also writes the chunk's decay exp(cum_last).
-// MODE 1: u = dy, v = C, s = exp(cum) (the state gradient's local term).
-// Thread (ty, tx) owns output rows ty + 16 r and columns tx + 16 k.
-template <int P, int N, int MODE>
-__global__ void __launch_bounds__(kThreads, 1) ssd_bwd_outer(Params p) {
-  constexpr int RP = P / 16, CN = N / 16;
-  extern __shared__ double smem_d[];
-  const Chunk ch(p.L, p.H, p.G, p.Q, 1);
-  double* s_cum = smem_d;                                  // (qpad,)
-  double* s_tot = s_cum + ch.qpad;                         // (kThreads,)
-  float* s_dt = reinterpret_cast<float*>(s_tot + kThreads);  // (qpad,)
-  float* s_scale = s_dt + ch.qpad;                         // (qpad,)
-  float* s_u = s_scale + ch.qpad;                          // (kTile, P)
-  float* s_v = s_u + kTile * P;                            // (kTile, N)
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const size_t urow = (size_t)p.H * P, vrow = (size_t)p.G * N;
-  const float* u = static_cast<const float*>(MODE == 0 ? p.x : p.dy) + ch.row0 * urow + (size_t)ch.h * P;
-  const float* v = static_cast<const float*>(MODE == 0 ? p.b : p.c) + ch.row0 * vrow + (size_t)ch.g * N;
-
-  block_scan(p, ch, s_cum, s_dt, s_tot);
-  const double cum_last = s_cum[ch.qlen - 1];
-  for (int j = tid; j < ch.qpad; j += kThreads)
-    s_scale[j] = MODE == 0 ? expf((float)(cum_last - s_cum[j])) * s_dt[j] : expf((float)s_cum[j]);
-  if (MODE == 0 && tid == 0) p.decay[ch.bzh] = expf((float)cum_last);
-
-  float acc[RP][CN];
-#pragma unroll
-  for (int r = 0; r < RP; ++r)
-#pragma unroll
-    for (int k = 0; k < CN; ++k) acc[r][k] = 0.f;
-  for (int j0 = 0; j0 < ch.qlen; j0 += kTile) {
-    __syncthreads();   // the last tile is read (and s_scale is written)
-    for (int e = tid; e < kTile * P; e += kThreads) {
-      const int r = e / P, col = e % P;
-      s_u[e] = j0 + r < ch.qlen ? u[(size_t)(j0 + r) * urow + col] * s_scale[j0 + r] : 0.f;
-    }
-    load_tile<N, N>(s_v, v, vrow, j0, ch.qlen);
-    __syncthreads();
-#pragma unroll 4
-    for (int jj = 0; jj < kTile; ++jj) {
-      float uv[RP], vv[CN];
-#pragma unroll
-      for (int r = 0; r < RP; ++r) uv[r] = s_u[jj * P + ty + 16 * r];
-#pragma unroll
-      for (int k = 0; k < CN; ++k) vv[k] = s_v[jj * N + tx + 16 * k];
-#pragma unroll
-      for (int r = 0; r < RP; ++r)
-#pragma unroll
-        for (int k = 0; k < CN; ++k) acc[r][k] = fmaf(uv[r], vv[k], acc[r][k]);
-    }
-  }
-  float* out = (MODE == 0 ? p.states : p.dstates) + ch.bzh * P * N;
-#pragma unroll
-  for (int r = 0; r < RP; ++r)
-#pragma unroll
-    for (int k = 0; k < CN; ++k) out[(size_t)(ty + 16 * r) * N + tx + 16 * k] = acc[r][k];
-}
-
-// Shared memory of the tile passes: fp64 cum, scan totals, three per-row
-// arrays and the row-sum scratch; then fp32 dt, one more per-row array and
-// the tiles.
-template <int P, int N>
-struct TileSmem {
-  static constexpr int LDP = P + 1, LDN = N + 1, LDT = kTile + 1;
-  static size_t bytes(int q, int n_ptiles, int n_ntiles, int n_ttiles) {
-    const size_t qpad = round_up(q, kTile);
-    return sizeof(double) * (qpad + kThreads + 3 * kTile + kTile * 17) +
-           sizeof(float) * (2 * qpad + (size_t)n_ptiles * kTile * LDP +
-                            (size_t)n_ntiles * kTile * LDN + (size_t)n_ttiles * kTile * LDT);
-  }
-};
-
-// ---- pass 5: the query side, one block per 64-row query tile -----------------
-// dC_i = exp(cum_i) S_prev^T dy_i + sum_{j<=i} M_ij B_j (per head, into
-// dc_part); dcum_i = C_i.(exp(cum_i) S_prev^T dy_i) + sum_j F_ij dt_j.
-// Thread (ty, tx) owns rows ty + 16 r of the tile; its dC columns are
-// tx + 16 k, and in a (query, key) tile pair its keys are tx + 16 k.
-template <int P, int N>
-__global__ void __launch_bounds__(kThreads, 1) ssd_bwd_query(Params p, int tiles) {
-  using S = TileSmem<P, N>;
-  constexpr int LDP = S::LDP, LDN = S::LDN, LDT = S::LDT;
-  constexpr int CN = N / 16;
-  constexpr int PT = P < kTile ? P : kTile;   // rows of S_prev per state tile
-  extern __shared__ double smem_d[];
-  const Chunk ch(p.L, p.H, p.G, p.Q, tiles);
-  const int i0 = ch.tile * kTile;
-  if (i0 >= ch.qlen) return;
-  double* s_cum = smem_d;
-  double* s_tot = s_cum + ch.qpad;
-  double* s_acc = s_tot + kThreads;        // (kTile,) dcum of the tile's rows
-  double* s_red = s_acc + 3 * kTile;       // (kTile, 17)
-  float* s_dt = reinterpret_cast<float*>(s_red + kTile * 17);
-  float* s_ecum = s_dt + ch.qpad;          // (qpad,) exp(cum)
-  float* s_dy = s_ecum + ch.qpad;          // (kTile, LDP)
-  float* s_x = s_dy + kTile * LDP;         // (kTile, LDP)
-  float* s_c = s_x + kTile * LDP;          // (kTile, LDN)
-  float* s_b = s_c + kTile * LDN;          // (kTile, LDN): B tile or S_prev rows
-  float* s_m = s_b + kTile * LDN;          // (kTile, LDT)
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const size_t xrow = (size_t)p.H * P, brow = (size_t)p.G * N;
-  const size_t hoff = (size_t)ch.h * P, goff = (size_t)ch.g * N;
-  const float* xc = static_cast<const float*>(p.x) + ch.row0 * xrow + hoff;
-  const float* dyc = static_cast<const float*>(p.dy) + ch.row0 * xrow + hoff;
-  const float* bc = static_cast<const float*>(p.b) + ch.row0 * brow + goff;
-  const float* cc = static_cast<const float*>(p.c) + ch.row0 * brow + goff;
-
-  block_scan(p, ch, s_cum, s_dt, s_tot);
-  for (int j = tid; j < ch.qpad; j += kThreads) s_ecum[j] = expf((float)s_cum[j]);
-  if (tid < kTile) s_acc[tid] = 0.0;
-  load_tile<N, LDN>(s_c, cc, brow, i0, ch.qlen);
-  load_tile<P, LDP>(s_dy, dyc, xrow, i0, ch.qlen);
-
-  // carried state: acc[r][k] = sum_p dy[i][p] S_prev[p][n], PT rows of S_prev
-  // at a time through s_b
-  float acc[4][CN];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int k = 0; k < CN; ++k) acc[r][k] = 0.f;
-  const float* sp = p.states + ch.bzh * P * N;
-  for (int p0 = 0; p0 < P; p0 += PT) {
-    __syncthreads();
-    for (int e = tid; e < PT * N; e += kThreads) s_b[(e / N) * LDN + e % N] = sp[(size_t)p0 * N + e];
-    __syncthreads();
-#pragma unroll 4
-    for (int pp = 0; pp < PT; ++pp) {
-      float dv[4], sv[CN];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) dv[r] = s_dy[(ty + 16 * r) * LDP + p0 + pp];
-#pragma unroll
-      for (int k = 0; k < CN; ++k) sv[k] = s_b[pp * LDN + tx + 16 * k];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int k = 0; k < CN; ++k) acc[r][k] = fmaf(dv[r], sv[k], acc[r][k]);
-    }
-  }
-  {
-    double part[4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const float e = s_ecum[i0 + ty + 16 * r];
-      part[r] = 0.0;
-#pragma unroll
-      for (int k = 0; k < CN; ++k) {
-        acc[r][k] *= e;
-        part[r] += (double)(s_c[(ty + 16 * r) * LDN + tx + 16 * k] * acc[r][k]);
-      }
-    }
-    row_sum(part, s_red, s_acc);
-  }
-
-  // intra-chunk: key tiles at or below the diagonal
-  for (int j0 = 0; j0 <= i0; j0 += kTile) {
-    __syncthreads();   // the last key tile and M are read
-    load_tile<N, LDN>(s_b, bc, brow, j0, ch.qlen);
-    load_tile<P, LDP>(s_x, xc, xrow, j0, ch.qlen);
-    __syncthreads();
-    float sc[4][4], dot[4][4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int k = 0; k < 4; ++k) sc[r][k] = dot[r][k] = 0.f;
-#pragma unroll 4
-    for (int n = 0; n < N; ++n) {
-      float cv[4], bv[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) cv[r] = s_c[(ty + 16 * r) * LDN + n];
-#pragma unroll
-      for (int k = 0; k < 4; ++k) bv[k] = s_b[(tx + 16 * k) * LDN + n];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int k = 0; k < 4; ++k) sc[r][k] = fmaf(cv[r], bv[k], sc[r][k]);
-    }
-#pragma unroll 4
-    for (int pp = 0; pp < P; ++pp) {
-      float dv[4], xv[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) dv[r] = s_dy[(ty + 16 * r) * LDP + pp];
-#pragma unroll
-      for (int k = 0; k < 4; ++k) xv[k] = s_x[(tx + 16 * k) * LDP + pp];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int k = 0; k < 4; ++k) dot[r][k] = fmaf(dv[r], xv[k], dot[r][k]);
-    }
-    double fdt[4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int i = i0 + ty + 16 * r;
-      fdt[r] = 0.0;
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const int j = j0 + tx + 16 * k;
-        // select, never multiply by a mask: above the diagonal the exponent
-        // is positive and exp can reach inf, and inf * 0 is NaN
-        const bool live = j <= i && i < ch.qlen;
-        const float ell = expf(live ? (float)(s_cum[i] - s_cum[j]) : 0.f);
-        const float dtj = s_dt[j];
-        s_m[(ty + 16 * r) * LDT + tx + 16 * k] = live ? dot[r][k] * ell * dtj : 0.f;
-        fdt[r] += live ? (double)(ell * sc[r][k] * dot[r][k] * dtj) : 0.0;
-      }
-    }
-    row_sum(fdt, s_red, s_acc);   // its barriers also publish s_m
-#pragma unroll 4
-    for (int jj = 0; jj < kTile; ++jj) {
-      float mv[4], bv[CN];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) mv[r] = s_m[(ty + 16 * r) * LDT + jj];
-#pragma unroll
-      for (int k = 0; k < CN; ++k) bv[k] = s_b[jj * LDN + tx + 16 * k];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int k = 0; k < CN; ++k) acc[r][k] = fmaf(mv[r], bv[k], acc[r][k]);
-    }
-  }
-
-  const size_t rowh = ch.row0 * p.H + ch.h;   // (b, chunk row 0, h) in (B, L, H)
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int i = i0 + ty + 16 * r;
-    if (i >= ch.qlen) continue;
-    float* out = p.dc_part + (rowh + (size_t)i * p.H) * N;
-#pragma unroll
-    for (int k = 0; k < CN; ++k) out[tx + 16 * k] = acc[r][k];
-  }
-  if (tid < kTile && i0 + tid < ch.qlen) p.dcum[rowh + (size_t)(i0 + tid) * p.H] = s_acc[tid];
-}
-
-// ---- pass 6: the key side, one block per 64-row key tile ---------------------
-// dx_j = sum_{i>=j} gate_ij dy_i + w_j G B_j + D dy_j; dB_j (per head) =
-// sum_{i>=j} M_ij C_i + w_j G^T x_j; ddt_j (direct) = sum_i F_ij +
-// exp(cum_last - cum_j) x_j.G B_j; dcum_j += -dt_j sum_i F_ij - w_j
-// x_j.G B_j; dd_rows_j = dy_j.x_j. Thread (ty, tx) owns key rows ty + 16 r
-// of the tile for dx (columns tx + 16 k) and dB; in a (query, key) tile
-// pair its queries are ty + 16 r and its keys tx + 16 k.
-template <int P, int N>
-__global__ void __launch_bounds__(kThreads, 1) ssd_bwd_key(Params p, int tiles) {
-  using S = TileSmem<P, N>;
-  constexpr int LDP = S::LDP, LDN = S::LDN, LDT = S::LDT;
-  constexpr int CP = P / 16, CN = N / 16;
-  constexpr int PT = P < kTile ? P : kTile;   // rows of G per state tile
-  constexpr int KT = PT / 16;
-  extern __shared__ double smem_d[];
-  const Chunk ch(p.L, p.H, p.G, p.Q, tiles);
-  const int j0 = ch.tile * kTile;
-  if (j0 >= ch.qlen) return;
-  double* s_cum = smem_d;
-  double* s_tot = s_cum + ch.qpad;
-  double* s_dw = s_tot + kThreads;         // (kTile,) x_j.G B_j
-  double* s_fcol = s_dw + kTile;           // (kTile,) sum_i F_ij
-  double* s_ddr = s_fcol + kTile;          // (kTile,) dy_j.x_j
-  double* s_red = s_ddr + kTile;           // (kTile, 17)
-  float* s_dt = reinterpret_cast<float*>(s_red + kTile * 17);
-  float* s_w = s_dt + ch.qpad;             // (qpad,) w = exp(cum_last - cum) dt
-  float* s_dy = s_w + ch.qpad;             // (kTile, LDP)
-  float* s_x = s_dy + kTile * LDP;         // (kTile, LDP)
-  float* s_c = s_x + kTile * LDP;          // (kTile, LDN): C tile or G rows
-  float* s_b = s_c + kTile * LDN;          // (kTile, LDN)
-  float* s_gate = s_b + kTile * LDN;       // (kTile, LDT)
-  float* s_m = s_gate + kTile * LDT;       // (kTile, LDT)
-  float* s_f = s_m + kTile * LDT;          // (kTile, LDT)
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const size_t xrow = (size_t)p.H * P, brow = (size_t)p.G * N;
-  const size_t hoff = (size_t)ch.h * P, goff = (size_t)ch.g * N;
-  const float* xc = static_cast<const float*>(p.x) + ch.row0 * xrow + hoff;
-  const float* dyc = static_cast<const float*>(p.dy) + ch.row0 * xrow + hoff;
-  const float* bc = static_cast<const float*>(p.b) + ch.row0 * brow + goff;
-  const float* cc = static_cast<const float*>(p.c) + ch.row0 * brow + goff;
-  const float dskip = p.d != nullptr ? p.d[ch.h] : 0.f;
-
-  block_scan(p, ch, s_cum, s_dt, s_tot);
-  const double cum_last = s_cum[ch.qlen - 1];
-  for (int j = tid; j < ch.qpad; j += kThreads)
-    s_w[j] = expf((float)(cum_last - s_cum[j])) * s_dt[j];
-  if (tid < kTile) s_dw[tid] = s_fcol[tid] = s_ddr[tid] = 0.0;
-  load_tile<P, LDP>(s_x, xc, xrow, j0, ch.qlen);
-  load_tile<N, LDN>(s_b, bc, brow, j0, ch.qlen);
-
-  float dxa[4][CP], dba[4][CN];
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-#pragma unroll
-    for (int k = 0; k < CP; ++k) dxa[r][k] = 0.f;
-#pragma unroll
-    for (int k = 0; k < CN; ++k) dba[r][k] = 0.f;
-  }
-
-  // the state handed on: G B_j and G^T x_j, PT rows of G at a time through s_c
-  const float* gp = p.dstates + ch.bzh * P * N;
-  double dwp[4] = {0.0, 0.0, 0.0, 0.0};
-#pragma unroll
-  for (int p0 = 0; p0 < P; p0 += PT) {   // unrolled: dxa's column index is constant
-    __syncthreads();
-    for (int e = tid; e < PT * N; e += kThreads) s_c[(e / N) * LDN + e % N] = gp[(size_t)p0 * N + e];
-    __syncthreads();
-    // gb[r][kk] = sum_n B[j][n] G[p][n], j = ty + 16 r, p = p0 + tx + 16 kk
-    float gb[4][KT];
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int kk = 0; kk < KT; ++kk) gb[r][kk] = 0.f;
-#pragma unroll 4
-    for (int n = 0; n < N; ++n) {
-      float bv[4], gv[KT];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) bv[r] = s_b[(ty + 16 * r) * LDN + n];
-#pragma unroll
-      for (int kk = 0; kk < KT; ++kk) gv[kk] = s_c[(tx + 16 * kk) * LDN + n];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int kk = 0; kk < KT; ++kk) gb[r][kk] = fmaf(bv[r], gv[kk], gb[r][kk]);
-    }
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int jr = ty + 16 * r;
-      const float w = s_w[j0 + jr];
-#pragma unroll
-      for (int kk = 0; kk < KT; ++kk) {
-        dxa[r][p0 / 16 + kk] = fmaf(w, gb[r][kk], dxa[r][p0 / 16 + kk]);
-        dwp[r] += (double)(s_x[jr * LDP + p0 + tx + 16 * kk] * gb[r][kk]);
-      }
-    }
-    // dba[r][k] += w_j sum_{p in tile} x[j][p] G[p][n]
-#pragma unroll 4
-    for (int pp = 0; pp < PT; ++pp) {
-      float xv[4], gv[CN];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) xv[r] = s_x[(ty + 16 * r) * LDP + p0 + pp] * s_w[j0 + ty + 16 * r];
-#pragma unroll
-      for (int k = 0; k < CN; ++k) gv[k] = s_c[pp * LDN + tx + 16 * k];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int k = 0; k < CN; ++k) dba[r][k] = fmaf(xv[r], gv[k], dba[r][k]);
-    }
-  }
-  row_sum(dwp, s_red, s_dw);
-
-  // intra-chunk: query tiles at or above the diagonal
-  for (int i0 = j0; i0 < ch.qlen; i0 += kTile) {
-    __syncthreads();   // the last query tile, gate, M and F are read
-    load_tile<N, LDN>(s_c, cc, brow, i0, ch.qlen);
-    load_tile<P, LDP>(s_dy, dyc, xrow, i0, ch.qlen);
-    __syncthreads();
-    float sc[4][4], dot[4][4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int k = 0; k < 4; ++k) sc[r][k] = dot[r][k] = 0.f;
-#pragma unroll 4
-    for (int n = 0; n < N; ++n) {
-      float cv[4], bv[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) cv[r] = s_c[(ty + 16 * r) * LDN + n];
-#pragma unroll
-      for (int k = 0; k < 4; ++k) bv[k] = s_b[(tx + 16 * k) * LDN + n];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int k = 0; k < 4; ++k) sc[r][k] = fmaf(cv[r], bv[k], sc[r][k]);
-    }
-#pragma unroll 4
-    for (int pp = 0; pp < P; ++pp) {
-      float dv[4], xv[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) dv[r] = s_dy[(ty + 16 * r) * LDP + pp];
-#pragma unroll
-      for (int k = 0; k < 4; ++k) xv[k] = s_x[(tx + 16 * k) * LDP + pp];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int k = 0; k < 4; ++k) dot[r][k] = fmaf(dv[r], xv[k], dot[r][k]);
-    }
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int i = i0 + ty + 16 * r;
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const int j = j0 + tx + 16 * k;
-        const bool live = j <= i && i < ch.qlen;   // select, never multiply by a mask
-        const float ell = expf(live ? (float)(s_cum[i] - s_cum[j]) : 0.f);
-        const float dtj = s_dt[j];
-        const int e = (ty + 16 * r) * LDT + tx + 16 * k;
-        s_gate[e] = live ? ell * sc[r][k] * dtj : 0.f;
-        s_m[e] = live ? dot[r][k] * ell * dtj : 0.f;
-        s_f[e] = live ? ell * sc[r][k] * dot[r][k] : 0.f;
-      }
-    }
-    __syncthreads();
-    if (tid < kTile) {   // column sums of F, rows in order
-      double s = 0.0;
-      for (int ii = 0; ii < kTile; ++ii) s += (double)s_f[ii * LDT + tid];
-      s_fcol[tid] += s;
-    }
-#pragma unroll 4
-    for (int ii = 0; ii < kTile; ++ii) {
-      float gv[4], mv[4], dv[CP], cv[CN];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        gv[r] = s_gate[ii * LDT + ty + 16 * r];
-        mv[r] = s_m[ii * LDT + ty + 16 * r];
-      }
-#pragma unroll
-      for (int k = 0; k < CP; ++k) dv[k] = s_dy[ii * LDP + tx + 16 * k];
-#pragma unroll
-      for (int k = 0; k < CN; ++k) cv[k] = s_c[ii * LDN + tx + 16 * k];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-#pragma unroll
-        for (int k = 0; k < CP; ++k) dxa[r][k] = fmaf(gv[r], dv[k], dxa[r][k]);
-#pragma unroll
-        for (int k = 0; k < CN; ++k) dba[r][k] = fmaf(mv[r], cv[k], dba[r][k]);
-      }
-    }
-    if (i0 == j0) {
-      // the diagonal tile's dy rows are the key rows: skip term and dy.x
-      double part[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int jr = ty + 16 * r;
-        part[r] = 0.0;
-#pragma unroll
-        for (int k = 0; k < CP; ++k) {
-          const float dv = s_dy[jr * LDP + tx + 16 * k];
-          dxa[r][k] = fmaf(dskip, dv, dxa[r][k]);
-          part[r] += (double)(dv * s_x[jr * LDP + tx + 16 * k]);
-        }
-      }
-      row_sum(part, s_red, s_ddr);
-    }
-  }
-  __syncthreads();   // s_fcol is complete
-
-  const size_t rowh = ch.row0 * p.H + ch.h;
-  float* dxc = static_cast<float*>(p.dx) + ch.row0 * xrow + hoff;
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int j = j0 + ty + 16 * r;
-    if (j >= ch.qlen) continue;
-#pragma unroll
-    for (int k = 0; k < CP; ++k) store(dxc + (size_t)j * xrow + tx + 16 * k, dxa[r][k]);
-    float* out = p.db_part + (rowh + (size_t)j * p.H) * N;
-#pragma unroll
-    for (int k = 0; k < CN; ++k) out[tx + 16 * k] = dba[r][k];
-  }
-  if (tid < kTile && j0 + tid < ch.qlen) {
-    const int j = j0 + tid;
-    const size_t o = rowh + (size_t)j * p.H;
-    const double dw = s_dw[tid], fcol = s_fcol[tid];
-    p.ddt[o] = (float)(fcol + (double)expf((float)(cum_last - s_cum[j])) * dw);
-    p.dcum[o] += -(double)s_dt[j] * fcol - (double)s_w[j] * dw;   // pass 5 wrote the query side
-    p.dd_rows[o] = (float)s_ddr[tid];
-  }
 }
 
 // ---- bf16: the query and key passes on the tensor cores ----------------------
@@ -1328,8 +830,7 @@ cudaError_t set_smem(K kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-// Passes 7-10, after the query and key passes of either path.
-template <typename T>
+// Passes 7-10, after the query and key passes.
 cudaError_t launch_sums(Params& p, size_t chunk_bytes, cudaStream_t st) {
   cudaError_t err = set_smem(ssd_bwd_chunk, chunk_bytes);
   if (err != cudaSuccess) return err;
@@ -1337,43 +838,14 @@ cudaError_t launch_sums(Params& p, size_t chunk_bytes, cudaStream_t st) {
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const int rows = p.B * p.L;
   const unsigned gsum = (unsigned)(((size_t)rows * p.G * p.N + 255) / 256);
-  ssd_bwd_group_sum<T><<<gsum, 256, 0, st>>>(p.db_part, static_cast<T*>(p.db), rows, p.H, p.G, p.N);
+  ssd_bwd_group_sum<bf16><<<gsum, 256, 0, st>>>(p.db_part, static_cast<bf16*>(p.db), rows, p.H,
+                                                 p.G, p.N);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  ssd_bwd_group_sum<T><<<gsum, 256, 0, st>>>(p.dc_part, static_cast<T*>(p.dc), rows, p.H, p.G, p.N);
+  ssd_bwd_group_sum<bf16><<<gsum, 256, 0, st>>>(p.dc_part, static_cast<bf16*>(p.dc), rows, p.H,
+                                                 p.G, p.N);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   ssd_bwd_head_sum<<<(p.H + 127) / 128, 128, 0, st>>>(p);
   return cudaGetLastError();
-}
-
-template <int P, int N>
-cudaError_t launch_f32(Params& p, cudaStream_t st) {
-  using S = TileSmem<P, N>;
-  const int qpad = round_up(p.Q, kTile), tiles = qpad / kTile;
-  const size_t outer = sizeof(double) * (qpad + kThreads) +
-                       sizeof(float) * (2 * (size_t)qpad + kTile * (P + N));
-  const size_t query = S::bytes(p.Q, 2, 2, 1);
-  const size_t key = S::bytes(p.Q, 2, 2, 3);
-  const size_t chunk = sizeof(double) * (2 * (size_t)qpad + kThreads) + sizeof(float) * 2 * qpad;
-  cudaError_t err;
-  if ((err = set_smem(ssd_bwd_outer<P, N, 0>, outer)) != cudaSuccess ||
-      (err = set_smem(ssd_bwd_outer<P, N, 1>, outer)) != cudaSuccess ||
-      (err = set_smem(ssd_bwd_query<P, N>, query)) != cudaSuccess ||
-      (err = set_smem(ssd_bwd_key<P, N>, key)) != cudaSuccess)
-    return err;
-  const dim3 per_chunk(p.nc * p.H, p.B), per_tile(p.nc * p.H * tiles, p.B);
-  const RecurrenceArgs fwd{p.states, p.decay, p.s0, p.s_last, p.H, p.nc, P * N};
-  const RecurrenceArgs rev{p.dstates, p.decay, p.dfinal, p.ds0, p.H, p.nc, P * N};
-  ssd_bwd_outer<P, N, 0><<<per_chunk, kThreads, outer, st>>>(p);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  if ((err = launch_state_pass<0>(fwd, p.B, st)) != cudaSuccess) return err;
-  ssd_bwd_outer<P, N, 1><<<per_chunk, kThreads, outer, st>>>(p);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  if ((err = launch_state_pass<1>(rev, p.B, st)) != cudaSuccess) return err;
-  ssd_bwd_query<P, N><<<per_tile, kThreads, query, st>>>(p, tiles);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  ssd_bwd_key<P, N><<<per_tile, kThreads, key, st>>>(p, tiles);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  return launch_sums<float>(p, chunk, st);
 }
 
 template <int P, int N>
@@ -1402,21 +874,16 @@ cudaError_t launch_tc(Params& p, cudaStream_t st) {
   constexpr int key_threads = 32 * KeyWarps<P, N>::value;
   ssd_bwd_tc_key<P, N><<<per_tile, key_threads, tile_bytes, st>>>(p, tiles);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  return launch_sums<bf16>(p, chunk, st);
-}
-
-template <int P, int N>
-int launch(Params& p, int is_bf16, cudaStream_t st) {
-  return static_cast<int>(is_bf16 ? launch_tc<P, N>(p, st) : launch_f32<P, N>(p, st));
+  return launch_sums(p, chunk, st);
 }
 
 template <int P>
-int launch_n(Params& p, int is_bf16, cudaStream_t st) {
+int launch_n(Params& p, cudaStream_t st) {
   switch (p.N) {
-    case 16: return launch<P, 16>(p, is_bf16, st);
-    case 32: return launch<P, 32>(p, is_bf16, st);
-    case 64: return launch<P, 64>(p, is_bf16, st);
-    case 128: return launch<P, 128>(p, is_bf16, st);
+    case 16: return static_cast<int>(launch_tc<P, 16>(p, st));
+    case 32: return static_cast<int>(launch_tc<P, 32>(p, st));
+    case 64: return static_cast<int>(launch_tc<P, 64>(p, st));
+    case 128: return static_cast<int>(launch_tc<P, 128>(p, st));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -1431,8 +898,7 @@ long long ssd_bwd_workspace_floats(int B, int L, int H, int P, int N, int Q) {
 }
 
 // Launches on `stream` and returns the CUDA error code (0 on success).
-// is_bf16: 1 for bf16 x/B/C/dy/dx/dB/dC (the tensor-core kernels), 0 for
-// fp32 (the CUDA-core kernels). d, s0 and dfinal may be null (no skip
+// x, B, C, dy, dx, dB and dC are bf16. d, s0 and dfinal may be null (no skip
 // term, zero initial state, zero final-state gradient); dd is null when d
 // is, ds0 may be null. workspace holds ssd_bwd_workspace_floats(...)
 // floats, 16-byte aligned. P and N must be one of 16, 32, 64, 128;
@@ -1441,7 +907,7 @@ long long ssd_bwd_workspace_floats(int B, int L, int H, int P, int N, int Q) {
 int ssd_bwd(const void* x, const float* dt, const float* a, const void* b, const void* c,
             const float* d, const float* s0, const void* dy, const float* dfinal, void* dx,
             float* ddt, float* da, void* db, void* dc, float* dd, float* ds0, float* workspace,
-            int B, int L, int H, int P, int G, int N, int Q, int is_bf16, void* stream) {
+            int B, int L, int H, int P, int G, int N, int Q, void* stream) {
   if (Q < 1 || Q > kMaxChunk || G < 1 || H % G != 0 || L < 1 || B < 1 || workspace == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   Params p{x, dt, a, b, c, d, s0, dy, dfinal, dx, ddt, da, db, dc, d != nullptr ? dd : nullptr, ds0};
@@ -1456,10 +922,10 @@ int ssd_bwd(const void* x, const float* dt, const float* a, const void* b, const
   Workspace(B, L, H, P, N, Q).carve(workspace, p);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (P) {
-    case 16: return launch_n<16>(p, is_bf16, st);
-    case 32: return launch_n<32>(p, is_bf16, st);
-    case 64: return launch_n<64>(p, is_bf16, st);
-    case 128: return launch_n<128>(p, is_bf16, st);
+    case 16: return launch_n<16>(p, st);
+    case 32: return launch_n<32>(p, st);
+    case 64: return launch_n<64>(p, st);
+    case 128: return launch_n<128>(p, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

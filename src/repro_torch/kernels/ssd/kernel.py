@@ -6,22 +6,22 @@ The forward replaces the Pallas TPU kernel ``src/repro/kernels/ssd/
 kernel.py::_ssd_kernel``; the backward has no TPU counterpart (the JAX
 package differentiates ``ssd_reference`` through XLA). Each source's
 header says what bounds it on the H100 and what its design does about
-that. For bf16 inputs one forward call launches three kernels on the
-current stream (chunk states, the state recurrence over the chunks,
-outputs) through an fp32 scratch of (B, chunks, H, P, N) that the wrapper
-allocates; for fp32 inputs it launches one. Beyond the TPU kernel it
-takes an initial state, returns the final state and takes any L (a
-ragged last chunk is masked), as :func:`..ref.ssd_reference` does. One
+that. x, B and C are bf16; dt, a, the skip weights and the states fp32.
+One forward call launches three kernels on the current stream (chunk
+states, the state recurrence over the chunks, outputs) through an fp32
+scratch of (B, chunks, H, P, N) that the wrapper allocates. Beyond the TPU
+kernel it takes an initial state, returns the final state and takes any L
+(a ragged last chunk is masked), as :func:`..ref.ssd_reference` does. One
 backward call launches ten kernels through one fp32 workspace; it
 recomputes the carried states from the inputs, so the forward saves
 nothing but its inputs. Operations bound the backward (167.91 GFLOP,
-0.1698 ms at mamba2-130m's training shape, B 8, L 4096, H 24, P 64, N 128,
-bf16). For bf16 inputs every product runs on the tensor cores (bf16
-``mma.sync``, each fp32 operand split into bf16 hi + lo), the chunk-state
-product and the recurrence over the chunks being the forward's own
-(``csrc/ssd_states.cuh``); fp32 inputs take CUDA-core kernels. The choice
-is by dtype. The libraries are built with ``nvcc`` at their first launch,
-never at import, so this module imports on machines without CUDA.
+0.1698 ms at mamba2-130m's training shape, B 8, L 4096, H 24, P 64, N
+128). Every product runs on the tensor cores (bf16 ``mma.sync``, each fp32
+operand split into bf16 hi + lo), the chunk-state product and the
+recurrence over the chunks being the forward's own
+(``csrc/ssd_states.cuh``). The libraries are built with ``nvcc`` at their
+first launch, never at import, so this module imports on machines without
+CUDA.
 
 A fake tensor takes the kernels' place (``kernels.fake``): the same
 checks but the device's, the same outputs and forward scratch as fakes
@@ -70,7 +70,7 @@ def library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = cuda_build.load(SOURCE)
-        lib.ssd_fwd.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 8
+        lib.ssd_fwd.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 7
                                 + [ctypes.c_void_p])
         lib.ssd_fwd.restype = ctypes.c_int
         lib.ssd_error_string.argtypes = [ctypes.c_int]
@@ -84,7 +84,7 @@ def backward_library() -> ctypes.CDLL:
     global _bwd_lib
     if _bwd_lib is None:
         lib = cuda_build.load(BWD_SOURCE)
-        lib.ssd_bwd.argtypes = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 8
+        lib.ssd_bwd.argtypes = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 7
                                 + [ctypes.c_void_p])
         lib.ssd_bwd.restype = ctypes.c_int
         lib.ssd_bwd_workspace_floats.argtypes = [ctypes.c_int] * 6
@@ -122,10 +122,9 @@ def check_inputs(x, dt, a, b_mat, c_mat, chunk: int, d_skip=None,
         raise ValueError(f"chunk must be in [1, {MAX_CHUNK}], got {chunk}")
     if min(bsz, l) < 1 or bsz > _MAX_GRID_Y:
         raise ValueError(f"sizes out of range: B={bsz} L={l}")
-    if x.dtype not in (torch.float32, torch.bfloat16) or not (
-            b_mat.dtype == c_mat.dtype == x.dtype):
+    if not x.dtype == b_mat.dtype == c_mat.dtype == torch.bfloat16:
         raise ValueError(f"x/B/C dtypes {x.dtype}/{b_mat.dtype}/"
-                         f"{c_mat.dtype}: want all float32 or all bfloat16")
+                         f"{c_mat.dtype}: want all bfloat16")
     extra = [t for t in (d_skip, initial_state) if t is not None]
     if any(t.dtype != torch.float32 for t in [dt, a] + extra):
         raise ValueError("dt, a, d_skip and initial_state must be float32")
@@ -171,7 +170,7 @@ def ssd_scan(
     return_final_state: bool = False,
 ):
     """Launch the kernel on the current stream; returns y (B, L, H, P) in
-    x's dtype and, if asked, the final state (B, H, P, N) fp32. Does not
+    bf16 and, if asked, the final state (B, H, P, N) fp32. Does not
     synchronise. Refuses inputs that require grad under grad mode."""
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad
@@ -183,19 +182,17 @@ def ssd_scan(
     check_inputs(x, dt, a, b_mat, c_mat, chunk, d_skip, initial_state)
     bsz, l, h, p = x.shape
     g, n = b_mat.shape[2], b_mat.shape[3]
-    bf16 = x.dtype == torch.bfloat16
     fake = is_fake(x)
-    if bf16 and not fake:
+    if not fake:
         x, b_mat, c_mat, initial_state = _aligned16(x, b_mat, c_mat,
                                                     initial_state)
     y = torch.empty_like(x)
     final = (torch.empty((bsz, h, p, n), dtype=torch.float32,
                          device=x.device) if return_final_state else None)
     nc = -(-l // chunk)
-    states = (torch.empty((bsz, nc, h, p, n), dtype=torch.float32,
-                          device=x.device) if bf16 else None)
-    decay = (torch.empty((bsz, nc, h), dtype=torch.float32, device=x.device)
-             if bf16 else None)
+    states = torch.empty((bsz, nc, h, p, n), dtype=torch.float32,
+                         device=x.device)
+    decay = torch.empty((bsz, nc, h), dtype=torch.float32, device=x.device)
     if fake:
         record_work(x, "ssd_fwd", *ssd_work(
             bsz, l, h, p, g, n, chunk, x.dtype, initial_state is not None
@@ -208,7 +205,7 @@ def ssd_scan(
         rc = lib.ssd_fwd(
             ptr(x), ptr(dt), ptr(a), ptr(b_mat), ptr(c_mat), ptr(d_skip),
             ptr(initial_state), ptr(y), ptr(final), ptr(states), ptr(decay),
-            bsz, l, h, p, g, n, chunk, int(bf16), stream,
+            bsz, l, h, p, g, n, chunk, stream,
         )
     if rc != 0:
         msg = lib.ssd_error_string(rc).decode()
@@ -226,14 +223,13 @@ def ssd_scan_backward(
     a: torch.Tensor,       # (H,) fp32
     b_mat: torch.Tensor,   # (B, L, G, N)
     c_mat: torch.Tensor,   # (B, L, G, N)
-    dy: torch.Tensor,      # (B, L, H, P), x's dtype
+    dy: torch.Tensor,      # (B, L, H, P) bf16
     chunk: int = 256,
     d_skip: Optional[torch.Tensor] = None,         # (H,) fp32
     initial_state: Optional[torch.Tensor] = None,  # (B, H, P, N) fp32
     d_final_state: Optional[torch.Tensor] = None,  # (B, H, P, N) fp32
 ):
-    """Launch the backward's ten kernels on the current stream (for bf16
-    inputs the tensor-core kernels, for fp32 the CUDA-core ones); returns
+    """Launch the backward's ten kernels on the current stream; returns
     (dx, ddt, da, dB, dC, dd_skip, d_initial_state), each in its input's
     dtype, dd_skip and d_initial_state None where that input is None, as
     :func:`..ref.ssd_backward_reference`. Does not synchronise."""
@@ -263,8 +259,8 @@ def ssd_scan_backward(
             torch.empty((h,), **f32) if d_skip is not None else None,
             torch.empty((bsz, h, p, n), **f32) if initial_state is not None
             else None)
-    # both paths run the state recurrences on float4s; the bf16 path also
-    # loads x, dy, B and C by cp.async
+    # the state recurrences run on float4s; x, dy, B and C are loaded by
+    # cp.async
     x, b_mat, c_mat, dy, initial_state, d_final_state = _aligned16(
         x, b_mat, c_mat, dy, initial_state, d_final_state)
     lib = backward_library()
@@ -284,8 +280,7 @@ def ssd_scan_backward(
             ptr(x), ptr(dt), ptr(a), ptr(b_mat), ptr(c_mat), ptr(d_skip),
             ptr(initial_state), ptr(dy), ptr(d_final_state), ptr(dx),
             ptr(ddt), ptr(da), ptr(db), ptr(dc), ptr(dd), ptr(ds0),
-            ptr(work), bsz, l, h, p, g, n, chunk,
-            int(x.dtype == torch.bfloat16), stream,
+            ptr(work), bsz, l, h, p, g, n, chunk, stream,
         )
     if rc != 0:
         msg = lib.ssd_bwd_error_string(rc).decode()

@@ -21,7 +21,9 @@ estimate over ``world_size`` feeds the measured Computational
 Efficiency when a step series is on.
 
 Runs on ``cuda`` unless ``device="cpu"`` is asked for; without a card it
-raises instead of running on the CPU.
+raises instead of running on the CPU. On the card a config must compute in
+bf16 (:func:`check_dtype_on_card`); the CPU serves fp32 and bf16 through
+the plain versions.
 
 An ``embed``-frontend model (musicgen-large, qwen2-vl-72b) is served as
 ``repro.launch.serve`` serves it: its prompts are random bf16 (requests,
@@ -57,7 +59,8 @@ from ..models import lm
 from .steps import make_prefill_step, make_serve_step, model_flops
 from .talp_outputs import TalpOutputs, add_talp_arguments, talp_kwargs
 
-__all__ = ["resolve_device", "make_prompts", "serve", "main"]
+__all__ = ["check_dtype_on_card", "resolve_device", "make_prompts", "serve",
+           "main"]
 
 
 def resolve_device(device) -> torch.device:
@@ -70,6 +73,17 @@ def resolve_device(device) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {device!r}: want cuda or cpu")
     return dev
+
+
+def check_dtype_on_card(cfg) -> None:
+    """Raise ``ValueError`` unless ``cfg`` computes in bf16: on the card the
+    flash, SSD and conv kernels take bf16 activations only. ``serve`` and
+    ``train`` call it before any weight is drawn."""
+    if cfg.compute_dtype != "bfloat16":
+        raise ValueError(
+            f"{cfg.name}: compute_dtype {cfg.compute_dtype!r} is not one the "
+            "card's kernels take (bfloat16); it runs on the CPU "
+            "(device='cpu') through the plain versions")
 
 
 def make_prompts(cfg, requests: int, prompt_len: int, generator,
@@ -122,6 +136,8 @@ def serve(
     as in ``repro.launch.serve``, generated tokens beyond that many lose the
     oldest generated context (see :func:`repro_torch.models.lm.grow_caches`).
     """
+    if torch.device(device).type == "cuda":
+        check_dtype_on_card(cfg)
     dev = resolve_device(device)
     backend = CudaRuntimeBackend(dev)
     shape = ShapeConfig(name="serve", seq_len=prompt_len + gen_len,

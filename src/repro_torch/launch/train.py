@@ -17,12 +17,12 @@ profiler may be open while ``train`` runs. Each sample drains that
 collection and the next step opens a new one.
 
 Runs on ``cuda`` unless ``device="cpu"`` is asked for; without a card it
-raises instead of running on the CPU. On the card, attention trains only
-at a head dim the flash backward takes (``BWD_HEAD_DIMS``: 32, 64, 80,
-120, 128, 224 and 256, so zamba2-2.7b's 80, h2o-danube-3-4b's 120,
+raises instead of running on the CPU. On the card a config trains only
+if it computes in bf16 (the kernels take bf16 activations only), attention
+only at a head dim the flash backward takes (``BWD_HEAD_DIMS``: 32, 64,
+80, 120, 128, 224 and 256, so zamba2-2.7b's 80, h2o-danube-3-4b's 120,
 zamba2-7b's 224 and gemma2-2b's 256 train; any other is refused with
-``ValueError`` before anything is allocated), and
-only a model whose train state, 16 bytes a parameter, fits the card's
+``ValueError`` before anything is allocated), and only a model whose train state, 16 bytes a parameter, fits the card's
 memory (starcoder2-15b's 328 GiB, qwen2-vl-72b's and zamba2-7b's 108 GiB
 at its 78 layers are refused the same
 way: sharding over several cards is not ported); the CPU trains every
@@ -92,7 +92,7 @@ from ..kernels.flash_attention.kernel import BWD_HEAD_DIMS
 from ..models import lm
 from ..optim.adamw import AdamWConfig
 from ..runtime.fault_tolerance import StragglerDetector
-from .serve import resolve_device
+from .serve import check_dtype_on_card, resolve_device
 from .steps import (
     init_train_state, make_train_step, model_flops, train_state_devices,
     train_state_shapes,
@@ -108,9 +108,11 @@ TRAIN_STATE_BYTES_PER_PARAM = 16
 
 
 def check_trainable_on_card(cfg) -> None:
-    """Raise ``ValueError`` if ``cfg`` has attention at a head dim the flash
+    """Raise ``ValueError`` if ``cfg`` does not compute in bf16
+    (:func:`check_dtype_on_card`) or has attention at a head dim the flash
     backward does not take; the card would fail only inside the first
-    backward, after the weights and moments are allocated."""
+    forward or backward, after the weights and moments are allocated."""
+    check_dtype_on_card(cfg)
     if any(kind != "ssm" for kind in cfg.pattern) and (
             cfg.resolved_head_dim not in BWD_HEAD_DIMS):
         raise ValueError(

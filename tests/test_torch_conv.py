@@ -199,8 +199,8 @@ def _cuda_like(shape, dtype=torch.bfloat16):
 
 
 @pytest.mark.parametrize("case", [
-    "cpu", "k5", "k3", "k1", "dtype", "weight_dtype", "width", "batch",
-    "too_many", "strided", "dy_shape", "empty"])
+    "cpu", "k5", "k3", "k1", "dtype", "fp32", "weight_dtype", "width",
+    "batch", "too_many", "strided", "dy_shape", "empty"])
 def test_wrappers_refuse_what_the_kernels_do_not_take(case, no_library):
     """ValueError before any library is loaded, for each input the
     kernels do not take."""
@@ -214,6 +214,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(case, no_library):
         ws = [_cuda_like((1, 16))]
     elif case == "dtype":
         xs, ws = [x.half()], [w.half()]
+    elif case == "fp32":
+        xs, ws = [x.float()], [w.float()]
     elif case == "weight_dtype":
         ws = [w.float()]
     elif case == "width":
@@ -230,7 +232,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(case, no_library):
     elif case == "empty":
         xs = [_cuda_like((2, 0, 16))]
     match = {"cpu": "CUDA tensors", "k5": "K in", "k3": "K in", "k1": "K in",
-             "dtype": "float32 or bfloat16", "weight_dtype": "one dtype",
+             "dtype": "takes bfloat16", "fp32": "takes bfloat16",
+             "weight_dtype": "one dtype",
              "width": "width", "batch": "one", "too_many": "1 to 4",
              "strided": "contiguous", "dy_shape": "dy",
              "empty": "empty"}[case]

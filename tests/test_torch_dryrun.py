@@ -370,15 +370,17 @@ def test_fake_cuda_ssd_counts_its_work(with_state, no_plain_versions):
 def test_fake_cpu_tensors_train_through_the_kernels(no_plain_versions):
     """A fake CPU tensor goes to the kernels too (a CPU mesh's dry run):
     autograd through ops.attention and ops.ssd reaches both backwards,
-    each kernel's work given once, no plain version entered."""
+    each kernel's work given once, no plain version entered. The
+    activations are bf16, the one dtype the kernels take; dt and a fp32."""
     rec = _Recorder()
+    bf16 = dict(dtype=torch.bfloat16, requires_grad=True)
     with rec:
-        q = torch.empty(1, 64, 4, 32, requires_grad=True)
-        kv = torch.empty(1, 64, 2, 32, requires_grad=True)
-        x = torch.empty(1, 64, 2, 16, requires_grad=True)
+        q = torch.empty(1, 64, 4, 32, **bf16)
+        kv = torch.empty(1, 64, 2, 32, **bf16)
+        x = torch.empty(1, 64, 2, 16, **bf16)
         dt = torch.empty(1, 64, 2, requires_grad=True)
         a = torch.empty(2, requires_grad=True)
-        bm = torch.empty(1, 64, 1, 16, requires_grad=True)
+        bm = torch.empty(1, 64, 1, 16, **bf16)
         loss = fops.attention(q, kv, kv).sum() + sops.ssd(
             x, dt, a, bm, bm, chunk=32).sum()
         loss.backward()

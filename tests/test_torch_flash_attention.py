@@ -126,18 +126,21 @@ def _ok_inputs(dtype=torch.bfloat16, d=64):
 
 
 @pytest.mark.parametrize("case", [
-    "head_dim", "dtype", "mixed_dtype", "gqa", "shape", "noncontig",
+    "head_dim", "dtype", "fp32", "mixed_dtype", "gqa", "shape", "noncontig",
     "s_gt_t", "window", "softcap", "cpu_tensor",
 ])
 def test_cuda_wrapper_rejects_what_the_kernel_does_not_take(case):
     """Every refusal raises before any launch; a CPU tensor is refused too
-    (the wrapper never falls back to the plain version)."""
+    (the wrapper never falls back to the plain version), and fp32 for its
+    dtype, the kernels taking bf16 only."""
     q, k, v = _ok_inputs()
     kw = dict(causal=True, window=None, softcap=None)
     if case == "head_dim":
         q, k, v = _ok_inputs(d=80)
     elif case == "dtype":
         q, k, v = (x.half() for x in (q, k, v))
+    elif case == "fp32":
+        q, k, v = (x.float() for x in (q, k, v))
     elif case == "mixed_dtype":
         k = k.float()
     elif case == "gqa":
@@ -153,7 +156,8 @@ def test_cuda_wrapper_rejects_what_the_kernel_does_not_take(case):
     elif case == "softcap":
         kw["softcap"] = -1.0
     before = kernel.flash_attention.launches
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError,
+                       match="want all bfloat16" if case == "fp32" else None):
         kernel.flash_attention(q, k, v, **kw)
     assert kernel.flash_attention.launches == before
 

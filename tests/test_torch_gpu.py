@@ -2,6 +2,11 @@
 without one. They import no JAX, so they run on a machine with the card:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
+
+The card's kernels take bf16 activations only: a kernel row written with
+fp32 (the lists the CPU tests import and hold to the JAX package's) runs
+here at bf16 (``_bf16``), keeping its shape, mask and soft-cap case, and a
+model runs in bf16 compute, held to the CPU by ``card_rules``.
 """
 
 import time
@@ -17,6 +22,8 @@ from repro_torch.kernels.flash_attention import kernel, ops, ref  # noqa: E402
 from repro_torch.kernels.ssd import kernel as ssd_kernel  # noqa: E402
 from repro_torch.kernels.ssd import ops as ssd_ops  # noqa: E402
 from repro_torch.kernels.ssd import ref as ssd_ref  # noqa: E402
+
+from card_rules import bf16_no_worse  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -38,9 +45,9 @@ SWEEP = [
 # Shapes the TPU kernel refused: S, T off the tile grid, S < T.
 RAGGED = [
     (1, 1000, 1000, 24, 8, 128, None, None, torch.bfloat16),
-    (1, 1000, 1000, 4, 2, 64, 256, 30.0, torch.float32),
+    (1, 1000, 1000, 4, 2, 64, 256, 30.0, torch.bfloat16),
     (2, 100, 300, 8, 2, 32, None, None, torch.bfloat16),
-    (1, 100, 300, 4, 2, 128, 50, None, torch.float32),
+    (1, 100, 300, 4, 2, 128, 50, None, torch.bfloat16),
 ]
 # The edges of the bf16 kernel's tiling (128 query rows, 128-key tiles, TMA
 # boxes): S and T off the tile grid with S < T, window and soft-cap at D
@@ -91,13 +98,13 @@ D120 = [
     (1, 100, 400, 8, 2, 120, 64, 50.0, torch.bfloat16),
 ]
 # Head dim 80 backward (zamba2-2.7b's shared block trains): the rows of
-# D120 at D 80, MHA and GQA 4:1 and 2:1.
+# D120 at D 80 and bf16, MHA and GQA 4:1 and 2:1.
 D80_BWD = [
-    (1, 256, 256, 4, 4, 80, None, None, torch.float32),
+    (1, 256, 256, 4, 4, 80, None, None, torch.bfloat16),
     (2, 256, 256, 4, 4, 80, None, None, torch.bfloat16),
     (1, 256, 256, 8, 2, 80, None, None, torch.bfloat16),
     (1, 200, 328, 8, 4, 80, None, None, torch.bfloat16),
-    (1, 256, 256, 4, 1, 80, 64, 30.0, torch.float32),
+    (1, 256, 256, 4, 1, 80, 64, 30.0, torch.bfloat16),
     (1, 384, 384, 8, 2, 80, 100, 50.0, torch.bfloat16),
     (1, 40, 300, 4, 1, 80, None, None, torch.bfloat16),
     (1, 100, 400, 8, 4, 80, 64, 50.0, torch.bfloat16),
@@ -128,7 +135,7 @@ SSD_SWEEP = [
 # mamba2-130m's head shape (P 64, N 128, chunk 256).
 SSD_RAGGED = [
     (1, 1000, 4, 64, 1, 128, 256, torch.bfloat16),
-    (2, 100, 4, 16, 2, 32, 64, torch.float32),
+    (2, 100, 4, 16, 2, 32, 64, torch.bfloat16),
 ]
 # The edges of the bf16 kernels' chunk-parallel form: L shorter than one
 # chunk, many chunks (the state recurrence over 64), two groups.
@@ -156,6 +163,12 @@ def _tol(dtype):
     return dict(rtol=t, atol=t)
 
 
+def _bf16(rows):
+    """``rows`` with their dtype field bf16, the one the card's kernels
+    take."""
+    return [row[:-1] + (torch.bfloat16,) for row in rows]
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -164,7 +177,8 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("row", SWEEP + RAGGED + EDGES + D80 + D120 + D256,
+@pytest.mark.parametrize("row", _bf16(SWEEP) + RAGGED + EDGES + _bf16(D80)
+                         + _bf16(D120) + _bf16(D256),
                          ids=[f"attn{i}" for i in range(len(SWEEP))]
                          + [f"ragged{i}" for i in range(len(RAGGED))]
                          + [f"edge{i}" for i in range(len(EDGES))]
@@ -194,20 +208,18 @@ def _attn_grad_inputs(device, b, s, t, h, k, d, dtype, seed=43):
                           (b, s, h, d))]
 
 
-def _close_grads(got, want, dtype):
-    """fp32: elementwise at _tol; bf16: each gradient over the reference
-    gradient's max-abs, at _tol(bfloat16)."""
+def _close_grads(got, want):
+    """Each bf16 gradient over the reference gradient's max-abs, at
+    _tol(bfloat16)."""
     for g, w in zip(got, want):
-        assert g.dtype == dtype and torch.isfinite(g).all()
-        g, w = g.float(), w.float()
-        if dtype == torch.bfloat16:
-            m = w.abs().max().clamp_min(1e-30)
-            g, w = g / m, w / m
-        torch.testing.assert_close(g, w, **_tol(dtype))
+        assert g.dtype == torch.bfloat16 and torch.isfinite(g).all()
+        m = w.float().abs().max().clamp_min(1e-30)
+        torch.testing.assert_close(g.float() / m, w.float() / m,
+                                   **_tol(torch.bfloat16))
 
 
-@pytest.mark.parametrize("row", SWEEP + RAGGED + EDGES + D120 + D256
-                         + D80_BWD,
+@pytest.mark.parametrize("row", _bf16(SWEEP) + RAGGED + EDGES + _bf16(D120)
+                         + _bf16(D256) + D80_BWD,
                          ids=[f"attn{i}" for i in range(len(SWEEP))]
                          + [f"ragged{i}" for i in range(len(RAGGED))]
                          + [f"edge{i}" for i in range(len(EDGES))]
@@ -236,8 +248,8 @@ def test_cuda_backward_vs_plain(cuda, row):
     torch.cuda.synchronize()
     torch.testing.assert_close(o.float(), o_want.float(), **_tol(dtype))
     torch.testing.assert_close(lse, lse_want, **_tol(torch.float32))
-    _close_grads(got, want, dtype)
-    _close_grads(got, [x.grad for x in leaves], dtype)
+    _close_grads(got, want)
+    _close_grads(got, [x.grad for x in leaves])
     assert all(torch.equal(x, y) for x, y in zip(got, again))
 
 
@@ -429,7 +441,8 @@ def _ssd_inputs(device, b, l, h, p, g, n, dtype, seed=7):
     return x, dt, a, bm, cm, d, s0
 
 
-@pytest.mark.parametrize("row", SSD_SWEEP + SSD_RAGGED + SSD_EDGES + SSD_N64,
+@pytest.mark.parametrize("row", _bf16(SSD_SWEEP) + SSD_RAGGED + SSD_EDGES
+                         + SSD_N64,
                          ids=[f"ssd{i}" for i in range(len(SSD_SWEEP))]
                          + [f"ragged{i}" for i in range(len(SSD_RAGGED))]
                          + [f"edge{i}" for i in range(len(SSD_EDGES))]
@@ -467,14 +480,14 @@ def test_cuda_ssd_kernel_refuses_cpu_tensor_and_mixed_dtype(cuda):
     assert ssd_kernel.ssd_scan.launches == before
 
 
-# The SSD backward on the card: fp32 sweep rows, a ragged L with G > 1,
-# mamba2-130m's head shape (P 64, N 128, chunk 256) in bf16 over two
-# chunks and a ragged one, and N 64 with two groups. Every row takes an
-# initial state and a final-state gradient.
+# The SSD backward on the card: sweep rows, a ragged L with G > 1,
+# mamba2-130m's head shape (P 64, N 128, chunk 256) over two chunks and a
+# ragged one, and N 64 with two groups. Every row takes an initial state
+# and a final-state gradient.
 SSD_BWD = [
-    (1, 64, 2, 16, 1, 16, 16, torch.float32),
-    (1, 128, 4, 64, 1, 64, 64, torch.float32),
-    (2, 100, 4, 16, 2, 32, 64, torch.float32),
+    (1, 64, 2, 16, 1, 16, 16, torch.bfloat16),
+    (1, 128, 4, 64, 1, 64, 64, torch.bfloat16),
+    (2, 100, 4, 16, 2, 32, 64, torch.bfloat16),
     (1, 600, 4, 64, 1, 128, 256, torch.bfloat16),
     (2, 300, 8, 64, 2, 64, 256, torch.bfloat16),
     # zamba2-7b's Mamba-2 layer: 112 heads of 64 in two groups, N 64
@@ -482,14 +495,12 @@ SSD_BWD = [
 ]
 
 
-def _ssd_bwd_close(got, want, dtype, name):
-    """fp32 elementwise at _tol; bf16 at _tol on the gradient divided by
-    its reference's max-abs (dx, dB and dC are rounded to bf16 once)."""
-    got, want = got.double(), want.double()
-    if dtype == torch.bfloat16:
-        m = want.abs().max().clamp_min(1e-30)
-        got, want = got / m, want / m
-    torch.testing.assert_close(got, want, **_tol(dtype), msg=name)
+def _ssd_bwd_close(got, want, name):
+    """At bf16 _tol on the gradient divided by its reference's max-abs (dx,
+    dB and dC are rounded to bf16 once)."""
+    m = want.double().abs().max().clamp_min(1e-30)
+    torch.testing.assert_close(got.double() / m, want.double() / m,
+                               **_tol(torch.bfloat16), msg=name)
 
 
 @pytest.mark.parametrize("row", SSD_BWD,
@@ -524,7 +535,7 @@ def test_cuda_ssd_backward_vs_float64_autograd(cuda, row):
                                    (x, dt, a, bm, cm, d, s0)):
         assert gg.dtype == t.dtype and gg.shape == t.shape, name
         assert torch.equal(gg, ag), f"{name}: two backward runs differ"
-        _ssd_bwd_close(gg, ww, dtype, name)
+        _ssd_bwd_close(gg, ww, name)
 
 
 def test_cuda_ssd_backward_on_unaligned_views_matches_aligned_copies(cuda):
@@ -577,36 +588,36 @@ def _first_step_grads(state, metrics, opt):
     return out
 
 
-def _rel_norm(got, want):
-    return ((got - want).norm() / want.norm().clamp_min(1e-30)).item()
+def _grads_no_worse(g_card, g_cpu, g32):
+    """bf16_no_worse leaf by leaf: the card's first-step gradient against
+    the CPU's bf16 and fp32 ones."""
+    for name, want in g32.items():
+        bf16_no_worse(g_card[name], g_cpu[name], want, name)
 
 
-def _bf16_no_worse(card, cpu, fp32, what):
-    """The card's bf16 result no further from the CPU's fp32 run, in
-    relative norm, than twice the CPU's bf16 run (the plain versions) is,
-    plus _tol(bf16): chip_smoke.train_step_check's rule for gradients. For
-    models whose bf16 roundings alone move a result past _tol(bf16): the
-    card's conv kernels sum in fp32 and round once, where the plain
-    version rounds after every op."""
-    tol = _tol(torch.bfloat16)["atol"]
-    card_err, cpu_err = _rel_norm(card, fp32), _rel_norm(cpu, fp32)
-    print(f"{what}: relative norm from fp32, card {card_err:.4e}, cpu "
-          f"{cpu_err:.4e}, bound {2 * cpu_err + tol:.4e}")
-    assert card_err <= 2 * cpu_err + tol, (what, card_err, cpu_err)
+def _cpu_fp32_step(cfg, opt, seed, batch):
+    """make_train_step's first step of ``cfg`` in fp32 compute on the CPU
+    from the state of ``seed``: (new state, metrics), the yardstick of
+    bf16_no_worse."""
+    import dataclasses
+
+    from repro_torch.launch.steps import init_train_state, make_train_step
+
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    state = init_train_state(cfg32, torch.Generator().manual_seed(seed),
+                             "cpu")
+    return make_train_step(cfg32, opt)(state, batch)
 
 
-@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
-def test_cuda_train_step_matches_cpu(cuda, compute_dtype):
+def test_cuda_train_step_matches_cpu(cuda):
     """One make_train_step step of smoke_config("llama3.2-3b") (head_dim
-    32: the kernels take no 16) on the card, through the flash kernels
-    (2 forwards per layer with remat, 1 backward), against the same step
-    on the CPU from the same state: loss and grad norm within the compute
-    dtype's _tol. The gradient leaf by leaf, from the first moment: fp32
-    elementwise at _tol and at a relative norm of its tol; bf16 no further
-    from the CPU's fp32 gradient, in relative norm, than twice the CPU's
-    bf16 gradient is, plus the bf16 tol (the plain version's own bf16
-    gradient lies 1e-2 to 2e-2 from the fp32 one). Params within fp32
-    _tol plus 2·lr (Adam's first step moves an element by about
+    32: the kernels take no 16) in bf16 compute on the card, through the
+    flash kernels (2 forwards per layer with remat, 1 backward), against
+    the same step on the CPU from the same state: loss and grad norm
+    within bf16 _tol; the gradient leaf by leaf, from the first moment,
+    held to the CPU's fp32 gradient by bf16_no_worse (the plain version's
+    own bf16 gradient lies 1e-2 to 2e-2 from the fp32 one). Params within
+    fp32 _tol plus 2·lr (Adam's first step moves an element by about
     lr·sign(g))."""
     import dataclasses
 
@@ -616,8 +627,7 @@ def test_cuda_train_step_matches_cpu(cuda, compute_dtype):
     from repro_torch.models import lm
     from repro_torch.optim.adamw import AdamWConfig
 
-    cfg = dataclasses.replace(smoke_config("llama3.2-3b"), head_dim=32,
-                              compute_dtype=compute_dtype)
+    cfg = dataclasses.replace(smoke_config("llama3.2-3b"), head_dim=32)
     opt = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=2)
     cpu = init_train_state(cfg, torch.Generator().manual_seed(3), "cpu")
     gpu = lm.tree_map(
@@ -633,27 +643,13 @@ def test_cuda_train_step_matches_cpu(cuda, compute_dtype):
     assert kernel.flash_attention.launches == fwd + 2 * cfg.num_layers
     assert kernel.flash_attention_backward.launches == bwd + cfg.num_layers
     new_cpu, m_cpu = make_train_step(cfg, opt)(cpu, cpu_batch)
-    dtype = getattr(torch, compute_dtype)
     for key in ("loss", "grad_norm"):
-        torch.testing.assert_close(m_gpu[key].cpu(), m_cpu[key], **_tol(dtype))
-    g_gpu = _first_step_grads(new_gpu, m_gpu, opt)
-    g_cpu = _first_step_grads(new_cpu, m_cpu, opt)
-    tol32 = _tol(torch.float32)["atol"]
-    if dtype == torch.float32:
-        for name, want in g_cpu.items():
-            torch.testing.assert_close(g_gpu[name], want, **_tol(dtype),
-                                       msg=name)
-            assert _rel_norm(g_gpu[name], want) <= tol32, name
-    else:
-        cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
-        ref_state = init_train_state(cfg32, torch.Generator().manual_seed(3),
-                                     "cpu")
-        g32 = _first_step_grads(*make_train_step(cfg32, opt)(ref_state,
-                                                            cpu_batch), opt)
-        tol = _tol(dtype)["atol"]
-        for name, want in g32.items():
-            card, plain = (_rel_norm(g[name], want) for g in (g_gpu, g_cpu))
-            assert card <= 2 * plain + tol, (name, card, plain)
+        torch.testing.assert_close(m_gpu[key].cpu(), m_cpu[key],
+                                   **_tol(torch.bfloat16))
+    _grads_no_worse(_first_step_grads(new_gpu, m_gpu, opt),
+                    _first_step_grads(new_cpu, m_cpu, opt),
+                    _first_step_grads(*_cpu_fp32_step(cfg, opt, 3, cpu_batch),
+                                      opt))
     got = lm.tree_map(lambda x: x.cpu(), new_gpu["params"])
 
     def pairs(a, b):
@@ -663,6 +659,7 @@ def test_cuda_train_step_matches_cpu(cuda, compute_dtype):
         else:
             yield a, b
 
+    tol32 = _tol(torch.float32)["atol"]
     for g, w in pairs(got, new_cpu["params"]):
         torch.testing.assert_close(g, w, rtol=tol32, atol=2 * opt.lr + tol32)
 
@@ -674,10 +671,10 @@ def test_cuda_zamba_smoke_decode_matches_cpu(cuda):
     N 16 and the conv kernel) against the CPU (plain versions), the same
     bf16 weights: the logits and the shared block's KV rows no further from
     the CPU's fp32 run of those weights than the CPU's bf16 run is
-    (_bf16_no_worse; the card's conv rounds once where the plain version
-    rounds after every op, and this model carries that ulp to some 5% of
-    the logits' norm); the two repeats of the shared block write their own
-    KV rows."""
+    (card_rules.bf16_no_worse: the card's conv rounds once where the plain
+    version rounds after every op, and this model carries that ulp to some
+    5% of the logits' norm); the two repeats of the shared block write
+    their own KV rows."""
     import dataclasses
 
     from repro_torch.configs import smoke_config
@@ -709,28 +706,25 @@ def test_cuda_zamba_smoke_decode_matches_cpu(cuda):
         outs.append(torch.stack(seq).float().cpu())
         rows.append(caches["slot5"]["k"].float().cpu())
     assert torch.isfinite(outs[2]).all()
-    _bf16_no_worse(outs[2], outs[0], outs[1], "logits")
+    bf16_no_worse(outs[2], outs[0], outs[1], "logits")
     assert not torch.equal(rows[2][0], rows[2][1])
-    _bf16_no_worse(rows[2], rows[0], rows[1], "shared-block KV rows")
+    bf16_no_worse(rows[2], rows[0], rows[1], "shared-block KV rows")
 
 
-@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
-def test_cuda_mamba_train_step_matches_cpu(cuda, compute_dtype):
+def test_cuda_mamba_train_step_matches_cpu(cuda):
     """One make_train_step step of smoke_config("mamba2-130m") (P 16, N 16,
-    chunk 32) on the card, through the SSD forward (2 calls per layer with
-    remat) and the SSD backward (1), against the same step on the CPU
-    (the plain version under autograd) from the same state, with the
-    criteria of test_cuda_train_step_matches_cpu."""
+    chunk 32) in bf16 compute on the card, through the SSD forward (2
+    calls per layer with remat) and the SSD backward (1), against the same
+    step on the CPU (the plain version under autograd) from the same
+    state: loss and grad norm within bf16 _tol, the gradient leaf by leaf
+    held to the CPU's fp32 gradient by bf16_no_worse."""
     from repro_torch.configs import smoke_config
     from repro_torch.data.pipeline import DataConfig, SyntheticTokenPipeline
     from repro_torch.launch.steps import init_train_state, make_train_step
     from repro_torch.models import lm
     from repro_torch.optim.adamw import AdamWConfig
 
-    import dataclasses
-
-    cfg = dataclasses.replace(smoke_config("mamba2-130m"),
-                              compute_dtype=compute_dtype)
+    cfg = smoke_config("mamba2-130m")
     opt = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=2)
     cpu = init_train_state(cfg, torch.Generator().manual_seed(5), "cpu")
     gpu = lm.tree_map(
@@ -746,27 +740,13 @@ def test_cuda_mamba_train_step_matches_cpu(cuda, compute_dtype):
     assert ssd_kernel.ssd_scan.launches == fwd + 2 * cfg.num_layers
     assert ssd_kernel.ssd_scan_backward.launches == bwd + cfg.num_layers
     new_cpu, m_cpu = make_train_step(cfg, opt)(cpu, cpu_batch)
-    dtype = getattr(torch, compute_dtype)
     for key in ("loss", "grad_norm"):
-        torch.testing.assert_close(m_gpu[key].cpu(), m_cpu[key], **_tol(dtype))
-    g_gpu = _first_step_grads(new_gpu, m_gpu, opt)
-    g_cpu = _first_step_grads(new_cpu, m_cpu, opt)
-    tol32 = _tol(torch.float32)["atol"]
-    if dtype == torch.float32:
-        for name, want in g_cpu.items():
-            torch.testing.assert_close(g_gpu[name], want, **_tol(dtype),
-                                       msg=name)
-            assert _rel_norm(g_gpu[name], want) <= tol32, name
-    else:
-        cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
-        ref_state = init_train_state(cfg32, torch.Generator().manual_seed(5),
-                                     "cpu")
-        g32 = _first_step_grads(*make_train_step(cfg32, opt)(ref_state,
-                                                            cpu_batch), opt)
-        tol = _tol(dtype)["atol"]
-        for name, want in g32.items():
-            card, plain = (_rel_norm(g[name], want) for g in (g_gpu, g_cpu))
-            assert card <= 2 * plain + tol, (name, card, plain)
+        torch.testing.assert_close(m_gpu[key].cpu(), m_cpu[key],
+                                   **_tol(torch.bfloat16))
+    _grads_no_worse(_first_step_grads(new_gpu, m_gpu, opt),
+                    _first_step_grads(new_cpu, m_cpu, opt),
+                    _first_step_grads(*_cpu_fp32_step(cfg, opt, 5, cpu_batch),
+                                      opt))
 
 
 # ---------------------------------------------------------------------------
@@ -921,59 +901,73 @@ def _routings(cfg, run):
 
 
 def test_cuda_granite_smoke_serving_routes_as_cpu(cuda):
-    """The MoE model in fp32 on the card (flash forward at D 64, the MoE's
+    """The MoE model in bf16 on the card (flash forward at D 64, the MoE's
     einsums) against the CPU from the same weights: a 64-token prefill and
-    4 decode steps route every (token, k) to the same expert and capacity
-    slot, tokens are dropped, and the logits agree within fp32 _tol; the
-    flash forward runs once per layer in the prefill."""
+    4 decode steps route through every MoE call on both, tokens are
+    dropped on both, and the logits are held to the CPU's fp32 run by
+    bf16_no_worse; the flash forward runs once per layer in the prefill.
+    bf16 router logits tie or nearly tie often, so the two roundings may
+    pick different experts for some tokens: the share of (token, layer)
+    routings that agree is printed, and the logits, which carry the flips'
+    effect, are what is held."""
+    import dataclasses
+
     from repro_torch.models import lm
     from repro_torch.models.moe import moe_capacity
 
-    cfg = _granite_smoke(compute_dtype="float32")
+    cfg = _granite_smoke()
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
     gen = torch.Generator().manual_seed(11)
-    cpu_params = lm.init_params(cfg, gen, device="cpu")
+    cpu_params = lm.init_params(cfg, gen, device="cpu", dtype=torch.bfloat16)
     toks = torch.randint(0, cfg.vocab_size, (2, 68), generator=gen,
                          dtype=torch.int32)
     outs, routes = [], []
-    for dev in (torch.device("cpu"), cuda):
-        params = lm.tree_map(lambda x: x.to(dev), cpu_params)
+    for dev, c, dtype in ((torch.device("cpu"), cfg, torch.bfloat16),
+                          (torch.device("cpu"), cfg32, torch.float32),
+                          (cuda, cfg, torch.bfloat16)):
+        params = lm.tree_map(lambda x: x.to(dev, dtype), cpu_params)
         fwd = kernel.flash_attention.launches
 
         def run():
             with torch.inference_mode():
-                logits, caches, pos = lm.prefill(cfg, params,
+                logits, caches, pos = lm.prefill(c, params,
                                                  toks[:, :64].to(dev))
-                caches = lm.grow_caches(cfg, caches, 68)
+                caches = lm.grow_caches(c, caches, 68)
                 seq = [logits]
                 for t in range(64, 68):
                     logits, caches, pos = lm.decode_step(
-                        cfg, params, toks[:, t:t + 1].to(dev), pos, caches)
+                        c, params, toks[:, t:t + 1].to(dev), pos, caches)
                     seq.append(logits)
-            return torch.stack(seq).cpu()
+            return torch.stack(seq).float().cpu()
 
-        out, seen = _routings(cfg, run)
+        out, seen = _routings(c, run)
         assert kernel.flash_attention.launches - fwd == (
             cfg.num_layers if dev.type == "cuda" else 0)
         outs.append(out)
         routes.append(seen)
-    assert len(routes[0]) == len(routes[1]) == 5 * cfg.num_layers
-    for (ei, si), (ej, sj) in zip(*routes):
-        assert torch.equal(ei, ej) and torch.equal(si, sj)
+    cpu, cpu32, card = outs
+    assert torch.isfinite(card).all()
+    assert len(routes[0]) == len(routes[2]) == 5 * cfg.num_layers
     c = moe_capacity(cfg, 64)
-    assert any((s >= c).any() for _, s in routes[0][:cfg.num_layers])
-    torch.testing.assert_close(outs[1], outs[0], **_tol(torch.float32))
+    for seen in (routes[0], routes[2]):
+        assert any((s >= c).any() for _, s in seen[:cfg.num_layers])
+    same = sum(int(((ei == ej).all(-1) & (si == sj).all(-1)).sum())
+               for (ei, si), (ej, sj) in zip(routes[0], routes[2]))
+    total = sum(ei[..., 0].numel() for ei, _ in routes[0])
+    print(f"(token, layer) routings equal on card and CPU: {same} of {total}")
+    bf16_no_worse(card, cpu, cpu32, "logits")
 
 
 def test_cuda_granite_train_step_matches_cpu(cuda):
-    """One fp32 make_train_step step of the MoE model on the card (both
+    """One bf16 make_train_step step of the MoE model on the card (both
     flash kernels at D 64) against the CPU from the same state: loss, grad
-    norm and moe_aux within fp32 _tol."""
+    norm and moe_aux held to the CPU's fp32 step by bf16_no_worse."""
     from repro_torch.data.pipeline import DataConfig, SyntheticTokenPipeline
     from repro_torch.launch.steps import init_train_state, make_train_step
     from repro_torch.models import lm
     from repro_torch.optim.adamw import AdamWConfig
 
-    cfg = _granite_smoke(compute_dtype="float32")
+    cfg = _granite_smoke()
     opt = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=2)
     cpu = init_train_state(cfg, torch.Generator().manual_seed(3), "cpu")
     gpu = lm.tree_map(
@@ -987,9 +981,9 @@ def test_cuda_granite_train_step_matches_cpu(cuda):
     torch.cuda.synchronize()
     assert kernel.flash_attention_backward.launches == bwd + cfg.num_layers
     _, m_cpu = make_train_step(cfg, opt)(cpu, cpu_batch)
+    _, m32 = _cpu_fp32_step(cfg, opt, 3, cpu_batch)
     for key in ("loss", "grad_norm", "moe_aux"):
-        torch.testing.assert_close(m_gpu[key].cpu(), m_cpu[key],
-                                   **_tol(torch.float32), msg=key)
+        bf16_no_worse(m_gpu[key].cpu(), m_cpu[key], m32[key], key)
 
 
 def test_cuda_resume_after_a_failure_is_bit_identical(cuda, tmp_path):
@@ -1038,12 +1032,12 @@ def test_cuda_resume_after_a_failure_is_bit_identical(cuda, tmp_path):
 # ---------------------------------------------------------------------------
 # The flash kernels at this slice's head layouts: musicgen-large's MHA with
 # H = K = 32 at D 64, starcoder2-15b's GQA 48/4 (ratio 12) and qwen2-vl-72b's
-# 64/8 at D 128; fp32 and bf16, one ragged S < T row each.
+# 64/8 at D 128; a ragged S < T row each for the first two.
 NEW_HEADS = [
     (1, 512, 512, 32, 32, 64, None, None, torch.bfloat16),
-    (1, 300, 428, 32, 32, 64, None, None, torch.float32),
+    (1, 300, 428, 32, 32, 64, None, None, torch.bfloat16),
     (1, 512, 512, 48, 4, 128, None, None, torch.bfloat16),
-    (1, 300, 428, 48, 4, 128, None, None, torch.float32),
+    (1, 300, 428, 48, 4, 128, None, None, torch.bfloat16),
     (1, 512, 512, 64, 8, 128, None, None, torch.bfloat16),
 ]
 
@@ -1055,7 +1049,7 @@ def test_cuda_kernel_vs_plain_at_new_model_heads(cuda, row):
 
 
 @pytest.mark.parametrize("row", NEW_HEADS[:2],
-                         ids=["mha32_d64_bf16", "mha32_d64_f32"])
+                         ids=["mha32_d64", "mha32_d64_ragged"])
 def test_cuda_backward_vs_plain_at_musicgen_heads(cuda, row):
     """The flash backward at musicgen-large's H = K = 32, D 64."""
     test_cuda_backward_vs_plain(cuda, row)
@@ -1145,8 +1139,7 @@ def test_cuda_ops_attention_gradients_reach_qkv_at_new_dims(cuda, d, h, k):
     torch.cuda.synchronize()
     assert all(torch.equal(x.grad, w) for x, w in zip(leaves, want))
     assert all(x.grad.abs().max() > 0 for x in leaves)
-    _close_grads([x.grad for x in leaves], [x.grad for x in plain],
-                 torch.bfloat16)
+    _close_grads([x.grad for x in leaves], [x.grad for x in plain])
 
 
 # ---------------------------------------------------------------------------
@@ -1487,18 +1480,14 @@ def test_cuda_fused_adamw_launches_once_a_step(cuda):
                      "causal_conv_bwd": 2 * cfg.num_layers}, moved
 
 
-@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
-def test_cuda_mamba_three_steps_fused_adamw_match_plain(cuda, compute_dtype):
-    """Three make_train_step steps of smoke_config("mamba2-130m") on the
-    card from one state, with the fused AdamW and with
+def test_cuda_mamba_three_steps_fused_adamw_match_plain(cuda):
+    """Three make_train_step steps of smoke_config("mamba2-130m") in bf16
+    compute on the card from one state, with the fused AdamW and with
     adamw_update_reference in its place: every step's loss and grad norm
-    within the compute dtype's _tol; after the steps the moments within
-    fp32 _tol, and the parameters within fp32 _tol (fp32 compute) or
-    within fp32 _tol plus 2·lr (bf16: a parameter an ulp apart after step
-    1 can round its bf16 cast the other way, and Adam moves an element by
-    about lr·sign(g))."""
-    import dataclasses
-
+    within bf16 _tol; after the steps the moments within fp32 _tol, and
+    the parameters within fp32 _tol plus 2·lr (a parameter an ulp apart
+    after step 1 can round its bf16 cast the other way, and Adam moves an
+    element by about lr·sign(g))."""
     from repro_torch.configs import smoke_config
     from repro_torch.data.pipeline import DataConfig, SyntheticTokenPipeline
     from repro_torch.launch import steps as steps_mod
@@ -1506,8 +1495,7 @@ def test_cuda_mamba_three_steps_fused_adamw_match_plain(cuda, compute_dtype):
     from repro_torch.models import lm
     from repro_torch.optim.adamw import AdamWConfig, adamw_update_reference
 
-    cfg = dataclasses.replace(smoke_config("mamba2-130m"),
-                              compute_dtype=compute_dtype)
+    cfg = smoke_config("mamba2-130m")
     opt = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=4)
     start = init_train_state(cfg, torch.Generator(device=cuda).manual_seed(4),
                              cuda)
@@ -1527,9 +1515,8 @@ def test_cuda_mamba_three_steps_fused_adamw_match_plain(cuda, compute_dtype):
                 history.append((float(m["loss"]), float(m["grad_norm"])))
         runs.append((history, state))
     (h_fused, s_fused), (h_plain, s_plain) = runs
-    dtype = getattr(torch, compute_dtype)
     torch.testing.assert_close(torch.tensor(h_fused), torch.tensor(h_plain),
-                               **_tol(dtype))
+                               **_tol(torch.bfloat16))
     tol32 = _tol(torch.float32)["atol"]
 
     def pairs(a, b):
@@ -1542,22 +1529,22 @@ def test_cuda_mamba_three_steps_fused_adamw_match_plain(cuda, compute_dtype):
     for part in ("mu", "nu"):
         for got, want in pairs(s_fused["opt"][part], s_plain["opt"][part]):
             torch.testing.assert_close(got, want, rtol=tol32, atol=tol32)
-    atol = tol32 if dtype == torch.float32 else 2 * opt.lr + tol32
     for got, want in pairs(s_fused["params"], s_plain["params"]):
-        torch.testing.assert_close(got, want, rtol=tol32, atol=atol)
+        torch.testing.assert_close(got, want, rtol=tol32,
+                                   atol=2 * opt.lr + tol32)
 
 
 # Head dim 224 (zamba2-7b's shared blocks: 7168 / 32, MHA; the D-256 tiles
 # over TMA's zero columns 224-255) with Zamba-2's softmax scale (D/2)^-1/2,
-# forward and backward: the D256 rows at D 224, and one row at the default
-# scale D^-1/2.
+# forward and backward: the D256 rows at D 224 and bf16, and one row at the
+# default scale D^-1/2.
 ZAMBA_SCALE = (224 / 2) ** -0.5
 D224 = [
-    (1, 256, 256, 4, 4, 224, None, None, torch.float32, ZAMBA_SCALE),
+    (1, 256, 256, 4, 4, 224, None, None, torch.bfloat16, ZAMBA_SCALE),
     (2, 256, 256, 4, 4, 224, None, None, torch.bfloat16, ZAMBA_SCALE),
     (1, 256, 256, 8, 4, 224, None, None, torch.bfloat16, ZAMBA_SCALE),
     (1, 200, 328, 8, 4, 224, None, None, torch.bfloat16, ZAMBA_SCALE),
-    (1, 256, 256, 4, 2, 224, 64, 30.0, torch.float32, ZAMBA_SCALE),
+    (1, 256, 256, 4, 2, 224, 64, 30.0, torch.bfloat16, ZAMBA_SCALE),
     (1, 384, 384, 8, 4, 224, 100, 50.0, torch.bfloat16, ZAMBA_SCALE),
     (1, 40, 300, 4, 2, 224, None, None, torch.bfloat16, ZAMBA_SCALE),
     (1, 100, 400, 8, 4, 224, 64, 50.0, torch.bfloat16, ZAMBA_SCALE),
@@ -1582,18 +1569,15 @@ def test_cuda_d224_with_a_scale_vs_plain(cuda, row):
     again = kernel.flash_attention_backward(q, kk, vv, o, lse, do, **cfg)
     up = [x.float() for x in (q, kk, vv, o)]
     want = ref.attention_backward_reference(*up, lse, do.float(), **cfg)
-    # copies: at fp32 .float() is the tensor itself, whose .grad the
-    # second autograd pass below would add to
-    leaves = [x.detach().float().clone().requires_grad_()
-              for x in (q, kk, vv)]
+    leaves = [x.float().requires_grad_() for x in (q, kk, vv)]
     ref.attention_reference(*leaves, **cfg).backward(do.float())
     mine = [x.detach().clone().requires_grad_() for x in (q, kk, vv)]
     ops.attention(*mine, **cfg).backward(do)
     torch.cuda.synchronize()
     torch.testing.assert_close(o.float(), o_want.float(), **_tol(dtype))
     torch.testing.assert_close(lse, lse_want, **_tol(torch.float32))
-    _close_grads(got, want, dtype)
-    _close_grads(got, [x.grad for x in leaves], dtype)
+    _close_grads(got, want)
+    _close_grads(got, [x.grad for x in leaves])
     assert all(torch.equal(x, y) for x, y in zip(got, again))
     assert all(torch.equal(x.grad, y) for x, y in zip(mine, got))
 
@@ -1610,21 +1594,18 @@ def test_cuda_d224_scale_is_not_the_default(cuda):
     assert err > 10 * _tol(torch.bfloat16)["atol"]
 
 
-@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
-def test_cuda_zamba2_7b_smoke_train_step_and_decode_match_cpu(
-        cuda, compute_dtype):
+def test_cuda_zamba2_7b_smoke_train_step_and_decode_match_cpu(cuda):
     """smoke_config("zamba2-7b") at head dim 32 (2M / H; the kernels take
-    no 16) and 24 layers (four applications of two shared blocks): one
-    make_train_step step on the card (flash D 32 twice an application with
-    remat and a backward, the SSD pair at G 2, the conv kernels) against
-    the CPU from the same state, in fp32 loss and grad norm at fp32 _tol
-    and each leaf's first gradient at fp32 _tol in relative norm; then
-    prefill of 40 tokens and 4 decode steps through the grown caches on
-    both from fresh weights, in fp32 at fp32 _tol. In bf16 (decode at the
-    smoke depth, 12 layers) the card's loss, grad norm and logits are held
-    to the CPU's fp32 run by _bf16_no_worse: this model's bf16 roundings
-    alone move its grad norm by percents (the card's conv rounds once
-    where the plain version rounds after every op)."""
+    no 16) and 24 layers (four applications of two shared blocks) in bf16
+    compute: one make_train_step step on the card (flash D 32 twice an
+    application with remat and a backward, the SSD pair at G 2, the conv
+    kernels) against the CPU from the same state; then, at the smoke
+    depth (12 layers, both blocks once: bf16 rounding on two paths grows
+    with depth), prefill of 40 tokens and 4 decode steps through the grown
+    caches on both from fresh weights. The card's loss, grad norm and
+    logits are held to the CPU's fp32 run by bf16_no_worse: this model's
+    bf16 roundings alone move its grad norm by percents (the card's conv
+    rounds once where the plain version rounds after every op)."""
     import dataclasses
 
     from repro_torch.configs import smoke_config
@@ -1634,8 +1615,7 @@ def test_cuda_zamba2_7b_smoke_train_step_and_decode_match_cpu(
     from repro_torch.optim.adamw import AdamWConfig
 
     cfg = dataclasses.replace(smoke_config("zamba2-7b"), head_dim=32,
-                              num_layers=24, compute_dtype=compute_dtype)
-    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+                              num_layers=24)
     apps = cfg.hybrid_applications
     opt = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=2)
     cpu = init_train_state(cfg, torch.Generator().manual_seed(3), "cpu")
@@ -1652,35 +1632,18 @@ def test_cuda_zamba2_7b_smoke_train_step_and_decode_match_cpu(
     assert kernel.flash_attention.launches == fwd + 2 * apps
     assert kernel.flash_attention_backward.launches == bwd + apps
     new_cpu, m_cpu = make_train_step(cfg, opt)(cpu, cpu_batch)
-    dtype = getattr(torch, compute_dtype)
-    if dtype == torch.float32:
-        for key in ("loss", "grad_norm"):
-            torch.testing.assert_close(m_gpu[key].cpu(), m_cpu[key],
-                                       **_tol(dtype))
-        g_gpu = _first_step_grads(new_gpu, m_gpu, opt)
-        g_cpu = _first_step_grads(new_cpu, m_cpu, opt)
-        for name, want in g_cpu.items():
-            assert _rel_norm(g_gpu[name], want) <= _tol(dtype)["atol"], name
-    else:
-        _, m32 = make_train_step(cfg32, opt)(
-            init_train_state(cfg32, torch.Generator().manual_seed(3), "cpu"),
-            cpu_batch)
-        for key in ("loss", "grad_norm"):
-            _bf16_no_worse(m_gpu[key].cpu(), m_cpu[key], m32[key], key)
+    _, m32 = _cpu_fp32_step(cfg, opt, 3, cpu_batch)
+    for key in ("loss", "grad_norm"):
+        bf16_no_worse(m_gpu[key].cpu(), m_cpu[key], m32[key], key)
     toks = torch.from_numpy(batch["inputs"][:, :44])
-    runs = [(torch.device("cpu"), cfg, dtype), (cuda, cfg, dtype)]
-    if dtype == torch.bfloat16:
-        # bf16 rounding on two paths grows with depth: decode at the
-        # smoke depth (12 layers, both blocks once), as zamba2-2.7b's
-        # test, with the CPU's fp32 run as the yardstick
-        cfg = dataclasses.replace(cfg, num_layers=12)
-        cfg32 = dataclasses.replace(cfg32, num_layers=12)
-        runs = [(torch.device("cpu"), cfg, dtype), (cuda, cfg, dtype),
-                (torch.device("cpu"), cfg32, torch.float32)]
+    cfg = dataclasses.replace(cfg, num_layers=12)
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
     fresh = init_train_state(cfg, torch.Generator().manual_seed(3),
                              "cpu")["params"]
     outs = []
-    for dev, c, dt in runs:
+    for dev, c, dt in ((torch.device("cpu"), cfg, torch.bfloat16),
+                       (cuda, cfg, torch.bfloat16),
+                       (torch.device("cpu"), cfg32, torch.float32)):
         params = lm.tree_map(lambda x: x.to(dev, dt), fresh)
         with torch.inference_mode():
             logits, caches, pos = lm.prefill(c, params, toks[:, :40].to(dev))
@@ -1692,24 +1655,19 @@ def test_cuda_zamba2_7b_smoke_train_step_and_decode_match_cpu(
                 seq.append(logits)
         outs.append(torch.stack(seq).float().cpu())
     assert torch.isfinite(outs[1]).all()
-    if dtype == torch.float32:
-        torch.testing.assert_close(outs[1], outs[0], **_tol(dtype))
-    else:
-        _bf16_no_worse(outs[1], outs[0], outs[2], "logits")
+    bf16_no_worse(outs[1], outs[0], outs[2], "logits")
 
 
 # The Mamba-2 mixer's causal conv + SiLU (kernels/conv): (B, L, widths of
 # the layer's x, B and C, dtype, unaligned). The two cells' layers
-# (mamba2-2.7b at 4 x 2048, zamba2-7b at 2 x 4096) in bf16 and fp32, then
-# widths that are not multiples of 8 (the scalar path), L below K, and
-# views one element into a buffer (not 16-byte aligned).
+# (mamba2-2.7b at 4 x 2048, zamba2-7b at 2 x 4096), then widths that are
+# not multiples of 8 (the scalar path), L below K, and views one element
+# into a buffer (not 16-byte aligned).
 CONV = [
     (4, 2048, (5120, 128, 128), torch.bfloat16, False),
-    (4, 2048, (5120, 128, 128), torch.float32, False),
     (2, 4096, (7168, 128, 128), torch.bfloat16, False),
-    (2, 4096, (7168, 128, 128), torch.float32, False),
     (3, 37, (13, 24, 5), torch.bfloat16, False),
-    (2, 2, (16, 9, 8), torch.float32, False),
+    (2, 2, (16, 9, 8), torch.bfloat16, False),
     (2, 300, (264, 8, 8), torch.bfloat16, True),
 ]
 

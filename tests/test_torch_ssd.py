@@ -164,12 +164,13 @@ def _ok_inputs(dtype=torch.bfloat16, p=64, n=128):
 
 
 @pytest.mark.parametrize("case", [
-    "head_dim", "state_size", "dtype", "mixed_dtype", "dt_dtype", "groups",
-    "shape", "noncontig", "chunk", "state_shape", "cpu_tensor",
+    "head_dim", "state_size", "dtype", "fp32", "mixed_dtype", "dt_dtype",
+    "groups", "shape", "noncontig", "chunk", "state_shape", "cpu_tensor",
 ])
 def test_cuda_wrapper_rejects_what_the_kernel_does_not_take(case):
     """Every refusal raises before any launch; a CPU tensor is refused too
-    (the wrapper never falls back to the plain version)."""
+    (the wrapper never falls back to the plain version), and fp32 x, B and
+    C for their dtype, the kernels taking bf16 only."""
     args = _ok_inputs()
     kw = dict(chunk=64)
     if case == "head_dim":
@@ -178,6 +179,8 @@ def test_cuda_wrapper_rejects_what_the_kernel_does_not_take(case):
         args = _ok_inputs(n=48)
     elif case == "dtype":
         args = {k: v.half() for k, v in args.items()}
+    elif case == "fp32":
+        args = _ok_inputs(torch.float32)
     elif case == "mixed_dtype":
         args["b_mat"] = args["b_mat"].float()
     elif case == "dt_dtype":
@@ -195,7 +198,8 @@ def test_cuda_wrapper_rejects_what_the_kernel_does_not_take(case):
     elif case == "state_shape":
         kw["initial_state"] = torch.zeros(1, 4, 64, 64)
     before = kernel.ssd_scan.launches
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError,
+                       match="want all bfloat16" if case == "fp32" else None):
         kernel.ssd_scan(**args, **kw)
     assert kernel.ssd_scan.launches == before
 

@@ -164,14 +164,16 @@ def _bwd_args(dtype=torch.bfloat16, p=64, n=128):
 
 
 @pytest.mark.parametrize("case", [
-    "head_dim", "state_size", "dtype", "dy_dtype", "dy_shape", "mixed_dtype",
-    "dt_dtype", "groups", "chunk", "final_state_grad", "cpu_tensor",
+    "head_dim", "state_size", "dtype", "fp32", "dy_dtype", "dy_shape",
+    "mixed_dtype", "dt_dtype", "groups", "chunk", "final_state_grad",
+    "cpu_tensor",
 ])
 def test_cuda_backward_refuses_before_the_library_loads(case, monkeypatch):
     """ssd_scan_backward raises ValueError for every input its kernel does
     not take, before it builds or loads the library and before it counts
     a launch; a CPU tensor is refused too (no fallback to the plain
-    version)."""
+    version), and fp32 x, B, C and dy for their dtype, the kernels taking
+    bf16 only."""
     args = _bwd_args()
     kw = dict(chunk=64)
     if case == "head_dim":
@@ -181,6 +183,8 @@ def test_cuda_backward_refuses_before_the_library_loads(case, monkeypatch):
     elif case == "dtype":
         args = {k: v.half() if k in ("x", "b_mat", "c_mat", "dy") else v
                 for k, v in args.items()}
+    elif case == "fp32":
+        args = _bwd_args(torch.float32)
     elif case == "dy_dtype":
         args["dy"] = args["dy"].float()
     elif case == "dy_shape":
@@ -202,7 +206,8 @@ def test_cuda_backward_refuses_before_the_library_loads(case, monkeypatch):
 
     monkeypatch.setattr(kernel, "backward_library", no_build)
     before = kernel.ssd_scan_backward.launches
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError,
+                       match="want all bfloat16" if case == "fp32" else None):
         kernel.ssd_scan_backward(**args, **kw)
     assert kernel.ssd_scan_backward.launches == before
 

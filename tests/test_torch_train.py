@@ -6,8 +6,9 @@ large") and smoke_config("qwen2-vl-72b") (M-RoPE), the same weights and
 batches in both: the loss and its
 gradients, remat, three train steps, the TALP-monitored trainer (the
 torch twin of tests/test_system.py::test_train_loss_decreases_with_talp),
-what the trainer refuses (on the card: a head dim the flash backward
-lacks, a train state larger than the card), and checkpoint and restart: a run that fails
+what the trainer refuses (on the card: fp32 compute, which the server
+refuses too, a head dim the flash backward lacks, a train state larger
+than the card), and checkpoint and restart: a run that fails
 and resumes ends bit-identical to one that did not, and a run resumes
 from a checkpoint the JAX trainer wrote."""
 
@@ -304,6 +305,46 @@ def test_train_on_cuda_refuses_a_head_dim_the_flash_backward_lacks():
     _, history, _ = train(small, steps=1, global_batch=2, seq_len=32,
                           verbose=False, device="cpu")
     assert np.isfinite(history[0]["loss"])
+
+
+@pytest.mark.parametrize("entry", ["train", "serve"])
+def test_train_and_serve_on_cuda_refuse_fp32_compute_before_allocating(
+        entry, monkeypatch):
+    """The card's kernels take bf16 activations only: train() and serve()
+    on the card refuse a config computing in fp32 with ValueError before
+    they look for the card (resolve_device, here a stub that records its
+    call) or draw a weight, so the refusal shows on a machine without one;
+    the bf16 config passes the check and reaches the device; the CPU runs
+    the fp32 config through the plain versions."""
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.launch import train as train_mod
+
+    mod = train_mod if entry == "train" else serve_mod
+    run = getattr(mod, entry)
+    reached = []
+
+    def stub(device):
+        reached.append(device)
+        raise RuntimeError("resolve_device reached")
+
+    monkeypatch.setattr(mod, "resolve_device", stub)
+    bf16 = smoke_config("mamba2-130m")
+    fp32 = dataclasses.replace(bf16, compute_dtype="float32")
+    for device in ("cuda", torch.device("cuda", 0)):
+        with pytest.raises(ValueError, match="compute_dtype 'float32'"):
+            run(fp32, verbose=False, device=device)
+    assert not reached
+    with pytest.raises(RuntimeError, match="resolve_device reached"):
+        run(bf16, verbose=False, device="cuda")
+    monkeypatch.undo()
+    if entry == "train":
+        _, history, _ = run(fp32, steps=1, global_batch=2, seq_len=32,
+                            verbose=False, device="cpu")
+        assert np.isfinite(history[0]["loss"])
+    else:
+        tokens, _ = run(fp32, requests=2, prompt_len=16, gen_len=2,
+                        verbose=False, device="cpu")
+        assert tokens.shape == (2, 2)
 
 
 def test_zamba2_passes_the_card_checks_before_allocating():

@@ -248,8 +248,9 @@ def test_flash_plain_path_at_head_dim_224_with_a_scale(causal):
     from repro_torch.kernels.flash_attention.kernel import (
         BWD_HEAD_DIMS, FWD_HEAD_DIMS, check_inputs)
     assert 224 in FWD_HEAD_DIMS and 224 in BWD_HEAD_DIMS
-    with pytest.raises(ValueError, match="scale"):
-        check_inputs(q, k, v, causal, None, None, scale=0.0)
+    with pytest.raises(ValueError, match="scale"):   # bf16: the kernels'
+        check_inputs(*(x.bfloat16() for x in (q, k, v)), causal, None, None,
+                     scale=0.0)
 
 
 def test_grouped_gated_norm():
